@@ -1,0 +1,138 @@
+"""The FACADE algorithm (paper Sec. III-D) on the ideal medium.
+
+One call to ``facade_round`` executes, for all nodes at once:
+
+    1. the round's r-regular topology, from the given permutations (step 1)
+    2. core aggregation (Eq. 3) + cluster-wise head aggregation (Eq. 4)
+    3. cluster identification: argmin_j loss(core ∘ head_j)  (step 2c),
+       one launch of the head-select kernel for all n nodes
+    4. H local SGD steps on (core, selected head)            (step 2d)
+    5. write the trained head into the selected slot; report the cluster ID
+
+Node states are stacked (leading ``n`` axis); gossip is an einsum with the
+round's mixing matrix.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels.head_select import head_losses
+from repro_torch.tree import tree_map
+
+from . import split, topology
+from .bindings import (Binding, gossip_mix, local_sgd, node_head_matmul,
+                       node_matmul)
+from .state import FacadeState
+
+
+@dataclasses.dataclass(frozen=True)
+class FacadeConfig:
+    n_nodes: int
+    k: int                    # number of cluster heads (paper hyperparam)
+    degree: int = 4           # topology degree r (paper: 4)
+    lr: float = 0.01
+
+
+def _aggregate_heads(adj, cluster_id, heads, k: int):
+    """Eq. 4: for each node i and cluster j, average the heads sent by
+    neighbors claiming cluster j together with i's own stored head j.
+    heads [n, k, ...]; node j' sends its head ``heads[j', cid[j']]``."""
+    n = adj.shape[0]
+    rows = torch.arange(n, device=adj.device)
+    onehot = F.one_hot(cluster_id, k).to(torch.float32)      # [n, k]
+    denom = 1.0 + node_matmul(adj, onehot)                   # [n, k]
+
+    def agg(h_all):
+        sent = h_all[rows, cluster_id]                       # [n, ...]
+        recv = node_head_matmul(adj.to(sent.dtype), onehot.to(sent.dtype),
+                                sent)
+        d = denom.reshape(denom.shape + (1,) * (h_all.dim() - 2))
+        return ((h_all + recv) / d.to(h_all.dtype)).to(h_all.dtype)
+
+    return tree_map(agg, heads)
+
+
+def _select_heads(binding: Binding, cores, heads, batch):
+    """losses [n, k] over shared core features (paper III-E): the core runs
+    once per node on ``batch``, then one head-select launch scores all k
+    heads of all n nodes."""
+    with torch.no_grad():
+        feats = binding.features(cores, batch["x"])          # [n, B, D]
+        f, w = binding.select_operands(feats, heads)
+        return head_losses(f, w, batch["y"].to(torch.int32))
+
+
+def payload_bytes(state: FacadeState) -> int:
+    """What one node pushes to one neighbor: its core, one head and its
+    4-byte cluster id."""
+    core = split.tree_size_bytes(tree_map(lambda l: l[0], state.cores))
+    head = split.tree_size_bytes(tree_map(lambda l: l[0, 0], state.heads))
+    return core + head + 4
+
+
+def facade_round(fcfg: FacadeConfig, binding: Binding, state: FacadeState,
+                 batches, perms, warmup: bool = False):
+    """One synchronous FACADE round for all nodes.
+
+    batches: ``{"x": [n, H, B, ...], "y": [n, H, B]}``, per node and local
+    step; perms: the round's topology permutations
+    (:func:`topology.random_regular`). ``warmup`` (App. F) trains head 0
+    everywhere and copies it to every slot.
+    Returns (new_state, info with losses, selection and round bytes).
+    """
+    n, k = fcfg.n_nodes, fcfg.k
+    adj = topology.random_regular(perms, n, fcfg.degree)
+    w = topology.mixing_matrix(adj)
+
+    # --- aggregation (steps 2a/2b) ---
+    cores = gossip_mix(w, state.cores)
+    heads = _aggregate_heads(adj, state.cluster_id, state.heads, k)
+
+    # --- cluster identification (step 2c) on the first local batch ---
+    first = {key: b[:, 0] for key, b in batches.items()}
+    losses = _select_heads(binding, cores, heads, first)     # [n, k]
+    if warmup:
+        new_cid = torch.zeros((n,), dtype=torch.long, device=adj.device)
+    else:
+        new_cid = torch.argmin(losses, dim=1)
+
+    # --- local training (step 2d) ---
+    params = split.merge_params(cores, split.select_head(heads, new_cid))
+    params = local_sgd(binding, params, batches, fcfg.lr)
+    new_cores, new_head = split.split_params(params, binding.head_keys)
+    if warmup:  # broadcast the trained head to every slot
+        new_heads = tree_map(
+            lambda h: h.unsqueeze(1).expand((n, k) + h.shape[1:]).clone(),
+            new_head)
+    else:
+        new_heads = split.set_head(heads, new_cid, new_head)
+
+    # --- communication accounting: n * degree pushes of (core, head, cid),
+    # held as float32 like the reference's nominal count ---
+    round_bytes = float(np.float32(n * fcfg.degree * payload_bytes(state)))
+    new_state = FacadeState(cores=new_cores, heads=new_heads,
+                            cluster_id=new_cid, round=state.round + 1)
+    return new_state, {"selection_losses": losses, "cluster_id": new_cid,
+                       "round_bytes": round_bytes}
+
+
+def final_allreduce(fcfg: FacadeConfig, state: FacadeState) -> FacadeState:
+    """Paper Sec. V-A: a final all-reduce where every node shares its model
+    with everyone and aggregates cluster-wise."""
+    n, k = fcfg.n_nodes, fcfg.k
+    adj = topology.fully_connected(n, device=state.cluster_id.device)
+    w = topology.mixing_matrix(adj)
+    return state._replace(
+        cores=gossip_mix(w, state.cores),
+        heads=_aggregate_heads(adj, state.cluster_id, state.heads, k))
+
+
+def node_models(state: FacadeState) -> dict:
+    """Merged per-node deployable models, stacked [n, ...]."""
+    return split.merge_params(state.cores,
+                              split.select_head(state.heads,
+                                                state.cluster_id))

@@ -1,0 +1,279 @@
+"""Experiment runner: drives FACADE or EL over a clustered dataset,
+evaluating per-cluster accuracy, fairness metrics and communication
+volume — the harness behind the paper's tables, on one device.
+
+The counterpart of ``repro.core.runner`` with its per-round loop (the
+reference's ``engine=False`` path). The reference's segment engine,
+pipelining, mesh, cache, network simulation, adaptive topology,
+telemetry and checkpointing are not ported yet, and ``run_experiment``
+does not accept their parameters.
+
+Randomness comes from a *draws* source (:class:`TorchDraws` by default):
+it supplies the initial parameters, each round's ``[n, H, B]`` batch
+indices and each round's topology permutations, so a run can replay
+another's draws exactly. ``TorchDraws`` draws on the CPU and the runner
+moves the draws to the run's device, so one seed gives the same draws on
+every device.
+"""
+from __future__ import annotations
+
+import dataclasses
+import functools
+from typing import Any, Callable
+
+import numpy as np
+import torch
+
+from repro_torch import device as device_mod
+from repro_torch.comm import CommLog
+from repro_torch.data import pipeline
+from repro_torch.obs import compute_eval_frame
+from repro_torch.tree import tree_map
+
+from . import facade as facade_mod
+from . import split, topology
+from .baselines import ELConfig, el_round
+from .bindings import Binding, make_binding
+from .state import init_baseline_state, init_facade_state
+
+ALGOS = ("facade", "el")
+
+
+@dataclasses.dataclass
+class RunResult:
+    algo: str
+    acc_per_cluster: list      # history: [(round, [acc_c0, acc_c1, ...])]
+    fair_acc: list             # [(round, fair_acc)]
+    dp: float                  # final demographic parity
+    eo: float                  # final equalized odds
+    comm: CommLog
+    cluster_history: list      # FACADE: [(round, cluster_id int32 array)]
+    final_acc: list            # per-cluster accuracy at the end
+    node_acc: Any = None       # final per-node accuracy [n]
+    eval_frames: list = dataclasses.field(default_factory=list)
+    models: Any = None         # final deployable models, node-stacked
+    #                            [n, ...] on the run's device
+
+    def best_fair_acc(self) -> float:
+        return max(v for _, v in self.fair_acc) if self.fair_acc else 0.0
+
+
+# --------------------------------------------------------------------------
+class TorchDraws:
+    """The port's own draws, from CPU ``torch.Generator``s seeded with
+    ``seed``: one stream for the initial parameters, one for batch
+    indices and one for topologies."""
+
+    def __init__(self, seed: int):
+        streams = np.random.SeedSequence(seed).generate_state(3)
+        self._init, self._data, self._topo = (
+            torch.Generator().manual_seed(int(s)) for s in streams)
+
+    def facade_init(self, binding: Binding, k: int, head_jitter: float):
+        """(one model's params, its ``[k, ...]`` head bank)."""
+        params = binding.init(self._init)
+        _, head = split.split_params(params, binding.head_keys)
+        return params, split.stack_heads(head, k, generator=self._init,
+                                         jitter=head_jitter)
+
+    def baseline_init(self, binding: Binding):
+        return binding.init(self._init)
+
+    def batch_indices(self, n: int, h: int, b: int, per_node: int):
+        return pipeline.draw_batch_indices(self._data, n, h, b, per_node)
+
+    def perms(self, n: int, r: int):
+        return topology.draw_perms(self._topo, n, r)
+
+
+# --------------------------------------------------------------------------
+def make_evaluator(binding: Binding, node_cluster, test_x, test_y,
+                   batch: int = 256, device="cuda") -> Callable:
+    """Per-cluster evaluator: every node of a cluster runs the cluster's
+    whole test set (zero-padded, masked eval batches), all of the cluster's
+    nodes in one node-stacked forward per batch.
+
+    Returns ``evaluate(models) -> (acc_per_cluster, preds_c, labels_c,
+    node_acc)``: per-cluster mean node accuracy, the first node's
+    predictions per cluster (for DP/EO), the labels, and the per-node
+    accuracy ``[n]``. Clusters with no node are skipped;
+    ``evaluate.cluster_ids`` says which cluster each entry is.
+    """
+    dev = device_mod.resolve(device)
+    node_cluster = np.asarray(node_cluster)
+    clusters = []
+    for c in range(len(test_x)):
+        idx = np.where(node_cluster == c)[0]
+        if idx.size == 0:
+            continue        # empty cluster: nothing to evaluate
+        x = np.asarray(test_x[c])
+        xb, mask = pipeline.padded_eval_batches(
+            x, min(batch, max(1, x.shape[0])))
+        clusters.append((idx, torch.from_numpy(idx).to(dev),
+                         torch.from_numpy(xb).to(dev),
+                         mask.reshape(-1) > 0, np.asarray(test_y[c])))
+
+    @torch.no_grad()
+    def predict(models_c, m: int, xb):               # xb [nb, B, ...]
+        preds = [binding.forward(models_c, x.expand((m,) + x.shape))
+                 .argmax(-1) for x in xb]
+        return torch.stack(preds).cpu().numpy()      # [nb, m, B]
+
+    def evaluate(models):
+        accs, preds_c, labels_c = [], [], []
+        node_acc = np.zeros(node_cluster.shape[0], np.float64)
+        for idx, idx_t, xb, valid, y in clusters:
+            p = predict(tree_map(lambda l: l[idx_t], models), len(idx), xb)
+            p = np.moveaxis(p, 1, 0).reshape(len(idx), -1)[:, valid]
+            eq = p == y[None, :]
+            accs.append(float(eq.mean()))
+            node_acc[idx] = eq.mean(axis=1)
+            preds_c.append(p[0])
+            labels_c.append(y)
+        return accs, preds_c, labels_c, node_acc
+
+    evaluate.cluster_ids = tuple(int(node_cluster[c[0][0]])
+                                 for c in clusters)
+    return evaluate
+
+
+# --------------------------------------------------------------------------
+class _History:
+    """Bookkeeping of one run: comm log, eval histories, weighted mean
+    accuracy and the target-accuracy stop condition."""
+
+    def __init__(self, node_cluster, n: int, evaluator, models_of,
+                 target_acc, verbose: bool, algo: str, n_classes: int):
+        self.comm = CommLog()
+        self.acc_hist, self.fair_hist, self.cluster_hist = [], [], []
+        self.dp = self.eo = 0.0
+        self.accs = []
+        self.node_acc = None
+        self.eval_frames = []
+        self._prev_eval_cid = None
+        self._weights = np.asarray(node_cluster)
+        self._n = n
+        self._evaluator = evaluator
+        self._models_of = models_of
+        self._target = target_acc
+        self._verbose = verbose
+        self._algo = algo
+        self._n_classes = n_classes
+
+    def eval_round(self, state, rnd: int, round_bytes: float) -> bool:
+        """Evaluate at round ``rnd`` (1-based), record, and report whether
+        ``target_acc`` is reached (the run then stops)."""
+        accs, preds_c, labels_c, node_acc = self._evaluator(
+            self._models_of(state))
+        cids = self._evaluator.cluster_ids
+        self.accs = accs
+        self.node_acc = node_acc
+        self.acc_hist.append((rnd, accs))
+        mean_acc = float(np.mean(
+            [a * (self._weights == c).sum()
+             for c, a in zip(cids, accs)]) * len(accs) / self._n)
+        cid = getattr(state, "cluster_id", None)
+        eval_cid = None if cid is None else cid.cpu().numpy()
+        frame = compute_eval_frame(
+            rnd, accs, cids, preds_c, labels_c, node_acc, self._n_classes,
+            mean_acc=mean_acc, prev_cid=self._prev_eval_cid, cid=eval_cid)
+        self._prev_eval_cid = eval_cid
+        self.eval_frames.append(frame)
+        self.fair_hist.append((rnd, frame.fair_acc))
+        self.dp = frame.dp
+        self.eo = frame.eo
+        self.comm.record(rnd, round_bytes, mean_acc)
+        if self._verbose:
+            print(f"  [{self._algo}] round {rnd}: acc={accs} "
+                  f"fair={frame.fair_acc:.3f}")
+        return self._target is not None and mean_acc >= self._target
+
+    def result(self, algo: str, models) -> RunResult:
+        history = [(r, c.cpu().numpy().astype(np.int32))
+                   for r, c in self.cluster_hist]
+        return RunResult(algo=algo, acc_per_cluster=self.acc_hist,
+                         fair_acc=self.fair_hist, dp=self.dp, eo=self.eo,
+                         comm=self.comm, cluster_history=history,
+                         final_acc=self.accs, node_acc=self.node_acc,
+                         eval_frames=self.eval_frames, models=models)
+
+
+# --------------------------------------------------------------------------
+def run_experiment(algo: str, cfg, dataset, *, rounds: int,
+                   k: int | None = None, degree: int = 4,
+                   local_steps: int = 10, batch_size: int = 8,
+                   lr: float = 0.05, eval_every: int = 20, seed: int = 0,
+                   warmup_rounds: int = 0, head_jitter: float = 0.0,
+                   target_acc: float | None = None, eval_batch: int = 256,
+                   verbose: bool = False, device="cuda",
+                   draws=None) -> RunResult:
+    """Run one (algorithm, dataset) experiment end to end on ``device``.
+
+    ``algo`` is ``"facade"`` or ``"el"``. ``draws`` supplies the initial
+    parameters, batch indices and topologies (default
+    ``TorchDraws(seed)``); it has the methods of :class:`TorchDraws`.
+    """
+    if algo not in ALGOS:
+        raise ValueError(f"algorithm {algo!r} is not ported yet; the port "
+                         f"runs {ALGOS}")
+    if eval_every <= 0:
+        raise ValueError(
+            f"eval_every={eval_every} must be a positive round count")
+    if target_acc is not None and eval_every > rounds:
+        raise ValueError(
+            f"target_acc={target_acc} can never trigger an early exit with "
+            f"eval_every={eval_every} > rounds={rounds}")
+    n = dataset.n_nodes
+    if not 1 <= degree < n:
+        raise ValueError(f"degree={degree} out of range for n={n} nodes: "
+                         "pick 1 <= degree <= n - 1")
+    dev = device_mod.resolve(device)
+    k = k if k is not None else dataset.k
+    draws = draws if draws is not None else TorchDraws(seed)
+    binding = make_binding(cfg)
+    train_x, train_y = pipeline.place(dataset, dev)
+    per_node = train_x.shape[1]
+
+    if algo == "facade":
+        fcfg = facade_mod.FacadeConfig(n_nodes=n, k=k, degree=degree, lr=lr)
+        params, heads_k = draws.facade_init(binding, k, head_jitter)
+        state = init_facade_state(binding, n, k, params=params,
+                                  heads_k=heads_k, device=dev)
+        round_main = functools.partial(facade_mod.facade_round, fcfg,
+                                       binding, warmup=False)
+        round_warm = functools.partial(facade_mod.facade_round, fcfg,
+                                       binding, warmup=True)
+        models_of = facade_mod.node_models
+        finalize = functools.partial(facade_mod.final_allreduce, fcfg)
+    else:
+        warmup_rounds = 0       # only FACADE has a warmup phase
+        ecfg = ELConfig(n_nodes=n, degree=degree, lr=lr)
+        state = init_baseline_state(
+            binding, n, params=draws.baseline_init(binding), device=dev)
+        round_main = round_warm = functools.partial(el_round, ecfg, binding)
+        models_of = lambda s: s.params                          # noqa: E731
+        finalize = lambda s: s                                   # noqa: E731
+
+    evaluator = make_evaluator(binding, dataset.node_cluster,
+                               dataset.test_x, dataset.test_y,
+                               batch=eval_batch, device=dev)
+    hist = _History(dataset.node_cluster, n, evaluator, models_of,
+                    target_acc, verbose, algo, cfg.n_classes)
+    for rnd in range(rounds):
+        idx = draws.batch_indices(n, local_steps, batch_size, per_node)
+        batches = pipeline.sample_round_batches(idx.to(dev), train_x,
+                                                train_y)
+        perms = draws.perms(n, degree).to(dev)
+        fn = round_warm if rnd < warmup_rounds else round_main
+        state, info = fn(state, batches, perms)
+        last_round = rnd == rounds - 1
+        if last_round:
+            state = finalize(state)
+        if (rnd + 1) % eval_every == 0 or last_round:
+            if hist.eval_round(state, rnd + 1, info["round_bytes"]):
+                break
+        else:
+            hist.comm.record(rnd + 1, info["round_bytes"])
+        if algo == "facade":
+            hist.cluster_hist.append((rnd + 1, state.cluster_id))
+    return hist.result(algo, models_of(state))

@@ -1,0 +1,76 @@
+"""Stacked decentralized-learning state.
+
+Every node's parameters live in one tree with a leading ``node`` axis,
+which makes gossip an einsum. Heads carry an extra ``k`` axis (one slot
+per cluster). Unlike the reference, the state holds no PRNG key: the
+round functions take their random draws as inputs.
+"""
+from __future__ import annotations
+
+from typing import Any, NamedTuple
+
+import torch
+
+from repro_torch import device as device_mod
+from repro_torch.tree import tree_map
+
+from . import split
+
+
+class FacadeState(NamedTuple):
+    cores: Any           # tree, leading [n, ...]
+    heads: Any           # tree, leading [n, k, ...]
+    cluster_id: Any      # [n] int64 — cluster ID reported last round
+    round: int
+
+
+class BaselineState(NamedTuple):
+    params: Any          # tree, leading [n, ...] (full model)
+    round: int
+
+
+def _stack_n(tree, n: int, dev):
+    return tree_map(
+        lambda l: l.to(dev).unsqueeze(0).expand((n,) + l.shape).clone(),
+        tree)
+
+
+def init_facade_state(binding, n: int, k: int, *, params=None,
+                      heads_k=None, generator: torch.Generator | None = None,
+                      head_jitter: float = 0.0,
+                      device="cuda") -> FacadeState:
+    """All nodes start from the same model (paper: 'initializing its local
+    model in the same way'); the k heads share weights unless
+    ``head_jitter`` decorrelates them.
+
+    ``params`` (one model's full tree) and ``heads_k`` (its ``[k, ...]``
+    head bank) may be given, e.g. converted from the reference with
+    ``interop``; what is not given is drawn from ``generator``.
+    """
+    dev = device_mod.resolve(device)
+    if generator is None and (params is None or heads_k is None):
+        raise ValueError("params and heads_k not given: pass the "
+                         "torch.Generator to draw them from")
+    if params is None:
+        params = binding.init(generator)
+    core, head = split.split_params(params, binding.head_keys)
+    if heads_k is None:
+        heads_k = split.stack_heads(head, k, generator=generator,
+                                    jitter=head_jitter)
+    return FacadeState(
+        cores=_stack_n(core, n, dev),
+        heads=_stack_n(heads_k, n, dev),
+        cluster_id=torch.zeros((n,), dtype=torch.long, device=dev),
+        round=0)
+
+
+def init_baseline_state(binding, n: int, *, params=None,
+                        generator: torch.Generator | None = None,
+                        device="cuda") -> BaselineState:
+    dev = device_mod.resolve(device)
+    if params is None:
+        if generator is None:
+            raise ValueError("params not given: pass the torch.Generator "
+                             "to draw them from")
+        params = binding.init(generator)
+    return BaselineState(params=_stack_n(params, n, dev), round=0)

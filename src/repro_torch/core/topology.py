@@ -1,0 +1,76 @@
+"""Randomized communication topologies (paper Sec. III-D step 1).
+
+Each round FACADE (and the EL baseline) uses a fresh random r-regular
+undirected graph, built as the union of ``r/2`` random cyclic permutations
+(plus their inverses), with one extra random matching for odd r. The
+permutations are an input, so a run can replay another's draws exactly;
+:func:`draw_perms` draws them from a ``torch.Generator``.
+
+All of them return a dense adjacency ``A [n, n]`` (float32, 0/1, zero
+diagonal); :func:`mixing_matrix` turns it into the row-stochastic W of
+Eq. 3/4.
+"""
+from __future__ import annotations
+
+import torch
+
+
+def _check_degree(n: int, r: int):
+    if not 1 <= r < n:
+        raise ValueError(
+            f"degree={r} out of range for n={n} nodes: a simple graph "
+            f"supports 1 <= degree <= n - 1 (multi-edges collapse)")
+
+
+def n_perms(r: int) -> int:
+    """How many permutations :func:`random_regular` reads for degree r."""
+    return max(1, r // 2) + r % 2
+
+
+def draw_perms(generator: torch.Generator, n: int, r: int) -> torch.Tensor:
+    """``[n_perms(r), n]`` random permutations of the n nodes."""
+    return torch.stack([
+        torch.randperm(n, generator=generator, device=generator.device)
+        for _ in range(n_perms(r))])
+
+
+def random_regular(perms, n: int, r: int) -> torch.Tensor:
+    """Random r-regular-ish undirected graph from ``perms [n_perms(r), n]``:
+    each of the first ``max(1, r//2)`` permutations adds a cycle; for odd
+    r the last one pairs consecutive halves into a matching. Symmetric,
+    zero diagonal, multi-edges collapse. Raises ``ValueError`` when ``r``
+    is outside ``[1, n - 1]``."""
+    _check_degree(n, r)
+    if perms.shape != (n_perms(r), n):
+        raise ValueError(f"perms must be [{n_perms(r)}, {n}] for degree "
+                         f"{r}, got {tuple(perms.shape)}")
+    a = torch.zeros((n, n), dtype=torch.float32, device=perms.device)
+    for perm in perms[:max(1, r // 2)]:
+        dst = torch.roll(perm, 1)
+        a[perm, dst] = 1.0
+        a[dst, perm] = 1.0
+    if r % 2 == 1:
+        perm = perms[-1]
+        half = n // 2
+        u, v = perm[:half], perm[half:2 * half]
+        a[u, v] = 1.0
+        a[v, u] = 1.0
+    a.fill_diagonal_(0.0)
+    return a
+
+
+def fully_connected(n: int, device="cpu") -> torch.Tensor:
+    return (torch.ones((n, n), dtype=torch.float32, device=device)
+            - torch.eye(n, device=device))
+
+
+def mixing_matrix(adj) -> torch.Tensor:
+    """Row-stochastic W with uniform weights over {neighbors} ∪ {self}:
+    W[i, j] = 1/(deg_i + 1) for j ∈ N(i) ∪ {i} (Eq. 3 aggregation)."""
+    n = adj.shape[0]
+    a_hat = adj + torch.eye(n, dtype=adj.dtype, device=adj.device)
+    return a_hat / a_hat.sum(dim=1, keepdim=True)
+
+
+def degrees(adj) -> torch.Tensor:
+    return adj.sum(dim=1)

@@ -1,0 +1,4 @@
+from .pipeline import (draw_batch_indices, padded_eval_batches,  # noqa: F401
+                       place, sample_round_batches)
+from .synthetic import (ClusteredDataset, SynthSpec, apply_transform,  # noqa: F401
+                        make_clustered_data)

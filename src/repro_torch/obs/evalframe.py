@@ -1,0 +1,68 @@
+"""Per-eval fairness telemetry: the ``EvalFrame`` time series.
+
+The port's own copy of ``repro.obs.evalframe`` (numpy only). Every eval
+becomes one fairness observation: DP, EO, fair accuracy, per-cluster and
+worst-cluster accuracy, and cluster-assignment churn since the previous
+eval. The frame is pure host bookkeeping over the arrays the evaluator
+already brought back, and the run's final ``dp``/``eo``/``fair_acc`` are
+read off its last entry.
+
+The port has no network tiers yet (no ``netsim``), so every node counts as
+a core-tier node: ``acc_core`` is the mean node accuracy and ``acc_edge``
+and ``tier_gap`` are 0, as the reference computes them with ``tiers=None``.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+
+from repro_torch.fairness import (demographic_parity, equalized_odds,
+                                  fair_accuracy)
+
+
+class EvalFrame(NamedTuple):
+    """One eval's fairness observation, in plain Python scalars/tuples."""
+    round: int                  # 1-based eval round
+    mean_acc: float             # node-weighted mean accuracy
+    fair_acc: float             # paper Eq. 5 (lambda = 2/3)
+    dp: float                   # demographic parity gap at this eval
+    eo: float                   # equalized odds gap at this eval
+    worst_cluster_acc: float    # min over the clusters that exist
+    acc: tuple                  # per-cluster accuracy, ``cluster_ids`` order
+    cluster_ids: tuple          # which cluster each ``acc`` entry is
+    acc_core: float             # mean per-node accuracy, core-tier nodes
+    acc_edge: float             # mean per-node accuracy, edge-tier nodes
+    tier_gap: float             # acc_core - acc_edge
+    cluster_churn: float        # nodes whose cluster assignment changed
+    #                             since the previous eval (0 at the first
+    #                             eval and off-FACADE)
+
+
+def compute_eval_frame(rnd: int, accs, cluster_ids, preds_c, labels_c,
+                       node_acc, n_classes: int, *, mean_acc: float,
+                       prev_cid=None, cid=None) -> EvalFrame:
+    """Build one eval's :class:`EvalFrame` from what the evaluator returned
+    (per-cluster accuracies, first-node predictions and labels per cluster,
+    per-node accuracy). ``mean_acc`` is passed through, never recomputed;
+    ``prev_cid``/``cid`` are the cluster ids at the previous and current
+    eval (``None`` off-FACADE and at the first eval)."""
+    accs = [float(a) for a in accs]
+    acc_core = 0.0
+    if node_acc is not None:
+        node_acc = np.asarray(node_acc, np.float64)
+        acc_core = float(node_acc.mean()) if node_acc.size else 0.0
+    churn = 0.0
+    if prev_cid is not None and cid is not None:
+        churn = float(np.sum(np.asarray(prev_cid) != np.asarray(cid)))
+    return EvalFrame(
+        round=int(rnd),
+        mean_acc=float(mean_acc),
+        fair_acc=float(fair_accuracy(accs)),
+        dp=float(demographic_parity(preds_c, n_classes)),
+        eo=float(equalized_odds(preds_c, labels_c, n_classes)),
+        worst_cluster_acc=float(min(accs)) if accs else 0.0,
+        acc=tuple(accs),
+        cluster_ids=tuple(int(c) for c in cluster_ids),
+        acc_core=acc_core, acc_edge=0.0, tier_gap=0.0,
+        cluster_churn=churn)

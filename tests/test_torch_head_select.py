@@ -1,0 +1,145 @@
+"""FACADE step 2c in the port: the head-select wrapper's plain version
+(what it runs on CPU tensors) against the reference's oracle and its
+Pallas kernel in interpret mode, and LeNet's bias fold against the
+reference CNN binding's ``head_loss``.
+
+Tolerances are the reference kernel tests': 1e-5 in fp32, 5e-2 in bf16
+(both sides read the same bf16 values and accumulate in fp32); argmin, the
+selection decision, must agree exactly."""
+from __future__ import annotations
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from conftest import requires_pallas
+from repro.configs import facade_paper as ref_configs
+from repro.core.bindings import make_binding as ref_make_binding
+from repro.kernels.head_select import ops as ref_hs
+from repro.kernels.head_select.ref import head_losses_ref as jax_ref
+from repro_torch.configs import facade_paper
+from repro_torch.core.bindings import make_binding
+from repro_torch.kernels.head_select import head_losses, head_losses_ref
+from test_kernels import HS_SHAPES
+
+torch.set_num_threads(1)
+DTYPES = {"fp32": (jnp.float32, torch.float32, 1e-5),
+          "bf16": (jnp.bfloat16, torch.bfloat16, 5e-2)}
+
+
+def _case(k, t, d, v, seed, n=1, drop=0.1):
+    rng = np.random.default_rng(seed)
+    feats = (0.5 * rng.normal(size=(n, t, d))).astype(np.float32)
+    heads = (0.05 * rng.normal(size=(n, k, d, v))).astype(np.float32)
+    labels = rng.integers(0, v, size=(n, t)).astype(np.int32)
+    labels[rng.random((n, t)) < drop] = -1
+    return feats, heads, labels
+
+
+def _port(feats, heads, labels, tdt):
+    return head_losses(torch.from_numpy(feats).to(tdt),
+                       torch.from_numpy(heads).to(tdt),
+                       torch.from_numpy(labels))
+
+
+@pytest.mark.parametrize("k,t,d,v", HS_SHAPES)
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_plain_version_matches_the_reference_oracle(k, t, d, v, dtype):
+    jdt, tdt, tol = DTYPES[dtype]
+    feats, heads, labels = _case(k, t, d, v, seed=k + t, n=2)
+    got = _port(feats, heads, labels, tdt).numpy()
+    assert got.shape == (2, k) and got.dtype == np.float32
+    for i in range(2):
+        want = np.asarray(jax_ref(jnp.asarray(feats[i], jdt),
+                                  jnp.asarray(heads[i], jdt), labels[i]))
+        np.testing.assert_allclose(got[i], want, rtol=tol, atol=tol)
+        assert int(np.argmin(got[i])) == int(np.argmin(want))
+
+
+@requires_pallas
+@pytest.mark.parametrize("k,t,d,v", HS_SHAPES)
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_plain_version_matches_the_pallas_kernel(k, t, d, v, dtype):
+    jdt, tdt, tol = DTYPES[dtype]
+    feats, heads, labels = _case(k, t, d, v, seed=7 * k + t)
+    mask = (labels[0] >= 0).astype(np.float32)
+    want = np.asarray(ref_hs.facade_head_losses(
+        jnp.asarray(feats[0], jdt), jnp.asarray(heads[0], jdt),
+        np.maximum(labels[0], 0), mask, interpret=True))
+    got = _port(feats, heads, labels, tdt).numpy()[0]
+    np.testing.assert_allclose(got, want, rtol=tol, atol=tol)
+    assert int(np.argmin(got)) == int(np.argmin(want))
+
+
+def test_negative_labels_are_excluded():
+    feats, heads, labels = _case(2, 64, 32, 128, seed=3, drop=0.0)
+    labels[0, :10] = -1
+    got = _port(feats, heads, labels, torch.float32).numpy()[0]
+    want = np.asarray(jax_ref(jnp.asarray(feats[0]), jnp.asarray(heads[0]),
+                              labels[0]))
+    np.testing.assert_allclose(got, want, rtol=1e-5)
+    # the mean is over the 54 valid tokens: all-excluded gives 0, not NaN
+    labels[:] = -1
+    assert _port(feats, heads, labels, torch.float32).abs().max() == 0.0
+
+
+@pytest.mark.parametrize("smoke", [True, False], ids=["smoke", "full"])
+def test_bias_fold_matches_the_cnn_binding_head_loss(smoke):
+    """LeNet's ``feats @ w + b`` as the kernel's ``[feats, 1] @ [w; b]``."""
+    rcfg, cfg = ref_configs.lenet(smoke), facade_paper.lenet(smoke)
+    n, k, t = 3, 2, 8
+    d = (cfg.image_size // 8) ** 2 * cfg.width
+    rng = np.random.default_rng(11)
+    feats = np.abs(rng.normal(size=(n, t, d))).astype(np.float32)
+    w = (rng.normal(size=(n, k, d, cfg.n_classes)) / np.sqrt(d)).astype(
+        np.float32)
+    b = (0.1 * rng.normal(size=(n, k, cfg.n_classes))).astype(np.float32)
+    y = rng.integers(0, cfg.n_classes, size=(n, t)).astype(np.int32)
+    ref_b = ref_make_binding(rcfg)
+    want = np.stack([np.asarray(jax.vmap(
+        lambda wk, bk: ref_b.head_loss({"fc": {"w": wk, "b": bk}},
+                                       jnp.asarray(feats[i]),
+                                       {"y": y[i]}))(w[i], b[i]))
+        for i in range(n)])
+    f, wt = make_binding(cfg).select_operands(
+        torch.from_numpy(feats), {"fc": {"w": torch.from_numpy(w),
+                                         "b": torch.from_numpy(b)}})
+    assert f.shape == (n, t, d + 1) and wt.shape == (n, k, d + 1,
+                                                      cfg.n_classes)
+    got = head_losses(f, wt, torch.from_numpy(y)).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    np.testing.assert_array_equal(got.argmin(1), want.argmin(1))
+
+
+def test_identical_heads_give_exactly_equal_losses():
+    feats, heads, labels = _case(1, 8, 33, 10, seed=5, n=4)
+    heads = np.repeat(heads, 3, axis=1)                  # k = 3 copies
+    got = _port(feats, heads, labels, torch.float32)
+    assert torch.equal(got[:, 0], got[:, 1]) and torch.equal(got[:, 0],
+                                                             got[:, 2])
+    assert torch.argmin(got, dim=1).tolist() == [0, 0, 0, 0]
+
+
+def test_cpu_tensors_take_the_plain_version_without_a_launch():
+    feats, heads, labels = _case(2, 16, 8, 5, seed=1, n=3)
+    before = head_losses.launches
+    got = _port(feats, heads, labels, torch.float32)
+    assert head_losses.launches == before
+    want = head_losses_ref(torch.from_numpy(feats), torch.from_numpy(heads),
+                           torch.from_numpy(labels))
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("shapes", [
+    ((2, 8, 4), (2, 3, 5, 7), (2, 8)),         # D mismatch
+    ((2, 8, 4), (3, 3, 4, 7), (2, 8)),         # n mismatch
+    ((2, 8, 4), (2, 3, 4, 7), (2, 9)),         # T mismatch
+    ((8, 4), (3, 4, 7), (8,)),                 # no node axis
+])
+def test_bad_shapes_raise(shapes):
+    f, h, y = shapes
+    with pytest.raises(ValueError):
+        head_losses(torch.zeros(f), torch.zeros(h),
+                    torch.zeros(y, dtype=torch.int32))

@@ -1,0 +1,123 @@
+"""``run_experiment`` of the port against the reference's per-round
+loop (``engine=False``) at a quickstart-like size, with the reference's
+draws replayed (``torch_caps.JaxDraws``): the same initial parameters,
+batches and topologies go through both.
+
+Tolerances: accuracies, fair accuracy, DP and EO within 0.1, the
+reference's own precedent across layouts (``tests/test_mesh.py``);
+the per-round bytes and the FACADE cluster history are exact.
+
+The FACADE runs decorrelate the initial heads (``head_jitter``): with
+identical heads every round-1 selection is a loss tie at the last ulp,
+which the two frameworks may break differently
+(``test_torch_round.py::test_identical_heads_make_round_one_a_near_tie``),
+and cluster ids are exact only away from near-ties."""
+from __future__ import annotations
+
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import facade_paper as ref_configs
+from repro.core import runner as ref_runner
+from repro_torch.configs import facade_paper
+from repro_torch.core import runner
+from repro_torch.data import synthetic
+from torch_caps import JaxDraws
+
+torch.set_num_threads(1)
+TOL = 0.1
+KW = dict(rounds=6, k=2, degree=2, local_steps=3, batch_size=8, lr=0.05,
+          eval_every=2, seed=0)
+
+
+@pytest.fixture(scope="module")
+def ds():
+    spec = synthetic.SynthSpec(n_classes=4, image_size=16,
+                               samples_per_class=8, test_per_class=16,
+                               seed=3)
+    return synthetic.make_clustered_data(spec, (6, 2), ("rot0", "rot180"))
+
+
+def _cfgs():
+    return (ref_configs.lenet(smoke=True).replace(n_classes=4),
+            facade_paper.lenet(smoke=True).replace(n_classes=4))
+
+
+@pytest.mark.parametrize("algo,extra", [
+    ("facade", {"head_jitter": 0.05}),
+    ("facade", {"head_jitter": 0.2, "degree": 3}),
+    ("el", {}),
+], ids=["facade", "facade-degree3", "el"])
+def test_run_experiment_matches_the_reference(ds, algo, extra):
+    rcfg, cfg = _cfgs()
+    kw = {**KW, **extra}
+    want = ref_runner.run_experiment(algo, rcfg, ds, engine=False, **kw)
+    got = runner.run_experiment(algo, cfg, ds, device="cpu",
+                                draws=JaxDraws(kw["seed"]), **kw)
+    assert got.comm.rounds == want.comm.rounds
+    assert got.comm.bytes == want.comm.bytes                 # exact
+    assert [r for r, _ in got.acc_per_cluster] == \
+        [r for r, _ in want.acc_per_cluster]
+    for (_, a), (_, b) in zip(got.acc_per_cluster, want.acc_per_cluster):
+        np.testing.assert_allclose(a, b, atol=TOL)
+    np.testing.assert_allclose(got.final_acc, want.final_acc, atol=TOL)
+    np.testing.assert_allclose([v for _, v in got.fair_acc],
+                               [v for _, v in want.fair_acc], atol=TOL)
+    assert abs(got.dp - want.dp) <= TOL and abs(got.eo - want.eo) <= TOL
+    assert len(got.cluster_history) == len(want.cluster_history)
+    for (r1, c1), (r2, c2) in zip(got.cluster_history,
+                                  want.cluster_history):
+        assert r1 == r2
+        np.testing.assert_array_equal(c1, np.asarray(c2))
+    assert len(got.eval_frames) == len(want.eval_frames)
+    for f1, f2 in zip(got.eval_frames, want.eval_frames):
+        assert f1.round == f2.round and f1.cluster_ids == f2.cluster_ids
+        assert f1.cluster_churn == f2.cluster_churn
+        assert abs(f1.mean_acc - f2.mean_acc) <= TOL
+    assert np.isfinite(np.concatenate(
+        [l.numpy().ravel() for l in _leaves(got.models)])).all()
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _leaves(v)]
+    return [tree]
+
+
+def test_port_draws_are_seeded_and_device_independent(ds):
+    _, cfg = _cfgs()
+    kw = dict(KW, rounds=2, eval_every=2)
+    a = runner.run_experiment("facade", cfg, ds, device="cpu", **kw)
+    b = runner.run_experiment("facade", cfg, ds, device="cpu", **kw)
+    assert a.final_acc == b.final_acc and a.comm.bytes == b.comm.bytes
+    for (_, c1), (_, c2) in zip(a.cluster_history, b.cluster_history):
+        np.testing.assert_array_equal(c1, c2)
+
+
+@pytest.mark.parametrize("bad,match", [
+    ({"eval_every": 0}, "eval_every"),
+    ({"degree": 8}, "degree"),
+    ({"target_acc": 0.5, "eval_every": 7}, "target_acc"),
+])
+def test_invalid_settings_raise(ds, bad, match):
+    _, cfg = _cfgs()
+    with pytest.raises(ValueError, match=match):
+        runner.run_experiment("el", cfg, ds, device="cpu", **{**KW, **bad})
+
+
+def test_unported_algorithms_and_options_are_refused(ds):
+    _, cfg = _cfgs()
+    with pytest.raises(ValueError, match="not ported"):
+        runner.run_experiment("dac", cfg, ds, device="cpu", **KW)
+    with pytest.raises(TypeError):
+        runner.run_experiment("el", cfg, ds, device="cpu", engine=False,
+                              **KW)
+
+
+def test_target_acc_stops_at_the_first_eval_that_reaches_it(ds):
+    _, cfg = _cfgs()
+    res = runner.run_experiment("facade", cfg, ds, device="cpu",
+                                **{**KW, "target_acc": 0.0})
+    assert [r for r, _ in res.acc_per_cluster] == [2]
+    assert res.comm.rounds == [1, 2]

@@ -1,0 +1,105 @@
+"""Shared helpers of the port's tests (``tests/test_torch_*.py``).
+
+* ``requires_cuda`` marks a test that needs an NVIDIA card (and ``nvcc``
+  to build the port's kernels); such a test takes the ``cuda_device``
+  fixture, which decides at run time, never at import, and skips with a
+  reason where there is no card. Run them on the card with
+  ``PYTHONPATH=src python -m pytest --noconftest -m cuda
+  tests/test_torch_head_select_cuda.py`` (``--noconftest``: the suite's
+  ``conftest.py`` imports JAX, which the card's machine need not have).
+* :class:`JaxDraws` replays the JAX reference's key schedule as a
+  ``draws`` source for ``repro_torch.core.runner.run_experiment``, so the
+  port and the reference see the same initial parameters, batches and
+  topologies. It imports JAX only when built.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.interop import params_from_jax
+from repro_torch.tree import tree_map
+
+requires_cuda = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda_device():
+    """The card, or a skip with the reason."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: torch.cuda.is_available() is "
+                    "False here")
+    from repro_torch.kernels import build
+    try:
+        build.nvcc()
+    except RuntimeError as e:
+        pytest.skip(str(e))
+    return torch.device("cuda")
+
+
+def ref_cfg(cfg):
+    """The reference ``CNNConfig`` with the same fields as the port's."""
+    from repro.models.base import CNNConfig
+    return CNNConfig(**dataclasses.asdict(cfg))
+
+
+def perms_from_key(key, n: int, r: int):
+    """The permutations ``repro.core.topology.random_regular(key, n, r)``
+    draws, in the order the port's ``random_regular`` reads them."""
+    import jax
+    n_cycles = max(1, r // 2)
+    keys = jax.random.split(key, n_cycles + 1)
+    perms = [jax.random.permutation(keys[i], n) for i in range(n_cycles)]
+    if r % 2 == 1:
+        perms.append(jax.random.permutation(keys[-1], n))
+    return torch.from_numpy(np.stack([np.array(p) for p in perms])).long()
+
+
+class JaxDraws:
+    """The reference runner's draws for ``seed`` (its ``engine=False``
+    loop): ``k_init, k_data = split(PRNGKey(seed))``; the state init
+    splits ``k_init``; each round splits ``k_data`` for the batch indices
+    and the state's key for the topology."""
+
+    def __init__(self, seed: int):
+        import jax
+        self._jax = jax
+        self._k_init, self._k_data = jax.random.split(
+            jax.random.PRNGKey(seed))
+        self._rng = None
+
+    def facade_init(self, binding, k: int, head_jitter: float):
+        from repro.core.bindings import make_binding
+        from repro.core.state import init_facade_state
+        st = init_facade_state(make_binding(ref_cfg(binding.cfg)),
+                               self._k_init, 1, k, head_jitter=head_jitter)
+        self._rng = st.rng
+        heads_k = _node0(st.heads, lead=1)
+        return {**_node0(st.cores), **tree_map(lambda l: l[0], heads_k)}, \
+            heads_k
+
+    def baseline_init(self, binding):
+        from repro.core.bindings import make_binding
+        from repro.core.state import init_baseline_state
+        st = init_baseline_state(make_binding(ref_cfg(binding.cfg)),
+                                 self._k_init, 1)
+        self._rng = st.rng
+        return _node0(st.params)
+
+    def batch_indices(self, n: int, h: int, b: int, per_node: int):
+        self._k_data, k_b = self._jax.random.split(self._k_data)
+        idx = self._jax.random.randint(k_b, (n, h, b), 0, per_node)
+        return torch.from_numpy(np.array(idx)).long()
+
+    def perms(self, n: int, r: int):
+        self._rng, sub = self._jax.random.split(self._rng)
+        return perms_from_key(sub, n, r)
+
+
+def _node0(tree, lead: int = 0):
+    """Node 0 of a node-stacked reference tree, converted to the port."""
+    return params_from_jax(tree_map(lambda l: np.asarray(l)[0], tree),
+                           lead=lead)
