@@ -10,21 +10,45 @@ failure raises and exits non-zero, before the last line is printed):
 1. the card: ``nvidia-smi`` name and power limit;
 2. kernels: build every CUDA source of the port with ``nvcc`` (all started
    together), then hold each kernel against its plain PyTorch version on
-   the card — head select at the reference kernel tests' shapes (fp32 and
-   bf16, ~10% of labels excluded) and at the main path's shape — and time
-   kernel, plain version and the library yardstick with CUDA graphs;
-3. the main path: ``run_experiment`` for FACADE and EL at paper scale
+   the card and time kernel, plain version and library yardstick with CUDA
+   graphs, beside the kernel's bound:
+   - head select at the reference kernel tests' shapes (fp32 and bf16,
+     ~10% of labels excluded) and at the FACADE path's shape (tolerance
+     2e-5); yardstick: a matmul and ``cross_entropy``;
+   - flash attention at the reference tests' ``FA_SHAPES``, a ragged
+     S = 200, llama3.2-1b's serving shape (B 4, S 512, Hq 32, Hkv 8, D 64)
+     and a long one (B 1, S 4096), each in fp32 and bf16, and windows 32
+     and 128 in fp32. fp32 output is held against the plain version at
+     2e-6 (absolute plus relative); bf16 output against the plain version
+     run in fp32 on the same bf16 values, within one bf16 ulp of the
+     answer (relative 2^-8, plus 1e-6), since the kernel computes in fp32
+     and rounds once; yardstick: ``scaled_dot_product_attention`` (causal,
+     GQA);
+   - wkv at the reference tests' ``RW_SHAPES``, a ragged S = 100 and
+     rwkv6-1.6b's serving shape (B 4, S 512, H 32, hd 64), tolerance 1e-5
+     on y and on the final state; no single PyTorch call computes it;
+3. the FACADE path: ``run_experiment`` for FACADE and EL at paper scale
    (full-width GN-LeNet, 32 nodes in clusters 24:8, degree 4, H = 10,
-   B = 8), with every kernel's launch count set to 0 just before and read
-   just after; checks finite parameters, one head-select launch per FACADE
+   B = 8); checks finite parameters, one head-select launch per FACADE
    round and the bytes per round against the formula;
-4. a small input run on the card and on the CPU from the same seed, which
-   must agree;
-5. a ``kernels`` JSON line, then the last line
-   ``{"ok": true, "device": {...}}``.
+4. a small FACADE/EL input on the card and on the CPU from the same seed,
+   which must agree;
+5. the serving path: ``serve`` for llama3.2-1b and then rwkv6-1.6b at full
+   width (bf16, parameters from the port's init on the card), 8 requests
+   in batches of 4, prompt length 512, 32 generated tokens, greedy, seed
+   0, after an untimed warm-up; checks one flash-attention (llama) or wkv
+   (RWKV) launch per layer and batch, none from decode steps, and finite
+   logits; prints prefill and decode tokens per second, and a
+   ``torch.profiler`` breakdown of one prefill and 8 decode steps (device
+   busy share, largest kernels);
+6. both smoke configs (fp32) served on the card and on the CPU with the
+   same parameters: greedy tokens equal, prefill logits within 1e-4;
+7. a ``kernels`` JSON line (each kernel's launches on its path, error,
+   times and bound), then the last line ``{"ok": true, "device": {...}}``.
 
-TF32 is off for every matmul and convolution of the run. A JSON record of
-every number goes to ``build/chip_smoke.json``.
+Every kernel's launch count is set to 0 just before each path is driven
+and read just after. TF32 is off for every matmul and convolution of the
+run. A JSON record of every number goes to ``build/chip_smoke.json``.
 """
 from __future__ import annotations
 
@@ -48,11 +72,19 @@ from repro_torch.core.bindings import make_binding  # noqa: E402
 from repro_torch.core.runner import run_experiment  # noqa: E402
 from repro_torch.data.synthetic import SynthSpec, make_clustered_data  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels.flash_attention import attention_ref, flash_attention  # noqa: E402
 from repro_torch.kernels.head_select import head_losses, head_losses_ref  # noqa: E402
-from repro_torch.tree import tree_leaves  # noqa: E402
+from repro_torch.kernels.rwkv6 import wkv, wkv_scan  # noqa: E402
+from repro_torch.launch.serve import make_requests, serve  # noqa: E402
+from repro_torch.models import api, transformer  # noqa: E402
+from repro_torch.models.base import get_config  # noqa: E402
+from repro_torch.tree import tree_leaves, tree_map  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
 FP32_FLOPS = 67e12            # H100 SXM data sheet, fp32 outside tensor cores
+BF16_FLOPS = 989e12           # H100 SXM data sheet, dense bf16 tensor cores
+FMA_LATENCY_CYCLES = 4        # dependent fp32 FMA latency on Hopper
+KERNELS = (head_losses, flash_attention, wkv)
 # (K, T, D, V): the reference kernel tests' HS_SHAPES (tests/test_kernels.py)
 HS_SHAPES = [(2, 128, 64, 256), (3, 256, 64, 512), (5, 128, 128, 1024)]
 MAIN_SHAPE = (32, 2, 8, 513, 10)        # n, K, T = B, D = 512 + bias, V
@@ -60,6 +92,27 @@ HS_TOL = 2e-5       # same inputs, fp32 accumulation on both sides
 PAPER = dict(k=2, degree=4, local_steps=10, batch_size=8, lr=0.05, seed=0)
 ROUNDS, EVAL_EVERY = 8, 4
 SMALL_TOL = 0.1     # accuracy across devices (reference precedent)
+# (B, Hq, Hkv, S, D): the reference kernel tests' FA_SHAPES
+# (tests/test_kernels.py), then llama3.2-1b's serving shape and a long one
+FA_SHAPES = [(1, 4, 4, 128, 64), (2, 8, 2, 256, 64), (1, 4, 1, 128, 128),
+             (2, 2, 2, 512, 64)]
+FA_SERVE = (4, 32, 8, 512, 64)
+FA_LONG = (1, 32, 8, 4096, 64)
+# (atol, rtol) against the plain version in fp32: fp32 output as the
+# reference kernel tests hold it; bf16 output is one rounding of the fp32
+# answer, so within one bf16 ulp (2^-8 of its value)
+FA_TOL = {torch.float32: (2e-6, 2e-6), torch.bfloat16: (1e-6, 2.0 ** -8)}
+# (B, S, H, hd): the reference kernel tests' RW_SHAPES, then a ragged S and
+# rwkv6-1.6b's serving shape
+RW_SHAPES = [(1, 64, 1, 32), (2, 128, 2, 32), (1, 256, 4, 64)]
+RW_RAGGED = (2, 100, 2, 64)
+RW_SERVE = (4, 512, 32, 64)
+RW_TOL = 1e-5
+SERVE = dict(batch=4, prompt_len=512, gen_len=32, temperature=0.0, seed=0)
+N_REQUESTS = 8
+SMOKE_SERVE = dict(batch=2, prompt_len=32, gen_len=8, temperature=0.0,
+                   seed=0)
+SMOKE_LOGIT_TOL = 1e-4  # fp32 on both devices, other summation order
 
 
 def log(*args):
@@ -125,6 +178,15 @@ def hs_bound(feats, heads, labels):
     by_ops = flops / FP32_FLOPS * 1e3
     return max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops
                                    else "operations"), nbytes, flops
+
+
+def reset_launches() -> None:
+    for fn in KERNELS:
+        fn.launches = 0
+
+
+def launches() -> dict:
+    return {fn.__name__: fn.launches for fn in KERNELS}
 
 
 def kernel_phase(rec):
@@ -211,7 +273,7 @@ def main_path_phase(rec):
     rec["data_s"] = time.perf_counter() - t0
     cfg = lenet()
     n = ds.n_nodes
-    head_losses.launches = 0
+    reset_launches()
     results = {}
     for algo in ("facade", "el"):
         torch.cuda.synchronize()
@@ -220,12 +282,12 @@ def main_path_phase(rec):
                              eval_every=EVAL_EVERY, device="cuda", **PAPER)
         torch.cuda.synchronize()
         results[algo] = (res, time.perf_counter() - t0)
-    launches = head_losses.launches
+    counts = launches()
 
-    out = {"launches": {"head_select": launches}}
-    if launches != ROUNDS:
-        raise AssertionError(f"head_select launched {launches} times in "
-                             f"{ROUNDS} FACADE rounds")
+    out = {"launches": counts}
+    if counts != {"head_losses": ROUNDS, "flash_attention": 0, "wkv": 0}:
+        raise AssertionError(f"kernel launches {counts} in {ROUNDS} FACADE "
+                             f"rounds (want one head select per round)")
     for algo, (res, wall) in results.items():
         leaves = tree_leaves(res.models)
         if not all(bool(torch.isfinite(l).all()) for l in leaves):
@@ -252,7 +314,7 @@ def main_path_phase(rec):
             f"({ROUNDS / wall:.2f} rounds/s), acc per cluster {accs}, "
             f"fair_acc {res.fair_acc[-1][1]:.4f}, bytes/round {want:.0f}")
     rec["main_path"] = out
-    return launches
+    return counts["head_losses"]
 
 
 def small_input_phase(rec):
@@ -280,6 +342,287 @@ def small_input_phase(rec):
     rec["small_input"] = out
 
 
+def check(name, got, want, tol, rtol=None, **info):
+    """Max abs error of ``got`` against ``want``; raises beyond ``tol``
+    absolute plus ``rtol`` (default ``tol``) relative, as
+    ``assert_allclose``."""
+    rtol = tol if rtol is None else rtol
+    got, want = got.float(), want.float()
+    err = float((got - want).abs().max())
+    ok = bool(((got - want).abs() <= tol + rtol * want.abs()).all())
+    rec = dict(info, max_abs_err=err, tol=tol, rtol=rtol)
+    log(f"{name} check", json.dumps(rec))
+    if not (ok and np.isfinite(err)):
+        raise AssertionError(f"{name} disagrees with its plain version: "
+                             f"{rec}")
+    return rec
+
+
+def fa_inputs(b, hq, hkv, s, d, dtype, seed):
+    g = torch.Generator().manual_seed(seed)
+    return [(0.3 * torch.randn((b, s, h, d), generator=g)).to(dtype).cuda()
+            for h in (hq, hkv, hkv)]
+
+
+def fa_plain(q, k, v, window=0):
+    """The wrapper's plain version, in the model's layout."""
+    out = attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                        v.transpose(1, 2), window=window)
+    return out.transpose(1, 2)
+
+
+def fa_library(q, k, v):
+    """One PyTorch call for the same function (the yardstick; the port
+    never calls it)."""
+    return F.scaled_dot_product_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        is_causal=True, enable_gqa=True).transpose(1, 2)
+
+
+def fa_bound(q, k, v, window=0):
+    b, s, hq, d = q.shape
+    nbytes = 2 * q.numel() * q.element_size() + 2 * k.numel() * \
+        k.element_size()
+    i = np.arange(s)[:, None]
+    j = np.arange(s)[None, :]
+    seen = (j <= i) & ((i - j < window) if window else True)
+    flops = 4 * d * int(seen.sum()) * b * hq      # QK^T and PV, causal
+    peak = BF16_FLOPS if q.dtype == torch.bfloat16 else FP32_FLOPS
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = flops / peak * 1e3
+    return max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops
+                                   else "operations"), nbytes, flops
+
+
+def flash_attention_phase(rec):
+    checks = []
+    cases = [(shape, dt, 0) for shape in FA_SHAPES
+             for dt in (torch.float32, torch.bfloat16)]
+    cases += [((1, 2, 2, 256, 64), torch.float32, w) for w in (32, 128)]
+    cases += [(shape, dt, 0) for dt in (torch.float32, torch.bfloat16)
+              for shape in ((1, 4, 2, 200, 64), FA_LONG, FA_SERVE)]
+    for i, (shape, dtype, window) in enumerate(cases):
+        q, k, v = fa_inputs(*shape, dtype, seed=i)
+        got = flash_attention(q, k, v, window=window)
+        torch.cuda.synchronize()
+        want = fa_plain(q.float(), k.float(), v.float(), window)
+        checks.append(check("flash_attention", got, want, *FA_TOL[dtype],
+                            shape=list(shape), dtype=str(dtype),
+                            window=window))
+        del got, want
+    rec["flash_attention_checks"] = checks
+
+    timing = {}
+    for label, shape in (("serve", FA_SERVE), ("long", FA_LONG)):
+        q, k, v = fa_inputs(*shape, torch.bfloat16, seed=99)
+        bound_ms, bound_by, nbytes, flops = fa_bound(q, k, v)
+        calls = 50 if label == "serve" else 5
+        t = {"shape": list(shape), "dtype": "bf16", "bound_ms": bound_ms,
+             "bound_by": bound_by, "bytes": nbytes, "flops": flops}
+        for key, fn in (("ms", flash_attention), ("plain_ms", fa_plain),
+                        ("library_ms", fa_library), ("ms_again",
+                                                     flash_attention),
+                        ("plain_ms_again", fa_plain)):
+            t[key] = graph_ms(lambda: fn(q, k, v), calls=calls)
+        timing[label] = t
+        log(f"flash_attention timing {label}", json.dumps(t))
+    rec["flash_attention_timing"] = timing
+    t = timing["serve"]
+    return {"name": "flash_attention", "route": "cuda",
+            "source": "src/repro_torch/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention/kernel.py:73",
+            "launches": None, "max_abs_err": checks[-1]["max_abs_err"],
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"]}
+
+
+def wkv_inputs(b, s, h, hd, seed):
+    g = torch.Generator().manual_seed(seed)
+    r, k, v = (0.3 * torch.randn((3, b, s, h, hd), generator=g)).unbind(0)
+    w = torch.exp(-torch.exp(0.3 * torch.randn((b, s, h, hd), generator=g)))
+    u = 0.3 * torch.randn((h, hd), generator=g)
+    return [x.contiguous().cuda() for x in (r, k, v, w, u)]
+
+
+def wkv_bound(r, sm_clock_hz):
+    b, s, h, hd = r.shape
+    nbytes = 4 * (5 * r.numel() + b * h * hd * hd + h * hd)
+    flops = 5 * b * s * h * hd * hd      # y: 2 hd^2, state: 3 hd^2
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = flops / FP32_FLOPS * 1e3
+    # S dependent steps: at least one fp32 FMA latency each on the state
+    serial_ms = s * FMA_LATENCY_CYCLES / sm_clock_hz * 1e3
+    return max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops
+                                   else "operations"), nbytes, flops, \
+        serial_ms
+
+
+def wkv_phase(rec, sm_clock_hz):
+    checks = []
+    for i, shape in enumerate(RW_SHAPES + [RW_RAGGED, RW_SERVE]):
+        args = wkv_inputs(*shape, seed=i)
+        y, s_f = wkv(*args)
+        torch.cuda.synchronize()
+        y_ref, s_ref = wkv_scan(*args)
+        c = check("wkv y", y, y_ref, RW_TOL, shape=list(shape))
+        c["state_max_abs_err"] = check("wkv state", s_f, s_ref, RW_TOL,
+                                       shape=list(shape))["max_abs_err"]
+        checks.append(c)
+    rec["wkv_checks"] = checks
+
+    args = wkv_inputs(*RW_SERVE, seed=99)
+    bound_ms, bound_by, nbytes, flops, serial_ms = wkv_bound(args[0],
+                                                             sm_clock_hz)
+    t = {"shape": list(RW_SERVE), "bound_ms": bound_ms,
+         "bound_by": bound_by, "bytes": nbytes, "flops": flops,
+         "serial_floor_ms": serial_ms, "sm_clock_hz": sm_clock_hz}
+    for key, fn, calls in (("ms", wkv, 50), ("plain_ms", wkv_scan, 2),
+                           ("ms_again", wkv, 50)):
+        t[key] = graph_ms(lambda: fn(*args), calls=calls)
+    rec["wkv_timing"] = t
+    log("wkv timing", json.dumps(t))
+    return {"name": "wkv", "route": "cuda", "source": "src/repro_torch/csrc/wkv.cu",
+            "replaces": "src/repro/kernels/rwkv6/kernel.py:53",
+            "launches": None,
+            "max_abs_err": max(checks[-1]["max_abs_err"],
+                               checks[-1]["state_max_abs_err"]),
+            "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None}
+
+
+def device_profile(fn, sync_every: bool = True) -> dict:
+    """Host wall time of ``fn()`` (ending in a synchronise) and the device
+    time of the kernels it ran, by ``torch.profiler``: busy share, and the
+    largest kernels by name. Where the profiler records no device events,
+    the device numbers are None (not measured)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0.0) + \
+                e.time_range.elapsed_us() * 1e-6
+    busy = sum(by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    return {"wall_s": wall, "device_busy_s": busy if by_name else None,
+            "busy_share": busy / wall if by_name else None,
+            "kernel_names": len(by_name),
+            "top_kernels_s": [[n[:80], t] for n, t in top]}
+
+
+def serve_phase(rec, arch: str, kernel) -> int:
+    """Serve ``arch`` at full width on the card; returns ``kernel``'s
+    launches in the measured run."""
+    cfg = get_config(arch)
+    t0 = time.perf_counter()
+    params = api.init_params(cfg, torch.Generator("cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    queue = make_requests(np.random.default_rng(0), N_REQUESTS,
+                          SERVE["prompt_len"], cfg.vocab_size)
+    serve(cfg, params, queue[:1], device="cuda",
+          **dict(SERVE, gen_len=2))                       # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    res = serve(cfg, params, queue, device="cuda", **SERVE)
+    counts = launches()
+    batches = len(res.batch_sizes)
+    want = {fn.__name__: 0 for fn in KERNELS}
+    want[kernel.__name__] = cfg.n_layers * batches
+    if counts != want:
+        raise AssertionError(f"{arch}: kernel launches {counts}, want {want}")
+    if not res.finite:
+        raise AssertionError(f"{arch}: non-finite logits")
+    if res.tokens.shape != (N_REQUESTS, SERVE["gen_len"]):
+        raise AssertionError(f"{arch}: tokens {res.tokens.shape}")
+
+    # decode steps alone launch no kernel
+    toks = torch.from_numpy(np.stack([q[:16] for q in queue[:2]])).cuda()
+    logits, cache = transformer.prefill(cfg, params, toks, cache_extra=4)
+    reset_launches()
+    pos = torch.full((2,), 16, dtype=torch.int32, device="cuda")
+    for _ in range(4):
+        logits, cache = transformer.decode_step(
+            cfg, params, cache, logits.argmax(-1)[:, None], pos)
+        pos = pos + 1
+    torch.cuda.synchronize()
+    if any(launches().values()):
+        raise AssertionError(f"{arch}: decode launched {launches()}")
+
+    # where the time goes: one batch's prefill, then 8 decode steps
+    batch = np.zeros((SERVE["batch"], SERVE["prompt_len"]), np.int32)
+    for i, q in enumerate(queue[:SERVE["batch"]]):
+        batch[i, :len(q)] = q
+    toks = torch.from_numpy(batch).cuda()
+    state = {}
+
+    def run_prefill():
+        state["out"] = transformer.prefill(
+            cfg, params, toks, cache_extra=SERVE["gen_len"])
+
+    def run_decode():
+        logits, cache = state["out"]
+        pos = torch.full((SERVE["batch"],), SERVE["prompt_len"],
+                         dtype=torch.int32, device="cuda")
+        for _ in range(8):
+            logits, cache = transformer.decode_step(
+                cfg, params, cache, logits.argmax(-1)[:, None], pos)
+            pos = pos + 1
+
+    profiles = {"prefill": device_profile(run_prefill),
+                "decode_8_steps": device_profile(run_decode)}
+    log(f"serve {arch} profile", json.dumps(profiles))
+
+    out = {"launches": counts, "batches": batches,
+           "params": api.param_count(params),
+           "param_bytes": api.param_bytes(params), "init_s": init_s,
+           "prefill_s": res.prefill_s, "decode_s": res.decode_s,
+           "prefill_tok_s": res.prefill_tok_s,
+           "decode_tok_s": res.decode_tok_s,
+           "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+           "first_tokens": res.tokens[:, :8].tolist(), **SERVE,
+           "requests": N_REQUESTS, "profile": profiles}
+    rec.setdefault("serve", {})[arch] = out
+    log(f"serve {arch}: {out['params']} params, {batches} batches, "
+        f"{counts[kernel.__name__]} {kernel.__name__} launches; prefill "
+        f"{res.prefill_tok_s:.1f} tok/s, decode {res.decode_tok_s:.1f} "
+        f"tok/s (per batch prefill {res.prefill_s} s, decode "
+        f"{res.decode_s} s)")
+    del params
+    torch.cuda.empty_cache()
+    return counts[kernel.__name__]
+
+
+def smoke_serve_phase(rec):
+    """Both smoke configs (fp32) served on the card and on the CPU with the
+    same parameters: equal greedy tokens, prefill logits within 1e-4."""
+    out = {}
+    for arch in ("llama3.2-1b", "rwkv6-1.6b"):
+        cfg = get_config(arch, smoke=True)
+        params = api.init_params(cfg, torch.Generator().manual_seed(0))
+        queue = make_requests(np.random.default_rng(0), 4,
+                              SMOKE_SERVE["prompt_len"], cfg.vocab_size)
+        cpu = serve(cfg, params, queue, device="cpu", **SMOKE_SERVE)
+        gpu = serve(cfg, tree_map(lambda t: t.cuda(), params), queue,
+                    device="cuda", **SMOKE_SERVE)
+        diff = max(float((a - b).abs().max()) for a, b in
+                   zip(gpu.prefill_logits, cpu.prefill_logits))
+        same = bool(np.array_equal(gpu.tokens, cpu.tokens))
+        out[arch] = {"prefill_logit_max_diff": diff, "tokens_equal": same}
+        log(f"smoke serve {arch}: card vs CPU {json.dumps(out[arch])}")
+        if not (same and diff <= SMOKE_LOGIT_TOL and gpu.finite):
+            raise AssertionError(f"{arch}: card and CPU disagree {out}")
+    rec["smoke_serve"] = out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing to drive",
@@ -295,16 +638,26 @@ def main() -> int:
     kind = torch.cuda.get_device_name(0)
     rec = {"nvidia_smi": smi, "device": kind,
            "torch": torch.__version__, "cuda": torch.version.cuda}
+    sm_clock_hz = 1e6 * float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.split()[0])
     t0 = time.perf_counter()
-    entry = kernel_phase(rec)
-    entry["launches"] = main_path_phase(rec)
+    hs = kernel_phase(rec)
+    fa = flash_attention_phase(rec)
+    rw = wkv_phase(rec, sm_clock_hz)
+    hs["launches"] = main_path_phase(rec)
     small_input_phase(rec)
-    rec["kernels"] = [entry]
+    fa["launches"] = serve_phase(rec, "llama3.2-1b", flash_attention)
+    rw["launches"] = serve_phase(rec, "rwkv6-1.6b", wkv)
+    smoke_serve_phase(rec)
+    entries = [hs, fa, rw]
+    rec["kernels"] = entries
     rec["total_s"] = time.perf_counter() - t0
     out_dir = ROOT / "build"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(rec, indent=1))
-    log(json.dumps({"kernels": [entry]}))
+    log(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -6,6 +6,11 @@ the port stores them OIHW, PyTorch's layout. Dense weights stay
 dicts; ``lead`` counts the stacked axes in front of each leaf (0 for one
 model, 1 for node-stacked cores, 2 for node-and-cluster-stacked heads), so
 a conv kernel is any leaf with ``lead + 4`` dims.
+
+Language-model trees (``lm_params_from_jax`` / ``lm_params_to_jax``) have
+no conv kernels: every leaf crosses as it is, stacked ``[L, ...]`` layers
+included. A JAX bf16 array reaches numpy as ``ml_dtypes.bfloat16``, which
+``torch.from_numpy`` refuses, so bf16 crosses bit for bit as ``uint16``.
 """
 from __future__ import annotations
 
@@ -35,3 +40,31 @@ def params_to_jax(tree, lead: int = 0):
         return np.ascontiguousarray(a)
 
     return tree_map(conv, tree)
+
+
+def _lm_leaf_from_jax(a) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":             # ml_dtypes.bfloat16
+        return torch.from_numpy(a.view(np.uint16).copy()).view(
+            torch.bfloat16)
+    return torch.from_numpy(np.array(a))        # a writable copy
+
+
+def _lm_leaf_to_jax(t) -> np.ndarray:
+    t = t.detach().cpu().contiguous()
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes                        # shipped with JAX
+        return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+    return t.numpy().copy()
+
+
+def lm_params_from_jax(tree):
+    """Reference language-model tree (JAX or numpy leaves) -> CPU tensors,
+    every leaf as it is (no transposition), bf16 bit for bit."""
+    return tree_map(_lm_leaf_from_jax, tree)
+
+
+def lm_params_to_jax(tree):
+    """Inverse of :func:`lm_params_from_jax`: tensors -> numpy arrays
+    (``ml_dtypes.bfloat16`` for bf16 leaves)."""
+    return tree_map(_lm_leaf_to_jax, tree)

@@ -1,0 +1,78 @@
+"""Wrapper of the RWKV6 wkv CUDA kernel (``csrc/wkv.cu``).
+
+``wkv`` runs the wkv recurrence over a whole sequence from a zero state —
+the function of the TPU kernel ``repro/kernels/rwkv6`` — and returns the
+outputs and the final state (the decode cache's ``s``). On CUDA tensors it
+launches the kernel (built at first use) and raises on what the kernel
+does not take; on CPU tensors it runs the plain version ``wkv_scan``.
+``wkv.launches`` counts kernel launches.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from repro_torch.kernels import build
+
+from .ref import wkv_scan
+
+HEAD_DIMS = (32, 64)
+
+
+@functools.cache
+def _library() -> ctypes.CDLL:
+    lib = build.load("wkv")
+    lib.wkv_forward.argtypes = (
+        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+    lib.wkv_forward.restype = ctypes.c_int
+    lib.wkv_error_string.argtypes = [ctypes.c_int]
+    lib.wkv_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def wkv(r, k, v, w, u):
+    """r, k, v, w [B,S,H,hd] fp32; u [H,hd] fp32 -> (y [B,S,H,hd] fp32,
+    S_final [B,H,hd,hd] fp32), from a zero state."""
+    if r.dim() != 4 or u.dim() != 2:
+        raise ValueError("expected r, k, v, w [B,S,H,hd] and u [H,hd]")
+    b, s, h, hd = r.shape
+    if any(tuple(x.shape) != (b, s, h, hd) for x in (k, v, w)) or \
+            tuple(u.shape) != (h, hd):
+        raise ValueError(
+            f"shape mismatch: r/k/v/w {[tuple(x.shape) for x in (r, k, v, w)]}"
+            f", u {tuple(u.shape)}")
+    tensors = (r, k, v, w, u)
+    devices = {x.device for x in tensors}
+    if devices == {torch.device("cpu")}:
+        return wkv_scan(r, k, v, w, u)
+    if len(devices) != 1 or r.device.type != "cuda":
+        raise ValueError(f"tensors on mixed or unsupported devices: "
+                         f"{sorted(map(str, devices))}")
+    if any(x.dtype != torch.float32 for x in tensors):
+        raise TypeError(f"r, k, v, w and u must be fp32, got "
+                        f"{[str(x.dtype) for x in tensors]}")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"head dim {hd} not in {HEAD_DIMS}")
+    if not all(x.is_contiguous() for x in tensors):
+        raise ValueError("r, k, v, w and u must be contiguous")
+    y = torch.empty_like(r)
+    s_final = torch.empty((b, h, hd, hd), dtype=torch.float32,
+                          device=r.device)
+    if b * h == 0:
+        return y, s_final
+    lib = _library()
+    with torch.cuda.device(r.device):
+        rc = lib.wkv_forward(
+            r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
+            u.data_ptr(), y.data_ptr(), s_final.data_ptr(), b, s, h, hd,
+            torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError("wkv kernel launch failed: "
+                           + lib.wkv_error_string(rc).decode())
+    wkv.launches += 1
+    return y, s_final
+
+
+wkv.launches = 0

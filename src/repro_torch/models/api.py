@@ -1,0 +1,30 @@
+"""Uniform model API over the backbones the port runs (decoder LM, CNN),
+mirroring ``repro.models.api``."""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.tree import tree_leaves
+
+from . import cnn, transformer
+from .base import CNNConfig
+
+
+def is_cnn(cfg) -> bool:
+    return isinstance(cfg, CNNConfig)
+
+
+def init_params(cfg, generator: torch.Generator) -> dict:
+    """Parameters of ``cfg``'s model, drawn from ``generator`` (on its
+    device for the language models)."""
+    if is_cnn(cfg):
+        return cnn.init_params(cfg, generator)
+    return transformer.init_params(cfg, generator)
+
+
+def param_count(params) -> int:
+    return sum(x.numel() for x in tree_leaves(params))
+
+
+def param_bytes(params) -> int:
+    return sum(x.numel() * x.element_size() for x in tree_leaves(params))

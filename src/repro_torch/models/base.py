@@ -1,9 +1,59 @@
-"""Model configuration of the paper's CNNs (mirrors ``repro.models.base``)."""
+"""Model configuration dataclasses and the architecture registry (mirrors
+``repro.models.base``).
+
+Every language-model architecture is described by one ``ModelConfig``;
+``transformer.py`` interprets it. ``dt`` gives the ``torch.dtype`` of the
+parameters. The registry is filled by ``repro_torch.configs`` with the
+architectures the port runs so far.
+"""
 from __future__ import annotations
 
 import dataclasses
 
 import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    """The reference's ``ModelConfig`` fields that the ported families
+    (dense GQA, RWKV6) read; a later slice adds its family's fields."""
+
+    name: str
+    arch_type: str  # dense | moe | hybrid | ssm | vlm | audio | cnn
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: int = 0  # 0 -> d_model // n_heads
+
+    # --- attention variant ------------------------------------------------
+    attention: str = "gqa"  # gqa | mla | none (rwkv)
+    qk_norm: bool = False
+    rope_theta: float = 10000.0
+    sliding_window: int = 0  # 0 = full attention; >0 enables SWA variant
+
+    # --- rwkv6 ---------------------------------------------------------------
+    rwkv: bool = False
+
+    norm_eps: float = 1e-5
+    dtype: str = "bfloat16"
+    tie_embeddings: bool = False
+
+    # ---------------------------------------------------------------------
+    @property
+    def hd(self) -> int:
+        if self.head_dim:
+            return self.head_dim
+        return self.d_model // self.n_heads
+
+    @property
+    def dt(self) -> torch.dtype:
+        return getattr(torch, self.dtype)
+
+    def replace(self, **kw) -> "ModelConfig":
+        return dataclasses.replace(self, **kw)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -26,3 +76,25 @@ class CNNConfig:
 
     def replace(self, **kw) -> "CNNConfig":
         return dataclasses.replace(self, **kw)
+
+
+# --------------------------------------------------------------------------
+# registry: populated by repro_torch.configs
+_REGISTRY: dict = {}
+
+
+def register(arch_id: str, fn) -> None:
+    _REGISTRY[arch_id] = fn
+
+
+def get_config(arch_id: str, smoke: bool = False):
+    if arch_id not in _REGISTRY:
+        raise KeyError(
+            f"arch {arch_id!r} is not in the port; ported: "
+            f"{sorted(_REGISTRY)}. The reference's other archs are still "
+            "to port (ROADMAP.md, queue 1)")
+    return _REGISTRY[arch_id](smoke=smoke)
+
+
+def list_archs():
+    return sorted(_REGISTRY)

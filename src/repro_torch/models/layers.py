@@ -1,7 +1,10 @@
-"""Layers of the paper's CNNs as plain functions on tensors.
+"""Common layers as plain functions on tensors (init + apply).
 
-Mirrors ``repro.models.layers`` for what GN-LeNet needs. Norms and losses
-accumulate in fp32.
+Mirrors ``repro.models.layers`` for what GN-LeNet and the language models
+need. Params are nested dicts of tensors; every ``*_init`` draws from an
+explicit ``torch.Generator`` on that generator's device. Matmuls run in the
+param dtype; norms, RoPE, the SiLU gate and losses compute in fp32 and cast
+back, as the reference does.
 """
 from __future__ import annotations
 
@@ -11,11 +14,17 @@ import torch
 import torch.nn.functional as F
 
 
-def dense_init(generator: torch.Generator, d_in: int, d_out: int,
-               dtype) -> torch.Tensor:
+def dense_init(generator: torch.Generator, d_in: int, d_out: int, dtype,
+               scale: float | None = None) -> torch.Tensor:
     w = torch.randn((d_in, d_out), generator=generator,
-                    dtype=torch.float32) / math.sqrt(d_in)
+                    dtype=torch.float32, device=generator.device)
+    w = w / math.sqrt(d_in) if scale is None else w * scale
     return w.to(dtype)
+
+
+def embed_init(generator: torch.Generator, vocab: int, d: int,
+               dtype) -> torch.Tensor:
+    return dense_init(generator, vocab, d, dtype, scale=0.02)
 
 
 def group_norm_nchw(x, gamma, beta, groups: int, eps: float = 1e-5):
@@ -46,3 +55,47 @@ def softmax_xent(logits, labels, mask=None):
     if mask is None:
         return loss.mean()
     return (loss * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+
+
+# --------------------------------------------------------------------------
+# language-model layers
+def rms_norm(x, gamma, eps: float = 1e-5):
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    out = xf * torch.rsqrt(var + eps)
+    return (out * gamma.float()).to(x.dtype)
+
+
+def rope_freqs(positions, dim: int, theta: float):
+    """cos/sin tables for given integer positions. positions [..., S]."""
+    inv = 1.0 / (theta ** (torch.arange(0, dim, 2, dtype=torch.float32,
+                                        device=positions.device) / dim))
+    ang = positions.float()[..., None] * inv  # [..., S, dim/2]
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x, cos, sin):
+    """x [..., S, H, D]; cos/sin [..., S, D/2] broadcast over heads."""
+    d = x.shape[-1]
+    xf1 = x[..., : d // 2].float()
+    xf2 = x[..., d // 2:].float()
+    c = cos[..., None, :]
+    s = sin[..., None, :]
+    out = torch.cat([xf1 * c - xf2 * s, xf2 * c + xf1 * s], dim=-1)
+    return out.to(x.dtype)
+
+
+def init_swiglu(generator: torch.Generator, d_model: int, d_ff: int,
+                dtype) -> dict:
+    return {
+        "w_gate": dense_init(generator, d_model, d_ff, dtype),
+        "w_up": dense_init(generator, d_model, d_ff, dtype),
+        "w_down": dense_init(generator, d_ff, d_model, dtype),
+    }
+
+
+def swiglu(params, x):
+    g = x @ params["w_gate"]
+    u = x @ params["w_up"]
+    h = F.silu(g.float()).to(x.dtype) * u
+    return h @ params["w_down"]

@@ -1,0 +1,261 @@
+"""The decoder backbone for the dense (GQA) and RWKV families, driven by
+``ModelConfig`` (mirrors the dense and RWKV branches of
+``repro.models.transformer``).
+
+API (plain functions on nested dicts of tensors):
+    init_params(cfg, generator)                  -> params
+    forward(cfg, params, tokens)                 -> (features, aux)
+    init_cache(cfg, batch, cache_len, device)    -> empty cache (leading L)
+    prefill(cfg, params, tokens, cache_extra)    -> (last_logits, cache)
+    decode_step(cfg, params, cache, tokens, pos) -> (logits, cache)
+
+Layers are stacked (a leading L axis on every leaf of ``params["layers"]``
+and of the cache), as in the reference; a Python loop over L takes the
+place of its ``lax.scan``. MoE, hybrid, MLA and VLM models are not ported
+yet and raise ``NotImplementedError`` (``ROADMAP.md``); the training loss
+(``chunked_ce``, ``loss_fn``) belongs to the training slice.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.device import resolve
+from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.tree import tree_map
+
+from . import attention, layers, rwkv
+from .base import ModelConfig
+
+
+# (arch_type, attention, rwkv) of the families the port runs
+PORTED = {("dense", "gqa", False), ("ssm", "none", True)}
+
+
+def _check_ported(cfg: ModelConfig) -> None:
+    if (cfg.arch_type, cfg.attention, cfg.rwkv) not in PORTED:
+        raise NotImplementedError(
+            f"{cfg.name}: {cfg.arch_type} models with {cfg.attention} "
+            "attention are not ported yet (ROADMAP.md, queue 1)")
+
+
+def _layer(tree, i: int):
+    return tree_map(lambda a: a[i], tree)
+
+
+def _stack(trees):
+    return tree_map(lambda *xs: torch.stack(xs), *trees)
+
+
+# ==========================================================================
+# init
+def init_layer(generator: torch.Generator, cfg: ModelConfig) -> dict:
+    _check_ported(cfg)
+    dev = generator.device
+    p = {"norm1": torch.ones((cfg.d_model,), dtype=cfg.dt, device=dev),
+         "norm2": torch.ones((cfg.d_model,), dtype=cfg.dt, device=dev)}
+    if cfg.rwkv:
+        p["time_mix"] = rwkv.init_time_mix(generator, cfg)
+        p["channel_mix"] = rwkv.init_channel_mix(generator, cfg)
+        return p
+    p["attn"] = attention.init_gqa(generator, cfg)
+    p["mlp"] = layers.init_swiglu(generator, cfg.d_model, cfg.d_ff, cfg.dt)
+    return p
+
+
+def init_params(cfg: ModelConfig, generator: torch.Generator) -> dict:
+    """Parameters drawn from ``generator`` on its device, at the
+    reference's scales (dense normal / sqrt(d_in), embedding and untied
+    head 0.02, RWKV's constants). The values differ from the reference's
+    (another generator); tests carry the reference's own parameters across
+    with ``interop.lm_params_from_jax``."""
+    _check_ported(cfg)
+    params = {
+        "embed": layers.embed_init(generator, cfg.vocab_size, cfg.d_model,
+                                   cfg.dt),
+        "layers": _stack([init_layer(generator, cfg)
+                          for _ in range(cfg.n_layers)]),
+        "final_norm": torch.ones((cfg.d_model,), dtype=cfg.dt,
+                                 device=generator.device),
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = layers.dense_init(
+            generator, cfg.d_model, cfg.vocab_size, cfg.dt, scale=0.02)
+    return params
+
+
+def lm_head_weight(cfg: ModelConfig, params):
+    if "lm_head" in params:  # explicit head (incl. FACADE-untied variants)
+        return params["lm_head"]
+    return params["embed"].T  # tied embeddings
+
+
+# ==========================================================================
+# blocks
+def block_forward(cfg: ModelConfig, lp, h, positions):
+    """One layer, full sequence. Returns h (the reference also returns
+    MoE's router loss, which no ported family has)."""
+    a = layers.rms_norm(h, lp["norm1"], cfg.norm_eps)
+    if cfg.rwkv:
+        tm, _, _ = rwkv.time_mix(cfg, lp["time_mix"], a)
+        h = h + tm
+        m = layers.rms_norm(h, lp["norm2"], cfg.norm_eps)
+        cm, _ = rwkv.channel_mix(cfg, lp["channel_mix"], m)
+        return h + cm
+    h = h + attention.gqa_forward(cfg, lp["attn"], a, positions,
+                                  window=cfg.sliding_window)
+    m = layers.rms_norm(h, lp["norm2"], cfg.norm_eps)
+    return h + layers.swiglu(lp["mlp"], m)
+
+
+# ==========================================================================
+# full-sequence forward
+def embed_inputs(cfg: ModelConfig, params, tokens, img_embeds=None):
+    if img_embeds is not None:
+        raise NotImplementedError(
+            "image embeddings (VLM) are not ported yet (ROADMAP.md)")
+    x = params["embed"][tokens.long()]
+    positions = torch.arange(x.shape[1], dtype=torch.int32,
+                             device=x.device)[None].expand(x.shape[:2])
+    return x, positions
+
+
+def forward(cfg: ModelConfig, params, tokens,
+            apply_final_norm: bool = True):
+    """-> (features [B,S,D], aux). ``apply_final_norm=False`` returns
+    pre-norm features (the FACADE core output). ``aux`` (MoE's router
+    loss in the reference) is 0 for every ported family."""
+    _check_ported(cfg)
+    h, positions = embed_inputs(cfg, params, tokens)
+    for i in range(cfg.n_layers):
+        h = block_forward(cfg, _layer(params["layers"], i), h, positions)
+    if apply_final_norm:
+        h = layers.rms_norm(h, params["final_norm"], cfg.norm_eps)
+    return h, torch.zeros((), dtype=torch.float32, device=h.device)
+
+
+# ==========================================================================
+# caches
+def _layer_cache(cfg: ModelConfig, batch: int, cache_len: int, device):
+    _check_ported(cfg)
+    if cfg.rwkv:
+        return rwkv.rwkv_init_cache(cfg, batch, device)
+    return attention.gqa_init_cache(cfg, batch, cache_len, device)
+
+
+def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
+               device="cuda"):
+    """An empty decode cache with a leading L axis (prefill builds its own
+    filled cache)."""
+    one = _layer_cache(cfg, batch, cache_len, resolve(device))
+    return tree_map(
+        lambda a: a[None].expand((cfg.n_layers,) + a.shape).clone(), one)
+
+
+def extend_cache(cfg: ModelConfig, caches, extra: int):
+    """Append ``extra`` empty slots to a prefilled cache so subsequent
+    decode steps have somewhere to write. No-op for ring-buffer (sliding
+    window) caches, where wraparound eviction is the semantics, and for
+    state-only (rwkv) caches."""
+    if extra <= 0 or cfg.rwkv:
+        return caches
+    if cfg.sliding_window and \
+            caches["slot_pos"].shape[-1] == cfg.sliding_window:
+        return caches  # ring buffer: leave alone
+
+    def pad(leaf, fill):
+        shape = list(leaf.shape)
+        shape[2] = extra                          # [L, B, slots, ...]
+        return torch.cat([leaf, torch.full(shape, fill, dtype=leaf.dtype,
+                                           device=leaf.device)], dim=2)
+
+    return {name: pad(leaf, -1 if name == "slot_pos" else 0)
+            for name, leaf in caches.items()}
+
+
+def cache_physical_len(cfg: ModelConfig, seq_len: int) -> int:
+    """Sliding-window archs store the ring-buffer window as the physical
+    cache; others store seq_len slots."""
+    if cfg.rwkv:
+        return 1  # state-only; attn cache unused
+    if cfg.sliding_window and seq_len > cfg.sliding_window:
+        return cfg.sliding_window
+    return seq_len
+
+
+# ==========================================================================
+# decode
+def block_decode(cfg: ModelConfig, lp, h, pos, cache):
+    a = layers.rms_norm(h, lp["norm1"], cfg.norm_eps)
+    if cfg.rwkv:
+        tm, s_new, tmx = rwkv.time_mix(cfg, lp["time_mix"], a,
+                                       state=cache["s"], last_x=cache["tm_x"])
+        h = h + tm
+        m = layers.rms_norm(h, lp["norm2"], cfg.norm_eps)
+        cm, cmx = rwkv.channel_mix(cfg, lp["channel_mix"], m,
+                                   last_x=cache["cm_x"])
+        return h + cm, {"s": s_new, "tm_x": tmx, "cm_x": cmx}
+    attn_out, new_cache = attention.gqa_decode(
+        cfg, lp["attn"], a, pos, cache, window=cfg.sliding_window)
+    h = h + attn_out
+    m = layers.rms_norm(h, lp["norm2"], cfg.norm_eps)
+    return h + layers.swiglu(lp["mlp"], m), new_cache
+
+
+def decode_step(cfg: ModelConfig, params, cache, tokens, pos):
+    """tokens [B,1] int; pos [B] int -> (logits [B,V] fp32, new cache)."""
+    _check_ported(cfg)
+    h = params["embed"][tokens.long()]
+    new = []
+    for i in range(cfg.n_layers):
+        h, nc = block_decode(cfg, _layer(params["layers"], i), h, pos,
+                             _layer(cache, i))
+        new.append(nc)
+    feats = layers.rms_norm(h, params["final_norm"], cfg.norm_eps)
+    logits = (feats[:, 0] @ lm_head_weight(cfg, params)).float()
+    return logits, _stack(new)
+
+
+# ==========================================================================
+# prefill: full forward that also materializes the decode cache
+def prefill(cfg: ModelConfig, params, tokens, cache_extra: int = 0):
+    """-> (last-position logits [B,V] fp32, cache ready for decode at
+    pos=S). ``cache_extra`` reserves empty slots for tokens generated
+    afterwards. Attention and the wkv recurrence run through the
+    hand-written kernels on the card (one launch per layer)."""
+    _check_ported(cfg)
+    h, positions = embed_inputs(cfg, params, tokens)
+    b, s = h.shape[:2]
+    cache_len = cache_physical_len(cfg, s)
+    caches = []
+    for i in range(cfg.n_layers):
+        lp = _layer(params["layers"], i)
+        a = layers.rms_norm(h, lp["norm1"], cfg.norm_eps)
+        if cfg.rwkv:
+            tm, s_new, tmx = rwkv.time_mix(cfg, lp["time_mix"], a)
+            h = h + tm
+            m = layers.rms_norm(h, lp["norm2"], cfg.norm_eps)
+            cm, cmx = rwkv.channel_mix(cfg, lp["channel_mix"], m)
+            h = h + cm
+            caches.append({"s": s_new, "tm_x": tmx, "cm_x": cmx})
+            continue
+
+        q, k, v = attention._gqa_qkv(cfg, lp["attn"], a, positions)
+        attn_out = flash_attention(q, k, v, causal=True,
+                                   window=cfg.sliding_window)
+        h = h + attn_out.reshape(b, s, -1).to(h.dtype) @ lp["attn"]["wo"]
+
+        # ring-buffer placement: slot j holds position start + ((j-start)%W)
+        start = s - cache_len
+        slots = torch.arange(cache_len, device=h.device)
+        src = start + (slots - start) % cache_len
+        caches.append({"k": k[:, src], "v": v[:, src],
+                       "slot_pos": src.to(torch.int32)[None].expand(
+                           b, cache_len)})
+
+        m = layers.rms_norm(h, lp["norm2"], cfg.norm_eps)
+        h = h + layers.swiglu(lp["mlp"], m)
+
+    cache = extend_cache(cfg, _stack(caches), cache_extra)
+    feats = layers.rms_norm(h, params["final_norm"], cfg.norm_eps)
+    logits = (feats[:, -1] @ lm_head_weight(cfg, params)).float()
+    return logits, cache

@@ -1,0 +1,95 @@
+"""The flash-attention CUDA kernel against its plain version, on the card.
+
+Needs an NVIDIA card and ``nvcc``; elsewhere every test skips with the
+reason. This file imports no JAX, so it also runs where only PyTorch is
+installed. The plain version runs in fp32 on the same values. fp32 output
+is held to it at 2e-6, the reference kernel tests' tolerance (fp32
+softmax and accumulation on both sides); bf16 output, which the kernel
+computes in fp32 and rounds once, within one bf16 ulp of the answer
+(relative 2^-8, plus 1e-6)."""
+from __future__ import annotations
+
+import pytest
+import torch
+
+from repro_torch.kernels.flash_attention import attention_ref, flash_attention
+from torch_caps import cuda_device, requires_cuda  # noqa: F401
+
+# (B, Hq, Hkv, S, D): the reference kernel tests' FA_SHAPES, a ragged S, a
+# narrow head (the smoke config's) and a wide one with a window
+SHAPES = [(1, 4, 4, 128, 64), (2, 8, 2, 256, 64), (1, 4, 1, 128, 128),
+          (2, 2, 2, 512, 64), (1, 4, 2, 200, 64), (2, 8, 2, 77, 32),
+          (1, 4, 2, 300, 128)]
+# llama3.2-1b's serving shape and a long one
+SERVING_SHAPES = [(4, 32, 8, 512, 64), (1, 32, 8, 4096, 64)]
+TOLS = {torch.float32: dict(atol=2e-6, rtol=2e-6),
+        torch.bfloat16: dict(atol=1e-6, rtol=2.0 ** -8)}
+
+
+@pytest.fixture(autouse=True)
+def _no_tf32():
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    yield
+    torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+def _case(b, hq, hkv, s, d, dtype, device, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    return [(0.3 * torch.randn((b, s, h, d), generator=g)).to(dtype).to(
+        device) for h in (hq, hkv, hkv)]
+
+
+def _plain(q, k, v, **kw):
+    t = [x.transpose(1, 2) for x in (q, k, v)]
+    return attention_ref(*t, **kw).transpose(1, 2)
+
+
+@requires_cuda
+@pytest.mark.parametrize("shape", SHAPES, ids=str)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("window", [0, 32, 128])
+def test_kernel_matches_plain_version(cuda_device, shape, dtype, window):
+    _check(shape, dtype, window, cuda_device)
+
+
+@requires_cuda
+@pytest.mark.parametrize("shape", SERVING_SHAPES, ids=str)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_kernel_matches_plain_version_at_serving_shapes(cuda_device, shape,
+                                                        dtype):
+    _check(shape, dtype, 0, cuda_device)
+
+
+def _check(shape, dtype, window, device):
+    q, k, v = _case(*shape, dtype, device)
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, window=window)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    want = _plain(q.float(), k.float(), v.float(), window=window)
+    assert got.dtype == dtype and got.shape == q.shape
+    torch.testing.assert_close(got.float(), want, **TOLS[dtype])
+
+
+@requires_cuda
+def test_non_causal(cuda_device):
+    q, k, v = _case(1, 4, 2, 130, 64, torch.float32, cuda_device)
+    got = flash_attention(q, k, v, causal=False)
+    torch.testing.assert_close(got, _plain(q, k, v, causal=False),
+                               rtol=2e-6, atol=2e-6)
+
+
+@requires_cuda
+def test_kernel_refuses_what_it_does_not_take(cuda_device):
+    q, k, v = _case(1, 4, 2, 64, 64, torch.float32, cuda_device)
+    with pytest.raises(TypeError):
+        flash_attention(q.half(), k.half(), v.half())
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention(*_case(1, 4, 2, 64, 48, torch.float32, cuda_device))
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2), k, v)
+    with pytest.raises(ValueError, match="devices"):
+        flash_attention(q.cpu(), k, v)

@@ -5,7 +5,7 @@
   fixture, which decides at run time, never at import, and skips with a
   reason where there is no card. Run them on the card with
   ``PYTHONPATH=src python -m pytest --noconftest -m cuda
-  tests/test_torch_head_select_cuda.py`` (``--noconftest``: the suite's
+  tests/test_torch_*_cuda.py`` (``--noconftest``: the suite's
   ``conftest.py`` imports JAX, which the card's machine need not have).
 * :class:`JaxDraws` replays the JAX reference's key schedule as a
   ``draws`` source for ``repro_torch.core.runner.run_experiment``, so the
