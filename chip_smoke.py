@@ -17,16 +17,21 @@ failure raises and exits non-zero, before the last line is printed):
      2e-5); yardstick: a matmul and ``cross_entropy``;
    - flash attention at the reference tests' ``FA_SHAPES``, a ragged
      S = 200, llama3.2-1b's serving shape (B 4, S 512, Hq 32, Hkv 8, D 64)
-     and a long one (B 1, S 4096), each in fp32 and bf16, and windows 32
-     and 128 in fp32. fp32 output is held against the plain version at
-     2e-6 (absolute plus relative); bf16 output against the plain version
-     run in fp32 on the same bf16 values, within one bf16 ulp of the
-     answer (relative 2^-8, plus 1e-6), since the kernel computes in fp32
+     and a long one (B 1, S 4096), each in fp32 and bf16, windows 32 and
+     128 in both, and the bf16 tensor-core kernel's own paths
+     (``FA_BF16_CASES``: D 32 and 128, ``causal=False``, ragged S against
+     its 64-row tiles, large scores). fp32 output is held against the
+     plain version at 2e-6 (absolute plus relative); bf16 output against
+     the plain version run in fp32 on the same bf16 values, within one
+     bf16 ulp of the answer (relative 2^-8, plus 1e-6), since the kernel
+     keeps fp32 scores and statistics, carries P V as two bf16 terms of P
      and rounds once; yardstick: ``scaled_dot_product_attention`` (causal,
      GQA);
-   - wkv at the reference tests' ``RW_SHAPES``, a ragged S = 100 and
-     rwkv6-1.6b's serving shape (B 4, S 512, H 32, hd 64), tolerance 1e-5
-     on y and on the final state; no single PyTorch call computes it;
+   - wkv at the reference tests' ``RW_SHAPES``, a ragged S = 100, the
+     kernel's own paths (``RW_CASES``: S 1, 31 and 33 around its 16-step
+     chunks, strong and weak decay, B * H = 264 blocks) and rwkv6-1.6b's
+     serving shape (B 4, S 512, H 32, hd 64), tolerance 1e-5 on y and on
+     the final state; no single PyTorch call computes it;
 3. the FACADE path: ``run_experiment`` for FACADE and EL at paper scale
    (full-width GN-LeNet, 32 nodes in clusters 24:8, degree 4, H = 10,
    B = 8); checks finite parameters, one head-select launch per FACADE
@@ -98,15 +103,32 @@ FA_SHAPES = [(1, 4, 4, 128, 64), (2, 8, 2, 256, 64), (1, 4, 1, 128, 128),
              (2, 2, 2, 512, 64)]
 FA_SERVE = (4, 32, 8, 512, 64)
 FA_LONG = (1, 32, 8, 4096, 64)
+# bf16 cases of the tensor-core kernel's own paths: (B, Hq, Hkv, S, D),
+# causal, window, std of q and k (3.0: scores of tens, which exercise the
+# running-max rescaling)
+FA_BF16_CASES = [((2, 8, 2, 77, 32), True, 0, 0.3),
+                 ((1, 4, 2, 300, 128), True, 0, 0.3),
+                 ((1, 4, 2, 130, 32), False, 0, 0.3),
+                 ((1, 4, 2, 130, 64), False, 0, 0.3),
+                 ((1, 4, 2, 130, 128), False, 0, 0.3),
+                 ((2, 4, 2, 65, 64), True, 0, 0.3),
+                 ((2, 8, 2, 256, 64), True, 0, 3.0),
+                 ((4, 32, 8, 512, 64), True, 0, 3.0)]
 # (atol, rtol) against the plain version in fp32: fp32 output as the
-# reference kernel tests hold it; bf16 output is one rounding of the fp32
-# answer, so within one bf16 ulp (2^-8 of its value)
+# reference kernel tests hold it; bf16 output is one rounding of an fp32
+# computation, so within one bf16 ulp (2^-8 of its value)
 FA_TOL = {torch.float32: (2e-6, 2e-6), torch.bfloat16: (1e-6, 2.0 ** -8)}
 # (B, S, H, hd): the reference kernel tests' RW_SHAPES, then a ragged S and
 # rwkv6-1.6b's serving shape
 RW_SHAPES = [(1, 64, 1, 32), (2, 128, 2, 32), (1, 256, 4, 64)]
 RW_RAGGED = (2, 100, 2, 64)
 RW_SERVE = (4, 512, 32, 64)
+# the kernel's own paths: (B, S, H, hd), log decay shift. S around its
+# 16-step chunks; w near 0 (exp(-e^2)) and near 1 (exp(-e^-6)); B * H = 264
+# blocks, two waves of the 132 SMs
+RW_CASES = [((1, 1, 2, 64), 0.0), ((2, 31, 2, 64), 0.0),
+            ((2, 33, 2, 64), 0.0), ((2, 100, 3, 64), 2.0),
+            ((1, 512, 2, 32), -6.0), ((6, 48, 44, 64), 0.0)]
 RW_TOL = 1e-5
 SERVE = dict(batch=4, prompt_len=512, gen_len=32, temperature=0.0, seed=0)
 N_REQUESTS = 8
@@ -358,16 +380,16 @@ def check(name, got, want, tol, rtol=None, **info):
     return rec
 
 
-def fa_inputs(b, hq, hkv, s, d, dtype, seed):
+def fa_inputs(b, hq, hkv, s, d, dtype, seed, qk_std=0.3):
     g = torch.Generator().manual_seed(seed)
-    return [(0.3 * torch.randn((b, s, h, d), generator=g)).to(dtype).cuda()
-            for h in (hq, hkv, hkv)]
+    return [(std * torch.randn((b, s, h, d), generator=g)).to(dtype).cuda()
+            for h, std in ((hq, qk_std), (hkv, qk_std), (hkv, 0.3))]
 
 
-def fa_plain(q, k, v, window=0):
+def fa_plain(q, k, v, window=0, causal=True):
     """The wrapper's plain version, in the model's layout."""
     out = attention_ref(q.transpose(1, 2), k.transpose(1, 2),
-                        v.transpose(1, 2), window=window)
+                        v.transpose(1, 2), causal=causal, window=window)
     return out.transpose(1, 2)
 
 
@@ -396,19 +418,22 @@ def fa_bound(q, k, v, window=0):
 
 def flash_attention_phase(rec):
     checks = []
-    cases = [(shape, dt, 0) for shape in FA_SHAPES
-             for dt in (torch.float32, torch.bfloat16)]
-    cases += [((1, 2, 2, 256, 64), torch.float32, w) for w in (32, 128)]
-    cases += [(shape, dt, 0) for dt in (torch.float32, torch.bfloat16)
+    both = (torch.float32, torch.bfloat16)
+    cases = [(shape, dt, True, 0, 0.3) for shape in FA_SHAPES for dt in both]
+    cases += [((1, 2, 2, 256, 64), dt, True, w, 0.3) for w in (32, 128)
+              for dt in both]
+    cases += [(shape, torch.bfloat16, causal, w, std)
+              for shape, causal, w, std in FA_BF16_CASES]
+    cases += [(shape, dt, True, 0, 0.3) for dt in both
               for shape in ((1, 4, 2, 200, 64), FA_LONG, FA_SERVE)]
-    for i, (shape, dtype, window) in enumerate(cases):
-        q, k, v = fa_inputs(*shape, dtype, seed=i)
-        got = flash_attention(q, k, v, window=window)
+    for i, (shape, dtype, causal, window, qk_std) in enumerate(cases):
+        q, k, v = fa_inputs(*shape, dtype, seed=i, qk_std=qk_std)
+        got = flash_attention(q, k, v, causal=causal, window=window)
         torch.cuda.synchronize()
-        want = fa_plain(q.float(), k.float(), v.float(), window)
+        want = fa_plain(q.float(), k.float(), v.float(), window, causal)
         checks.append(check("flash_attention", got, want, *FA_TOL[dtype],
                             shape=list(shape), dtype=str(dtype),
-                            window=window))
+                            causal=causal, window=window, qk_std=qk_std))
         del got, want
     rec["flash_attention_checks"] = checks
 
@@ -437,10 +462,11 @@ def flash_attention_phase(rec):
             "library_ms": t["library_ms"]}
 
 
-def wkv_inputs(b, s, h, hd, seed):
+def wkv_inputs(b, s, h, hd, seed, log_decay=0.0):
     g = torch.Generator().manual_seed(seed)
     r, k, v = (0.3 * torch.randn((3, b, s, h, hd), generator=g)).unbind(0)
-    w = torch.exp(-torch.exp(0.3 * torch.randn((b, s, h, hd), generator=g)))
+    w = torch.exp(-torch.exp(log_decay + 0.3 * torch.randn((b, s, h, hd),
+                                                           generator=g)))
     u = 0.3 * torch.randn((h, hd), generator=g)
     return [x.contiguous().cuda() for x in (r, k, v, w, u)]
 
@@ -453,30 +479,40 @@ def wkv_bound(r, sm_clock_hz):
     by_ops = flops / FP32_FLOPS * 1e3
     # S dependent steps: at least one fp32 FMA latency each on the state
     serial_ms = s * FMA_LATENCY_CYCLES / sm_clock_hz * 1e3
+    # issue floor: the steps of one (b, h) run on one SM, each about 3 hd^2
+    # fp32 instructions over its 128 lanes, in waves of one (b, h) per SM
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    waves = -(-b * h // sms)
+    issue_ms = waves * s * 3 * hd * hd / 128 / sm_clock_hz * 1e3
     return max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops
                                    else "operations"), nbytes, flops, \
-        serial_ms
+        serial_ms, issue_ms
 
 
 def wkv_phase(rec, sm_clock_hz):
     checks = []
-    for i, shape in enumerate(RW_SHAPES + [RW_RAGGED, RW_SERVE]):
-        args = wkv_inputs(*shape, seed=i)
+    cases = [(shape, 0.0) for shape in RW_SHAPES + [RW_RAGGED]]
+    cases += RW_CASES + [(RW_SERVE, 0.0)]
+    for i, (shape, log_decay) in enumerate(cases):
+        args = wkv_inputs(*shape, seed=i, log_decay=log_decay)
         y, s_f = wkv(*args)
         torch.cuda.synchronize()
         y_ref, s_ref = wkv_scan(*args)
-        c = check("wkv y", y, y_ref, RW_TOL, shape=list(shape))
+        c = check("wkv y", y, y_ref, RW_TOL, shape=list(shape),
+                  log_decay=log_decay)
         c["state_max_abs_err"] = check("wkv state", s_f, s_ref, RW_TOL,
-                                       shape=list(shape))["max_abs_err"]
+                                       shape=list(shape),
+                                       log_decay=log_decay)["max_abs_err"]
         checks.append(c)
     rec["wkv_checks"] = checks
 
     args = wkv_inputs(*RW_SERVE, seed=99)
-    bound_ms, bound_by, nbytes, flops, serial_ms = wkv_bound(args[0],
-                                                             sm_clock_hz)
+    bound_ms, bound_by, nbytes, flops, serial_ms, issue_ms = wkv_bound(
+        args[0], sm_clock_hz)
     t = {"shape": list(RW_SERVE), "bound_ms": bound_ms,
          "bound_by": bound_by, "bytes": nbytes, "flops": flops,
-         "serial_floor_ms": serial_ms, "sm_clock_hz": sm_clock_hz}
+         "serial_floor_ms": serial_ms, "issue_floor_ms": issue_ms,
+         "sm_clock_hz": sm_clock_hz}
     for key, fn, calls in (("ms", wkv, 50), ("plain_ms", wkv_scan, 2),
                            ("ms_again", wkv, 50)):
         t[key] = graph_ms(lambda: fn(*args), calls=calls)

@@ -6,8 +6,9 @@ of the TPU kernel ``repro/kernels/flash_attention`` — in the model's layout
 ``[B, S, H, D]``, so the kernel reads the projections where they lie, with
 no transposition. On CUDA tensors it launches the kernel (built at first
 use) and raises on what the kernel does not take; on CPU tensors it runs
-the plain version ``attention_ref``. ``flash_attention.launches`` counts
-kernel launches.
+the plain version ``attention_ref``. bf16 inputs go to the tensor-core
+kernel (``mma.sync``, with P V as three bf16 terms of P), fp32 inputs to the
+FMA kernel. ``flash_attention.launches`` counts kernel launches.
 """
 from __future__ import annotations
 
@@ -70,6 +71,8 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
         raise ValueError(f"head dim {d} not in {HEAD_DIMS}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("q, k and v must be contiguous")
+    if any(x.data_ptr() % 16 for x in (q, k, v)):
+        raise ValueError("q, k and v must be 16-byte aligned")
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out

@@ -57,6 +57,8 @@ def wkv(r, k, v, w, u):
         raise ValueError(f"head dim {hd} not in {HEAD_DIMS}")
     if not all(x.is_contiguous() for x in tensors):
         raise ValueError("r, k, v, w and u must be contiguous")
+    if any(x.data_ptr() % 16 for x in (r, k, v, w)):
+        raise ValueError("r, k, v and w must be 16-byte aligned")
     y = torch.empty_like(r)
     s_final = torch.empty((b, h, hd, hd), dtype=torch.float32,
                           device=r.device)

@@ -102,3 +102,91 @@ def test_wrapper_refuses_bad_shapes():
         flash_attention(q, torch.zeros(1, 8, 3, 32), torch.zeros(1, 8, 3, 32))
     with pytest.raises(ValueError, match="window"):
         flash_attention(q, q, q, window=-1)
+
+
+def _bf16_terms(p, n: int):
+    """p as n bf16 terms, largest first: t_0 = bf16(p), t_1 = bf16(p -
+    t_0), ...; each difference is exact in fp32."""
+    terms = []
+    for _ in range(n):
+        terms.append(p.bfloat16().float())
+        p = p - terms[-1]
+    return terms
+
+
+def _tiled_bf16_attention(q, k, v, p_terms, window: int = 0,
+                          block_k: int = 64):
+    """The bf16 kernel's arithmetic in plain PyTorch: fp32 scores of bf16
+    q and k over kv tiles of ``block_k``, the online max and sum in fp32,
+    and P V with P in fp32 (``p_terms`` 0, the FMA kernel) or as
+    ``p_terms`` bf16 terms (1: P rounded once, as library flash attention
+    does; 3: the tensor-core kernel). The output is rounded to bf16 once.
+    Layout ``[B, H, S, D]``."""
+    b, hq, s, d = q.shape
+    group = hq // k.shape[1]
+    k, v = (x.repeat_interleave(group, 1) for x in (k, v))
+    pos = torch.arange(s)
+    m = torch.full((b, hq, s, 1), -1e30)
+    l = torch.zeros((b, hq, s, 1))
+    acc = torch.zeros((b, hq, s, d))
+    for k0 in range(0, s, block_k):
+        kp = pos[k0:k0 + block_k]
+        seen = pos[:, None] >= kp[None, :]
+        if window:
+            seen &= (pos[:, None] - kp[None, :]) < window
+        sc = q @ k[:, :, k0:k0 + block_k].transpose(-1, -2) / d ** 0.5
+        sc = torch.where(seen, sc, -torch.inf)
+        m_new = torch.maximum(m, sc.amax(-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(sc - m_new)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        vt = v[:, :, k0:k0 + block_k]
+        terms = _bf16_terms(p, p_terms) if p_terms else [p]
+        acc = acc * alpha + sum(t @ vt for t in reversed(terms))
+        m = m_new
+    return (acc / l).bfloat16().float()
+
+
+def _one_ulp_violations(shape, p_terms, window=0, seed=0):
+    """Share of bf16 outputs further than one bf16 ulp of the answer
+    (relative 2^-8, plus 1e-6) from the plain version run in fp32 on the
+    same bf16 values: the card's check of the bf16 kernel."""
+    q, k, v = (torch.from_numpy(x).bfloat16().float()
+               for x in _case(*shape, seed=seed))
+    got = _tiled_bf16_attention(q, k, v, p_terms, window=window)
+    want = attention_ref(q, k, v, window=window)
+    return float(((got - want).abs() > 1e-6 + 2.0 ** -8 * want.abs())
+                 .float().mean())
+
+
+# (B, Hq, Hkv, S, D, window): small causal shapes on the tests' inputs
+SPLIT_CASES = [(1, 4, 2, 128, 64, 0), (1, 2, 1, 200, 32, 0),
+               (1, 2, 2, 128, 128, 32)]
+
+
+@pytest.mark.parametrize("case", SPLIT_CASES, ids=str)
+def test_split_p_meets_one_ulp(case):
+    """P V with P as two or three bf16 terms keeps every output within one
+    bf16 ulp, as P in fp32 does."""
+    *shape, window = case
+    for p_terms in (0, 2, 3):
+        assert _one_ulp_violations(shape, p_terms, window) == 0.0
+
+
+@pytest.mark.parametrize("case", SPLIT_CASES, ids=str)
+def test_rounding_p_alone_breaks_one_ulp(case):
+    """P rounded once to bf16 before P V puts many outputs more than one
+    bf16 ulp from the answer: the reason for the terms."""
+    *shape, window = case
+    assert _one_ulp_violations(shape, 1, window) > 0.05
+
+
+def test_three_bf16_terms_carry_p_exactly():
+    """Three bf16 terms add up to P exactly; two leave up to 2^-16 of it."""
+    p = torch.from_numpy(np.random.default_rng(0).random(100_000)
+                         .astype(np.float32))
+    exact = p.double()
+    three = sum(t.double() for t in _bf16_terms(p, 3))
+    assert torch.equal(three, exact)
+    rest = (exact - sum(t.double() for t in _bf16_terms(p, 2))).abs()
+    assert 0 < float(rest.max()) and bool((rest <= 2.0 ** -16 * exact).all())

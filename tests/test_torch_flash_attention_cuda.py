@@ -4,9 +4,10 @@ Needs an NVIDIA card and ``nvcc``; elsewhere every test skips with the
 reason. This file imports no JAX, so it also runs where only PyTorch is
 installed. The plain version runs in fp32 on the same values. fp32 output
 is held to it at 2e-6, the reference kernel tests' tolerance (fp32
-softmax and accumulation on both sides); bf16 output, which the kernel
-computes in fp32 and rounds once, within one bf16 ulp of the answer
-(relative 2^-8, plus 1e-6)."""
+softmax and accumulation on both sides); bf16 output, whose scores,
+softmax and accumulator the kernel keeps in fp32 (P V with P as three bf16
+terms) and rounds once, within one bf16 ulp of the answer (relative 2^-8,
+plus 1e-6)."""
 from __future__ import annotations
 
 import pytest
@@ -34,10 +35,25 @@ def _no_tf32():
     torch.backends.cuda.matmul.allow_tf32 = prev
 
 
-def _case(b, hq, hkv, s, d, dtype, device, seed=0):
+# bf16 cases of the tensor-core kernel's own paths: (B, Hq, Hkv, S, D),
+# causal, window, std of q and k. Non-causal at each D; ragged S against
+# its 64-row tiles (1, 65, 127); large scores (q and k at 3 randn, scores
+# of tens) that exercise the running-max rescaling
+BF16_CASES = [((1, 4, 2, 130, 32), False, 0, 0.3),
+              ((1, 4, 2, 130, 64), False, 0, 0.3),
+              ((1, 4, 2, 130, 128), False, 0, 0.3),
+              ((1, 4, 2, 130, 64), False, 32, 0.3),
+              ((1, 2, 1, 1, 64), True, 0, 0.3),
+              ((2, 4, 2, 65, 64), True, 0, 0.3),
+              ((1, 4, 4, 127, 128), True, 32, 0.3),
+              ((2, 8, 2, 256, 64), True, 0, 3.0),
+              ((1, 4, 2, 200, 128), True, 128, 3.0)]
+
+
+def _case(b, hq, hkv, s, d, dtype, device, seed=0, qk_std=0.3):
     g = torch.Generator().manual_seed(seed)
-    return [(0.3 * torch.randn((b, s, h, d), generator=g)).to(dtype).to(
-        device) for h in (hq, hkv, hkv)]
+    return [(std * torch.randn((b, s, h, d), generator=g)).to(dtype).to(
+        device) for h, std in ((hq, qk_std), (hkv, qk_std), (hkv, 0.3))]
 
 
 def _plain(q, k, v, **kw):
@@ -63,13 +79,22 @@ def test_kernel_matches_plain_version_at_serving_shapes(cuda_device, shape,
     _check(shape, dtype, 0, cuda_device)
 
 
-def _check(shape, dtype, window, device):
-    q, k, v = _case(*shape, dtype, device)
+@requires_cuda
+@pytest.mark.parametrize("case", BF16_CASES, ids=str)
+def test_bf16_kernel_paths(cuda_device, case):
+    shape, causal, window, qk_std = case
+    _check(shape, torch.bfloat16, window, cuda_device, causal=causal,
+           qk_std=qk_std)
+
+
+def _check(shape, dtype, window, device, causal=True, qk_std=0.3):
+    q, k, v = _case(*shape, dtype, device, qk_std=qk_std)
     before = flash_attention.launches
-    got = flash_attention(q, k, v, window=window)
+    got = flash_attention(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
     assert flash_attention.launches == before + 1
-    want = _plain(q.float(), k.float(), v.float(), window=window)
+    want = _plain(q.float(), k.float(), v.float(), causal=causal,
+                  window=window)
     assert got.dtype == dtype and got.shape == q.shape
     torch.testing.assert_close(got.float(), want, **TOLS[dtype])
 
@@ -93,3 +118,7 @@ def test_kernel_refuses_what_it_does_not_take(cuda_device):
         flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2), k, v)
     with pytest.raises(ValueError, match="devices"):
         flash_attention(q.cpu(), k, v)
+    shifted = torch.empty(q.numel() + 1, dtype=q.dtype,
+                          device=q.device)[1:].view(q.shape)
+    with pytest.raises(ValueError, match="aligned"):
+        flash_attention(shifted, k, v)

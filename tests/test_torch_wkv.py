@@ -84,3 +84,40 @@ def test_wrapper_refuses_bad_shapes():
     r = torch.zeros(1, 4, 2, 32)
     with pytest.raises(ValueError, match="shape"):
         wkv(r, r, r, r, torch.zeros(3, 32))
+
+
+def _grouped_scan(r, k, v, w, u, groups: int):
+    """The CUDA kernel's arithmetic in plain PyTorch: ``groups`` row groups
+    of the state, each adding its rows' part of y_j, sum_{i in g} r_i S_ij
+    + b_g v_j, with the group's bonus b_g = sum_{i in g} r_i u_i k_i folded
+    in; the parts of a column are summed in group order. Then each group
+    updates its rows, S_ij <- w_i S_ij + k_i v_j."""
+    b, s, h, hd = r.shape
+    rows = hd // groups
+    state = torch.zeros((b, h, groups, rows, hd))
+    ug = u.reshape(h, groups, rows)
+    ys = []
+    for t in range(s):
+        rt, kt, wt = (x[:, t].reshape(b, h, groups, rows) for x in (r, k, w))
+        vt = v[:, t, :, None, :]                          # [B,H,1,hd]
+        bonus = (rt * ug * kt).sum(-1, keepdim=True)      # [B,H,G,1]
+        part = bonus * vt + (rt[..., None] * state).sum(3)
+        y = part[:, :, 0]
+        for g in range(1, groups):
+            y = y + part[:, :, g]
+        ys.append(y)
+        state = wt[..., None] * state + kt[..., None] * vt[:, :, :, None]
+    return torch.stack(ys, 1), state.reshape(b, h, hd, hd)
+
+
+@pytest.mark.parametrize("hd", [32, 64])
+@pytest.mark.parametrize("groups", [1, 4, 8])
+def test_row_grouped_step_matches_the_scan(groups, hd):
+    args = _case(2, 40, 2, hd, seed=groups + hd)
+    y, s = _grouped_scan(*(torch.from_numpy(x) for x in args), groups)
+    y_ref, s_ref = _port(args)
+    _close(y.numpy(), y_ref)
+    _close(s.numpy(), s_ref)
+    y_jax, s_jax = wkv_ref(*(jnp.asarray(x) for x in args))
+    _close(y.numpy(), y_jax)
+    _close(s.numpy(), s_jax)
