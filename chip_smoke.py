@@ -14,7 +14,9 @@ failure raises and exits non-zero, before the last line is printed):
    graphs, beside the kernel's bound:
    - head select at the reference kernel tests' shapes (fp32 and bf16,
      ~10% of labels excluded) and at the FACADE path's shape (tolerance
-     2e-5); yardstick: a matmul and ``cross_entropy``;
+     2e-5), timed at the FACADE path's shape and at ``HS_SHAPES[2]``;
+     yardstick: a matmul and ``cross_entropy``; beside it the launch
+     floor, one tiny in-place PyTorch op timed the same way;
    - flash attention at the reference tests' ``FA_SHAPES``, a ragged
      S = 200, llama3.2-1b's serving shape (B 4, S 512, Hq 32, Hkv 8, D 64)
      and a long one (B 1, S 4096), each in fp32 and bf16, windows 32 and
@@ -24,7 +26,7 @@ failure raises and exits non-zero, before the last line is printed):
      plain version at 2e-6 (absolute plus relative); bf16 output against
      the plain version run in fp32 on the same bf16 values, within one
      bf16 ulp of the answer (relative 2^-8, plus 1e-6), since the kernel
-     keeps fp32 scores and statistics, carries P V as two bf16 terms of P
+     keeps fp32 scores and statistics, carries P V as three bf16 terms of P
      and rounds once; yardstick: ``scaled_dot_product_attention`` (causal,
      GQA);
    - wkv at the reference tests' ``RW_SHAPES``, a ragged S = 100, the
@@ -177,6 +179,29 @@ def hs_case(n, k, t, d, v, dtype, seed, drop=0.1):
     return (feats.to(dtype).cuda(), heads.to(dtype).cuda(), labels.cuda())
 
 
+def hs_main_inputs(seed):
+    """Inputs at the FACADE path's shape as the path makes them: LeNet's
+    bias folded in as a ones column, and no excluded label."""
+    feats, heads, labels = hs_case(*MAIN_SHAPE, torch.float32, seed=seed)
+    feats[..., -1] = 1.0
+    return feats, heads, labels.abs()
+
+
+def hs_check(name, got, want, **info):
+    """Relative error (against max(|want|, 1)) within ``HS_TOL`` and equal
+    argmins, or raise."""
+    err = float((got - want).abs().max())
+    rel = float(((got - want).abs() / want.abs().clamp(min=1)).max())
+    same_argmin = bool(torch.equal(got.argmin(1), want.argmin(1)))
+    rec = dict(info, max_abs_err=err, max_rel_err=rel,
+               argmin_equal=same_argmin)
+    log(f"{name} check", json.dumps(rec))
+    if not (np.isfinite(err) and rel <= HS_TOL and same_argmin):
+        raise AssertionError(f"{name} disagrees with its plain version: "
+                             f"{rec}")
+    return rec
+
+
 def hs_library(feats, heads, labels):
     """One PyTorch product and cross-entropy for the same function (the
     yardstick; the port never calls it)."""
@@ -226,31 +251,22 @@ def kernel_phase(rec):
     checks = []
     cases = [((1,) + s, dt) for s in HS_SHAPES
              for dt in (torch.float32, torch.bfloat16)]
-    cases += [(MAIN_SHAPE, torch.float32)]
     for i, (shape, dtype) in enumerate(cases):
         feats, heads, labels = hs_case(*shape, dtype, seed=i)
-        if shape == MAIN_SHAPE:
-            feats[..., -1] = 1.0                  # LeNet's folded bias
-            labels = labels.abs()                 # the main path has no -1
         got = head_losses(feats, heads, labels)
         torch.cuda.synchronize()
-        want = head_losses_ref(feats, heads, labels)
-        err = float((got - want).abs().max())
-        rel = float(((got - want).abs() / want.abs().clamp(min=1)).max())
-        same_argmin = bool(torch.equal(got.argmin(1), want.argmin(1)))
-        check = {"shape": list(shape), "dtype": str(dtype),
-                 "max_abs_err": err, "max_rel_err": rel,
-                 "argmin_equal": same_argmin}
-        checks.append(check)
-        log("head_select check", json.dumps(check))
-        if not (np.isfinite(err) and rel <= HS_TOL and same_argmin):
-            raise AssertionError(f"head_select disagrees with its plain "
-                                 f"version: {check}")
+        checks.append(hs_check("head_select", got,
+                               head_losses_ref(feats, heads, labels),
+                               shape=list(shape), dtype=str(dtype)))
+    feats, heads, labels = hs_main_inputs(seed=len(cases))
+    got = head_losses(feats, heads, labels)
+    torch.cuda.synchronize()
+    checks.append(hs_check("head_select", got,
+                           head_losses_ref(feats, heads, labels),
+                           shape=list(MAIN_SHAPE), dtype=str(torch.float32)))
     rec["head_select_checks"] = checks
 
-    feats, heads, labels = hs_case(*MAIN_SHAPE, torch.float32, seed=99)
-    feats[..., -1] = 1.0
-    labels = labels.abs()
+    feats, heads, labels = hs_main_inputs(seed=99)
     bound_ms, bound_by, nbytes, flops = hs_bound(feats, heads, labels)
     timing = {}
     for label, fn in (("ms", head_losses), ("plain_ms", head_losses_ref),
@@ -263,6 +279,17 @@ def kernel_phase(rec):
         head_losses(feats, heads, labels)
     torch.cuda.synchronize()
     timing["eager_call_ms"] = (time.perf_counter() - t0) * 10
+    # the launch floor: one one-element in-place op per call, same timing
+    one = torch.zeros(1, device="cuda")
+    timing["launch_floor_ms"] = graph_ms(lambda: one.add_(1.0))
+    # the reference tests' largest shape (K 5, T 128, D 128, V 1024)
+    big = hs_case(1, *HS_SHAPES[2], torch.float32, seed=98)
+    big_bound = hs_bound(*big)
+    timing["hs_shapes_2"] = {
+        "shape": [1, *HS_SHAPES[2]], "ms": graph_ms(
+            lambda: head_losses(*big), calls=10),
+        "library_ms": graph_ms(lambda: hs_library(*big), calls=10),
+        "bound_ms": big_bound[0], "bound_by": big_bound[1]}
     rec["head_select_timing"] = dict(
         timing, bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes,
         flops=flops, shape=list(MAIN_SHAPE))

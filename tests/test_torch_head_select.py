@@ -3,6 +3,9 @@
 Pallas kernel in interpret mode, and LeNet's bias fold against the
 reference CNN binding's ``head_loss``.
 
+A numpy emulation of the CUDA kernel's order of operations (the kernel
+itself runs only on the card) is held against the same two oracles.
+
 Tolerances are the reference kernel tests': 1e-5 in fp32, 5e-2 in bf16
 (both sides read the same bf16 values and accumulate in fp32); argmin, the
 selection decision, must agree exactly."""
@@ -38,6 +41,85 @@ def _case(k, t, d, v, seed, n=1, drop=0.1):
     return feats, heads, labels
 
 
+# the FACADE path's shape (T = B = 8, D = LeNet's 512 + bias, V = 10) with
+# a few nodes
+MAIN_SHAPE = (2, 8, 513, 10)
+CHUNK = 16          # vocab columns per pass: csrc/head_select.cu's kChunk
+WARPS = 8           # warps per block: csrc/head_select.cu's kWarps
+LANES = np.arange(32)
+
+
+def _fma(a, b, c):
+    """fp32 ``fmaf``: the product is exact in fp64 and the sum is rounded
+    there and then to fp32 (a double rounding, which differs from one
+    rounding only on rare ties)."""
+    return (a.astype(np.float64) * b + c).astype(np.float32)
+
+
+def _butterfly(x, op):
+    """The kernel's reductions over the lane pairs (xor 2, 4, 8, 16) of
+    ``x [T, 32]``; every lane ends with the same value."""
+    for o in (2, 4, 8, 16):
+        x = op(x, x[:, LANES ^ o]).astype(np.float32)
+    return x[:, 0]
+
+
+def _emulate_kernel(feats, heads, labels):
+    """``csrc/head_select.cu`` in numpy, in its order: lane l of a token's
+    warp sums rows d = l, l + 32, ... of each 16-column vocab chunk by fp32
+    FMAs; the transposing halving reduction folds the lanes (xor 16, 8, 4,
+    2: a lane keeps half its columns and adds its partner's copy of them;
+    then xor 1), which leaves column c's total on lanes 2c and 2c + 1; the
+    chunk joins an online max / sum-exp / gold-logit triple; tokens go to
+    warps in turn, and the warps' sums are added in warp order."""
+    n, t, d = feats.shape
+    k, v = heads.shape[1], heads.shape[3]
+    out = np.zeros((n, k), np.float32)
+    col = LANES >> 1
+    for node, head in np.ndindex(n, k):
+        f, w, y = feats[node], heads[node, head], labels[node]
+        m = np.full(t, -np.inf, np.float32)
+        s = np.zeros(t, np.float32)
+        gold = np.zeros(t, np.float32)
+        for v0 in range(0, v, CHUNK):
+            vc = min(CHUNK, v - v0)
+            acc = np.zeros((t, 32, CHUNK), np.float32)
+            for i0 in range(0, d, 32):
+                rows = min(32, d - i0)
+                acc[:, :rows, :vc] = _fma(f[:, i0:i0 + rows, None],
+                                          w[None, i0:i0 + rows, v0:v0 + vc],
+                                          acc[:, :rows, :vc])
+            half = CHUNK // 2
+            while half:
+                upper = ((LANES & 2 * half) != 0)[:, None]
+                lo, hi = acc[..., :half], acc[..., half:2 * half]
+                keep, send = np.where(upper, hi, lo), np.where(upper, lo, hi)
+                acc = (keep + send[:, LANES ^ 2 * half]).astype(np.float32)
+                half //= 2
+            total = (acc[..., 0] + acc[:, LANES ^ 1, 0]).astype(np.float32)
+            z = np.where(col < vc, total, -np.inf).astype(np.float32)
+            m_new = np.maximum(m, _butterfly(z, np.maximum))
+            e = np.where(col < vc, np.exp(z - m_new[:, None]), 0)
+            s = (s * np.exp(m - m_new) + _butterfly(e, np.add)).astype(
+                np.float32)
+            m = m_new
+            hit = (y >= v0) & (y < v0 + vc)
+            at = np.clip(2 * (y - v0), 0, 31)
+            gold = np.where(hit, total[np.arange(t), at], gold)
+        nll = ((m + np.log(s)).astype(np.float32) - gold).astype(np.float32)
+        part_nll = np.zeros(WARPS, np.float32)
+        part_cnt = np.zeros(WARPS, np.float32)
+        for tok in np.flatnonzero(y >= 0):
+            part_nll[tok % WARPS] += nll[tok]
+            part_cnt[tok % WARPS] += 1
+        total_nll, count = np.float32(0), np.float32(0)
+        for i in range(WARPS):
+            total_nll += part_nll[i]
+            count += part_cnt[i]
+        out[node, head] = total_nll / max(count, np.float32(1))
+    return out
+
+
 def _port(feats, heads, labels, tdt):
     return head_losses(torch.from_numpy(feats).to(tdt),
                        torch.from_numpy(heads).to(tdt),
@@ -71,6 +153,46 @@ def test_plain_version_matches_the_pallas_kernel(k, t, d, v, dtype):
     got = _port(feats, heads, labels, tdt).numpy()[0]
     np.testing.assert_allclose(got, want, rtol=tol, atol=tol)
     assert int(np.argmin(got)) == int(np.argmin(want))
+
+
+def _emulation_case(k, t, d, v, n):
+    feats, heads, labels = _case(k, t, d, v, seed=13 * k + d, n=n)
+    if (k, t, d, v) == MAIN_SHAPE:
+        feats[..., -1] = 1.0                 # LeNet's folded bias
+    return feats, heads, labels
+
+
+@pytest.mark.parametrize("k,t,d,v,n", [s + (1,) for s in HS_SHAPES]
+                         + [MAIN_SHAPE + (3,)])
+def test_kernel_order_matches_the_reference_oracle(k, t, d, v, n):
+    feats, heads, labels = _emulation_case(k, t, d, v, n)
+    got = _emulate_kernel(feats, heads, labels)
+    for i in range(n):
+        want = np.asarray(jax_ref(jnp.asarray(feats[i]),
+                                  jnp.asarray(heads[i]), labels[i]))
+        np.testing.assert_allclose(got[i], want, rtol=1e-5, atol=1e-5)
+        assert int(np.argmin(got[i])) == int(np.argmin(want))
+
+
+@requires_pallas
+@pytest.mark.parametrize("k,t,d,v,n", [s + (1,) for s in HS_SHAPES]
+                         + [MAIN_SHAPE + (3,)])
+def test_kernel_order_matches_the_pallas_kernel(k, t, d, v, n):
+    feats, heads, labels = _emulation_case(k, t, d, v, n)
+    got = _emulate_kernel(feats, heads, labels)
+    for i in range(n):
+        want = np.asarray(ref_hs.facade_head_losses(
+            jnp.asarray(feats[i]), jnp.asarray(heads[i]),
+            np.maximum(labels[i], 0), (labels[i] >= 0).astype(np.float32),
+            interpret=True))
+        np.testing.assert_allclose(got[i], want, rtol=1e-5, atol=1e-5)
+        assert int(np.argmin(got[i])) == int(np.argmin(want))
+
+
+def test_kernel_order_keeps_identical_heads_bit_identical():
+    feats, heads, labels = _case(1, 8, 513, 10, seed=5, n=3)
+    got = _emulate_kernel(feats, np.repeat(heads, 2, axis=1), labels)
+    np.testing.assert_array_equal(got[:, 0], got[:, 1])
 
 
 def test_negative_labels_are_excluded():

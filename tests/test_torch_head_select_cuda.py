@@ -19,6 +19,13 @@ from torch_caps import cuda_device, requires_cuda  # noqa: F401
 # the main path's shape (32 nodes, 2 heads, B = 8, LeNet's 512 + bias, 10)
 SHAPES = [(1, 2, 128, 64, 256), (1, 3, 256, 64, 512), (1, 5, 128, 128, 1024),
           (32, 2, 8, 513, 10), (3, 4, 37, 70, 45)]
+# the edges of the kernel's design: D around its 32 lanes (1, 31, 32, 33,
+# 513), V around its 16-column chunks (1, 10, 16, 17, 1024), T = 1, and n·K
+# odd, so every other head block starts off 16-byte alignment. In these
+# cases the last node's labels are all excluded, which must give 0.0.
+EDGE_SHAPES = [(3, 1, 1, 1, 1), (3, 3, 9, 31, 17), (2, 2, 8, 32, 16),
+               (3, 3, 5, 33, 10), (3, 1, 3, 33, 1024), (7, 1, 8, 513, 10),
+               (3, 3, 1, 513, 17)]
 TOL = 2e-5
 
 
@@ -43,11 +50,13 @@ def _no_tf32():
 
 
 @requires_cuda
-@pytest.mark.parametrize("shape", SHAPES, ids=str)
+@pytest.mark.parametrize("shape", SHAPES + EDGE_SHAPES, ids=str)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["fp32", "bf16"])
 def test_kernel_matches_plain_version(cuda_device, shape, dtype):
     feats, heads, labels = _case(*shape, dtype, cuda_device)
+    if shape in EDGE_SHAPES:
+        labels[-1] = -1
     before = head_losses.launches
     got = head_losses(feats, heads, labels)
     torch.cuda.synchronize()
@@ -57,12 +66,15 @@ def test_kernel_matches_plain_version(cuda_device, shape, dtype):
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
                                rtol=TOL, atol=TOL)
     assert torch.equal(got.argmin(1), want.argmin(1))
+    if shape in EDGE_SHAPES:
+        assert torch.equal(got[-1], torch.zeros_like(got[-1]))
 
 
 @requires_cuda
-def test_identical_heads_give_bit_identical_losses(cuda_device):
-    feats, heads, labels = _case(32, 1, 8, 513, 10, torch.float32,
-                                 cuda_device)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_identical_heads_give_bit_identical_losses(cuda_device, dtype):
+    feats, heads, labels = _case(32, 1, 8, 513, 10, dtype, cuda_device)
     got = head_losses(feats, heads.repeat(1, 2, 1, 1).contiguous(), labels)
     assert torch.equal(got[:, 0], got[:, 1])
     assert int(got.argmin(1).max()) == 0

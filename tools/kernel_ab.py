@@ -1,19 +1,23 @@
 #!/usr/bin/env python3
-"""Time two versions of the port's flash-attention and wkv kernels on one
-card, in turns.
+"""Time two versions of the port's head-select, flash-attention and wkv
+kernels on one card, in turns.
 
     python3 tools/kernel_ab.py BASELINE_DIR [--out FILE]
 
-``BASELINE_DIR`` holds another version of ``flash_attention.cu`` and
-``wkv.cu`` with the same C interface (``fa_forward``, ``wkv_forward``), for
-example those of an earlier commit unpacked by ``git archive`` into a
-git-ignored directory. Both versions are built with the port's ``nvcc``
-flags, each output is held against the plain version (the tolerances of
-``chip_smoke.py``), and each kernel is timed with CUDA graphs in the order
-baseline, current, current, baseline: flash attention in bf16 at
-llama3.2-1b's serving shape (B 4, S 512, Hq 32, Hkv 8, D 64) and at
-S = 4096, wkv at rwkv6-1.6b's (B 4, S 512, H 32, hd 64). Prints the card's
-name and power limit, then one JSON object (also written to ``--out``).
+``BASELINE_DIR`` holds another version of ``head_select.cu``,
+``flash_attention.cu`` and ``wkv.cu`` with the same C interface
+(``hs_head_losses``, ``fa_forward``, ``wkv_forward``), for example those of
+an earlier commit unpacked by ``git archive`` into a git-ignored
+directory. Both versions are built with the port's ``nvcc`` flags, each
+output is held against the plain version (the tolerances of
+``chip_smoke.py``; head select also with equal argmins), and each kernel
+is timed with CUDA graphs in the order baseline, current, current,
+baseline: head select in fp32 at the FACADE path's shape (n 32, K 2, T 8,
+D 513, V 10) and at the reference tests' ``HS_SHAPES[2]`` (K 5, T 128,
+D 128, V 1024, one node), flash attention in bf16 at llama3.2-1b's
+serving shape (B 4, S 512, Hq 32, Hkv 8, D 64) and at S = 4096, wkv at
+rwkv6-1.6b's (B 4, S 512, H 32, hd 64). Prints the card's name and power
+limit, then one JSON object (also written to ``--out``).
 """
 from __future__ import annotations
 
@@ -39,6 +43,17 @@ def load(src: pathlib.Path, out: pathlib.Path) -> ctypes.CDLL:
     subprocess.run([build.nvcc(), *build.NVCC_FLAGS, "-o", str(out),
                     str(src)], check=True, capture_output=True, text=True)
     return ctypes.CDLL(str(out))
+
+
+def hs_call(lib, feats, heads, labels, out):
+    n, k, d, v = heads.shape
+    rc = lib.hs_head_losses(feats.data_ptr(), heads.data_ptr(),
+                            labels.data_ptr(), out.data_ptr(), n, k,
+                            feats.shape[1], d, v, 0,
+                            torch.cuda.current_stream().cuda_stream)
+    if rc:
+        raise RuntimeError(f"hs_head_losses returned {rc}")
+    return out
 
 
 def fa_call(lib, q, k, v, out):
@@ -77,7 +92,11 @@ def main() -> int:
     libs = {name: {"baseline": load(args.baseline / f"{name}.cu",
                                     out_dir / f"lib{name}-baseline.so"),
                    "current": ctypes.CDLL(str(build.build(name)[name]))}
-            for name in ("flash_attention", "wkv")}
+            for name in ("head_select", "flash_attention", "wkv")}
+    for lib in libs["head_select"].values():
+        lib.hs_head_losses.argtypes = ([ctypes.c_void_p] * 4
+                                       + [ctypes.c_int] * 6
+                                       + [ctypes.c_void_p])
     for lib in libs["flash_attention"].values():
         lib.fa_forward.argtypes = ([ctypes.c_void_p] * 4
                                    + [ctypes.c_int] * 8
@@ -88,6 +107,29 @@ def main() -> int:
     order = ("baseline", "current", "current", "baseline")
     rec = {"nvidia_smi": smi, "device": torch.cuda.get_device_name(0),
            "order": order}
+
+    hs2 = (1, *cs.HS_SHAPES[2])
+    for label, shape, inputs, calls in (
+            ("head_select_main", cs.MAIN_SHAPE, cs.hs_main_inputs(seed=99),
+             50),
+            ("head_select_hs2", hs2,
+             cs.hs_case(*hs2, torch.float32, seed=98), 10)):
+        want = cs.head_losses_ref(*inputs)
+        out = torch.empty_like(want)
+        t = {"shape": list(shape), "dtype": "fp32", "max_abs_err": {},
+             "ms": {"baseline": [], "current": []}}
+        for which in ("baseline", "current"):
+            out.fill_(float("nan"))
+            got = hs_call(libs["head_select"][which], *inputs, out)
+            torch.cuda.synchronize()
+            t["max_abs_err"][which] = cs.hs_check(
+                f"{label} {which}", got, want)["max_abs_err"]
+        for which in order:
+            lib = libs["head_select"][which]
+            t["ms"][which].append(cs.graph_ms(
+                lambda: hs_call(lib, *inputs, out), calls=calls))
+        rec[label] = t
+        print(label, json.dumps(t), flush=True)
 
     for label, shape, calls in (("flash_attention_serve", cs.FA_SERVE, 50),
                                 ("flash_attention_long", cs.FA_LONG, 5)):
