@@ -13,13 +13,24 @@ failure raises and exits non-zero, before the last line is printed):
    the card and time kernel, plain version and library yardstick with CUDA
    graphs, beside the kernel's bound:
    - head select at the reference kernel tests' shapes (fp32 and bf16,
-     ~10% of labels excluded) and at the FACADE path's shape (tolerance
-     2e-5), timed at the FACADE path's shape and at ``HS_SHAPES[2]``;
+     ~10% of labels excluded; in bf16 they take the tensor-core body) and
+     at the FACADE path's shape in fp32 and in bf16 (the FMA body; D 513),
+     tolerance 2e-5 relative and equal argmins, timed at the FACADE path's
+     shape and at ``HS_SHAPES[2]``;
      yardstick: a matmul and ``cross_entropy``; beside it the launch
-     floor, one tiny in-place PyTorch op timed the same way;
+     floor, one tiny in-place PyTorch op timed the same way. Then its
+     tensor-core body (the LM regime, two device launches a call) at the
+     LM FACADE path's shape (n·K 4, T 1024, D 2048, V 128,256, bf16) and
+     two ragged ones (T 1000 with V 1000, T 200 with V 65,536), a node with
+     every label excluded giving 0.0, the same tolerance, identical heads
+     giving identical losses; timed at the path's
+     shape; yardstick: per (node, head) a bf16 matmul and
+     ``cross_entropy`` on fp32 logits;
    - flash attention at the reference tests' ``FA_SHAPES``, a ragged
      S = 200, llama3.2-1b's serving shape (B 4, S 512, Hq 32, Hkv 8, D 64)
-     and a long one (B 1, S 4096), each in fp32 and bf16, windows 32 and
+     and a long one (B 1, S 4096), each in fp32 and bf16, the LM FACADE
+     feature pass's shape in bf16 (B 4, S 256, from the config and
+     ``LM_FACADE``), windows 32 and
      128 in both, and the bf16 tensor-core kernel's own paths
      (``FA_BF16_CASES``: D 32 and 128, ``causal=False``, ragged S against
      its 64-row tiles, large scores). fp32 output is held against the
@@ -40,6 +51,21 @@ failure raises and exits non-zero, before the last line is printed):
    round and the bytes per round against the formula;
 4. a small FACADE/EL input on the card and on the CPU from the same seed,
    which must agree;
+4b. FACADE on llama3.2-1b at full width (bf16, heads untied): 2 nodes in
+   clusters 1:1, k 2, degree 1, H 2, B 4, S 256, lr 5e-3, head jitter
+   1e-3, clustered token streams, 3 rounds driven through
+   ``runner.LMFacade`` (``facade_round``), then one more under
+   ``torch.profiler``; before round 1, K1 against its plain version on the
+   operands the LM binding builds for that round (2e-5 relative, equal
+   argmins, and equal to the round's own selection losses); checks one
+   head-select call and 16 flash-attention launches per node a round (all
+   from step 2c's no-grad feature pass: training attention is the plain
+   differentiable ``sdpa``), no wkv launch, round-1 selection losses in
+   [11, 13], the bytes per round from the config alone and finite
+   parameters; prints the round times and peak memory;
+4c. the smoke LM FACADE rounds (fp32) on the card and on the CPU from the
+   same draws: selection losses and parameters within 1e-4, cluster ids
+   and bytes equal;
 5. the serving path: ``serve`` for llama3.2-1b and then rwkv6-1.6b at full
    width (bf16, parameters from the port's init on the card), 8 requests
    in batches of 4, prompt length 512, 32 generated tokens, greedy, seed
@@ -54,11 +80,12 @@ failure raises and exits non-zero, before the last line is printed):
    times and bound), then the last line ``{"ok": true, "device": {...}}``.
 
 Every kernel's launch count is set to 0 just before each path is driven
-and read just after. TF32 is off for every matmul and convolution of the
-run. A JSON record of every number goes to ``build/chip_smoke.json``.
+and read just after (``counted``), each phase reading only its own. TF32
+is off for every matmul and convolution of the run. A JSON record of every number goes to ``build/chip_smoke.json``.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import pathlib
 import statistics
@@ -76,7 +103,7 @@ import torch.nn.functional as F  # noqa: E402
 from repro_torch.configs.facade_paper import lenet  # noqa: E402
 from repro_torch.core import split  # noqa: E402
 from repro_torch.core.bindings import make_binding  # noqa: E402
-from repro_torch.core.runner import run_experiment  # noqa: E402
+from repro_torch.core.runner import LMFacade, run_experiment  # noqa: E402
 from repro_torch.data.synthetic import SynthSpec, make_clustered_data  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.flash_attention import attention_ref, flash_attention  # noqa: E402
@@ -95,7 +122,16 @@ KERNELS = (head_losses, flash_attention, wkv)
 # (K, T, D, V): the reference kernel tests' HS_SHAPES (tests/test_kernels.py)
 HS_SHAPES = [(2, 128, 64, 256), (3, 256, 64, 512), (5, 128, 128, 1024)]
 MAIN_SHAPE = (32, 2, 8, 513, 10)        # n, K, T = B, D = 512 + bias, V
-HS_TOL = 2e-5       # same inputs, fp32 accumulation on both sides
+# relative (against max(|loss|, 1)): the same values on both sides, fp32
+# sums in other orders; also for the tensor-core body (bf16 values read
+# exactly, fp32 products and sums)
+HS_TOL = 2e-5
+# K1 in the LM regime (the tensor-core body), (n·K, 1, T, D, V) as the LM
+# binding hands step 2c over: FACADE on llama3.2-1b (n 2, k 2, T = B·S =
+# 1024, D 2048, V 128,256), then T off the 64-token tiles with V = 1000
+# and with rwkv6-1.6b's V = 65,536
+HS_LM_SHAPE = (4, 1, 1024, 2048, 128256)
+HS_LM_RAGGED = [(2, 2, 1000, 2048, 1000), (4, 1, 200, 2048, 65536)]
 PAPER = dict(k=2, degree=4, local_steps=10, batch_size=8, lr=0.05, seed=0)
 ROUNDS, EVAL_EVERY = 8, 4
 SMALL_TOL = 0.1     # accuracy across devices (reference precedent)
@@ -132,6 +168,24 @@ RW_CASES = [((1, 1, 2, 64), 0.0), ((2, 31, 2, 64), 0.0),
             ((2, 33, 2, 64), 0.0), ((2, 100, 3, 64), 2.0),
             ((1, 512, 2, 32), -6.0), ((6, 48, 44, 64), 0.0)]
 RW_TOL = 1e-5
+# FACADE on llama3.2-1b at full width (bf16, heads untied by the binding):
+# 2 nodes in clusters 1:1, k 2, degree 1, H 2, B 4, S 256 (T = 1024 tokens
+# a node at step 2c), tokens as examples/facade_lm_pretrain.py builds them;
+# 3 rounds
+LM_FACADE = dict(clusters=(1, 1), k=2, degree=1, local_steps=2, batch=4,
+                 seq=256, lr=5e-3, head_jitter=1e-3, seqs_per_node=32,
+                 seed=0)
+LM_ROUNDS = 3
+# round 1 scores the initial heads: ln V = 11.76, plus about 0.4 for logits
+# of standard deviation about 0.9 (untied head at 0.02, unit-RMS features)
+LM_SELECT_RANGE = (11.0, 13.0)
+# the smoke config (fp32) on the card and on the CPU: selection losses and
+# parameters (against each leaf's largest value) within 1e-4, the same fp32
+# arithmetic in other summation orders; cluster ids and bytes exact; 2
+# rounds
+SMOKE_LM = dict(LM_FACADE, batch=2, seq=32, lr=1e-2, seqs_per_node=8)
+SMOKE_LM_ROUNDS = 2
+SMOKE_LM_TOL = 1e-4
 SERVE = dict(batch=4, prompt_len=512, gen_len=32, temperature=0.0, seed=0)
 N_REQUESTS = 8
 SMOKE_SERVE = dict(batch=2, prompt_len=32, gen_len=8, temperature=0.0,
@@ -187,8 +241,30 @@ def hs_main_inputs(seed):
     return feats, heads, labels.abs()
 
 
-def hs_check(name, got, want, **info):
-    """Relative error (against max(|want|, 1)) within ``HS_TOL`` and equal
+def hs_lm_case(n, k, t, d, v, seed, drop=0.1):
+    """LM-regime inputs drawn on the card: features as ``rms_norm`` gives
+    them (unit scale), heads at the untied head's init scale (0.02), bf16;
+    ``drop`` of the labels excluded."""
+    g = torch.Generator("cuda").manual_seed(seed)
+    feats = torch.randn((n, t, d), generator=g, device="cuda")
+    heads = 0.02 * torch.randn((n, k, d, v), generator=g, device="cuda")
+    labels = torch.randint(0, v, (n, t), generator=g, dtype=torch.int32,
+                           device="cuda")
+    labels[torch.rand((n, t), generator=g, device="cuda") < drop] = -1
+    return feats.to(torch.bfloat16), heads.to(torch.bfloat16), labels
+
+
+def hs_lm_library(feats, heads, labels):
+    """Per (node, head) a bf16 ``torch.matmul`` and ``cross_entropy`` on
+    the fp32 logits (the yardstick; the port never calls it)."""
+    n, k = heads.shape[:2]
+    return torch.stack([torch.stack([F.cross_entropy(
+        torch.matmul(feats[i], heads[i, j]).float(), labels[i].long(),
+        ignore_index=-1) for j in range(k)]) for i in range(n)])
+
+
+def hs_check(name, got, want, tol=HS_TOL, **info):
+    """Relative error (against max(|want|, 1)) within ``tol`` and equal
     argmins, or raise."""
     err = float((got - want).abs().max())
     rel = float(((got - want).abs() / want.abs().clamp(min=1)).max())
@@ -196,7 +272,7 @@ def hs_check(name, got, want, **info):
     rec = dict(info, max_abs_err=err, max_rel_err=rel,
                argmin_equal=same_argmin)
     log(f"{name} check", json.dumps(rec))
-    if not (np.isfinite(err) and rel <= HS_TOL and same_argmin):
+    if not (np.isfinite(err) and rel <= tol and same_argmin):
         raise AssertionError(f"{name} disagrees with its plain version: "
                              f"{rec}")
     return rec
@@ -221,19 +297,25 @@ def hs_bound(feats, heads, labels):
               + labels.numel() * 4 + n * k * 4)
     valid = int((labels >= 0).sum())              # tokens this data needs
     flops = 2 * k * valid * d * v
+    peak = BF16_FLOPS if feats.dtype == torch.bfloat16 else FP32_FLOPS
     by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    by_ops = flops / FP32_FLOPS * 1e3
+    by_ops = flops / peak * 1e3
     return max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops
                                    else "operations"), nbytes, flops
 
 
-def reset_launches() -> None:
+@contextlib.contextmanager
+def counted():
+    """Every kernel's launch count set to 0 on entry; the dict yielded is
+    filled with the counts of the block on exit, so a phase reads only its
+    own launches."""
     for fn in KERNELS:
         fn.launches = 0
-
-
-def launches() -> dict:
-    return {fn.__name__: fn.launches for fn in KERNELS}
+    counts = {}
+    try:
+        yield counts
+    finally:
+        counts.update({fn.__name__: fn.launches for fn in KERNELS})
 
 
 def kernel_phase(rec):
@@ -258,12 +340,16 @@ def kernel_phase(rec):
         checks.append(hs_check("head_select", got,
                                head_losses_ref(feats, heads, labels),
                                shape=list(shape), dtype=str(dtype)))
-    feats, heads, labels = hs_main_inputs(seed=len(cases))
-    got = head_losses(feats, heads, labels)
-    torch.cuda.synchronize()
-    checks.append(hs_check("head_select", got,
-                           head_losses_ref(feats, heads, labels),
-                           shape=list(MAIN_SHAPE), dtype=str(torch.float32)))
+    # the FACADE path's shape in fp32, and in bf16 (the FMA body's bf16
+    # path: D 513 is off the tensor-core body's 16-byte rows)
+    for extra, dtype in ((1, torch.bfloat16), (0, torch.float32)):
+        feats, heads, labels = hs_main_inputs(seed=len(cases) + extra)
+        feats, heads = feats.to(dtype), heads.to(dtype)
+        got = head_losses(feats, heads, labels)
+        torch.cuda.synchronize()
+        checks.append(hs_check("head_select", got,
+                               head_losses_ref(feats, heads, labels),
+                               shape=list(MAIN_SHAPE), dtype=str(dtype)))
     rec["head_select_checks"] = checks
 
     feats, heads, labels = hs_main_inputs(seed=99)
@@ -301,7 +387,55 @@ def kernel_phase(rec):
             "max_abs_err": checks[-1]["max_abs_err"],
             "ms": timing["ms"], "plain_ms": timing["plain_ms"],
             "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": timing["library_ms"]}
+            "library_ms": timing["library_ms"],
+            "lm": head_select_lm_phase(rec)}
+
+
+def head_select_lm_phase(rec) -> dict:
+    """K1's tensor-core body (the LM regime) against its plain version at
+    the LM FACADE path's shape and two ragged ones (the last node's labels
+    all excluded: 0.0), then timed at the path's shape."""
+    checks = []
+    for i, shape in enumerate([HS_LM_SHAPE] + HS_LM_RAGGED):
+        feats, heads, labels = hs_lm_case(*shape, seed=i)
+        labels[-1] = -1
+        got = head_losses(feats, heads, labels)
+        torch.cuda.synchronize()
+        checks.append(hs_check("head_select lm", got,
+                               head_losses_ref(feats, heads, labels),
+                               shape=list(shape), dtype="bf16"))
+        if not torch.equal(got[-1], torch.zeros_like(got[-1])):
+            raise AssertionError(f"head_select lm: a node with every label "
+                                 f"excluded gives {got[-1].tolist()}")
+        del feats, heads, labels
+    # identical heads, identical losses
+    feats, heads, labels = hs_lm_case(2, 1, *HS_LM_SHAPE[2:], seed=7)
+    got = head_losses(feats, heads.repeat(1, 2, 1, 1).contiguous(), labels)
+    if not torch.equal(got[:, 0], got[:, 1]):
+        raise AssertionError(f"head_select lm: identical heads give "
+                             f"{got.tolist()}")
+    del feats, heads, labels
+    torch.cuda.empty_cache()
+
+    # timing on the path's inputs: every label counts (the mask is all ones)
+    feats, heads, labels = hs_lm_case(*HS_LM_SHAPE, seed=99, drop=0.0)
+    bound_ms, bound_by, nbytes, flops = hs_bound(feats, heads, labels)
+    t = {"shape": list(HS_LM_SHAPE), "dtype": "bf16", "bound_ms": bound_ms,
+         "bound_by": bound_by, "bytes": nbytes, "flops": flops,
+         "device_launches_per_call": 2, "tol": HS_TOL,
+         "max_abs_err": max(c["max_abs_err"] for c in checks),
+         "max_rel_err": max(c["max_rel_err"] for c in checks)}
+    for key, fn, calls in (("ms", head_losses, 5),
+                           ("plain_ms", head_losses_ref, 1),
+                           ("library_ms", hs_lm_library, 2),
+                           ("ms_again", head_losses, 5)):
+        t[key] = graph_ms(lambda: fn(feats, heads, labels), calls=calls,
+                          reps=5)
+    rec["head_select_lm"] = dict(t, checks=checks)
+    log("head_select lm timing", json.dumps(t))
+    del feats, heads, labels
+    torch.cuda.empty_cache()
+    return t
 
 
 def round_bytes(cfg, algo: str, n: int, degree: int) -> float:
@@ -322,16 +456,16 @@ def main_path_phase(rec):
     rec["data_s"] = time.perf_counter() - t0
     cfg = lenet()
     n = ds.n_nodes
-    reset_launches()
     results = {}
-    for algo in ("facade", "el"):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        res = run_experiment(algo, cfg, ds, rounds=ROUNDS,
-                             eval_every=EVAL_EVERY, device="cuda", **PAPER)
-        torch.cuda.synchronize()
-        results[algo] = (res, time.perf_counter() - t0)
-    counts = launches()
+    with counted() as counts:
+        for algo in ("facade", "el"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = run_experiment(algo, cfg, ds, rounds=ROUNDS,
+                                 eval_every=EVAL_EVERY, device="cuda",
+                                 **PAPER)
+            torch.cuda.synchronize()
+            results[algo] = (res, time.perf_counter() - t0)
 
     out = {"launches": counts}
     if counts != {"head_losses": ROUNDS, "flash_attention": 0, "wkv": 0}:
@@ -389,6 +523,154 @@ def small_input_phase(rec):
                 cpu.comm.bytes):
             raise AssertionError(f"{algo}: card and CPU disagree {out}")
     rec["small_input"] = out
+
+
+def lm_payload_bytes(cfg) -> int:
+    """One push of a dense GQA model under FACADE, from the config alone:
+    the core (embedding and layers) and one head (final norm and untied
+    ``lm_head``) in the param dtype, and the 4-byte cluster id."""
+    d, hd = cfg.d_model, cfg.hd
+    layer = (2 * d + d * cfg.n_heads * hd * 2 + d * cfg.n_kv_heads * hd * 2
+             + 3 * d * cfg.d_ff)
+    core = cfg.vocab_size * d + cfg.n_layers * layer
+    head = d + d * cfg.vocab_size
+    return (core + head) * torch.finfo(cfg.dt).bits // 8 + 4
+
+
+def lm_select_check(run, drawn) -> tuple:
+    """K1 against its plain version on the operands the LM binding builds
+    from ``run``'s state and the first local batch of ``drawn``, as step 2c
+    builds them (at round 1 the aggregation leaves the replicated state as
+    it is); returns (K1's [n, k] losses, the check's record)."""
+    first = {key: b[:, 0] for key, b in drawn[0].items()}
+    with torch.no_grad():
+        feats = run.binding.features(run.state.cores, first)
+        f, w, labels = run.binding.select_operands(feats, run.state.heads,
+                                                   first)
+        got = head_losses(f, w, labels).reshape(run.n, -1)
+        want = head_losses_ref(f, w, labels).reshape(run.n, -1)
+    torch.cuda.synchronize()
+    c = hs_check("head_select lm path", got, want,
+                 operands=[list(f.shape), list(w.shape)])
+    del feats, f, w, labels, want
+    torch.cuda.empty_cache()
+    return got, c
+
+
+def lm_facade_phase(rec) -> int:
+    """FACADE on llama3.2-1b at full width on the card; returns the
+    head-select calls in its timed rounds."""
+    cfg = get_config("llama3.2-1b")
+    p = LM_FACADE
+    want_bytes = float(np.float32(len(p["clusters"]) * p["degree"]
+                                  * lm_payload_bytes(cfg)))
+    rounds, k1 = [], 0
+    t0 = time.perf_counter()
+    run = LMFacade(cfg, device="cuda",
+                   generator=torch.Generator("cuda").manual_seed(p["seed"]),
+                   **p)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    drawn = run.draw()
+    k1_path, path_check = lm_select_check(run, drawn)
+    torch.cuda.reset_peak_memory_stats()
+
+    def one_round(drawn=None):
+        with counted() as counts:
+            info = run.round(drawn)
+            torch.cuda.synchronize()
+        want = {"head_losses": 1, "wkv": 0,
+                "flash_attention": run.n * cfg.n_layers}
+        if counts != want:
+            raise AssertionError(f"LM FACADE: kernel launches {counts} "
+                                 f"in a round, want {want}")
+        if info["round_bytes"] != want_bytes:
+            raise AssertionError(f"LM FACADE: bytes per round "
+                                 f"{info['round_bytes']} != {want_bytes}")
+        return info, counts
+
+    for rnd in range(1, LM_ROUNDS + 1):
+        t0 = time.perf_counter()
+        info, counts = one_round(drawn if rnd == 1 else None)
+        wall = time.perf_counter() - t0
+        losses = info["selection_losses"].float()
+        if rnd == 1:
+            # the round scored what the check held against the plain version
+            path_check["round_vs_check_rel_err"] = float(
+                ((losses - k1_path).abs() / k1_path.abs().clamp(min=1))
+                .max())
+            if not path_check["round_vs_check_rel_err"] <= HS_TOL:
+                raise AssertionError(f"LM FACADE: round 1 selected on "
+                                     f"{losses.tolist()}, the checked K1 "
+                                     f"call gave {k1_path.tolist()}")
+        losses = losses.cpu()
+        if rnd == 1 and not (bool(torch.isfinite(losses).all()) and
+                             LM_SELECT_RANGE[0] <= float(losses.min())
+                             and float(losses.max())
+                             <= LM_SELECT_RANGE[1]):
+            raise AssertionError(f"LM FACADE: round-1 selection losses "
+                                 f"{losses.tolist()} outside "
+                                 f"{LM_SELECT_RANGE}")
+        k1 += counts["head_losses"]
+        rounds.append({"round": rnd, "wall_s": wall,
+                       "selection_losses": losses.tolist(),
+                       "cluster_id": info["cluster_id"].tolist(),
+                       "launches": counts})
+        log(f"LM FACADE round {rnd}: {wall:.3f} s, selection losses "
+            f"{losses.tolist()}, cluster ids "
+            f"{info['cluster_id'].tolist()}")
+    peak = torch.cuda.max_memory_allocated()
+    # where the time goes: one more round under torch.profiler
+    profile = device_profile(one_round)
+    for leaf in tree_leaves(run.state.cores) + tree_leaves(run.state.heads):
+        if not bool(torch.isfinite(leaf).all()):
+            raise AssertionError("LM FACADE: non-finite parameters")
+    out = {**p, "n": run.n, "init_s": init_s, "rounds": rounds,
+           "round_1_s": rounds[0]["wall_s"],
+           "rounds_2_3_s": [r["wall_s"] for r in rounds[1:]],
+           "peak_mem_bytes": peak, "bytes_per_round": want_bytes,
+           "k1_path_check": path_check, "profiled_round": profile}
+    rec["lm_facade"] = out
+    log("LM FACADE profile", json.dumps(profile))
+    log(f"LM FACADE: round 1 {out['round_1_s']:.3f} s, rounds 2-3 "
+        f"{out['rounds_2_3_s']} s, peak memory {peak / 1e9:.2f} GB, "
+        f"bytes/round {want_bytes:.0f}")
+    del run
+    torch.cuda.empty_cache()
+    return k1
+
+
+def smoke_lm_facade_phase(rec):
+    """The smoke LM FACADE rounds (fp32) on the card and on the CPU from
+    the same draws: selection losses and parameters within SMOKE_LM_TOL,
+    cluster ids and bytes equal."""
+    cfg = get_config("llama3.2-1b", smoke=True)
+    runs = {}
+    for device in ("cuda", "cpu"):
+        run = LMFacade(cfg, device=device, **SMOKE_LM)
+        runs[device] = (run, [run.round() for _ in range(SMOKE_LM_ROUNDS)])
+    (gpu, gi), (cpu, ci) = runs["cuda"], runs["cpu"]
+    loss_diff = max(float((a["selection_losses"].cpu()
+                           - b["selection_losses"]).abs().max())
+                    for a, b in zip(gi, ci))
+    same_cid = all(torch.equal(a["cluster_id"].cpu(), b["cluster_id"])
+                   for a, b in zip(gi, ci))
+    same_bytes = [a["round_bytes"] for a in gi] == [b["round_bytes"]
+                                                     for b in ci]
+    param_diff = max(
+        float((a.cpu() - b).abs().max() / b.abs().max().clamp(min=1e-3))
+        for a, b in zip(tree_leaves(gpu.state.cores)
+                        + tree_leaves(gpu.state.heads),
+                        tree_leaves(cpu.state.cores)
+                        + tree_leaves(cpu.state.heads)))
+    out = {"selection_loss_max_diff": loss_diff,
+           "param_max_rel_diff": param_diff, "cluster_ids_equal": same_cid,
+           "bytes_equal": same_bytes, "tol": SMOKE_LM_TOL}
+    log(f"smoke LM FACADE: card vs CPU {json.dumps(out)}")
+    if not (loss_diff <= SMOKE_LM_TOL and param_diff <= SMOKE_LM_TOL
+            and same_cid and same_bytes):
+        raise AssertionError(f"smoke LM FACADE: card and CPU disagree {out}")
+    rec["smoke_lm_facade"] = out
 
 
 def check(name, got, want, tol, rtol=None, **info):
@@ -451,6 +733,12 @@ def flash_attention_phase(rec):
               for dt in both]
     cases += [(shape, torch.bfloat16, causal, w, std)
               for shape, causal, w, std in FA_BF16_CASES]
+    # the LM FACADE path's step-2c feature pass (bf16, causal, its window)
+    lm = get_config("llama3.2-1b")
+    cases.append(((LM_FACADE["batch"], lm.n_heads, lm.n_kv_heads,
+                   LM_FACADE["seq"], lm.hd), torch.bfloat16, True,
+                  lm.sliding_window, 0.3))
+    # last: the serving shape in bf16, whose error the kernels line reports
     cases += [(shape, dt, True, 0, 0.3) for dt in both
               for shape in ((1, 4, 2, 200, 64), FA_LONG, FA_SERVE)]
     for i, (shape, dtype, causal, window, qk_std) in enumerate(cases):
@@ -594,9 +882,8 @@ def serve_phase(rec, arch: str, kernel) -> int:
     serve(cfg, params, queue[:1], device="cuda",
           **dict(SERVE, gen_len=2))                       # warm-up
     torch.cuda.reset_peak_memory_stats()
-    reset_launches()
-    res = serve(cfg, params, queue, device="cuda", **SERVE)
-    counts = launches()
+    with counted() as counts:
+        res = serve(cfg, params, queue, device="cuda", **SERVE)
     batches = len(res.batch_sizes)
     want = {fn.__name__: 0 for fn in KERNELS}
     want[kernel.__name__] = cfg.n_layers * batches
@@ -610,15 +897,15 @@ def serve_phase(rec, arch: str, kernel) -> int:
     # decode steps alone launch no kernel
     toks = torch.from_numpy(np.stack([q[:16] for q in queue[:2]])).cuda()
     logits, cache = transformer.prefill(cfg, params, toks, cache_extra=4)
-    reset_launches()
     pos = torch.full((2,), 16, dtype=torch.int32, device="cuda")
-    for _ in range(4):
-        logits, cache = transformer.decode_step(
-            cfg, params, cache, logits.argmax(-1)[:, None], pos)
-        pos = pos + 1
-    torch.cuda.synchronize()
-    if any(launches().values()):
-        raise AssertionError(f"{arch}: decode launched {launches()}")
+    with counted() as decode_counts:
+        for _ in range(4):
+            logits, cache = transformer.decode_step(
+                cfg, params, cache, logits.argmax(-1)[:, None], pos)
+            pos = pos + 1
+        torch.cuda.synchronize()
+    if any(decode_counts.values()):
+        raise AssertionError(f"{arch}: decode launched {decode_counts}")
 
     # where the time goes: one batch's prefill, then 8 decode steps
     batch = np.zeros((SERVE["batch"], SERVE["prompt_len"]), np.int32)
@@ -711,6 +998,8 @@ def main() -> int:
     rw = wkv_phase(rec, sm_clock_hz)
     hs["launches"] = main_path_phase(rec)
     small_input_phase(rec)
+    hs["lm"]["launches"] = lm_facade_phase(rec)
+    smoke_lm_facade_phase(rec)
     fa["launches"] = serve_phase(rec, "llama3.2-1b", flash_attention)
     rw["launches"] = serve_phase(rec, "rwkv6-1.6b", wkv)
     smoke_serve_phase(rec)

@@ -1,15 +1,23 @@
 """Model bindings: the uniform interface the DL algorithms train against.
 
 A binding exposes, over node-stacked trees (leading ``[n]``):
-    init(generator)              -> one model's full tree (head included)
-    head_keys                    -> which top-level groups form the head
-    loss(params, batch)          -> sum over nodes of each node's mean loss
-    features(core, x)            -> core activations ``[n, B, D]``
-    select_operands(feats, heads) -> the head-select kernel's operands
-    forward(params, x)           -> logits ``[n, B, V]``
+    init(generator)                     -> one model's full tree (head
+                                           included)
+    head_keys                           -> which top-level groups form the
+                                           head
+    loss(params, batch)                 -> sum over nodes of each node's
+                                           mean loss
+    features(core, batch)               -> the core's output per node
+    select_operands(feats, heads, batch) -> the head-select kernel's
+                                           ``(features, heads, labels)``
+    forward(params, x)                  -> logits ``[n, B, V]`` (CNN only)
 
 The features / head-select pair is the paper's III-E optimization: the core
-runs once per round per node, and the k heads score its cached output.
+runs once per round per node, and the k heads score its cached output. The
+kernel takes ``[m, T, D] x [m, K', D, V]``; a binding whose heads share the
+features passes ``m = n, K' = k`` (the CNN), one whose heads transform the
+features first passes one stream per (node, head), ``m = n * k, K' = 1``
+(the language models); either way the result reshapes to ``[n, k]``.
 """
 from __future__ import annotations
 
@@ -17,9 +25,10 @@ from typing import Any, Callable, NamedTuple
 
 import torch
 
-from repro_torch.models import cnn
-from repro_torch.models.base import CNNConfig
-from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
+from repro_torch.models import cnn, layers, transformer
+from repro_torch.models.base import CNNConfig, ModelConfig
+from repro_torch.tree import (tree_leaves, tree_map, tree_unflatten,
+                              tree_unstack)
 
 
 def node_matmul(a, x):
@@ -46,11 +55,12 @@ class Binding(NamedTuple):
 def local_sgd(binding: Binding, params, batches, lr: float):
     """H plain-SGD steps (paper step 2d) on every node at once.
 
-    ``batches``: ``{"x": [n, H, B, ...], "y": [n, H, B]}``. The loss is the
-    sum of the nodes' own mean losses, so one backward pass gives each node
-    its own gradient. Shared by FACADE and the baselines.
+    ``batches``: a dict of ``[n, H, ...]`` leaves (``{"x", "y"}`` for a
+    CNN, ``{"tokens", "labels", "mask"}`` for a language model). The loss
+    is the sum of the nodes' own mean losses, so one backward pass gives
+    each node its own gradient. Shared by FACADE and the baselines.
     """
-    for h in range(batches["y"].shape[1]):
+    for h in range(next(iter(batches.values())).shape[1]):
         batch = {k: v[:, h] for k, v in batches.items()}
         leaves = [l.detach().requires_grad_() for l in tree_leaves(params)]
         with torch.enable_grad():
@@ -67,12 +77,24 @@ def gossip_mix(w, tree):
     return tree_map(lambda p: node_matmul(w.to(p.dtype), p), tree)
 
 
+def _untie_lm_head(cfg: ModelConfig, params: dict,
+                  generator: torch.Generator) -> dict:
+    """FACADE's head is ``final_norm`` and ``lm_head``: a model with tied
+    embeddings gets its own ``lm_head``, drawn at scale 0.02."""
+    if "lm_head" not in params:
+        params = dict(params)
+        params["lm_head"] = layers.dense_init(
+            generator, cfg.d_model, cfg.vocab_size, cfg.dt, scale=0.02)
+    return params
+
+
 def make_binding(cfg) -> Binding:
     if isinstance(cfg, CNNConfig):
         return _cnn_binding(cfg)
+    if isinstance(cfg, ModelConfig):
+        return _lm_binding(cfg)
     raise NotImplementedError(
-        f"{type(cfg).__name__} models are not ported yet; the port runs "
-        "the paper's CNNs")
+        f"{type(cfg).__name__} models are not ported yet")
 
 
 def _cnn_binding(cfg: CNNConfig) -> Binding:
@@ -81,10 +103,10 @@ def _cnn_binding(cfg: CNNConfig) -> Binding:
     def loss(params, batch):
         return cnn.node_loss(cfg, params, batch)
 
-    def features(core, x):
-        return cnn.node_features(cfg, core, x)
+    def features(core, batch):
+        return cnn.node_features(cfg, core, batch["x"])
 
-    def select_operands(feats, heads):
+    def select_operands(feats, heads, batch):
         """LeNet's head is ``feats @ w + b``; the bias folds into the
         kernel's weight as an extra row, against a ones column of the
         features: ``[n, B, D+1]`` and ``[n, K, D+1, V]``."""
@@ -93,10 +115,59 @@ def _cnn_binding(cfg: CNNConfig) -> Binding:
                           device=feats.device)
         f = torch.cat([feats, ones], dim=-1)
         w = torch.cat([fc["w"], fc["b"].unsqueeze(-2)], dim=-2)
-        return f.contiguous(), w.to(f.dtype).contiguous()
+        return (f.contiguous(), w.to(f.dtype).contiguous(),
+                batch["y"].to(torch.int32))
 
     def forward(params, x):
         return cnn.node_forward(cfg, params, x)
 
     return Binding(cfg, lambda g: cnn.init_params(cfg, g), hk, loss,
                    features, select_operands, forward)
+
+
+def _lm_binding(cfg: ModelConfig) -> Binding:
+    """A decoder LM under FACADE: the head is ``final_norm`` and an untied
+    ``lm_head``; the core's output is the pre-norm features."""
+    hk = ("final_norm", "lm_head")
+
+    def init(generator):
+        return _untie_lm_head(cfg, transformer.init_params(cfg, generator),
+                              generator)
+
+    def loss(params, batch):
+        return sum(transformer.loss_fn(
+            cfg, node_params, {key: b[i] for key, b in batch.items()})[0]
+            for i, node_params in enumerate(tree_unstack(params)))
+
+    def features(core, batch):
+        """[n, B, S, D] pre-norm features, one forward per node."""
+        return torch.stack([
+            transformer.forward(cfg, node_core, batch["tokens"][i],
+                                apply_final_norm=False)[0]
+            for i, node_core in enumerate(tree_unstack(core))])
+
+    def select_operands(feats, heads, batch):
+        """Head j of node i scores ``rms_norm(feats_i, final_norm[i, j])
+        @ lm_head[i, j]``: the gain differs per head, so the kernel gets
+        one normed stream per (node, head), rounded to the param dtype as
+        ``layers.rms_norm`` rounds it: ``[n*k, B*S, D]``, the heads as a
+        view ``[n*k, 1, D, V]`` and labels ``[n*k, B*S]`` with the masked
+        positions at -1."""
+        n, k = heads["lm_head"].shape[:2]
+        f = feats.reshape(n, 1, -1, feats.shape[-1])
+        f = layers.rms_norm(f, heads["final_norm"][:, :, None, :],
+                            cfg.norm_eps)
+        labels = torch.where(batch["mask"] > 0, batch["labels"],
+                             torch.full_like(batch["labels"], -1))
+        labels = labels.reshape(n, 1, -1).expand(n, k, -1)
+        return (f.reshape(n * k, -1, f.shape[-1]).contiguous(),
+                heads["lm_head"].reshape((n * k, 1) +
+                                         heads["lm_head"].shape[2:]),
+                labels.reshape(n * k, -1).to(torch.int32).contiguous())
+
+    def forward(params, x):
+        raise NotImplementedError(
+            "per-node logits of a language model are not ported yet; "
+            "evaluate with binding.loss")
+
+    return Binding(cfg, init, hk, loss, features, select_operands, forward)

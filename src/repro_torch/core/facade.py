@@ -5,7 +5,7 @@ One call to ``facade_round`` executes, for all nodes at once:
     1. the round's r-regular topology, from the given permutations (step 1)
     2. core aggregation (Eq. 3) + cluster-wise head aggregation (Eq. 4)
     3. cluster identification: argmin_j loss(core ∘ head_j)  (step 2c),
-       one launch of the head-select kernel for all n nodes
+       one call of the head-select kernel for all n nodes
     4. H local SGD steps on (core, selected head)            (step 2d)
     5. write the trained head into the selected slot; report the cluster ID
 
@@ -56,14 +56,14 @@ def _aggregate_heads(adj, cluster_id, heads, k: int):
     return tree_map(agg, heads)
 
 
-def _select_heads(binding: Binding, cores, heads, batch):
+def _select_heads(binding: Binding, cores, heads, batch, n: int):
     """losses [n, k] over shared core features (paper III-E): the core runs
-    once per node on ``batch``, then one head-select launch scores all k
+    once per node on ``batch``, then one head-select call scores all k
     heads of all n nodes."""
     with torch.no_grad():
-        feats = binding.features(cores, batch["x"])          # [n, B, D]
-        f, w = binding.select_operands(feats, heads)
-        return head_losses(f, w, batch["y"].to(torch.int32))
+        feats = binding.features(cores, batch)
+        f, w, labels = binding.select_operands(feats, heads, batch)
+        return head_losses(f, w, labels).reshape(n, -1)
 
 
 def payload_bytes(state: FacadeState) -> int:
@@ -78,8 +78,9 @@ def facade_round(fcfg: FacadeConfig, binding: Binding, state: FacadeState,
                  batches, perms, warmup: bool = False):
     """One synchronous FACADE round for all nodes.
 
-    batches: ``{"x": [n, H, B, ...], "y": [n, H, B]}``, per node and local
-    step; perms: the round's topology permutations
+    batches: per node and local step, ``{"x": [n, H, B, ...], "y": [n, H,
+    B]}`` for a CNN or ``{"tokens", "labels", "mask"}`` of ``[n, H, B, S]``
+    for a language model; perms: the round's topology permutations
     (:func:`topology.random_regular`). ``warmup`` (App. F) trains head 0
     everywhere and copies it to every slot.
     Returns (new_state, info with losses, selection and round bytes).
@@ -94,7 +95,7 @@ def facade_round(fcfg: FacadeConfig, binding: Binding, state: FacadeState,
 
     # --- cluster identification (step 2c) on the first local batch ---
     first = {key: b[:, 0] for key, b in batches.items()}
-    losses = _select_heads(binding, cores, heads, first)     # [n, k]
+    losses = _select_heads(binding, cores, heads, first, n)  # [n, k]
     if warmup:
         new_cid = torch.zeros((n,), dtype=torch.long, device=adj.device)
     else:

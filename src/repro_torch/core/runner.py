@@ -1,6 +1,7 @@
 """Experiment runner: drives FACADE or EL over a clustered dataset,
 evaluating per-cluster accuracy, fairness metrics and communication
-volume — the harness behind the paper's tables, on one device.
+volume — the harness behind the paper's tables, on one device — and
+FACADE rounds on a language model (:class:`LMFacade`).
 
 The counterpart of ``repro.core.runner`` with its per-round loop (the
 reference's ``engine=False`` path). The reference's segment engine,
@@ -27,6 +28,7 @@ import torch
 from repro_torch import device as device_mod
 from repro_torch.comm import CommLog
 from repro_torch.data import pipeline
+from repro_torch.data.tokens import TokenSpec, make_clustered_tokens
 from repro_torch.obs import compute_eval_frame
 from repro_torch.tree import tree_map
 
@@ -212,7 +214,22 @@ def run_experiment(algo: str, cfg, dataset, *, rounds: int,
     ``algo`` is ``"facade"`` or ``"el"``. ``draws`` supplies the initial
     parameters, batch indices and topologies (default
     ``TorchDraws(seed)``); it has the methods of :class:`TorchDraws`.
+    The run computes fp32 in full fp32 (TF32 off, as the reference); the
+    caller's TF32 flags are restored when it returns or raises.
     """
+    with device_mod.no_tf32():
+        return _run(algo, cfg, dataset, rounds=rounds, k=k, degree=degree,
+                    local_steps=local_steps, batch_size=batch_size, lr=lr,
+                    eval_every=eval_every, seed=seed,
+                    warmup_rounds=warmup_rounds, head_jitter=head_jitter,
+                    target_acc=target_acc, eval_batch=eval_batch,
+                    verbose=verbose, device=device, draws=draws)
+
+
+def _run(algo: str, cfg, dataset, *, rounds: int, k, degree: int,
+         local_steps: int, batch_size: int, lr: float, eval_every: int,
+         seed: int, warmup_rounds: int, head_jitter: float, target_acc,
+         eval_batch: int, verbose: bool, device, draws) -> RunResult:
     if algo not in ALGOS:
         raise ValueError(f"algorithm {algo!r} is not ported yet; the port "
                          f"runs {ALGOS}")
@@ -277,3 +294,54 @@ def run_experiment(algo: str, cfg, dataset, *, rounds: int,
         if algo == "facade":
             hist.cluster_hist.append((rnd + 1, state.cluster_id))
     return hist.result(algo, models_of(state))
+
+
+# --------------------------------------------------------------------------
+class LMFacade:
+    """FACADE rounds on a language model, driven through ``facade_round``
+    as ``examples/facade_lm_pretrain.py`` drives the reference's: the
+    initial model and ``[k, ...]`` head bank from ``generator`` (default: a
+    CPU generator seeded with ``seed``), every node's clustered token
+    streams from ``make_clustered_tokens`` (sequences of ``seq + 1``
+    tokens, ``seqs_per_node`` a node, nodes in clusters of ``clusters``),
+    each round's ``[n, local_steps, batch]`` indices and topology from
+    ``TorchDraws(seed)``. Rounds run with TF32 off, as ``run_experiment``.
+    """
+
+    def __init__(self, cfg, *, clusters, k: int, degree: int,
+                 local_steps: int, batch: int, seq: int, lr: float,
+                 head_jitter: float, seqs_per_node: int, seed: int = 0,
+                 device="cuda", generator: torch.Generator | None = None):
+        dev = device_mod.resolve(device)
+        self.n, self.local_steps, self.batch = len(clusters), local_steps, \
+            batch
+        self.binding = make_binding(cfg)
+        self.state = init_facade_state(
+            self.binding, self.n, k, head_jitter=head_jitter, device=dev,
+            generator=(generator if generator is not None
+                       else torch.Generator().manual_seed(seed)))
+        data = make_clustered_tokens(
+            TokenSpec(vocab_size=cfg.vocab_size, seq_len=seq + 1,
+                      seed=seed), clusters, seqs_per_node=seqs_per_node)
+        self.train = torch.from_numpy(data["train"]).to(dev)
+        self.draws = TorchDraws(seed)
+        self.fcfg = facade_mod.FacadeConfig(n_nodes=self.n, k=k,
+                                            degree=degree, lr=lr)
+
+    def draw(self):
+        """The next round's (batches, topology permutations)."""
+        idx = self.draws.batch_indices(self.n, self.local_steps, self.batch,
+                                       self.train.shape[1])
+        batches = pipeline.sample_round_token_batches(
+            idx.to(self.train.device), self.train)
+        perms = self.draws.perms(self.n, self.fcfg.degree)
+        return batches, perms.to(self.train.device)
+
+    def round(self, drawn=None) -> dict:
+        """One round on ``drawn`` (default: :meth:`draw`); returns its info
+        and keeps the new state on ``self.state``."""
+        batches, perms = drawn if drawn is not None else self.draw()
+        with device_mod.no_tf32():
+            self.state, info = facade_mod.facade_round(
+                self.fcfg, self.binding, self.state, batches, perms)
+        return info

@@ -2,7 +2,8 @@
 
 ``sample_round_batches`` gathers, for every node, H local-step batches of
 size B (paper: H = tau local steps on batches of B = 8), stacked
-``[n, H, B, ...]`` so one round consumes the whole round's data. The
+``[n, H, B, ...]`` so one round consumes the whole round's data;
+``sample_round_token_batches`` does the same for token streams. The
 indices are an input: the port's own runs draw them with
 :func:`draw_batch_indices`, and the tests replay the reference's draws.
 """
@@ -38,6 +39,19 @@ def sample_round_batches(idx, train_x, train_y) -> dict:
     flat = idx.reshape(n, h * b)
     return {"x": train_x[rows, flat].reshape((n, h, b) + train_x.shape[2:]),
             "y": train_y[rows, flat].reshape(n, h, b)}
+
+
+def sample_round_token_batches(idx, train_tokens) -> dict:
+    """idx [n, H, B]; train_tokens [n, N, S] -> next-token batches
+    ``{"tokens", "labels", "mask"}``, each ``[n, H, B, S-1]`` (mask fp32
+    ones)."""
+    n, h, b = idx.shape
+    rows = torch.arange(n, device=idx.device)[:, None]
+    g = train_tokens[rows, idx.reshape(n, h * b)].reshape(
+        n, h, b, train_tokens.shape[-1])
+    return {"tokens": g[..., :-1], "labels": g[..., 1:],
+            "mask": torch.ones(g[..., 1:].shape, dtype=torch.float32,
+                               device=g.device)}
 
 
 def padded_eval_batches(x: np.ndarray, batch: int):

@@ -1,5 +1,7 @@
-"""Device resolution shared by the port's entry points."""
+"""Device resolution and numerics shared by the port's entry points."""
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
@@ -13,3 +15,20 @@ def resolve(device) -> torch.device:
             f"device={device!r} but CUDA is not available; pass "
             "device='cpu' to run on the CPU")
     return dev
+
+
+@contextlib.contextmanager
+def no_tf32():
+    """fp32 matmuls and convolutions in full fp32, as the reference
+    computes them: TF32 off for cuBLAS and cuDNN inside the block (PyTorch
+    leaves cuDNN's on by default), the caller's flags restored after it,
+    also on an exception."""
+    prev = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = prev

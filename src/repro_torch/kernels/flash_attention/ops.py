@@ -8,7 +8,11 @@ no transposition. On CUDA tensors it launches the kernel (built at first
 use) and raises on what the kernel does not take; on CPU tensors it runs
 the plain version ``attention_ref``. bf16 inputs go to the tensor-core
 kernel (``mma.sync``, with P V as three bf16 terms of P), fp32 inputs to the
-FMA kernel. ``flash_attention.launches`` counts kernel launches.
+FMA kernel. The kernel has no backward: on CUDA tensors that need a
+gradient (grad mode on and any input ``requires_grad``) the wrapper raises
+instead of returning an output cut off from autograd; a caller that trains
+takes a differentiable attention (``models.attention.gqa_forward`` does).
+``flash_attention.launches`` counts kernel launches.
 """
 from __future__ import annotations
 
@@ -64,6 +68,11 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     if len(devices) != 1 or q.device.type != "cuda":
         raise ValueError(f"tensors on mixed or unsupported devices: "
                          f"{sorted(map(str, devices))}")
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+        raise RuntimeError(
+            "flash_attention: the CUDA kernel has no backward, so its output "
+            "would carry no gradient to q, k and v; call it under "
+            "torch.no_grad() or use a differentiable attention")
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"q/k/v must share fp32 or bf16, got "
                         f"{q.dtype}/{k.dtype}/{v.dtype}")

@@ -5,7 +5,11 @@ heads, the mean cross-entropy over the node's tokens — FACADE's step 2c,
 the function of the TPU kernel ``repro/kernels/head_select``. On CUDA
 tensors it launches the kernel (built at first use) and raises on what the
 kernel does not take; on CPU tensors it runs the plain version
-``head_losses_ref``. ``head_losses.launches`` counts kernel launches.
+``head_losses_ref``. The CUDA source picks one of two bodies from the
+shape: the LM regime (bf16 with D and V multiples of 8, any T > 0) runs
+on the tensor cores as two device launches with a workspace this wrapper
+allocates; every other input runs on the FMA body as one. ``head_losses.launches`` counts calls that launched the kernel
+(one per call, whichever body ran).
 """
 from __future__ import annotations
 
@@ -25,8 +29,10 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 def _library() -> ctypes.CDLL:
     lib = build.load("head_select")
     lib.hs_head_losses.argtypes = (
-        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
     lib.hs_head_losses.restype = ctypes.c_int
+    lib.hs_workspace_bytes.argtypes = [ctypes.c_int] * 6
+    lib.hs_workspace_bytes.restype = ctypes.c_longlong
     lib.hs_error_string.argtypes = [ctypes.c_int]
     lib.hs_error_string.restype = ctypes.c_char_p
     return lib
@@ -64,11 +70,18 @@ def head_losses(features, heads, labels) -> torch.Tensor:
     if out.numel() == 0:
         return out
     lib = _library()
+    dtype = _DTYPES[features.dtype]
     with torch.cuda.device(features.device):
+        nbytes = lib.hs_workspace_bytes(n, k, t, d, v, dtype)
+        if nbytes < 0:
+            raise RuntimeError("head_select: the card's occupancy query "
+                               "failed")
+        ws = torch.empty(nbytes // 4, dtype=torch.float32,
+                         device=features.device) if nbytes else None
         rc = lib.hs_head_losses(
             features.data_ptr(), heads.data_ptr(), labels.data_ptr(),
-            out.data_ptr(), n, k, t, d, v, _DTYPES[features.dtype],
-            torch.cuda.current_stream().cuda_stream)
+            out.data_ptr(), None if ws is None else ws.data_ptr(), n, k, t,
+            d, v, dtype, torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError("head_select kernel launch failed: "
                            + lib.hs_error_string(rc).decode())

@@ -5,7 +5,10 @@ the function of the TPU kernel ``repro/kernels/rwkv6`` — and returns the
 outputs and the final state (the decode cache's ``s``). On CUDA tensors it
 launches the kernel (built at first use) and raises on what the kernel
 does not take; on CPU tensors it runs the plain version ``wkv_scan``.
-``wkv.launches`` counts kernel launches.
+The kernel has no backward: on CUDA tensors that need a gradient (grad
+mode on and any input ``requires_grad``) the wrapper raises instead of
+returning outputs cut off from autograd. ``wkv.launches`` counts kernel
+launches.
 """
 from __future__ import annotations
 
@@ -50,6 +53,11 @@ def wkv(r, k, v, w, u):
     if len(devices) != 1 or r.device.type != "cuda":
         raise ValueError(f"tensors on mixed or unsupported devices: "
                          f"{sorted(map(str, devices))}")
+    if torch.is_grad_enabled() and any(x.requires_grad for x in tensors):
+        raise RuntimeError(
+            "wkv: the CUDA kernel has no backward, so its outputs would "
+            "carry no gradient to r, k, v, w and u; call it under "
+            "torch.no_grad()")
     if any(x.dtype != torch.float32 for x in tensors):
         raise TypeError(f"r, k, v, w and u must be fp32, got "
                         f"{[str(x.dtype) for x in tensors]}")

@@ -22,6 +22,13 @@ def init_params(cfg, generator: torch.Generator) -> dict:
     return transformer.init_params(cfg, generator)
 
 
+def loss_fn(cfg, params, batch):
+    """-> (scalar loss, metrics dict), for every backbone the port runs."""
+    if is_cnn(cfg):
+        return cnn.loss_fn(cfg, params, batch)
+    return transformer.loss_fn(cfg, params, batch)
+
+
 def param_count(params) -> int:
     return sum(x.numel() for x in tree_leaves(params))
 

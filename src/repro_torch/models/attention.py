@@ -3,9 +3,13 @@
 
 Two execution paths:
   * ``gqa_forward`` — train / prefill over a full sequence (causal), at
-    positions ``arange(S)``: the ``kernels/flash_attention`` wrapper, which
-    launches the hand-written kernel on the card and runs its plain version
-    on the CPU.
+    positions ``arange(S)``. Where a gradient is needed (grad mode on and
+    q, k or v requiring grad), on any device, the plain differentiable
+    ``sdpa`` below (the reference's ``sdpa_auto`` takes it below its
+    chunking threshold of 4096² scores, which every ported training shape
+    is); otherwise the ``kernels/flash_attention`` wrapper, which launches
+    the hand-written kernel on the card (it has no backward) and runs its
+    plain version on the CPU.
   * ``gqa_decode`` — one new token against a KV cache (full or ring
     buffer), through the plain ``sdpa`` on every device, as in the
     reference.
@@ -88,9 +92,14 @@ def _gqa_qkv(cfg: ModelConfig, p, x, positions):
 
 def gqa_forward(cfg: ModelConfig, p, x, positions, window: int = 0):
     """Causal self-attention over a full sequence. positions [B,S], each
-    row ``arange(S)`` (what ``embed_inputs`` gives)."""
+    row ``arange(S)`` (what ``embed_inputs`` gives). Training goes through
+    the differentiable ``sdpa``, everything else through the kernel."""
     q, k, v = _gqa_qkv(cfg, p, x, positions)
-    out = flash_attention(q, k, v, causal=True, window=window)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        out = sdpa(q, k, v, positions, positions, window=window)
+    else:
+        out = flash_attention(q, k, v, causal=True, window=window)
     b, s = x.shape[:2]
     return out.reshape(b, s, -1).to(x.dtype) @ p["wo"]
 

@@ -5,6 +5,7 @@
 API (plain functions on nested dicts of tensors):
     init_params(cfg, generator)                  -> params
     forward(cfg, params, tokens)                 -> (features, aux)
+    loss_fn(cfg, params, batch)                  -> (loss, metrics)
     init_cache(cfg, batch, cache_len, device)    -> empty cache (leading L)
     prefill(cfg, params, tokens, cache_extra)    -> (last_logits, cache)
     decode_step(cfg, params, cache, tokens, pos) -> (logits, cache)
@@ -12,8 +13,7 @@ API (plain functions on nested dicts of tensors):
 Layers are stacked (a leading L axis on every leaf of ``params["layers"]``
 and of the cache), as in the reference; a Python loop over L takes the
 place of its ``lax.scan``. MoE, hybrid, MLA and VLM models are not ported
-yet and raise ``NotImplementedError`` (``ROADMAP.md``); the training loss
-(``chunked_ce``, ``loss_fn``) belongs to the training slice.
+yet and raise ``NotImplementedError`` (``ROADMAP.md``).
 """
 from __future__ import annotations
 
@@ -21,7 +21,7 @@ import torch
 
 from repro_torch.device import resolve
 from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.tree import tree_map
+from repro_torch.tree import tree_map, tree_unstack
 
 from . import attention, layers, rwkv
 from .base import ModelConfig
@@ -126,11 +126,55 @@ def forward(cfg: ModelConfig, params, tokens,
     loss in the reference) is 0 for every ported family."""
     _check_ported(cfg)
     h, positions = embed_inputs(cfg, params, tokens)
-    for i in range(cfg.n_layers):
-        h = block_forward(cfg, _layer(params["layers"], i), h, positions)
+    for lp in tree_unstack(params["layers"]):      # one backward stack
+        h = block_forward(cfg, lp, h, positions)
     if apply_final_norm:
         h = layers.rms_norm(h, params["final_norm"], cfg.norm_eps)
     return h, torch.zeros((), dtype=torch.float32, device=h.device)
+
+
+# ==========================================================================
+# loss (sequence-chunked CE, so the fp32 logits of one chunk exist at a time)
+def _ce_chunk(f, w_head, labels, mask):
+    """Masked NLL and accuracy sums of one chunk. The product runs in the
+    param dtype and is then widened, as the reference does."""
+    logits = (f @ w_head).float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long().unsqueeze(-1)).squeeze(-1)
+    correct = (logits.amax(dim=-1) <= gold).float()
+    return ((lse - gold) * mask).sum(), (correct * mask).sum()
+
+
+def chunked_ce(features, w_head, labels, mask, chunk: int = 512):
+    """features [B,S,D]; labels/mask [B,S]. Mean NLL over masked tokens
+    (denominator ``max(mask.sum(), 1)``), plus accuracy (the gold logit is
+    a maximum). The sequence is cut into chunks as the reference cuts it
+    (``S // max(1, S // chunk)`` when that divides S, else one chunk), and
+    the chunks' sums are added in order; the reference also recomputes
+    each chunk in the backward pass, which changes no value."""
+    s = features.shape[1]
+    n_chunks = max(1, s // chunk)
+    chunk = s // n_chunks if s % n_chunks == 0 else s
+    mask = mask.float()
+    nll = torch.zeros((), dtype=torch.float32, device=features.device)
+    acc = torch.zeros((), dtype=torch.float32, device=features.device)
+    for c0 in range(0, s, chunk):
+        dn, da = _ce_chunk(features[:, c0:c0 + chunk], w_head,
+                           labels[:, c0:c0 + chunk], mask[:, c0:c0 + chunk])
+        nll = nll + dn
+        acc = acc + da
+    denom = torch.clamp(mask.sum(), min=1.0)
+    return nll / denom, acc / denom
+
+
+def loss_fn(cfg: ModelConfig, params, batch):
+    """batch: {tokens [B,S], labels [B,S], mask [B,S]} -> (loss, metrics).
+    The loss is the masked mean NLL (no ported family has MoE's router
+    loss, so ``aux`` is 0)."""
+    feats, aux = forward(cfg, params, batch["tokens"])
+    loss, acc = chunked_ce(feats, lm_head_weight(cfg, params),
+                           batch["labels"], batch["mask"])
+    return loss, {"ce": loss, "aux": aux, "acc": acc}
 
 
 # ==========================================================================

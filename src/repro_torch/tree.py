@@ -21,3 +21,13 @@ def tree_unflatten(like, leaves):
     """Rebuild ``like``'s structure from ``leaves`` (``tree_leaves`` order)."""
     it = iter(leaves)
     return tree_map(lambda _: next(it), like)
+
+
+def tree_unstack(tree) -> list:
+    """A tree of ``[m, ...]`` leaves -> ``m`` trees of ``[...]`` leaves,
+    by one ``unbind`` per leaf: under autograd its backward stacks the
+    slices' gradients once, where indexing slice by slice would fill a
+    zero gradient of the whole leaf for every slice and add them up."""
+    leaves = tree_leaves(tree)
+    return [tree_unflatten(tree, list(parts))
+            for parts in zip(*(leaf.unbind(0) for leaf in leaves))]

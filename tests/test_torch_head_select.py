@@ -225,12 +225,14 @@ def test_bias_fold_matches_the_cnn_binding_head_loss(smoke):
                                        jnp.asarray(feats[i]),
                                        {"y": y[i]}))(w[i], b[i]))
         for i in range(n)])
-    f, wt = make_binding(cfg).select_operands(
+    f, wt, labels = make_binding(cfg).select_operands(
         torch.from_numpy(feats), {"fc": {"w": torch.from_numpy(w),
-                                         "b": torch.from_numpy(b)}})
+                                         "b": torch.from_numpy(b)}},
+        {"y": torch.from_numpy(y)})
     assert f.shape == (n, t, d + 1) and wt.shape == (n, k, d + 1,
                                                       cfg.n_classes)
-    got = head_losses(f, wt, torch.from_numpy(y)).numpy()
+    assert torch.equal(labels, torch.from_numpy(y))
+    got = head_losses(f, wt, labels).numpy()
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
     np.testing.assert_array_equal(got.argmin(1), want.argmin(1))
 

@@ -4,7 +4,14 @@ Needs an NVIDIA card and ``nvcc``; elsewhere every test skips with the
 reason. This file imports no JAX, so it also runs where only PyTorch is
 installed. Tolerance: 2e-5 absolute and relative — kernel and plain
 version read the same values and both accumulate in fp32, so they differ
-only in summation order. Argmin must agree exactly.
+only in summation order. Argmin must agree exactly. bf16 inputs with D and
+V multiples of 8 (and T > 0) take the tensor-core body (the LM regime),
+every other input the FMA body. So in bf16 the tensor-core body runs the
+first three SHAPES, EDGE_SHAPES' (2, 2, 8, 32, 16) and (2, 3, 1, 64, 24)
+(one 64 × 128 tile, mostly masked) and every LM_SHAPES case; the FMA body
+runs bf16 at the other SHAPES and EDGE_SHAPES (D 1, 31, 33, 70 or 513, or
+V 1, 10, 17 or 45) and in the bf16 identical-heads case; fp32 always runs
+the FMA body.
 """
 from __future__ import annotations
 
@@ -21,20 +28,40 @@ SHAPES = [(1, 2, 128, 64, 256), (1, 3, 256, 64, 512), (1, 5, 128, 128, 1024),
           (32, 2, 8, 513, 10), (3, 4, 37, 70, 45)]
 # the edges of the kernel's design: D around its 32 lanes (1, 31, 32, 33,
 # 513), V around its 16-column chunks (1, 10, 16, 17, 1024), T = 1, and n·K
-# odd, so every other head block starts off 16-byte alignment. In these
-# cases the last node's labels are all excluded, which must give 0.0.
+# odd, so every other head block starts off 16-byte alignment; T = 1 in
+# the tensor-core body's reach (D 64, V 24). In these cases the last
+# node's labels are all excluded, which must give 0.0.
 EDGE_SHAPES = [(3, 1, 1, 1, 1), (3, 3, 9, 31, 17), (2, 2, 8, 32, 16),
                (3, 3, 5, 33, 10), (3, 1, 3, 33, 1024), (7, 1, 8, 513, 10),
-               (3, 3, 1, 513, 17)]
+               (3, 3, 1, 513, 17), (2, 3, 1, 64, 24)]
+# the LM regime, bf16 only (the FMA body would take tens of seconds a call
+# there): step 2c of FACADE on llama3.2-1b (n·K 4, T = B·S 1024, D 2048,
+# V 128,256), T off the 64-token tiles with V = 1000 (7.8 of the 128-column
+# tiles) and with rwkv6-1.6b's V = 65,536; then the body's edges: D off its
+# 64-row chunks (72, 32), and V's last tile within its first 64 columns
+# (136; and 8, where the second column half of every tile is past V). The
+# last node's labels are all excluded, which must give 0.0.
+LM_SHAPES = [(4, 1, 1024, 2048, 128256), (2, 2, 1000, 2048, 1000),
+             (4, 1, 200, 2048, 65536), (3, 1, 300, 72, 136),
+             (2, 2, 4096, 32, 8)]
+CASES = [(dt, shape) for dt in (torch.float32, torch.bfloat16)
+         for shape in SHAPES + EDGE_SHAPES] + \
+    [(torch.bfloat16, shape) for shape in LM_SHAPES]
+DTYPE_IDS = {torch.float32: "fp32", torch.bfloat16: "bf16"}
 TOL = 2e-5
 
 
-def _case(n, k, t, d, v, dtype, device, seed=0):
-    g = torch.Generator().manual_seed(seed)
-    feats = (0.5 * torch.randn((n, t, d), generator=g)).to(dtype)
-    heads = (0.05 * torch.randn((n, k, d, v), generator=g)).to(dtype)
-    labels = torch.randint(0, v, (n, t), generator=g, dtype=torch.int32)
-    labels[torch.rand((n, t), generator=g) < 0.1] = -1
+def _case(n, k, t, d, v, dtype, device, seed=0, draw_on=None):
+    """Features 0.5 randn, heads 0.05 randn, ~10% of labels excluded;
+    drawn on the CPU (or on ``draw_on``, for the LM regime's GBs)."""
+    g = torch.Generator(draw_on or "cpu").manual_seed(seed)
+    dev = g.device
+    feats = (0.5 * torch.randn((n, t, d), generator=g, device=dev)).to(dtype)
+    heads = (0.05 * torch.randn((n, k, d, v), generator=g,
+                                device=dev)).to(dtype)
+    labels = torch.randint(0, v, (n, t), generator=g, dtype=torch.int32,
+                           device=dev)
+    labels[torch.rand((n, t), generator=g, device=dev) < 0.1] = -1
     return feats.to(device), heads.to(device), labels.to(device)
 
 
@@ -50,12 +77,14 @@ def _no_tf32():
 
 
 @requires_cuda
-@pytest.mark.parametrize("shape", SHAPES + EDGE_SHAPES, ids=str)
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
-                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("dtype,shape", CASES,
+                         ids=[f"{DTYPE_IDS[dt]}-{shape}"
+                              for dt, shape in CASES])
 def test_kernel_matches_plain_version(cuda_device, shape, dtype):
-    feats, heads, labels = _case(*shape, dtype, cuda_device)
-    if shape in EDGE_SHAPES:
+    lm = shape in LM_SHAPES
+    feats, heads, labels = _case(*shape, dtype, cuda_device,
+                                 draw_on=cuda_device if lm else None)
+    if shape in EDGE_SHAPES or lm:
         labels[-1] = -1
     before = head_losses.launches
     got = head_losses(feats, heads, labels)
@@ -66,15 +95,21 @@ def test_kernel_matches_plain_version(cuda_device, shape, dtype):
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
                                rtol=TOL, atol=TOL)
     assert torch.equal(got.argmin(1), want.argmin(1))
-    if shape in EDGE_SHAPES:
+    if shape in EDGE_SHAPES or lm:
         assert torch.equal(got[-1], torch.zeros_like(got[-1]))
 
 
 @requires_cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
-                         ids=["fp32", "bf16"])
-def test_identical_heads_give_bit_identical_losses(cuda_device, dtype):
-    feats, heads, labels = _case(32, 1, 8, 513, 10, dtype, cuda_device)
+@pytest.mark.parametrize("dtype,shape", [
+    (torch.float32, (32, 1, 8, 513, 10)),
+    (torch.bfloat16, (32, 1, 8, 513, 10)),
+    (torch.bfloat16, (2, 1, 1024, 2048, 128256)),
+], ids=["fp32", "bf16", "bf16-lm"])
+def test_identical_heads_give_bit_identical_losses(cuda_device, dtype,
+                                                   shape):
+    lm = shape[-1] > 1024
+    feats, heads, labels = _case(*shape, dtype, cuda_device,
+                                 draw_on=cuda_device if lm else None)
     got = head_losses(feats, heads.repeat(1, 2, 1, 1).contiguous(), labels)
     assert torch.equal(got[:, 0], got[:, 1])
     assert int(got.argmin(1).max()) == 0
@@ -92,3 +127,11 @@ def test_kernel_refuses_what_it_does_not_take(cuda_device):
                     heads, labels)
     with pytest.raises(ValueError, match="devices"):
         head_losses(feats.cpu(), heads, labels)
+    # the LM regime's 16-byte copies: features off 16-byte alignment
+    feats, heads, labels = _case(1, 1, 256, 64, 256, torch.bfloat16,
+                                 cuda_device)
+    shifted = torch.empty(feats.numel() + 1, dtype=feats.dtype,
+                          device=cuda_device)[1:].view(feats.shape)
+    shifted.copy_(feats)
+    with pytest.raises(RuntimeError, match="misaligned"):
+        head_losses(shifted, heads, labels)

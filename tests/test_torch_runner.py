@@ -121,3 +121,40 @@ def test_target_acc_stops_at_the_first_eval_that_reaches_it(ds):
                                 **{**KW, "target_acc": 0.0})
     assert [r for r, _ in res.acc_per_cluster] == [2]
     assert res.comm.rounds == [1, 2]
+
+
+@pytest.mark.parametrize("flags", [(True, True), (False, True),
+                                   (True, False)], ids=str)
+def test_run_experiment_runs_without_tf32_and_restores_the_flags(ds, flags):
+    """TF32 is off for cuBLAS and cuDNN during the run (seen from the
+    draws source, which the run calls each round), and the caller's flags
+    come back after it, also when the run raises."""
+    seen = []
+
+    class Draws(runner.TorchDraws):
+        def batch_indices(self, *args):
+            seen.append((torch.backends.cuda.matmul.allow_tf32,
+                         torch.backends.cudnn.allow_tf32))
+            if len(seen) > 2:
+                raise RuntimeError("stop")
+            return super().batch_indices(*args)
+
+    prev = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    try:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = flags
+        cfg = _cfgs()[1]
+        runner.run_experiment("el", cfg, ds, device="cpu", draws=Draws(0),
+                              **{**KW, "rounds": 2})
+        assert (torch.backends.cuda.matmul.allow_tf32,
+                torch.backends.cudnn.allow_tf32) == flags
+        with pytest.raises(RuntimeError, match="stop"):
+            runner.run_experiment("el", cfg, ds, device="cpu",
+                                  draws=Draws(0), **{**KW, "rounds": 2})
+        assert (torch.backends.cuda.matmul.allow_tf32,
+                torch.backends.cudnn.allow_tf32) == flags
+        assert seen == [(False, False)] * 3
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = prev

@@ -8,9 +8,10 @@
   tests/test_torch_*_cuda.py`` (``--noconftest``: the suite's
   ``conftest.py`` imports JAX, which the card's machine need not have).
 * :class:`JaxDraws` replays the JAX reference's key schedule as a
-  ``draws`` source for ``repro_torch.core.runner.run_experiment``, so the
-  port and the reference see the same initial parameters, batches and
-  topologies. It imports JAX only when built.
+  ``draws`` source for ``repro_torch.core.runner.run_experiment`` (or for
+  a test that drives ``facade_round`` itself), so the port and the
+  reference see the same initial parameters, batches and topologies, for
+  the CNNs and the language models. It imports JAX only when built.
 """
 from __future__ import annotations
 
@@ -20,7 +21,8 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.interop import params_from_jax
+from repro_torch.interop import lm_params_from_jax, params_from_jax
+from repro_torch.models.base import CNNConfig
 from repro_torch.tree import tree_map
 
 requires_cuda = pytest.mark.cuda
@@ -41,9 +43,12 @@ def cuda_device():
 
 
 def ref_cfg(cfg):
-    """The reference ``CNNConfig`` with the same fields as the port's."""
-    from repro.models.base import CNNConfig
-    return CNNConfig(**dataclasses.asdict(cfg))
+    """The reference config (``CNNConfig`` or ``ModelConfig``) with the
+    same fields as the port's."""
+    from repro.models import base
+    from repro_torch.models.base import CNNConfig
+    cls = base.CNNConfig if isinstance(cfg, CNNConfig) else base.ModelConfig
+    return cls(**dataclasses.asdict(cfg))
 
 
 def perms_from_key(key, n: int, r: int):
@@ -77,9 +82,10 @@ class JaxDraws:
         st = init_facade_state(make_binding(ref_cfg(binding.cfg)),
                                self._k_init, 1, k, head_jitter=head_jitter)
         self._rng = st.rng
-        heads_k = _node0(st.heads, lead=1)
-        return {**_node0(st.cores), **tree_map(lambda l: l[0], heads_k)}, \
-            heads_k
+        lm = not isinstance(binding.cfg, CNNConfig)
+        heads_k = _node0(st.heads, lead=1, lm=lm)
+        return {**_node0(st.cores, lm=lm),
+                **tree_map(lambda l: l[0], heads_k)}, heads_k
 
     def baseline_init(self, binding):
         from repro.core.bindings import make_binding
@@ -99,7 +105,9 @@ class JaxDraws:
         return perms_from_key(sub, n, r)
 
 
-def _node0(tree, lead: int = 0):
-    """Node 0 of a node-stacked reference tree, converted to the port."""
-    return params_from_jax(tree_map(lambda l: np.asarray(l)[0], tree),
-                           lead=lead)
+def _node0(tree, lead: int = 0, lm: bool = False):
+    """Node 0 of a node-stacked reference tree, converted to the port (a
+    language model's leaves cross as they are)."""
+    node0 = tree_map(lambda l: np.asarray(l)[0], tree)
+    return lm_params_from_jax(node0) if lm else params_from_jax(node0,
+                                                                lead=lead)

@@ -6,7 +6,8 @@ kernels on one card, in turns.
 
 ``BASELINE_DIR`` holds another version of ``head_select.cu``,
 ``flash_attention.cu`` and ``wkv.cu`` with the same C interface
-(``hs_head_losses``, ``fa_forward``, ``wkv_forward``), for example those of
+(``hs_head_losses`` with its workspace and ``hs_workspace_bytes``,
+``fa_forward``, ``wkv_forward``), for example those of
 an earlier commit unpacked by ``git archive`` into a git-ignored
 directory. Both versions are built with the port's ``nvcc`` flags, each
 output is held against the plain version (the tolerances of
@@ -14,7 +15,8 @@ output is held against the plain version (the tolerances of
 is timed with CUDA graphs in the order baseline, current, current,
 baseline: head select in fp32 at the FACADE path's shape (n 32, K 2, T 8,
 D 513, V 10) and at the reference tests' ``HS_SHAPES[2]`` (K 5, T 128,
-D 128, V 1024, one node), flash attention in bf16 at llama3.2-1b's
+D 128, V 1024, one node), and in bf16 at the LM FACADE path's shape (n·K
+4, T 1024, D 2048, V 128,256), flash attention in bf16 at llama3.2-1b's
 serving shape (B 4, S 512, Hq 32, Hkv 8, D 64) and at S = 4096, wkv at
 rwkv6-1.6b's (B 4, S 512, H 32, hd 64). Prints the card's name and power
 limit, then one JSON object (also written to ``--out``).
@@ -45,15 +47,33 @@ def load(src: pathlib.Path, out: pathlib.Path) -> ctypes.CDLL:
     return ctypes.CDLL(str(out))
 
 
-def hs_call(lib, feats, heads, labels, out):
+def hs_bind(lib) -> None:
+    """Set the head-select C functions' argument types."""
+    lib.hs_head_losses.argtypes = ([ctypes.c_void_p] * 5
+                                   + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+    lib.hs_workspace_bytes.argtypes = [ctypes.c_int] * 6
+    lib.hs_workspace_bytes.restype = ctypes.c_longlong
+
+
+def hs_call(lib, feats, heads, labels, out, ws=None):
+    """One head-select call; ``ws`` is the LM body's workspace (a float
+    tensor of ``hs_workspace_bytes``), unused by the FMA body."""
     n, k, d, v = heads.shape
+    dtype = 1 if feats.dtype == torch.bfloat16 else 0
     rc = lib.hs_head_losses(feats.data_ptr(), heads.data_ptr(),
-                            labels.data_ptr(), out.data_ptr(), n, k,
-                            feats.shape[1], d, v, 0,
+                            labels.data_ptr(), out.data_ptr(),
+                            None if ws is None else ws.data_ptr(), n, k,
+                            feats.shape[1], d, v, dtype,
                             torch.cuda.current_stream().cuda_stream)
     if rc:
         raise RuntimeError(f"hs_head_losses returned {rc}")
     return out
+
+
+def hs_workspace(lib, feats, heads):
+    n, k, d, v = heads.shape
+    nbytes = lib.hs_workspace_bytes(n, k, feats.shape[1], d, v, 1)
+    return torch.empty(nbytes // 4, device="cuda")
 
 
 def fa_call(lib, q, k, v, out):
@@ -94,9 +114,7 @@ def main() -> int:
                    "current": ctypes.CDLL(str(build.build(name)[name]))}
             for name in ("head_select", "flash_attention", "wkv")}
     for lib in libs["head_select"].values():
-        lib.hs_head_losses.argtypes = ([ctypes.c_void_p] * 4
-                                       + [ctypes.c_int] * 6
-                                       + [ctypes.c_void_p])
+        hs_bind(lib)
     for lib in libs["flash_attention"].values():
         lib.fa_forward.argtypes = ([ctypes.c_void_p] * 4
                                    + [ctypes.c_int] * 8
@@ -130,6 +148,29 @@ def main() -> int:
                 lambda: hs_call(lib, *inputs, out), calls=calls))
         rec[label] = t
         print(label, json.dumps(t), flush=True)
+
+    # the LM regime (bf16 tensor-core body) at the LM FACADE path's shape
+    inputs = cs.hs_lm_case(*cs.HS_LM_SHAPE, seed=99, drop=0.0)
+    want = cs.head_losses_ref(*inputs)
+    out = torch.empty_like(want)
+    t = {"shape": list(cs.HS_LM_SHAPE), "dtype": "bf16", "max_abs_err": {},
+         "ms": {"baseline": [], "current": []}}
+    ws = {w: hs_workspace(lib, *inputs[:2])
+          for w, lib in libs["head_select"].items()}
+    for which, lib in libs["head_select"].items():
+        out.fill_(float("nan"))
+        got = hs_call(lib, *inputs, out, ws[which])
+        torch.cuda.synchronize()
+        t["max_abs_err"][which] = cs.hs_check(
+            f"head_select_lm {which}", got, want)["max_abs_err"]
+    for which in order:
+        lib = libs["head_select"][which]
+        t["ms"][which].append(cs.graph_ms(
+            lambda: hs_call(lib, *inputs, out, ws[which]), calls=5, reps=5))
+    rec["head_select_lm"] = t
+    print("head_select_lm", json.dumps(t), flush=True)
+    del inputs, want, ws
+    torch.cuda.empty_cache()
 
     for label, shape, calls in (("flash_attention_serve", cs.FA_SERVE, 50),
                                 ("flash_attention_long", cs.FA_LONG, 5)):
