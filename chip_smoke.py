@@ -24,8 +24,10 @@ failure raises and exits non-zero, before the last line is printed):
      two ragged ones (T 1000 with V 1000, T 200 with V 65,536), a node with
      every label excluded giving 0.0, the same tolerance, identical heads
      giving identical losses; timed at the path's
-     shape; yardstick: per (node, head) a bf16 matmul and
-     ``cross_entropy`` on fp32 logits;
+     shape (its two launches, the tile kernel and the merge, also apart by
+     ``torch.profiler`` after the last phase), with the tile kernel's
+     registers and spills from the build log; yardstick: per (node, head)
+     a bf16 matmul and ``cross_entropy`` on fp32 logits;
    - flash attention at the reference tests' ``FA_SHAPES``, a ragged
      S = 200, llama3.2-1b's serving shape (B 4, S 512, Hq 32, Hkv 8, D 64)
      and a long one (B 1, S 4096), each in fp32 and bf16, the LM FACADE
@@ -38,8 +40,9 @@ failure raises and exits non-zero, before the last line is printed):
      the plain version run in fp32 on the same bf16 values, within one
      bf16 ulp of the answer (relative 2^-8, plus 1e-6), since the kernel
      keeps fp32 scores and statistics, carries P V as three bf16 terms of P
-     and rounds once; yardstick: ``scaled_dot_product_attention`` (causal,
-     GQA);
+     and rounds once; timed at the serving shape and the long one, and
+     after the last phase at the LM feature pass's; yardstick:
+     ``scaled_dot_product_attention`` (causal, GQA);
    - wkv at the reference tests' ``RW_SHAPES``, a ragged S = 100, the
      kernel's own paths (``RW_CASES``: S 1, 31 and 33 around its 16-step
      chunks, strong and weak decay, B * H = 264 blocks) and rwkv6-1.6b's
@@ -176,6 +179,11 @@ LM_FACADE = dict(clusters=(1, 1), k=2, degree=1, local_steps=2, batch=4,
                  seq=256, lr=5e-3, head_jitter=1e-3, seqs_per_node=32,
                  seed=0)
 LM_ROUNDS = 3
+# K2 in the LM FACADE path's step-2c feature pass: llama3.2-1b's heads at
+# LM_FACADE's batch and sequence, (B, Hq, Hkv, S, D) = (4, 32, 8, 256, 64)
+LM_CFG = get_config("llama3.2-1b")
+FA_LM = (LM_FACADE["batch"], LM_CFG.n_heads, LM_CFG.n_kv_heads,
+         LM_FACADE["seq"], LM_CFG.hd)
 # round 1 scores the initial heads: ln V = 11.76, plus about 0.4 for logits
 # of standard deviation about 0.9 (untied head at 0.02, unit-RMS features)
 LM_SELECT_RANGE = (11.0, 13.0)
@@ -302,6 +310,33 @@ def hs_bound(feats, heads, labels):
     by_ops = flops / peak * 1e3
     return max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops
                                    else "operations"), nbytes, flops
+
+
+def ptxas_report(source: str, kernel: str) -> dict:
+    """Registers, stack and spills that ``nvcc -Xptxas -v`` reported for
+    the entry functions of ``source``'s build whose names hold ``kernel``
+    (from the log beside the library), with any ptxas warning about them."""
+    log_path = build.library_path(source).with_suffix(".log")
+    out, current = {}, None
+    for line in log_path.read_text().splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+            current = name if kernel in name else None
+            if current:
+                out[current] = {"warnings": []}
+        elif current is None:
+            continue
+        elif "spill stores" in line:
+            nums = [int(w) for w in line.replace(",", " ").split()
+                    if w.isdigit()]
+            out[current].update(stack_bytes=nums[0], spill_stores=nums[1],
+                                spill_loads=nums[2])
+        elif "Used" in line and "registers" in line:
+            out[current]["registers"] = int(
+                line.split("Used")[1].split()[0])
+        elif "warning" in line.lower():
+            out[current]["warnings"].append(line.strip())
+    return out
 
 
 @contextlib.contextmanager
@@ -431,11 +466,31 @@ def head_select_lm_phase(rec) -> dict:
                            ("ms_again", head_losses, 5)):
         t[key] = graph_ms(lambda: fn(feats, heads, labels), calls=calls,
                           reps=5)
+    t["build"] = ptxas_report("head_select", "head_losses_lm_kernel")
     rec["head_select_lm"] = dict(t, checks=checks)
     log("head_select lm timing", json.dumps(t))
     del feats, heads, labels
     torch.cuda.empty_cache()
     return t
+
+
+def head_select_lm_split() -> dict:
+    """The two launches of a K1 call in the LM regime apart, the tile
+    kernel and the merge, by ``torch.profiler`` at the path's shape: the
+    mean of the launches it recorded (None where it records no device
+    time: not measured). Run after every timed phase: the profiler's
+    tracing may slow the host for the rest of the process."""
+    feats, heads, labels = hs_lm_case(*HS_LM_SHAPE, seed=99, drop=0.0)
+    prof = device_profile(lambda: [head_losses(feats, heads, labels)
+                                   for _ in range(3)])
+    split = {key: next((secs * 1e3 / n for name, secs, n in
+                        prof["top_kernels_s"] if part in name), None)
+             for key, part in (("body_ms", "lm_kernel"),
+                               ("merge_ms", "lm_merge"))}
+    split["launches_recorded"] = {name[:40]: n for name, _, n in
+                                  prof["top_kernels_s"]}
+    log("head_select lm split", json.dumps(split))
+    return split
 
 
 def round_bytes(cfg, algo: str, n: int, degree: int) -> float:
@@ -734,10 +789,7 @@ def flash_attention_phase(rec):
     cases += [(shape, torch.bfloat16, causal, w, std)
               for shape, causal, w, std in FA_BF16_CASES]
     # the LM FACADE path's step-2c feature pass (bf16, causal, its window)
-    lm = get_config("llama3.2-1b")
-    cases.append(((LM_FACADE["batch"], lm.n_heads, lm.n_kv_heads,
-                   LM_FACADE["seq"], lm.hd), torch.bfloat16, True,
-                  lm.sliding_window, 0.3))
+    cases.append((FA_LM, torch.bfloat16, True, LM_CFG.sliding_window, 0.3))
     # last: the serving shape in bf16, whose error the kernels line reports
     cases += [(shape, dt, True, 0, 0.3) for dt in both
               for shape in ((1, 4, 2, 200, 64), FA_LONG, FA_SERVE)]
@@ -752,20 +804,8 @@ def flash_attention_phase(rec):
         del got, want
     rec["flash_attention_checks"] = checks
 
-    timing = {}
-    for label, shape in (("serve", FA_SERVE), ("long", FA_LONG)):
-        q, k, v = fa_inputs(*shape, torch.bfloat16, seed=99)
-        bound_ms, bound_by, nbytes, flops = fa_bound(q, k, v)
-        calls = 50 if label == "serve" else 5
-        t = {"shape": list(shape), "dtype": "bf16", "bound_ms": bound_ms,
-             "bound_by": bound_by, "bytes": nbytes, "flops": flops}
-        for key, fn in (("ms", flash_attention), ("plain_ms", fa_plain),
-                        ("library_ms", fa_library), ("ms_again",
-                                                     flash_attention),
-                        ("plain_ms_again", fa_plain)):
-            t[key] = graph_ms(lambda: fn(q, k, v), calls=calls)
-        timing[label] = t
-        log(f"flash_attention timing {label}", json.dumps(t))
+    timing = {label: fa_timing(label, shape, calls) for label, shape, calls
+              in (("serve", FA_SERVE, 50), ("long", FA_LONG, 5))}
     rec["flash_attention_timing"] = timing
     t = timing["serve"]
     return {"name": "flash_attention", "route": "cuda",
@@ -775,6 +815,23 @@ def flash_attention_phase(rec):
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"]}
+
+
+def fa_timing(label, shape, calls) -> dict:
+    """K2, its plain version and SDPA timed in bf16 at ``shape``, beside
+    the bound. ``graph_ms`` leaves its capture's memory allocated for the
+    rest of the process and later phases count it in their peak memory,
+    so a timing added before them changes their peaks."""
+    q, k, v = fa_inputs(*shape, torch.bfloat16, seed=99)
+    bound_ms, bound_by, nbytes, flops = fa_bound(q, k, v)
+    t = {"shape": list(shape), "dtype": "bf16", "bound_ms": bound_ms,
+         "bound_by": bound_by, "bytes": nbytes, "flops": flops}
+    for key, fn in (("ms", flash_attention), ("plain_ms", fa_plain),
+                    ("library_ms", fa_library), ("ms_again", flash_attention),
+                    ("plain_ms_again", fa_plain)):
+        t[key] = graph_ms(lambda: fn(q, k, v), calls=calls)
+    log(f"flash_attention timing {label}", json.dumps(t))
+    return t
 
 
 def wkv_inputs(b, s, h, hd, seed, log_decay=0.0):
@@ -845,8 +902,9 @@ def wkv_phase(rec, sm_clock_hz):
 def device_profile(fn, sync_every: bool = True) -> dict:
     """Host wall time of ``fn()`` (ending in a synchronise) and the device
     time of the kernels it ran, by ``torch.profiler``: busy share, and the
-    largest kernels by name. Where the profiler records no device events,
-    the device numbers are None (not measured)."""
+    largest kernels by name ([name, seconds, launches recorded]). Where
+    the profiler records no device events, the device numbers are None
+    (not measured)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -856,17 +914,18 @@ def device_profile(fn, sync_every: bool = True) -> dict:
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    by_name = {}
+    by_name, count = {}, {}
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
             by_name[e.name] = by_name.get(e.name, 0.0) + \
                 e.time_range.elapsed_us() * 1e-6
+            count[e.name] = count.get(e.name, 0) + 1
     busy = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
     return {"wall_s": wall, "device_busy_s": busy if by_name else None,
             "busy_share": busy / wall if by_name else None,
             "kernel_names": len(by_name),
-            "top_kernels_s": [[n[:80], t] for n, t in top]}
+            "top_kernels_s": [[n[:80], t, count[n]] for n, t in top]}
 
 
 def serve_phase(rec, arch: str, kernel) -> int:
@@ -1003,6 +1062,12 @@ def main() -> int:
     fa["launches"] = serve_phase(rec, "llama3.2-1b", flash_attention)
     rw["launches"] = serve_phase(rec, "rwkv6-1.6b", wkv)
     smoke_serve_phase(rec)
+    # after the timed phases: a profiler run and one more graph timing
+    split = head_select_lm_split()
+    hs["lm"].update(split)
+    rec["head_select_lm"].update(split)
+    fa["lm_feature_pass"] = rec["flash_attention_timing"][
+        "lm_feature_pass"] = fa_timing("lm_feature_pass", FA_LM, 50)
     entries = [hs, fa, rw]
     rec["kernels"] = entries
     rec["total_s"] = time.perf_counter() - t0

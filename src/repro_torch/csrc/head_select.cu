@@ -12,7 +12,8 @@
 // Two bodies behind one entry, hs_head_losses, picked from the shape:
 // - the LM regime (lm_body below: bf16 with D and V multiples of 8, at
 //   any T > 0; ragged token and vocab tiles are masked) runs on the
-//   tensor cores, in two launches (a tile kernel and a merge kernel) and
+//   tensor cores (wgmma fed by TMA under warp specialisation), in two
+//   launches (a tile kernel and a merge kernel) and
 //   with a workspace whose size hs_workspace_bytes gives; an input that
 //   body cannot take (a feature or head pointer off 16-byte alignment) is
 //   refused;
@@ -57,6 +58,7 @@
 // TFLOP, 2.18 ms at the 989 TFLOP/s of the bf16 tensor cores, against
 // 0.63 ms to read the 2.1 GB of heads once. The LM body is described at
 // its kernel below.
+#include <cuda.h>  // CUtensorMap and its enums (no libcuda linked)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -243,101 +245,191 @@ int launch(const void* feats, const void* heads, const int32_t* labels,
 
 // ---- LM regime: the tensor-core body ----
 //
-// Design. The [T, V] logits of a row r = node * K + head are cut into
-// tiles of 64 tokens x 128 vocab columns. A block of 4 warps takes one
-// (row, 64-token tile, range of vocab tiles); the ranges (V-splits) are as
-// many as fill one wave of the card at the kernel's occupancy, so at
-// n * K = 4, T = 1024 every SM is busy. For each vocab tile the block
-// walks D in chunks of 64: the features [64 x 64] (D contiguous) and the
-// head's slab [64 x 128] (V contiguous) go by 16-byte cp.async copies into
-// a double-buffered ring in shared memory (chunk j + 1 loads while chunk j
-// is multiplied; rows past T or D and columns past V are zero-filled, so
-// V % 8 == 0 and D % 8 == 0 suffice). Each 16-byte chunk's place in its
-// 128-byte line is XORed with the row, so every ldmatrix is free of bank
-// conflicts. Warp w owns tokens 32 (w / 2) .. + 32 and columns
-// 64 (w % 2) .. + 64 of the tile: features by ldmatrix, the head by
-// ldmatrix.trans (as the attention kernel loads V for P V), and
-// mma.sync m16n8k16 bf16 x bf16 -> fp32. After the last D chunk of a
-// vocab tile each thread folds its 4 token rows' 16 logits into running
-// (max, sum-exp, gold) triples, reduced over the 4 lanes of a row with
-// shuffles; columns past V are masked. The vocab tiles run in order, so
-// the fold is in a fixed order. At the end the two column halves of a
-// row merge through shared memory (half 0, then half 1) and one triple per
-// (row, token, V-split) goes to the workspace. A second kernel, one block
-// per row, merges each token's V-splits in index order, takes
-// max + log(sum) - gold for the valid tokens, and sums them in a fixed
-// tree. No atomics: two bit-identical heads give bit-identical losses.
-//
 // Bound. The products (2 n K T D V FLOP) at the bf16 tensor-core rate, or
-// the heads read once, whichever is larger. This first tensor-core body
-// uses mma.sync, which reaches well under that rate (only wgmma does), and
-// reads each head slab once per 64-token tile (16 times at T = 1024, from
-// L2 when the blocks of one row and V-split run together, as the one-wave
-// grid makes them) and each feature tile once per vocab tile. wgmma with
-// TMA loads and larger token tiles are the next steps.
+// the heads read once, whichever is larger: at n * K = 4, T = 1024,
+// D = 2048, V = 128,256 that is 2.18 ms of operations against 0.63 ms of
+// HBM. Only wgmma reaches that rate, and only if its operands arrive fast
+// enough: a tile of BT tokens x BV columns reads (BT + BV) x 2 bytes from
+// L2 for every BT x BV x 2 FLOP, so small tiles make L2, not the tensor
+// cores, the limit.
+//
+// Design. The [T, V] logits of a row r = node * K + head are cut into
+// tiles of 128 tokens x 256 vocab columns. A block takes one (row,
+// 128-token tile, range of vocab tiles); the ranges (V-splits) are as many
+// as fill one wave of the card at one block an SM (4 at the shape above:
+// 4 rows x 8 token tiles x 4 splits = 128 blocks on 132 SMs). Its three
+// warpgroups are specialised:
+// - a producer (one thread issues, registers cut to 40 by setmaxnreg)
+//   keeps a ring of kLmStages = 4 stages of 48 KB in flight by TMA: for
+//   each (vocab tile, D chunk of 64) the features [128 x 64] and the head
+//   slab [64 x 256] (four boxes of 64 columns), both with the 128-byte
+//   swizzle; each stage completes on its "full" mbarrier. The tensor maps
+//   are 3-D, (D, T, node) and (V, D, row), so TMA's zero fill covers
+//   ragged T, D and V inside each node's or row's own data;
+// - two consumers (registers raised to 232), one per 64-token half, run
+//   wgmma m64n256k16 bf16 x bf16 -> fp32 on each stage that has arrived,
+//   four per D chunk, A K-major and B MN-major (the head is [D, V], V
+//   contiguous, and stays so: the transpose-B immediate reads it), and
+//   hand the stage back on its "empty" mbarrier once the next chunk's
+//   products are issued (wgmma.wait_group 1), so the tensor cores are
+//   never idle for a load. The 64 x 256 fp32 accumulator is 128 registers
+//   a thread.
+// After a vocab tile's last D chunk each consumer thread folds its two
+// token rows' 64 logits each into running (max, sum-exp, gold) triples,
+// exp2 with a log2(e) pre-scale, reduced over the 4 lanes of a row with
+// shuffles; columns past V are set to -inf first. The vocab tiles run in
+// order, so the fold is in a fixed order. Each (row, token, V-split)
+// triple goes to the workspace; a second kernel, one block per row, merges
+// each token's V-splits in index order, takes max + log(sum) - gold for
+// the valid tokens, and sums them in a fixed tree. No atomics: two
+// bit-identical heads give bit-identical losses.
+//
+// Against the L2 limit: each head slab is read T / 128 times (8 at
+// T = 1024) and each feature tile once per 256 columns, about 25 GB from
+// L2 at the shape above.
+//
+// Measured at that shape on an H100 SXM (80 GB HBM3, 700 W limit): 2.9 to
+// 3.3 ms a call, as long as the per (node, head) bf16 matmul alone takes
+// there. Under this load the card runs at its power limit with the SM
+// clock near 1.4 GHz, where the tensor cores' rate gives 2.9 ms. The TMA
+// ring alone (products and fold cut out) takes 1.8 ms; the fold adds about
+// 0.3 ms that the products do not hide (tools/hs_lm_ablate.py).
 
-constexpr int kLmBT = 64;        // tokens per tile
-constexpr int kLmBV = 128;       // vocab columns per tile
-constexpr int kLmBD = 64;        // D per stage of the ring
-constexpr int kLmThreads = 128;  // 4 warps: 2 token halves x 2 column halves
-constexpr int kLmMinBlocks = 4;  // per SM: caps registers at 128 a thread
-constexpr uint32_t kLmABytes = 2u * kLmBT * kLmBD;  // 8 KB of features
-constexpr uint32_t kLmBBytes = 2u * kLmBD * kLmBV;  // 16 KB of head
+constexpr int kLmBT = 128;       // tokens per tile: 64 per consumer
+constexpr int kLmBV = 256;       // vocab columns per tile: one wgmma's N
+constexpr int kLmBD = 64;        // D per stage: 128-byte rows
+constexpr int kLmBox = 64;       // columns per head TMA box (128 bytes)
+constexpr int kLmStages = 4;
+constexpr int kLmConsumers = 2;  // warpgroups running wgmma
+constexpr int kLmThreads = 128 * (kLmConsumers + 1);
+constexpr uint32_t kLmABytes = 2u * kLmBT * kLmBD;   // 16 KB of features
+constexpr uint32_t kLmBoxBytes = 2u * kLmBD * kLmBox;  // 8 KB
+constexpr uint32_t kLmBBytes = 2u * kLmBD * kLmBV;   // 32 KB of head
 constexpr uint32_t kLmStage = kLmABytes + kLmBBytes;
-constexpr int kLmSmemBytes = 2 * kLmStage;          // 48 KB, two stages
+// the ring, its barriers, and slack to put the ring on a 1024-byte
+// boundary (the period of the 128-byte swizzle)
+constexpr int kLmSmemBytes = kLmStages * kLmStage + 16 * kLmStages + 1024;
+constexpr float kLog2e = 1.4426950408889634f;
+// Parts of the body cut out, for tools/hs_lm_ablate.py's split of its time;
+// 0, nothing cut, in the port's build. Bit 1: the fold; bit 2: the products.
+#ifndef HS_LM_ABLATE
+#define HS_LM_ABLATE 0
+#endif
+constexpr int kLmAblate = HS_LM_ABLATE;
 constexpr int kMergeThreads = 256;
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// 16 bytes from global to shared, or 16 zero bytes when !in
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           bool in) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(in ? 16 : 0));
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count));
 }
 
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
+// one arrival that also expects `bytes` of TMA transactions
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// wait until the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// box at coordinates (c0, c1, c2) of `map` into shared memory at `dst`,
+// completing on the mbarrier `bar`
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int c0, int c1,
+                                         int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2)
+      : "memory");
+}
+
+// wgmma shared-memory matrix descriptor with the 128-byte swizzle: start
+// address, leading and stride byte offsets (all >> 4)
+__device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3ffff) >> 4) |
+         static_cast<uint64_t>(lbo >> 4) << 16 |
+         static_cast<uint64_t>(sbo >> 4) << 32 | 1ull << 62;
+}
+
+// d[128] (+)= A[64 x 16] B[16 x 256] in bf16, fp32 accumulator; A K-major,
+// B MN-major (the transpose-B immediate); scale_d == 0 starts from zero
+#define HS_D4(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
+#define HS_D16(i) HS_D4(i), HS_D4(i + 4), HS_D4(i + 8), HS_D4(i + 12)
+__device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t da,
+                                                 uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9,"
+      " %10, %11, %12, %13, %14, %15, %16, %17, %18, %19,"
+      " %20, %21, %22, %23, %24, %25, %26, %27, %28, %29,"
+      " %30, %31, %32, %33, %34, %35, %36, %37, %38, %39,"
+      " %40, %41, %42, %43, %44, %45, %46, %47, %48, %49,"
+      " %50, %51, %52, %53, %54, %55, %56, %57, %58, %59,"
+      " %60, %61, %62, %63, %64, %65, %66, %67, %68, %69,"
+      " %70, %71, %72, %73, %74, %75, %76, %77, %78, %79,"
+      " %80, %81, %82, %83, %84, %85, %86, %87, %88, %89,"
+      " %90, %91, %92, %93, %94, %95, %96, %97, %98, %99,"
+      " %100, %101, %102, %103, %104, %105, %106, %107, %108, %109,"
+      " %110, %111, %112, %113, %114, %115, %116, %117, %118, %119,"
+      " %120, %121, %122, %123, %124, %125, %126, %127},"
+      " %128, %129, p, 1, 1, 0, 1;\n}\n"
+      : HS_D16(0), HS_D16(16), HS_D16(32), HS_D16(48), HS_D16(64),
+        HS_D16(80), HS_D16(96), HS_D16(112)
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+#undef HS_D16
+#undef HS_D4
+
+// Keeps the compiler from moving reads or writes of the accumulator across
+// the wgmma fence or wait that precedes this
+__device__ __forceinline__ void acc_fence(float (&d)[128]) {
+#pragma unroll
+  for (int i = 0; i < 128; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
 }
 
 template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
-__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t (&r)[4]) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t addr,
-                                              uint32_t (&r)[4]) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-// c[16x8] += a[16x16] b[16x8], bf16 inputs, fp32 accumulator
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Byte offset of 16-byte chunk `chunk` of row `row` in a tile of rows of
-// `W` bf16 values: the chunk's place in its 128-byte line XORed with the
-// row, so the 8 rows one ldmatrix matrix reads fall on 8 distinct places.
-template <int W>
-__device__ __forceinline__ uint32_t swz(int row, int chunk) {
-  return 2u * static_cast<uint32_t>(row * W + ((chunk ^ (row & 7)) << 3));
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 // (m, s) <- the log-sum-exp pair of (m, s) and (mb, sb); -inf max = empty
@@ -359,185 +451,172 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(kFull, x, 2);
 }
 
-// Stage `step` (vocab tile vt0 + step / d_steps, D chunk step % d_steps)
-// into the ring's stage at byte address `a`: features [64 x 64], then the
-// head slab [64 x 128].
-__device__ __forceinline__ void lm_load(uint32_t a,
-                                        const __nv_bfloat16* f_node,
-                                        const __nv_bfloat16* w_row, int step,
-                                        int d_steps, int vt0, int t0, int t,
-                                        int d, int v, int tid) {
-  const int d0 = (step % d_steps) * kLmBD;
-  const int v0 = (vt0 + step / d_steps) * kLmBV;
-#pragma unroll
-  for (int i = tid; i < kLmBT * kLmBD / 8; i += kLmThreads) {
-    const int row = i / (kLmBD / 8), c = i % (kLmBD / 8);
-    const int tok = t0 + row, dd = d0 + 8 * c;
-    const bool in = tok < t && dd < d;
-    cp_async16(a + swz<kLmBD>(row, c),
-               f_node + (in ? static_cast<size_t>(tok) * d + dd : 0), in);
-  }
-  const uint32_t b = a + kLmABytes;
-#pragma unroll
-  for (int i = tid; i < kLmBD * kLmBV / 8; i += kLmThreads) {
-    const int row = i / (kLmBV / 8), c = i % (kLmBV / 8);
-    const int dd = d0 + row, vv = v0 + 8 * c;
-    const bool in = dd < d && vv < v;
-    cp_async16(b + swz<kLmBV>(row, c),
-               w_row + (in ? static_cast<size_t>(dd) * v + vv : 0), in);
-  }
-}
-
 // ws holds three planes [splits][rows][t]: running max, sum-exp (relative
-// to the max) and the gold logit (0 where the label is in another split)
-__global__ void __launch_bounds__(kLmThreads, kLmMinBlocks)
-head_losses_lm_kernel(const __nv_bfloat16* __restrict__ feats,
-                      const __nv_bfloat16* __restrict__ heads,
+// to the max) and the gold logit (0 where the label is in another split).
+// fmap: the features as (D, T, node), box (64, 128, 1); hmap: the heads as
+// (V, D, row), box (64, 64, 1).
+__global__ void __launch_bounds__(kLmThreads, 1)
+head_losses_lm_kernel(const __grid_constant__ CUtensorMap fmap,
+                      const __grid_constant__ CUtensorMap hmap,
                       const int32_t* __restrict__ labels,
                       float* __restrict__ ws, int k, int t, int d, int v,
                       int rows, int vt_per_split) {
-  extern __shared__ __align__(128) unsigned char lm_smem[];
-  const uint32_t sbase = smem_addr(lm_smem);
+  extern __shared__ unsigned char lm_smem[];
+  const uint32_t ring = (smem_addr(lm_smem) + 1023u) & ~1023u;
+  const uint32_t full = ring + kLmStages * kLmStage;  // kLmStages mbarriers
+  const uint32_t empty = full + 8 * kLmStages;        // and kLmStages more
   const int t_tiles = (t + kLmBT - 1) / kLmBT;
-  const int tt = blockIdx.x % t_tiles;       // token tiles of one row and
+  const int tt = blockIdx.x % t_tiles;          // token tiles of one row and
   const int r = (blockIdx.x / t_tiles) % rows;  // split are neighbours
   const int split = blockIdx.x / (t_tiles * rows);
   const int node = r / k;
   const int t0 = tt * kLmBT;
   const int v_tiles = (v + kLmBV - 1) / kLmBV;
   const int vt0 = split * vt_per_split;
+  const int vt1 = min(v_tiles, vt0 + vt_per_split);
   const int d_steps = (d + kLmBD - 1) / kLmBD;
-  const int steps = (min(v_tiles, vt0 + vt_per_split) - vt0) * d_steps;
-  const __nv_bfloat16* f_node = feats + static_cast<size_t>(node) * t * d;
-  const __nv_bfloat16* w_row = heads + static_cast<size_t>(r) * d * v;
-  const int tid = threadIdx.x;
-  const int warp = tid / 32, lane = tid % 32;
-  const int wt = warp >> 1;         // token half of the tile
-  const int wv = warp & 1;          // column half of the tile
-  const int g = lane / 4;           // row within an 8-row group
-  const int q = lane % 4;           // column pair within an 8-column block
+  const int wg = threadIdx.x / 128;
 
-  // this thread's 4 token rows: wt * 32 + 16 mi + g + 8 h
-  int y[2][2];
-  float m_run[2][2], s_run[2][2], gold[2][2];
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kLmStages; ++s) {
+      mbar_init(full + 8 * s, 1);                     // the producer's
+      mbar_init(empty + 8 * s, 4 * kLmConsumers);     // one a consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == kLmConsumers) {
+    // ---- producer ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x % 128 == 0) {
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int vt = vt0; vt < vt1; ++vt)
+        for (int j = 0; j < d_steps; ++j) {
+          mbar_wait(empty + 8 * stage, phase ^ 1);  // the first round passes
+          const uint32_t a = ring + stage * kLmStage;
+          const uint32_t bar = full + 8 * stage;
+          mbar_expect_tx(bar, kLmStage);
+          tma_load(a, &fmap, bar, j * kLmBD, t0, node);
 #pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
+          for (int c = 0; c < kLmBV / kLmBox; ++c)
+            tma_load(a + kLmABytes + c * kLmBoxBytes, &hmap, bar,
+                     vt * kLmBV + c * kLmBox, j * kLmBD, r);
+          if (++stage == kLmStages) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+    }
+  } else {
+    // ---- consumers: warpgroup wg takes tokens t0 + 64 wg .. + 64 ----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
+    const int g = lane / 4;  // row within an 8-row group
+    const int q = lane % 4;  // column pair within an 8-column block
+    // this thread's token rows: 64 wg + 16 warp + g + 8 h
+    int y[2];
+    float m_run[2], s_run[2], gold[2];
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      const int tok = t0 + wt * 32 + 16 * mi + g + 8 * h;
-      y[mi][h] = tok < t ? labels[static_cast<size_t>(node) * t + tok] : -1;
-      m_run[mi][h] = -INFINITY;
-      s_run[mi][h] = 0.f;
-      gold[mi][h] = 0.f;
+      const int tok = t0 + 64 * wg + 16 * warp + g + 8 * h;
+      y[h] = tok < t ? labels[static_cast<size_t>(node) * t + tok] : -1;
+      m_run[h] = -INFINITY;
+      s_run[h] = 0.f;
+      gold[h] = 0.f;
     }
-  float acc[2][8][4];
+    float acc[128];
 #pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
+    for (int i = 0; i < 128; ++i) acc[i] = 0.f;
+    const uint32_t a_half = wg * (kLmABytes / kLmConsumers);
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int vt = vt0; vt < vt1; ++vt) {
+      int prev = -1;
+      for (int j = 0; j < d_steps; ++j) {
+        mbar_wait(full + 8 * stage, phase);
+        const uint32_t a = ring + stage * kLmStage;
+        if constexpr (!(kLmAblate & 2)) {
+          acc_fence(acc);
+          wgmma_fence();
 #pragma unroll
-    for (int nj = 0; nj < 8; ++nj)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mi][nj][e] = 0.f;
-
-  lm_load(sbase, f_node, w_row, 0, d_steps, vt0, t0, t, d, v, tid);
-  cp_async_commit();
-  for (int step = 0; step < steps; ++step) {
-    if (step + 1 < steps)       // the next chunk loads while this one runs
-      lm_load(sbase + ((step + 1) & 1) * kLmStage, f_node, w_row, step + 1,
-              d_steps, vt0, t0, t, d, v, tid);
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    const uint32_t a = sbase + (step & 1) * kLmStage;
-    const uint32_t b = a + kLmABytes;
-#pragma unroll
-    for (int kk = 0; kk < kLmBD / 16; ++kk) {
-      uint32_t af[2][4];
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-        ldsm_x4(a + swz<kLmBD>(wt * 32 + 16 * mi + (lane & 15),
-                               2 * kk + (lane >> 4)),
-                af[mi]);
-#pragma unroll
-      for (int np = 0; np < 4; ++np) {
-        uint32_t bf[4];
-        ldsm_x4_trans(b + swz<kLmBV>(16 * kk + (lane & 7) +
-                                         (((lane >> 3) & 1) << 3),
-                                     8 * wv + 2 * np + (lane >> 4)),
-                      bf);
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi) {
-          mma_bf16(acc[mi][2 * np], af[mi], bf[0], bf[1]);
-          mma_bf16(acc[mi][2 * np + 1], af[mi], bf[2], bf[3]);
+          for (int kk = 0; kk < kLmBD / 16; ++kk)
+            // A: +32 bytes a 16-column step inside its swizzled 128-byte
+            // rows, 8-row groups 1024 bytes apart. B: +16 rows (2048 bytes)
+            // a step; 8-row groups 1024 bytes apart, the 64-column boxes
+            // kLmBoxBytes apart.
+            wgmma_m64n256k16(acc, gmma_desc(a + a_half + 32 * kk, 16, 1024),
+                             gmma_desc(a + kLmABytes + 2048 * kk,
+                                       kLmBoxBytes, 1024),
+                             j > 0 || kk > 0);
+          wgmma_commit();
+          wgmma_wait<1>();  // the previous chunk's products are done
+          acc_fence(acc);
+        }
+        if (prev >= 0 && lane == 0) mbar_arrive(empty + 8 * prev);
+        prev = stage;
+        if (++stage == kLmStages) {
+          stage = 0;
+          phase ^= 1;
         }
       }
-    }
-    __syncthreads();            // every warp is done with this stage
+      wgmma_wait<0>();
+      acc_fence(acc);
+      if (lane == 0) mbar_arrive(empty + 8 * prev);
 
-    if (step % d_steps != d_steps - 1) continue;
-    // the vocab tile is complete: fold its logits into the triples
-    const int c0 = (vt0 + step / d_steps) * kLmBV + 64 * wv + 2 * q;
+      // the vocab tile is complete: fold its logits into the triples
+      if constexpr (kLmAblate & 1) {
+        m_run[0] = fmaxf(m_run[0], acc[0]);  // keeps the products live
+        continue;
+      }
+      const int v0 = vt * kLmBV;
+      if (v0 + kLmBV > v) {
 #pragma unroll
-    for (int mi = 0; mi < 2; ++mi)
+        for (int i = 0; i < 128; ++i)
+          if (v0 + 8 * (i / 4) + 2 * q + (i % 2) >= v) acc[i] = -INFINITY;
+      }
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         float mx = -INFINITY;
 #pragma unroll
-        for (int nj = 0; nj < 8; ++nj)
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const int col = c0 + 8 * nj + e;
-            const float x = acc[mi][nj][2 * h + e];
-            if (col < v) mx = fmaxf(mx, x);
-            if (col == y[mi][h]) gold[mi][h] = x;
-          }
-        // -inf: no column of this half has been below V yet
-        const float m_new = fmaxf(m_run[mi][h], quad_max(mx));
+        for (int jn = 0; jn < 32; ++jn)
+          mx = fmaxf(mx, fmaxf(acc[4 * jn + 2 * h], acc[4 * jn + 2 * h + 1]));
+        // finite: column v0 < V lies in every quad's columns
+        const float m_new = fmaxf(m_run[h], quad_max(mx));
+        const float ml = m_new * kLog2e;
         float se = 0.f;
 #pragma unroll
-        for (int nj = 0; nj < 8; ++nj)
+        for (int jn = 0; jn < 32; ++jn)
 #pragma unroll
           for (int e = 0; e < 2; ++e)
-            if (c0 + 8 * nj + e < v && m_new != -INFINITY)
-              se += expf(acc[mi][nj][2 * h + e] - m_new);
+            se += ex2(fmaf(acc[4 * jn + 2 * h + e], kLog2e, -ml));
         se = quad_sum(se);
-        if (m_new != -INFINITY) {
-          s_run[mi][h] = s_run[mi][h] * expf(m_run[mi][h] - m_new) + se;
-          m_run[mi][h] = m_new;
+        s_run[h] = s_run[h] * ex2((m_run[h] - m_new) * kLog2e) + se;
+        m_run[h] = m_new;
+        const int c = y[h] - v0;  // the label's column in this tile
+        if (c >= 0 && c < kLmBV) {
+#pragma unroll
+          for (int jn = 0; jn < 32; ++jn)
+#pragma unroll
+            for (int e = 0; e < 2; ++e)
+              if (8 * jn + 2 * q + e == c) gold[h] = acc[4 * jn + 2 * h + e];
         }
       }
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-      for (int nj = 0; nj < 8; ++nj)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[mi][nj][e] = 0.f;
-  }
+    }
 
-  // merge the two column halves of each token row (half 0, then half 1)
-  float* red = reinterpret_cast<float*>(lm_smem);   // [2][kLmBT][3]
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
+    const size_t plane = static_cast<size_t>(gridDim.x / t_tiles) * t;
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      const float gs = quad_sum(gold[mi][h]);  // one lane holds the label
-      if (q == 0) {
-        float* slot = red + 3 * (wv * kLmBT + wt * 32 + 16 * mi + g + 8 * h);
-        slot[0] = m_run[mi][h];
-        slot[1] = s_run[mi][h];
-        slot[2] = gs;
+      const float gs = quad_sum(gold[h]);  // one lane holds the label
+      const int tok = t0 + 64 * wg + 16 * warp + g + 8 * h;
+      if (q == 0 && tok < t) {
+        const size_t idx = (static_cast<size_t>(split) * rows + r) * t + tok;
+        ws[idx] = m_run[h];
+        ws[plane + idx] = s_run[h];
+        ws[2 * plane + idx] = gs;
       }
     }
-  __syncthreads();
-  if (tid < kLmBT && t0 + tid < t) {
-    const float* lo = red + 3 * tid;
-    const float* hi = red + 3 * (kLmBT + tid);
-    float m = lo[0], s = lo[1];
-    lse_merge(m, s, hi[0], hi[1]);
-    const size_t plane = static_cast<size_t>(gridDim.x / t_tiles) * t;
-    const size_t idx = (static_cast<size_t>(split) * rows + r) * t + t0 + tid;
-    ws[idx] = m;
-    ws[plane + idx] = s;
-    ws[2 * plane + idx] = lo[2] + hi[2];
   }
 }
 
@@ -622,6 +701,56 @@ int lm_splits(int v, int vt_per_split) {
   return ((v + kLmBV - 1) / kLmBV + vt_per_split - 1) / vt_per_split;
 }
 
+// cuTensorMapEncodeTiled, from the driver through the runtime (the library
+// links no libcuda)
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled(cudaError_t* err) {
+  static EncodeTiled fn = nullptr;
+  *err = cudaSuccess;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    *err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p,
+                                            12000, cudaEnableDefault, &found);
+#else
+    *err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                   cudaEnableDefault, &found);
+#endif
+    if (*err == cudaSuccess &&
+        (found != cudaDriverEntryPointSuccess || p == nullptr))
+      *err = cudaErrorNotSupported;
+    if (*err != cudaSuccess) return nullptr;
+    fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A bf16 tensor [outer][mid][inner] as a 3-D map with boxes of (64, box_mid,
+// 1), the 128-byte swizzle and zero fill out of bounds
+cudaError_t make_map(EncodeTiled fn, CUtensorMap* map, const void* base,
+                     int inner, int mid, int outer, int box_mid) {
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(inner),
+                              static_cast<cuuint64_t>(mid),
+                              static_cast<cuuint64_t>(outer)};
+  const cuuint64_t strides[2] = {2ull * inner, 2ull * inner * mid};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(kLmBox),
+                             static_cast<cuuint32_t>(box_mid), 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  const CUresult res = fn(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims,
+      strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
 int launch_lm(const void* feats, const void* heads, const int32_t* labels,
               float* out, float* ws, int n, int k, int t, int d, int v,
               cudaStream_t s) {
@@ -637,11 +766,15 @@ int launch_lm(const void* feats, const void* heads, const int32_t* labels,
   const long long blocks =
       static_cast<long long>(splits) * rows * ((t + kLmBT - 1) / kLmBT);
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  const EncodeTiled fn = encode_tiled(&err);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  CUtensorMap fmap, hmap;
+  err = make_map(fn, &fmap, feats, d, t, n, kLmBT);
+  if (err == cudaSuccess) err = make_map(fn, &hmap, heads, v, d, rows, kLmBD);
+  if (err != cudaSuccess) return static_cast<int>(err);
   head_losses_lm_kernel<<<static_cast<unsigned>(blocks), kLmThreads,
-                          kLmSmemBytes, s>>>(
-      static_cast<const __nv_bfloat16*>(feats),
-      static_cast<const __nv_bfloat16*>(heads), labels, ws, k, t, d, v, rows,
-      per);
+                          kLmSmemBytes, s>>>(fmap, hmap, labels, ws, k, t, d,
+                                             v, rows, per);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   head_losses_lm_merge<<<rows, kMergeThreads, 0, s>>>(ws, labels, out, k, t,

@@ -3,8 +3,10 @@
 Pallas kernel in interpret mode, and LeNet's bias fold against the
 reference CNN binding's ``head_loss``.
 
-A numpy emulation of the CUDA kernel's order of operations (the kernel
-itself runs only on the card) is held against the same two oracles.
+Numpy emulations of the CUDA kernel's two bodies, each in its order of
+operations (the kernel itself runs only on the card), are held against the
+same two oracles: the FMA body at FACADE's shapes, and the tensor-core
+body of the LM regime (bf16) at shapes that cross its tile edges.
 
 Tolerances are the reference kernel tests': 1e-5 in fp32, 5e-2 in bf16
 (both sides read the same bf16 values and accumulate in fp32); argmin, the
@@ -192,6 +194,172 @@ def test_kernel_order_matches_the_pallas_kernel(k, t, d, v, n):
 def test_kernel_order_keeps_identical_heads_bit_identical():
     feats, heads, labels = _case(1, 8, 513, 10, seed=5, n=3)
     got = _emulate_kernel(feats, np.repeat(heads, 2, axis=1), labels)
+    np.testing.assert_array_equal(got[:, 0], got[:, 1])
+
+
+# The tensor-core body (the LM regime): csrc/head_select.cu's kLmBT,
+# kLmBV and wgmma's K step; the merge kernel's kMergeThreads
+LM_BT, LM_BV, LM_K_STEP = 128, 256, 16
+MERGE_THREADS = 256
+LOG2E = np.float32(1.4426950408889634)
+
+
+def _bf16(x):
+    """``x`` rounded to bf16 (nearest even) and held in fp32."""
+    return torch.from_numpy(x).to(torch.bfloat16).float().numpy()
+
+
+def _fma32(a, b, c):
+    return (a.astype(np.float64) * b + c).astype(np.float32)
+
+
+def _exp2(x):
+    return np.exp2(x.astype(np.float64)).astype(np.float32)
+
+
+def _lm_logits(f, w):
+    """``f [T, D] @ w [D, V]`` as the tensor cores accumulate it: exact
+    products of bf16 values, summed 16 rows of D at a time (one wgmma
+    step) into an fp32 accumulator, the steps in order of D."""
+    acc = np.zeros((f.shape[0], w.shape[1]), np.float32)
+    for k0 in range(0, f.shape[1], LM_K_STEP):
+        acc = (acc + f[:, k0:k0 + LM_K_STEP] @ w[k0:k0 + LM_K_STEP]).astype(
+            np.float32)
+    return acc
+
+
+def _lm_split(logits, y, vt0, vt1):
+    """One V-split's (max, sum-exp, gold) per token over vocab tiles
+    vt0 .. vt1 - 1, in order: a tile's columns past V are -inf; lane q of a
+    row's quad sums exp2 of its columns 8 j + 2 q + e (j, then e) after the
+    log2(e) pre-scale, and the quad adds (q0 + q1) + (q2 + q3)."""
+    t, v = logits.shape
+    m = np.full(t, -np.inf, np.float32)
+    s = np.zeros(t, np.float32)
+    gold = np.zeros(t, np.float32)
+    for vt in range(vt0, vt1):
+        v0, v1 = vt * LM_BV, min(v, (vt + 1) * LM_BV)
+        x = np.full((t, LM_BV), -np.inf, np.float32)
+        x[:, :v1 - v0] = logits[:, v0:v1]
+        m_new = np.maximum(m, x.max(axis=1))
+        ml = (m_new * LOG2E).astype(np.float32)
+        lanes = x.reshape(t, 32, 4, 2).transpose(0, 2, 1, 3).reshape(t, 4, 64)
+        p = _exp2(_fma32(lanes, LOG2E, -ml[:, None, None]))
+        part = np.zeros((t, 4), np.float32)
+        for i in range(64):
+            part = (part + p[..., i]).astype(np.float32)
+        se = ((part[:, 0] + part[:, 1]).astype(np.float32)
+              + (part[:, 2] + part[:, 3]).astype(np.float32)).astype(
+                  np.float32)
+        alpha = _exp2(((m - m_new) * LOG2E).astype(np.float32))
+        s = _fma32(s, alpha, se)
+        m = m_new
+        hit = (y >= v0) & (y < v1)
+        gold = np.where(hit, x[np.arange(t), np.clip(y - v0, 0, LM_BV - 1)],
+                        gold)
+    return m, s, gold
+
+
+def _emulate_lm_body(feats, heads, labels, splits):
+    """The tensor-core body in numpy, in its order, with V cut into (at
+    most) ``splits`` ranges of whole vocab tiles as the launch cuts it
+    (the card picks the count from its SMs): each split's triples, then the
+    merge kernel: per token the splits in index order (log-sum-exp pairs,
+    gold logits added), ``max + log(sum) - gold`` summed by thread
+    ``token % 256`` in token order, the 256 partial sums added in a
+    halving tree, divided by ``max(valid, 1)``."""
+    n, t, _ = feats.shape
+    k, v = heads.shape[1], heads.shape[3]
+    v_tiles = -(-v // LM_BV)
+    per = -(-v_tiles // splits)
+    out = np.zeros((n, k), np.float32)
+    for node, head in np.ndindex(n, k):
+        y = labels[node]
+        logits = _lm_logits(feats[node], heads[node, head])
+        trip = [_lm_split(logits, y, vt0, min(v_tiles, vt0 + per))
+                for vt0 in range(0, v_tiles, per)]
+        m = np.full(t, -np.inf, np.float32)
+        s = np.zeros(t, np.float32)
+        g = np.zeros(t, np.float32)
+        for mb, sb, gb in trip:
+            mx = np.maximum(m, mb)
+            with np.errstate(invalid="ignore"):
+                s = np.where(mx == -np.inf, s, (
+                    s * np.exp(m - mx).astype(np.float32)
+                    + sb * np.exp(mb - mx).astype(np.float32)).astype(
+                        np.float32))
+            m = mx
+            g = (g + gb).astype(np.float32)
+        with np.errstate(divide="ignore", invalid="ignore"):
+            nll = ((m + np.log(s)).astype(np.float32) - g).astype(np.float32)
+        valid = y >= 0
+        nll = np.where(valid, nll, np.float32(0))
+        pad = -t % MERGE_THREADS
+        part_nll = np.zeros(MERGE_THREADS, np.float32)
+        part_cnt = np.zeros(MERGE_THREADS, np.float32)
+        for row_nll, row_cnt in zip(
+                np.pad(nll, (0, pad)).reshape(-1, MERGE_THREADS),
+                np.pad(valid, (0, pad)).reshape(-1, MERGE_THREADS)):
+            part_nll = (part_nll + row_nll).astype(np.float32)
+            part_cnt = (part_cnt + row_cnt).astype(np.float32)
+        stride = MERGE_THREADS // 2
+        while stride:
+            part_nll[:stride] += part_nll[stride:2 * stride]
+            part_cnt[:stride] += part_cnt[stride:2 * stride]
+            stride //= 2
+        out[node, head] = part_nll[0] / max(part_cnt[0], np.float32(1))
+    return out
+
+
+# (n, K, T, D, V, splits): T around the 128-token tiles (1, 127, 128, 129),
+# D around the 64-row stages and 16-row wgmma steps (8, 64, 72), V around
+# the 256-column tiles (8, 248, 256, 264, and 1024 = 4 tiles), one V-split
+# and several; the last node's labels are all excluded where n > 1 (0.0).
+# V stays at most 512 or a multiple of 512, as the Pallas wrapper needs.
+LM_EMULATION_CASES = [(1, 2, 1, 8, 8, 1), (2, 1, 127, 64, 248, 1),
+                      (1, 3, 128, 72, 256, 1), (2, 2, 129, 64, 264, 2),
+                      (1, 2, 129, 72, 1024, 4), (3, 1, 200, 8, 512, 2)]
+
+
+def _lm_emulation_case(n, k, t, d, v):
+    feats, heads, labels = _case(k, t, d, v, seed=n + 17 * t + d, n=n)
+    if n > 1:
+        labels[-1] = -1
+    return _bf16(feats), _bf16(heads), labels
+
+
+@pytest.mark.parametrize("n,k,t,d,v,splits", LM_EMULATION_CASES)
+def test_lm_body_order_matches_the_reference_oracle(n, k, t, d, v, splits):
+    feats, heads, labels = _lm_emulation_case(n, k, t, d, v)
+    got = _emulate_lm_body(feats, heads, labels, splits)
+    for i in range(n):
+        want = np.asarray(jax_ref(jnp.asarray(feats[i]),
+                                  jnp.asarray(heads[i]), labels[i]))
+        np.testing.assert_allclose(got[i], want, rtol=1e-5, atol=1e-5)
+        assert int(np.argmin(got[i])) == int(np.argmin(want))
+    if n > 1:
+        assert (got[-1] == 0.0).all()
+
+
+@requires_pallas
+@pytest.mark.parametrize("n,k,t,d,v,splits", LM_EMULATION_CASES)
+def test_lm_body_order_matches_the_pallas_kernel(n, k, t, d, v, splits):
+    feats, heads, labels = _lm_emulation_case(n, k, t, d, v)
+    got = _emulate_lm_body(feats, heads, labels, splits)
+    for i in range(n):
+        want = np.asarray(ref_hs.facade_head_losses(
+            jnp.asarray(feats[i]), jnp.asarray(heads[i]),
+            np.maximum(labels[i], 0), (labels[i] >= 0).astype(np.float32),
+            interpret=True))
+        np.testing.assert_allclose(got[i], want, rtol=1e-5, atol=1e-5)
+        assert int(np.argmin(got[i])) == int(np.argmin(want))
+
+
+@pytest.mark.parametrize("splits", [1, 3])
+def test_lm_body_order_keeps_identical_heads_bit_identical(splits):
+    feats, heads, labels = _lm_emulation_case(2, 1, 129, 72, 776)
+    got = _emulate_lm_body(feats, np.repeat(heads, 2, axis=1), labels,
+                           splits)
     np.testing.assert_array_equal(got[:, 0], got[:, 1])
 
 

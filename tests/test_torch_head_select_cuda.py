@@ -8,7 +8,7 @@ only in summation order. Argmin must agree exactly. bf16 inputs with D and
 V multiples of 8 (and T > 0) take the tensor-core body (the LM regime),
 every other input the FMA body. So in bf16 the tensor-core body runs the
 first three SHAPES, EDGE_SHAPES' (2, 2, 8, 32, 16) and (2, 3, 1, 64, 24)
-(one 64 × 128 tile, mostly masked) and every LM_SHAPES case; the FMA body
+(one 128 × 256 tile, mostly masked) and every LM_SHAPES case; the FMA body
 runs bf16 at the other SHAPES and EDGE_SHAPES (D 1, 31, 33, 70 or 513, or
 V 1, 10, 17 or 45) and in the bf16 identical-heads case; fp32 always runs
 the FMA body.
@@ -36,14 +36,19 @@ EDGE_SHAPES = [(3, 1, 1, 1, 1), (3, 3, 9, 31, 17), (2, 2, 8, 32, 16),
                (3, 3, 1, 513, 17), (2, 3, 1, 64, 24)]
 # the LM regime, bf16 only (the FMA body would take tens of seconds a call
 # there): step 2c of FACADE on llama3.2-1b (n·K 4, T = B·S 1024, D 2048,
-# V 128,256), T off the 64-token tiles with V = 1000 (7.8 of the 128-column
+# V 128,256), T off the token tiles with V = 1000 (3.9 of the 256-column
 # tiles) and with rwkv6-1.6b's V = 65,536; then the body's edges: D off its
-# 64-row chunks (72, 32), and V's last tile within its first 64 columns
-# (136; and 8, where the second column half of every tile is past V). The
-# last node's labels are all excluded, which must give 0.0.
+# 64-row stages (72, 32), and V's last tile within its first 64 columns
+# (136; and 8); then n·K odd with T around the 128-token tiles (1, 127,
+# 128, 129), D 8, 64 and 72 (the 16-row wgmma steps and the 64-row
+# stages) and V around the 256-column tiles (8, 248, 256, 264, 1032), V 264
+# and 1032 in more than one V-split. The last node's labels are all
+# excluded, which must give 0.0.
 LM_SHAPES = [(4, 1, 1024, 2048, 128256), (2, 2, 1000, 2048, 1000),
              (4, 1, 200, 2048, 65536), (3, 1, 300, 72, 136),
-             (2, 2, 4096, 32, 8)]
+             (2, 2, 4096, 32, 8), (3, 1, 1, 8, 8), (3, 1, 127, 64, 248),
+             (3, 3, 128, 72, 256), (5, 1, 129, 64, 264),
+             (3, 3, 129, 8, 1032)]
 CASES = [(dt, shape) for dt in (torch.float32, torch.bfloat16)
          for shape in SHAPES + EDGE_SHAPES] + \
     [(torch.bfloat16, shape) for shape in LM_SHAPES]
@@ -104,7 +109,8 @@ def test_kernel_matches_plain_version(cuda_device, shape, dtype):
     (torch.float32, (32, 1, 8, 513, 10)),
     (torch.bfloat16, (32, 1, 8, 513, 10)),
     (torch.bfloat16, (2, 1, 1024, 2048, 128256)),
-], ids=["fp32", "bf16", "bf16-lm"])
+    (torch.bfloat16, (3, 1, 129, 72, 1032)),
+], ids=["fp32", "bf16", "bf16-lm", "bf16-lm-edge"])
 def test_identical_heads_give_bit_identical_losses(cuda_device, dtype,
                                                    shape):
     lm = shape[-1] > 1024
@@ -135,3 +141,9 @@ def test_kernel_refuses_what_it_does_not_take(cuda_device):
     shifted.copy_(feats)
     with pytest.raises(RuntimeError, match="misaligned"):
         head_losses(shifted, heads, labels)
+    # and heads off 16-byte alignment
+    shifted = torch.empty(heads.numel() + 1, dtype=heads.dtype,
+                          device=cuda_device)[1:].view(heads.shape)
+    shifted.copy_(heads)
+    with pytest.raises(RuntimeError, match="misaligned"):
+        head_losses(feats, shifted, labels)
