@@ -11,7 +11,9 @@ failure raises and exits non-zero, before the last line is printed):
 2. kernels: build every CUDA source of the port with ``nvcc`` (all started
    together), then hold each kernel against its plain PyTorch version on
    the card and time kernel, plain version and library yardstick with CUDA
-   graphs, beside the kernel's bound:
+   graphs (each graph and its memory released after its timing, which
+   must leave the device memory as it found it), beside the kernel's
+   bound:
    - head select at the reference kernel tests' shapes (fp32 and bf16,
      ~10% of labels excluded; in bf16 they take the tensor-core body) and
      at the FACADE path's shape in fp32 and in bf16 (the FMA body; D 513),
@@ -20,11 +22,12 @@ failure raises and exits non-zero, before the last line is printed):
      yardstick: a matmul and ``cross_entropy``; beside it the launch
      floor, one tiny in-place PyTorch op timed the same way. Then its
      tensor-core body (the LM regime, two device launches a call) at the
-     LM FACADE path's shape (n·K 4, T 1024, D 2048, V 128,256, bf16) and
-     two ragged ones (T 1000 with V 1000, T 200 with V 65,536), a node with
-     every label excluded giving 0.0, the same tolerance, identical heads
-     giving identical losses; timed at the path's
-     shape (its two launches, the tile kernel and the merge, also apart by
+     LM FACADE paths' shapes (n·K 4, T 1024, D 2048, V 128,256 for
+     llama3.2-1b and V 65,536 for rwkv6-1.6b, bf16) and two ragged ones
+     (T 1000 with V 1000, T 200 with V 65,536), a node with every label
+     excluded giving 0.0, the same tolerance, identical heads giving
+     identical losses; timed at both paths' shapes (at llama's, its two
+     launches, the tile kernel and the merge, also apart by
      ``torch.profiler`` after the last phase), with the tile kernel's
      registers and spills from the build log; yardstick: per (node, head)
      a bf16 matmul and ``cross_entropy`` on fp32 logits;
@@ -45,13 +48,17 @@ failure raises and exits non-zero, before the last line is printed):
      ``scaled_dot_product_attention`` (causal, GQA);
    - wkv at the reference tests' ``RW_SHAPES``, a ragged S = 100, the
      kernel's own paths (``RW_CASES``: S 1, 31 and 33 around its 16-step
-     chunks, strong and weak decay, B * H = 264 blocks) and rwkv6-1.6b's
-     serving shape (B 4, S 512, H 32, hd 64), tolerance 1e-5 on y and on
-     the final state; no single PyTorch call computes it;
-3. the FACADE path: ``run_experiment`` for FACADE and EL at paper scale
-   (full-width GN-LeNet, 32 nodes in clusters 24:8, degree 4, H = 10,
-   B = 8); checks finite parameters, one head-select launch per FACADE
-   round and the bytes per round against the formula;
+     chunks, strong and weak decay, B * H = 264 blocks), the RWKV FACADE
+     round's shape (B 4, S 256, H 32, hd 64) and rwkv6-1.6b's serving
+     shape (B 4, S 512), tolerance 1e-5 on y and on the final state; no
+     single PyTorch call computes it; timed at both shapes, and one
+     ``wkv_train`` backward (the plain recurrence, eager) timed at the
+     round's;
+3. the FACADE path: ``run_experiment`` for FACADE and the baselines EL,
+   D-PSGD, DEPRL and DAC at paper scale (full-width GN-LeNet, 32 nodes in
+   clusters 24:8, degree 4, H = 10, B = 8); checks finite parameters,
+   one head-select launch per FACADE round and none elsewhere, and each
+   algorithm's bytes per round against its formula;
 4. a small FACADE/EL input on the card and on the CPU from the same seed,
    which must agree;
 4b. FACADE on llama3.2-1b at full width (bf16, heads untied): 2 nodes in
@@ -66,9 +73,16 @@ failure raises and exits non-zero, before the last line is printed):
    differentiable ``sdpa``), no wkv launch, round-1 selection losses in
    [11, 13], the bytes per round from the config alone and finite
    parameters; prints the round times and peak memory;
-4c. the smoke LM FACADE rounds (fp32) on the card and on the CPU from the
-   same draws: selection losses and parameters within 1e-4, cluster ids
-   and bytes equal;
+4d. the same on rwkv6-1.6b at full width: one head-select call and 144
+   wkv launches a round (24 a node in step 2c's feature pass and 24 a
+   node in each local step's forward, through ``wkv_train``, whose
+   backward is the plain recurrence), no flash attention, round-1
+   selection losses in [10.5, 12.5], the bytes per round from the config
+   (RWKV's fp32 leaves at 4 bytes); the profiled round also gives the
+   host time under ``wkv_train``'s backward;
+4c. the smoke LM FACADE rounds (fp32) of both families on the card and on
+   the CPU from the same draws: selection losses and parameters within
+   1e-4, cluster ids and bytes equal;
 5. the serving path: ``serve`` for llama3.2-1b and then rwkv6-1.6b at full
    width (bf16, parameters from the port's init on the card), 8 requests
    in batches of 4, prompt length 512, 32 generated tokens, greedy, seed
@@ -106,12 +120,12 @@ import torch.nn.functional as F  # noqa: E402
 from repro_torch.configs.facade_paper import lenet  # noqa: E402
 from repro_torch.core import split  # noqa: E402
 from repro_torch.core.bindings import make_binding  # noqa: E402
-from repro_torch.core.runner import LMFacade, run_experiment  # noqa: E402
+from repro_torch.core.runner import ALGOS, LMFacade, run_experiment  # noqa: E402
 from repro_torch.data.synthetic import SynthSpec, make_clustered_data  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.flash_attention import attention_ref, flash_attention  # noqa: E402
 from repro_torch.kernels.head_select import head_losses, head_losses_ref  # noqa: E402
-from repro_torch.kernels.rwkv6 import wkv, wkv_scan  # noqa: E402
+from repro_torch.kernels.rwkv6 import wkv, wkv_scan, wkv_train  # noqa: E402
 from repro_torch.launch.serve import make_requests, serve  # noqa: E402
 from repro_torch.models import api, transformer  # noqa: E402
 from repro_torch.models.base import get_config  # noqa: E402
@@ -134,6 +148,8 @@ HS_TOL = 2e-5
 # 1024, D 2048, V 128,256), then T off the 64-token tiles with V = 1000
 # and with rwkv6-1.6b's V = 65,536
 HS_LM_SHAPE = (4, 1, 1024, 2048, 128256)
+# ... and FACADE on rwkv6-1.6b (the same n, k and T; V 65,536)
+HS_LM_RWKV = (4, 1, 1024, 2048, 65536)
 HS_LM_RAGGED = [(2, 2, 1000, 2048, 1000), (4, 1, 200, 2048, 65536)]
 PAPER = dict(k=2, degree=4, local_steps=10, batch_size=8, lr=0.05, seed=0)
 ROUNDS, EVAL_EVERY = 8, 4
@@ -164,6 +180,9 @@ FA_TOL = {torch.float32: (2e-6, 2e-6), torch.bfloat16: (1e-6, 2.0 ** -8)}
 RW_SHAPES = [(1, 64, 1, 32), (2, 128, 2, 32), (1, 256, 4, 64)]
 RW_RAGGED = (2, 100, 2, 64)
 RW_SERVE = (4, 512, 32, 64)
+# the RWKV FACADE round's training forward and step 2c (LM_FACADE's B and S,
+# rwkv6-1.6b's heads)
+RW_TRAIN = (4, 256, 32, 64)
 # the kernel's own paths: (B, S, H, hd), log decay shift. S around its
 # 16-step chunks; w near 0 (exp(-e^2)) and near 1 (exp(-e^-6)); B * H = 264
 # blocks, two waves of the 132 SMs
@@ -179,14 +198,18 @@ LM_FACADE = dict(clusters=(1, 1), k=2, degree=1, local_steps=2, batch=4,
                  seq=256, lr=5e-3, head_jitter=1e-3, seqs_per_node=32,
                  seed=0)
 LM_ROUNDS = 3
+# the profiler's host event around each ``wkv_train`` backward
+WKV_BACKWARD = "autograd::engine::evaluate_function: WkvFunctionBackward"
 # K2 in the LM FACADE path's step-2c feature pass: llama3.2-1b's heads at
 # LM_FACADE's batch and sequence, (B, Hq, Hkv, S, D) = (4, 32, 8, 256, 64)
 LM_CFG = get_config("llama3.2-1b")
 FA_LM = (LM_FACADE["batch"], LM_CFG.n_heads, LM_CFG.n_kv_heads,
          LM_FACADE["seq"], LM_CFG.hd)
-# round 1 scores the initial heads: ln V = 11.76, plus about 0.4 for logits
-# of standard deviation about 0.9 (untied head at 0.02, unit-RMS features)
-LM_SELECT_RANGE = (11.0, 13.0)
+# round 1 scores the initial heads: ln V, plus about 0.4 for logits of
+# standard deviation about 0.9 (untied head at 0.02, unit-RMS features):
+# llama3.2-1b ln 128,256 = 11.76, so [11, 13]; rwkv6-1.6b ln 65,536 =
+# 11.09, so [10.5, 12.5]
+LM_SELECT_RANGE = {"llama3.2-1b": (11.0, 13.0), "rwkv6-1.6b": (10.5, 12.5)}
 # the smoke config (fp32) on the card and on the CPU: selection losses and
 # parameters (against each leaf's largest value) within 1e-4, the same fp32
 # arithmetic in other summation orders; cluster ids and bytes exact; 2
@@ -205,9 +228,25 @@ def log(*args):
     print(*args, flush=True)
 
 
+def settled_allocated() -> int:
+    """Device memory held by live tensors once pending work is done, with
+    cuBLAS's per-stream workspaces released (each new stream's first
+    matmul allocates one and keeps it)."""
+    torch.cuda.synchronize()
+    clear = getattr(torch._C, "_cuda_clearCublasWorkspaces", None)
+    if clear is not None:
+        clear()
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_allocated()
+
+
 def graph_ms(fn, calls: int = 50, reps: int = 7) -> float:
     """Device time of one ``fn()``: ``calls`` calls captured in a CUDA graph,
-    replayed ``reps`` times between CUDA events; the median per call."""
+    replayed ``reps`` times between CUDA events; the median per call. The
+    graph and its memory pool are released before returning, and the
+    device memory held afterwards must be what it was before (or raise),
+    so a timing changes no later phase's peak memory."""
+    before = settled_allocated()
     stream = torch.cuda.Stream()
     stream.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(stream):
@@ -229,6 +268,12 @@ def graph_ms(fn, calls: int = 50, reps: int = 7) -> float:
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end) / calls)
+    del graph, stream
+    after = settled_allocated()
+    if after != before:
+        raise AssertionError(f"graph_ms kept {after - before} bytes of "
+                             f"device memory ({before} before, {after} "
+                             f"after)")
     return statistics.median(times)
 
 
@@ -428,10 +473,12 @@ def kernel_phase(rec):
 
 def head_select_lm_phase(rec) -> dict:
     """K1's tensor-core body (the LM regime) against its plain version at
-    the LM FACADE path's shape and two ragged ones (the last node's labels
-    all excluded: 0.0), then timed at the path's shape."""
+    the LM FACADE paths' shapes (llama3.2-1b's and rwkv6-1.6b's) and two
+    ragged ones (the last node's labels all excluded: 0.0), then timed at
+    both paths' shapes; returns llama's timing with rwkv's under
+    ``"rwkv"``."""
     checks = []
-    for i, shape in enumerate([HS_LM_SHAPE] + HS_LM_RAGGED):
+    for i, shape in enumerate([HS_LM_SHAPE, HS_LM_RWKV] + HS_LM_RAGGED):
         feats, heads, labels = hs_lm_case(*shape, seed=i)
         labels[-1] = -1
         got = head_losses(feats, heads, labels)
@@ -452,23 +499,31 @@ def head_select_lm_phase(rec) -> dict:
     del feats, heads, labels
     torch.cuda.empty_cache()
 
-    # timing on the path's inputs: every label counts (the mask is all ones)
-    feats, heads, labels = hs_lm_case(*HS_LM_SHAPE, seed=99, drop=0.0)
+    t = hs_lm_timing(HS_LM_SHAPE)
+    t.update(tol=HS_TOL, max_abs_err=max(c["max_abs_err"] for c in checks),
+             max_rel_err=max(c["max_rel_err"] for c in checks),
+             build=ptxas_report("head_select", "head_losses_lm_kernel"))
+    t["rwkv"] = hs_lm_timing(HS_LM_RWKV)
+    rec["head_select_lm"] = dict(t, checks=checks)
+    log("head_select lm timing", json.dumps(t))
+    return t
+
+
+def hs_lm_timing(shape) -> dict:
+    """K1 in the LM regime, its plain version and the library call timed
+    on a path's inputs (every label counts: the mask is all ones), beside
+    the bound."""
+    feats, heads, labels = hs_lm_case(*shape, seed=99, drop=0.0)
     bound_ms, bound_by, nbytes, flops = hs_bound(feats, heads, labels)
-    t = {"shape": list(HS_LM_SHAPE), "dtype": "bf16", "bound_ms": bound_ms,
+    t = {"shape": list(shape), "dtype": "bf16", "bound_ms": bound_ms,
          "bound_by": bound_by, "bytes": nbytes, "flops": flops,
-         "device_launches_per_call": 2, "tol": HS_TOL,
-         "max_abs_err": max(c["max_abs_err"] for c in checks),
-         "max_rel_err": max(c["max_rel_err"] for c in checks)}
+         "device_launches_per_call": 2}
     for key, fn, calls in (("ms", head_losses, 5),
                            ("plain_ms", head_losses_ref, 1),
                            ("library_ms", hs_lm_library, 2),
                            ("ms_again", head_losses, 5)):
         t[key] = graph_ms(lambda: fn(feats, heads, labels), calls=calls,
                           reps=5)
-    t["build"] = ptxas_report("head_select", "head_losses_lm_kernel")
-    rec["head_select_lm"] = dict(t, checks=checks)
-    log("head_select lm timing", json.dumps(t))
     del feats, heads, labels
     torch.cuda.empty_cache()
     return t
@@ -494,12 +549,16 @@ def head_select_lm_split() -> dict:
 
 
 def round_bytes(cfg, algo: str, n: int, degree: int) -> float:
+    """n * degree pushes a round, held as float32: FACADE pushes its core,
+    one head and a 4-byte cluster id, DEPRL its core alone, EL, D-PSGD
+    and DAC the whole model."""
     binding = make_binding(cfg)
     params = binding.init(torch.Generator().manual_seed(0))
-    if algo == "el":
-        return float(np.float32(n * degree * split.tree_size_bytes(params)))
     core, head = split.split_params(params, binding.head_keys)
-    payload = split.tree_size_bytes(core) + split.tree_size_bytes(head) + 4
+    payload = {"facade": split.tree_size_bytes(core)
+               + split.tree_size_bytes(head) + 4,
+               "deprl": split.tree_size_bytes(core)}.get(
+        algo, split.tree_size_bytes(params))
     return float(np.float32(n * degree * payload))
 
 
@@ -513,7 +572,7 @@ def main_path_phase(rec):
     n = ds.n_nodes
     results = {}
     with counted() as counts:
-        for algo in ("facade", "el"):
+        for algo in ALGOS:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             res = run_experiment(algo, cfg, ds, rounds=ROUNDS,
@@ -524,8 +583,9 @@ def main_path_phase(rec):
 
     out = {"launches": counts}
     if counts != {"head_losses": ROUNDS, "flash_attention": 0, "wkv": 0}:
-        raise AssertionError(f"kernel launches {counts} in {ROUNDS} FACADE "
-                             f"rounds (want one head select per round)")
+        raise AssertionError(f"kernel launches {counts} in {ROUNDS} rounds "
+                             f"of each of {ALGOS} (want one head select per "
+                             f"FACADE round, none elsewhere)")
     for algo, (res, wall) in results.items():
         leaves = tree_leaves(res.models)
         if not all(bool(torch.isfinite(l).all()) for l in leaves):
@@ -581,15 +641,37 @@ def small_input_phase(rec):
 
 
 def lm_payload_bytes(cfg) -> int:
-    """One push of a dense GQA model under FACADE, from the config alone:
-    the core (embedding and layers) and one head (final norm and untied
-    ``lm_head``) in the param dtype, and the 4-byte cluster id."""
-    d, hd = cfg.d_model, cfg.hd
-    layer = (2 * d + d * cfg.n_heads * hd * 2 + d * cfg.n_kv_heads * hd * 2
-             + 3 * d * cfg.d_ff)
-    core = cfg.vocab_size * d + cfg.n_layers * layer
-    head = d + d * cfg.vocab_size
-    return (core + head) * torch.finfo(cfg.dt).bits // 8 + 4
+    """One push of an LM under FACADE, from the config alone: the core
+    (embedding and layers) and one head (final norm and untied
+    ``lm_head``) in the param dtype, RWKV's fp32 leaves (``decay_base`` and
+    ``bonus_u``, d values each a layer) at 4 bytes, and the 4-byte cluster
+    id."""
+    d, ff, size = cfg.d_model, cfg.d_ff, torch.finfo(cfg.dt).bits // 8
+    if cfg.rwkv:
+        # two norms; time mix: five mixes, w_r/k/v/g/o, the decay's rank-32
+        # factors and ln_g; channel mix: two mixes, w_k, w_v and w_r
+        layer = (2 * d + (6 * d + 5 * d * d + 2 * 32 * d)
+                 + (2 * d + 2 * d * ff + d * d)) * size + 2 * d * 4
+    else:
+        hd = cfg.hd
+        layer = (2 * d + d * cfg.n_heads * hd * 2
+                 + d * cfg.n_kv_heads * hd * 2 + 3 * d * ff) * size
+    core = cfg.vocab_size * d * size + cfg.n_layers * layer
+    head = (d + d * cfg.vocab_size) * size
+    return core + head + 4
+
+
+def lm_launches_per_round(cfg, n: int, local_steps: int) -> dict:
+    """Kernel launches an LM FACADE round makes: one head-select call;
+    step 2c's no-grad feature pass runs one K2 (attention) or K3 (wkv)
+    launch a layer and node; training attention is the plain ``sdpa``
+    (no K2), while each local step's forward runs K3 a layer and node
+    (``wkv_train``; its backward is the plain recurrence)."""
+    per_pass = n * cfg.n_layers
+    if cfg.rwkv:
+        return {"head_losses": 1, "flash_attention": 0,
+                "wkv": per_pass * (1 + local_steps)}
+    return {"head_losses": 1, "flash_attention": per_pass, "wkv": 0}
 
 
 def lm_select_check(run, drawn) -> tuple:
@@ -612,20 +694,22 @@ def lm_select_check(run, drawn) -> tuple:
     return got, c
 
 
-def lm_facade_phase(rec) -> int:
-    """FACADE on llama3.2-1b at full width on the card; returns the
-    head-select calls in its timed rounds."""
-    cfg = get_config("llama3.2-1b")
+def lm_facade_phase(rec, arch: str) -> dict:
+    """FACADE on ``arch`` at full width on the card; returns its kernels'
+    launches in the timed rounds."""
+    cfg = get_config(arch)
     p = LM_FACADE
     want_bytes = float(np.float32(len(p["clusters"]) * p["degree"]
                                   * lm_payload_bytes(cfg)))
-    rounds, k1 = [], 0
+    select_range = LM_SELECT_RANGE[arch]
+    rounds, launches = [], {}
     t0 = time.perf_counter()
     run = LMFacade(cfg, device="cuda",
                    generator=torch.Generator("cuda").manual_seed(p["seed"]),
                    **p)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
+    want = lm_launches_per_round(cfg, run.n, p["local_steps"])
     drawn = run.draw()
     k1_path, path_check = lm_select_check(run, drawn)
     torch.cuda.reset_peak_memory_stats()
@@ -634,13 +718,11 @@ def lm_facade_phase(rec) -> int:
         with counted() as counts:
             info = run.round(drawn)
             torch.cuda.synchronize()
-        want = {"head_losses": 1, "wkv": 0,
-                "flash_attention": run.n * cfg.n_layers}
         if counts != want:
-            raise AssertionError(f"LM FACADE: kernel launches {counts} "
-                                 f"in a round, want {want}")
+            raise AssertionError(f"LM FACADE {arch}: kernel launches "
+                                 f"{counts} in a round, want {want}")
         if info["round_bytes"] != want_bytes:
-            raise AssertionError(f"LM FACADE: bytes per round "
+            raise AssertionError(f"LM FACADE {arch}: bytes per round "
                                  f"{info['round_bytes']} != {want_bytes}")
         return info, counts
 
@@ -655,77 +737,84 @@ def lm_facade_phase(rec) -> int:
                 ((losses - k1_path).abs() / k1_path.abs().clamp(min=1))
                 .max())
             if not path_check["round_vs_check_rel_err"] <= HS_TOL:
-                raise AssertionError(f"LM FACADE: round 1 selected on "
-                                     f"{losses.tolist()}, the checked K1 "
-                                     f"call gave {k1_path.tolist()}")
+                raise AssertionError(f"LM FACADE {arch}: round 1 selected "
+                                     f"on {losses.tolist()}, the checked "
+                                     f"K1 call gave {k1_path.tolist()}")
         losses = losses.cpu()
         if rnd == 1 and not (bool(torch.isfinite(losses).all()) and
-                             LM_SELECT_RANGE[0] <= float(losses.min())
-                             and float(losses.max())
-                             <= LM_SELECT_RANGE[1]):
-            raise AssertionError(f"LM FACADE: round-1 selection losses "
-                                 f"{losses.tolist()} outside "
-                                 f"{LM_SELECT_RANGE}")
-        k1 += counts["head_losses"]
+                             select_range[0] <= float(losses.min())
+                             and float(losses.max()) <= select_range[1]):
+            raise AssertionError(f"LM FACADE {arch}: round-1 selection "
+                                 f"losses {losses.tolist()} outside "
+                                 f"{select_range}")
+        for name, c in counts.items():
+            launches[name] = launches.get(name, 0) + c
         rounds.append({"round": rnd, "wall_s": wall,
                        "selection_losses": losses.tolist(),
                        "cluster_id": info["cluster_id"].tolist(),
                        "launches": counts})
-        log(f"LM FACADE round {rnd}: {wall:.3f} s, selection losses "
+        log(f"LM FACADE {arch} round {rnd}: {wall:.3f} s, selection losses "
             f"{losses.tolist()}, cluster ids "
             f"{info['cluster_id'].tolist()}")
     peak = torch.cuda.max_memory_allocated()
-    # where the time goes: one more round under torch.profiler
-    profile = device_profile(one_round)
+    # where the time goes: one more round under torch.profiler, with the
+    # host time under the wkv recurrence's backward (the plain loop)
+    profile = device_profile(one_round,
+                             host_spans=(WKV_BACKWARD,) if cfg.rwkv else ())
     for leaf in tree_leaves(run.state.cores) + tree_leaves(run.state.heads):
         if not bool(torch.isfinite(leaf).all()):
-            raise AssertionError("LM FACADE: non-finite parameters")
-    out = {**p, "n": run.n, "init_s": init_s, "rounds": rounds,
-           "round_1_s": rounds[0]["wall_s"],
+            raise AssertionError(f"LM FACADE {arch}: non-finite parameters")
+    out = {**p, "arch": arch, "n": run.n, "init_s": init_s,
+           "rounds": rounds, "round_1_s": rounds[0]["wall_s"],
            "rounds_2_3_s": [r["wall_s"] for r in rounds[1:]],
            "peak_mem_bytes": peak, "bytes_per_round": want_bytes,
-           "k1_path_check": path_check, "profiled_round": profile}
-    rec["lm_facade"] = out
-    log("LM FACADE profile", json.dumps(profile))
-    log(f"LM FACADE: round 1 {out['round_1_s']:.3f} s, rounds 2-3 "
+           "launches_per_round": want, "k1_path_check": path_check,
+           "profiled_round": profile}
+    rec.setdefault("lm_facade", {})[arch] = out
+    log(f"LM FACADE {arch} profile", json.dumps(profile))
+    log(f"LM FACADE {arch}: round 1 {out['round_1_s']:.3f} s, rounds 2-3 "
         f"{out['rounds_2_3_s']} s, peak memory {peak / 1e9:.2f} GB, "
         f"bytes/round {want_bytes:.0f}")
-    del run
+    del run, drawn
     torch.cuda.empty_cache()
-    return k1
+    return launches
 
 
 def smoke_lm_facade_phase(rec):
-    """The smoke LM FACADE rounds (fp32) on the card and on the CPU from
-    the same draws: selection losses and parameters within SMOKE_LM_TOL,
-    cluster ids and bytes equal."""
-    cfg = get_config("llama3.2-1b", smoke=True)
-    runs = {}
-    for device in ("cuda", "cpu"):
-        run = LMFacade(cfg, device=device, **SMOKE_LM)
-        runs[device] = (run, [run.round() for _ in range(SMOKE_LM_ROUNDS)])
-    (gpu, gi), (cpu, ci) = runs["cuda"], runs["cpu"]
-    loss_diff = max(float((a["selection_losses"].cpu()
-                           - b["selection_losses"]).abs().max())
-                    for a, b in zip(gi, ci))
-    same_cid = all(torch.equal(a["cluster_id"].cpu(), b["cluster_id"])
-                   for a, b in zip(gi, ci))
-    same_bytes = [a["round_bytes"] for a in gi] == [b["round_bytes"]
-                                                     for b in ci]
-    param_diff = max(
-        float((a.cpu() - b).abs().max() / b.abs().max().clamp(min=1e-3))
-        for a, b in zip(tree_leaves(gpu.state.cores)
-                        + tree_leaves(gpu.state.heads),
-                        tree_leaves(cpu.state.cores)
-                        + tree_leaves(cpu.state.heads)))
-    out = {"selection_loss_max_diff": loss_diff,
-           "param_max_rel_diff": param_diff, "cluster_ids_equal": same_cid,
-           "bytes_equal": same_bytes, "tol": SMOKE_LM_TOL}
-    log(f"smoke LM FACADE: card vs CPU {json.dumps(out)}")
-    if not (loss_diff <= SMOKE_LM_TOL and param_diff <= SMOKE_LM_TOL
-            and same_cid and same_bytes):
-        raise AssertionError(f"smoke LM FACADE: card and CPU disagree {out}")
-    rec["smoke_lm_facade"] = out
+    """The smoke LM FACADE rounds (fp32) of both families on the card and
+    on the CPU from the same draws: selection losses and parameters within
+    SMOKE_LM_TOL, cluster ids and bytes equal."""
+    for arch in LM_SELECT_RANGE:
+        cfg = get_config(arch, smoke=True)
+        runs = {}
+        for device in ("cuda", "cpu"):
+            run = LMFacade(cfg, device=device, **SMOKE_LM)
+            runs[device] = (run, [run.round()
+                                  for _ in range(SMOKE_LM_ROUNDS)])
+        (gpu, gi), (cpu, ci) = runs["cuda"], runs["cpu"]
+        loss_diff = max(float((a["selection_losses"].cpu()
+                               - b["selection_losses"]).abs().max())
+                        for a, b in zip(gi, ci))
+        same_cid = all(torch.equal(a["cluster_id"].cpu(), b["cluster_id"])
+                       for a, b in zip(gi, ci))
+        same_bytes = [a["round_bytes"] for a in gi] == [b["round_bytes"]
+                                                         for b in ci]
+        param_diff = max(
+            float((a.cpu() - b).abs().max() / b.abs().max().clamp(min=1e-3))
+            for a, b in zip(tree_leaves(gpu.state.cores)
+                            + tree_leaves(gpu.state.heads),
+                            tree_leaves(cpu.state.cores)
+                            + tree_leaves(cpu.state.heads)))
+        out = {"selection_loss_max_diff": loss_diff,
+               "param_max_rel_diff": param_diff,
+               "cluster_ids_equal": same_cid, "bytes_equal": same_bytes,
+               "tol": SMOKE_LM_TOL}
+        log(f"smoke LM FACADE {arch}: card vs CPU {json.dumps(out)}")
+        if not (loss_diff <= SMOKE_LM_TOL and param_diff <= SMOKE_LM_TOL
+                and same_cid and same_bytes):
+            raise AssertionError(f"smoke LM FACADE {arch}: card and CPU "
+                                 f"disagree {out}")
+        rec.setdefault("smoke_lm_facade", {})[arch] = out
 
 
 def check(name, got, want, tol, rtol=None, **info):
@@ -864,7 +953,7 @@ def wkv_bound(r, sm_clock_hz):
 def wkv_phase(rec, sm_clock_hz):
     checks = []
     cases = [(shape, 0.0) for shape in RW_SHAPES + [RW_RAGGED]]
-    cases += RW_CASES + [(RW_SERVE, 0.0)]
+    cases += RW_CASES + [(RW_TRAIN, 0.0), (RW_SERVE, 0.0)]
     for i, (shape, log_decay) in enumerate(cases):
         args = wkv_inputs(*shape, seed=i, log_decay=log_decay)
         y, s_f = wkv(*args)
@@ -878,33 +967,73 @@ def wkv_phase(rec, sm_clock_hz):
         checks.append(c)
     rec["wkv_checks"] = checks
 
-    args = wkv_inputs(*RW_SERVE, seed=99)
+    timing = {label: wkv_timing(shape, sm_clock_hz) for label, shape in
+              (("train", RW_TRAIN), ("serve", RW_SERVE))}
+    timing["train"]["backward"] = wkv_backward_timing(RW_TRAIN)
+    rec["wkv_timing"] = timing
+    log("wkv timing", json.dumps(timing))
+    t = timing["serve"]
+    return {"name": "wkv", "route": "cuda", "source": "src/repro_torch/csrc/wkv.cu",
+            "replaces": "src/repro/kernels/rwkv6/kernel.py:53",
+            "launches": None,
+            "max_abs_err": max(checks[-1]["max_abs_err"],
+                               checks[-1]["state_max_abs_err"]),
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": None, "train": timing["train"]}
+
+
+def wkv_timing(shape, sm_clock_hz) -> dict:
+    """K3 and its plain version timed at ``shape``, beside the bound and
+    the serial and issue floors."""
+    args = wkv_inputs(*shape, seed=99)
     bound_ms, bound_by, nbytes, flops, serial_ms, issue_ms = wkv_bound(
         args[0], sm_clock_hz)
-    t = {"shape": list(RW_SERVE), "bound_ms": bound_ms,
+    t = {"shape": list(shape), "bound_ms": bound_ms,
          "bound_by": bound_by, "bytes": nbytes, "flops": flops,
          "serial_floor_ms": serial_ms, "issue_floor_ms": issue_ms,
          "sm_clock_hz": sm_clock_hz}
     for key, fn, calls in (("ms", wkv, 50), ("plain_ms", wkv_scan, 2),
                            ("ms_again", wkv, 50)):
         t[key] = graph_ms(lambda: fn(*args), calls=calls)
-    rec["wkv_timing"] = t
-    log("wkv timing", json.dumps(t))
-    return {"name": "wkv", "route": "cuda", "source": "src/repro_torch/csrc/wkv.cu",
-            "replaces": "src/repro/kernels/rwkv6/kernel.py:53",
-            "launches": None,
-            "max_abs_err": max(checks[-1]["max_abs_err"],
-                               checks[-1]["state_max_abs_err"]),
-            "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": None}
+    return t
 
 
-def device_profile(fn, sync_every: bool = True) -> dict:
+def wkv_backward_timing(shape, reps: int = 5) -> dict:
+    """One ``wkv_train`` backward at ``shape`` as the training path runs it
+    (eager: the plain recurrence recomputed and differentiated): CUDA
+    events and the host clock around ``torch.autograd.grad`` of y, the
+    median of ``reps`` after one warm-up."""
+    leaves = [x.requires_grad_() for x in wkv_inputs(*shape, seed=98)]
+    y, _ = wkv_train(*leaves)
+    grad_y = torch.randn_like(y)
+    device_ms, host_ms = [], []
+    for _ in range(reps + 1):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        torch.autograd.grad(y, leaves, grad_y, retain_graph=True)
+        end.record()
+        end.synchronize()
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+        device_ms.append(start.elapsed_time(end))
+    return {"shape": list(shape), "events_ms": statistics.median(
+        device_ms[1:]), "host_ms": statistics.median(host_ms[1:])}
+
+
+def device_profile(fn, host_spans=()) -> dict:
     """Host wall time of ``fn()`` (ending in a synchronise) and the device
     time of the kernels it ran, by ``torch.profiler``: busy share, and the
-    largest kernels by name ([name, seconds, launches recorded]). Where
-    the profiler records no device events, the device numbers are None
-    (not measured)."""
+    largest kernels by name ([name, seconds, launches recorded]); for each
+    string in ``host_spans``, the host time of the profiler's host events
+    whose names hold it (their own and their children's) and their count.
+    The profiler's raw events are read as they come (a round of the plain
+    wkv backward records millions; building its event tree would take
+    minutes), and the seconds the profiler took to stop and to be read
+    are recorded. Where the profiler records no device events, the device
+    numbers are None (not measured)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -914,18 +1043,33 @@ def device_profile(fn, sync_every: bool = True) -> dict:
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    t1 = time.perf_counter()
     by_name, count = {}, {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            by_name[e.name] = by_name.get(e.name, 0.0) + \
-                e.time_range.elapsed_us() * 1e-6
-            count[e.name] = count.get(e.name, 0) + 1
+    spans = {name: [0.0, 0] for name in host_spans}
+    events = prof.profiler.kineto_results.events()
+    for e in events:
+        name = e.name()
+        if e.device_type() == DeviceType.CUDA:
+            by_name[name] = by_name.get(name, 0.0) + e.duration_ns() * 1e-9
+            count[name] = count.get(name, 0) + 1
+        else:
+            for span in spans:
+                if span in name:
+                    spans[span][0] += e.duration_ns() * 1e-9
+                    spans[span][1] += 1
     busy = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-    return {"wall_s": wall, "device_busy_s": busy if by_name else None,
-            "busy_share": busy / wall if by_name else None,
-            "kernel_names": len(by_name),
-            "top_kernels_s": [[n[:80], t, count[n]] for n, t in top]}
+    out = {"wall_s": wall, "device_busy_s": busy if by_name else None,
+           "busy_share": busy / wall if by_name else None,
+           "kernel_names": len(by_name),
+           "top_kernels_s": [[n[:80], t, count[n]] for n, t in top],
+           "events": len(events), "profiler_stop_s": t1 - t0 - wall,
+           "profiler_read_s": time.perf_counter() - t1}
+    if spans:
+        out["host_spans"] = {name: {"host_s": secs, "events": n,
+                                    "share_of_wall": secs / wall}
+                             for name, (secs, n) in spans.items()}
+    return out
 
 
 def serve_phase(rec, arch: str, kernel) -> int:
@@ -1057,10 +1201,15 @@ def main() -> int:
     rw = wkv_phase(rec, sm_clock_hz)
     hs["launches"] = main_path_phase(rec)
     small_input_phase(rec)
-    hs["lm"]["launches"] = lm_facade_phase(rec)
+    hs["lm"]["launches"] = lm_facade_phase(rec, "llama3.2-1b")["head_losses"]
+    rwkv_launches = lm_facade_phase(rec, "rwkv6-1.6b")
+    hs["lm"]["rwkv"]["launches"] = rwkv_launches["head_losses"]
     smoke_lm_facade_phase(rec)
     fa["launches"] = serve_phase(rec, "llama3.2-1b", flash_attention)
     rw["launches"] = serve_phase(rec, "rwkv6-1.6b", wkv)
+    # K3's launches on its second path: the RWKV FACADE rounds
+    rw["train"]["launches"] = rwkv_launches["wkv"]
+    rw["train"]["launches_per_round"] = rwkv_launches["wkv"] // LM_ROUNDS
     smoke_serve_phase(rec)
     # after the timed phases: a profiler run and one more graph timing
     split = head_select_lm_split()

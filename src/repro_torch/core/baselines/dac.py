@@ -1,0 +1,72 @@
+"""DAC baseline [Zec et al., 2022]: decentralized adaptive clustering.
+Each round a node samples its peers with probabilities from the inverse
+loss of their models on its own data, and mixes with weights from the
+same similarities: a dynamic topology and full-model exchange."""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from repro_torch.tree import tree_map
+
+from .. import split, topology
+from ..bindings import Binding, gossip_mix, local_sgd
+from ..state import BaselineState
+
+
+@dataclasses.dataclass(frozen=True)
+class DACConfig:
+    n_nodes: int
+    degree: int = 4
+    lr: float = 0.005
+    tau: float = 30.0  # similarity temperature (DAC paper's tau)
+
+
+def init_dac_extra(n: int) -> dict:
+    """Pairwise similarity scores ``[n, n]``, updated every round."""
+    return {"sim": torch.zeros((n, n), dtype=torch.float32)}
+
+
+def sample_neighbors(sim, gumbel, degree: int, tau: float):
+    """Gumbel-top-k over the similarity logits ``tau * sim``, self
+    excluded: ``[n, degree]`` neighbour ids per node. ``gumbel`` is the
+    round's ``[n, n]`` standard Gumbel draw."""
+    n = sim.shape[0]
+    logits = tau * sim - 1e9 * torch.eye(n, device=sim.device)
+    return torch.topk(logits + gumbel, degree, dim=1).indices
+
+
+def dac_round(cfg: DACConfig, binding: Binding, state: BaselineState,
+              batches, gumbel):
+    """batches: ``{"x": [n, H, B, ...], "y": [n, H, B]}``; gumbel: the
+    round's ``[n, n]`` Gumbel draw (``TorchDraws.gumbel``)."""
+    n, r = cfg.n_nodes, cfg.degree
+    sim = state.extra["sim"]
+    nbr = sample_neighbors(sim, gumbel, r, cfg.tau)          # [n, r]
+    rows = torch.arange(n, device=sim.device)[:, None]
+    adj = torch.zeros((n, n), dtype=torch.float32, device=sim.device)
+    adj[rows, nbr] = 1.0
+    adj = torch.maximum(adj, adj.T)      # symmetrise (push-pull exchange)
+
+    # similarity: the inverse loss of each neighbour's model on the node's
+    # first local batch, all n * r pairs in one node-batched call
+    with torch.no_grad():
+        peers = tree_map(lambda l: l[nbr.reshape(-1)], state.params)
+        mine = {key: b[:, 0].repeat_interleave(r, dim=0)
+                for key, b in batches.items()}
+        l_peer = binding.node_losses(peers, mine).reshape(n, r)
+    new_sim = sim.clone()
+    new_sim[rows, nbr] = 1.0 / l_peer.float().clamp(min=1e-6)
+
+    # aggregate with similarity weights, then train locally
+    w = topology.weighted_mixing(adj, new_sim.clamp(min=1e-6))
+    params = local_sgd(binding, gossip_mix(w, state.params), batches,
+                       cfg.lr)
+    model_bytes = split.tree_size_bytes(
+        tree_map(lambda l: l[0], state.params))
+    round_bytes = float(np.float32(n * r * model_bytes))
+    return (BaselineState(params=params, round=state.round + 1,
+                          extra={"sim": new_sim}),
+            {"round_bytes": round_bytes})

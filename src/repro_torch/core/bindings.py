@@ -5,8 +5,10 @@ A binding exposes, over node-stacked trees (leading ``[n]``):
                                            included)
     head_keys                           -> which top-level groups form the
                                            head
-    loss(params, batch)                 -> sum over nodes of each node's
-                                           mean loss
+    node_losses(params, batch)          -> each node's mean loss ``[n]``
+    loss(params, batch)                 -> their sum: the nodes' parameters
+                                           are disjoint, so its gradient is
+                                           each node's own
     features(core, batch)               -> the core's output per node
     select_operands(feats, heads, batch) -> the head-select kernel's
                                            ``(features, heads, labels)``
@@ -46,6 +48,7 @@ class Binding(NamedTuple):
     cfg: Any
     init: Callable
     head_keys: tuple
+    node_losses: Callable
     loss: Callable
     features: Callable
     select_operands: Callable
@@ -100,8 +103,11 @@ def make_binding(cfg) -> Binding:
 def _cnn_binding(cfg: CNNConfig) -> Binding:
     hk = cnn.head_keys(cfg)
 
+    def node_losses(params, batch):
+        return cnn.node_losses(cfg, params, batch)
+
     def loss(params, batch):
-        return cnn.node_loss(cfg, params, batch)
+        return node_losses(params, batch).sum()
 
     def features(core, batch):
         return cnn.node_features(cfg, core, batch["x"])
@@ -121,8 +127,8 @@ def _cnn_binding(cfg: CNNConfig) -> Binding:
     def forward(params, x):
         return cnn.node_forward(cfg, params, x)
 
-    return Binding(cfg, lambda g: cnn.init_params(cfg, g), hk, loss,
-                   features, select_operands, forward)
+    return Binding(cfg, lambda g: cnn.init_params(cfg, g), hk, node_losses,
+                   loss, features, select_operands, forward)
 
 
 def _lm_binding(cfg: ModelConfig) -> Binding:
@@ -134,10 +140,13 @@ def _lm_binding(cfg: ModelConfig) -> Binding:
         return _untie_lm_head(cfg, transformer.init_params(cfg, generator),
                               generator)
 
-    def loss(params, batch):
-        return sum(transformer.loss_fn(
+    def node_losses(params, batch):
+        return torch.stack([transformer.loss_fn(
             cfg, node_params, {key: b[i] for key, b in batch.items()})[0]
-            for i, node_params in enumerate(tree_unstack(params)))
+            for i, node_params in enumerate(tree_unstack(params))])
+
+    def loss(params, batch):
+        return node_losses(params, batch).sum()
 
     def features(core, batch):
         """[n, B, S, D] pre-norm features, one forward per node."""
@@ -170,4 +179,5 @@ def _lm_binding(cfg: ModelConfig) -> Binding:
             "per-node logits of a language model are not ported yet; "
             "evaluate with binding.loss")
 
-    return Binding(cfg, init, hk, loss, features, select_operands, forward)
+    return Binding(cfg, init, hk, node_losses, loss, features,
+                   select_operands, forward)

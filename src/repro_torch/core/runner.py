@@ -1,7 +1,8 @@
-"""Experiment runner: drives FACADE or EL over a clustered dataset,
-evaluating per-cluster accuracy, fairness metrics and communication
-volume — the harness behind the paper's tables, on one device — and
-FACADE rounds on a language model (:class:`LMFacade`).
+"""Experiment runner: drives FACADE or a baseline (EL, D-PSGD, DEPRL,
+DAC) over a clustered dataset, evaluating per-cluster accuracy, fairness
+metrics and communication volume — the harness behind the paper's
+tables, on one device — and FACADE rounds on a language model
+(:class:`LMFacade`).
 
 The counterpart of ``repro.core.runner`` with its per-round loop (the
 reference's ``engine=False`` path). The reference's segment engine,
@@ -11,10 +12,11 @@ does not accept their parameters.
 
 Randomness comes from a *draws* source (:class:`TorchDraws` by default):
 it supplies the initial parameters, each round's ``[n, H, B]`` batch
-indices and each round's topology permutations, so a run can replay
-another's draws exactly. ``TorchDraws`` draws on the CPU and the runner
-moves the draws to the run's device, so one seed gives the same draws on
-every device.
+indices and each round's topology draw (FACADE and EL: the permutations
+of a random regular graph; DAC: a Gumbel matrix; D-PSGD and DEPRL, on a
+static ring: none), so a run can replay another's draws exactly.
+``TorchDraws`` draws on the CPU and the runner moves the draws to the
+run's device, so one seed gives the same draws on every device.
 """
 from __future__ import annotations
 
@@ -34,11 +36,18 @@ from repro_torch.tree import tree_map
 
 from . import facade as facade_mod
 from . import split, topology
-from .baselines import ELConfig, el_round
+from .baselines import (DACConfig, DeprlConfig, DpsgdConfig, ELConfig,
+                        dac_round, deprl_round, dpsgd_round, el_round,
+                        init_dac_extra)
 from .bindings import Binding, make_binding
 from .state import init_baseline_state, init_facade_state
 
-ALGOS = ("facade", "el")
+# baseline -> (config, round function, the round's topology draw)
+BASELINES = {"el": (ELConfig, el_round, "perms"),
+             "dpsgd": (DpsgdConfig, dpsgd_round, None),
+             "deprl": (DeprlConfig, deprl_round, None),
+             "dac": (DACConfig, dac_round, "gumbel")}
+ALGOS = ("facade",) + tuple(BASELINES)
 
 
 @dataclasses.dataclass
@@ -64,7 +73,7 @@ class RunResult:
 class TorchDraws:
     """The port's own draws, from CPU ``torch.Generator``s seeded with
     ``seed``: one stream for the initial parameters, one for batch
-    indices and one for topologies."""
+    indices and one for topologies (permutations or Gumbel draws)."""
 
     def __init__(self, seed: int):
         streams = np.random.SeedSequence(seed).generate_state(3)
@@ -86,6 +95,13 @@ class TorchDraws:
 
     def perms(self, n: int, r: int):
         return topology.draw_perms(self._topo, n, r)
+
+    def gumbel(self, n: int):
+        """``[n, n]`` standard Gumbel draws, ``-log(-log(U))`` with U
+        uniform in [tiny, 1)."""
+        u = torch.rand((n, n), generator=self._topo).clamp_(
+            min=torch.finfo(torch.float32).tiny)
+        return -torch.log(-torch.log(u))
 
 
 # --------------------------------------------------------------------------
@@ -211,8 +227,8 @@ def run_experiment(algo: str, cfg, dataset, *, rounds: int,
                    draws=None) -> RunResult:
     """Run one (algorithm, dataset) experiment end to end on ``device``.
 
-    ``algo`` is ``"facade"`` or ``"el"``. ``draws`` supplies the initial
-    parameters, batch indices and topologies (default
+    ``algo`` is one of :data:`ALGOS`. ``draws`` supplies the initial
+    parameters, batch indices and topology draws (default
     ``TorchDraws(seed)``); it has the methods of :class:`TorchDraws`.
     The run computes fp32 in full fp32 (TF32 off, as the reference); the
     caller's TF32 flags are restored when it returns or raises.
@@ -262,12 +278,15 @@ def _run(algo: str, cfg, dataset, *, rounds: int, k, degree: int,
                                        binding, warmup=True)
         models_of = facade_mod.node_models
         finalize = functools.partial(facade_mod.final_allreduce, fcfg)
+        topology_draw = "perms"
     else:
         warmup_rounds = 0       # only FACADE has a warmup phase
-        ecfg = ELConfig(n_nodes=n, degree=degree, lr=lr)
+        cfg_cls, round_fn, topology_draw = BASELINES[algo]
         state = init_baseline_state(
-            binding, n, params=draws.baseline_init(binding), device=dev)
-        round_main = round_warm = functools.partial(el_round, ecfg, binding)
+            binding, n, params=draws.baseline_init(binding),
+            extra=init_dac_extra(n) if algo == "dac" else None, device=dev)
+        round_main = round_warm = functools.partial(
+            round_fn, cfg_cls(n_nodes=n, degree=degree, lr=lr), binding)
         models_of = lambda s: s.params                          # noqa: E731
         finalize = lambda s: s                                   # noqa: E731
 
@@ -276,13 +295,22 @@ def _run(algo: str, cfg, dataset, *, rounds: int, k, degree: int,
                                batch=eval_batch, device=dev)
     hist = _History(dataset.node_cluster, n, evaluator, models_of,
                     target_acc, verbose, algo, cfg.n_classes)
+
+    def draw_topology() -> tuple:
+        """The round's topology draw, which follows the algorithm (the
+        reference splits its key only for a round that uses it)."""
+        if topology_draw == "perms":
+            return (draws.perms(n, degree).to(dev),)
+        if topology_draw == "gumbel":
+            return (draws.gumbel(n).to(dev),)
+        return ()
+
     for rnd in range(rounds):
         idx = draws.batch_indices(n, local_steps, batch_size, per_node)
         batches = pipeline.sample_round_batches(idx.to(dev), train_x,
                                                 train_y)
-        perms = draws.perms(n, degree).to(dev)
         fn = round_warm if rnd < warmup_rounds else round_main
-        state, info = fn(state, batches, perms)
+        state, info = fn(state, batches, *draw_topology())
         last_round = rnd == rounds - 1
         if last_round:
             state = finalize(state)

@@ -27,6 +27,7 @@ class FacadeState(NamedTuple):
 class BaselineState(NamedTuple):
     params: Any          # tree, leading [n, ...] (full model)
     round: int
+    extra: Any = None    # algorithm state (DAC: {"sim": [n, n]})
 
 
 def _stack_n(tree, n: int, dev):
@@ -66,11 +67,13 @@ def init_facade_state(binding, n: int, k: int, *, params=None,
 
 def init_baseline_state(binding, n: int, *, params=None,
                         generator: torch.Generator | None = None,
-                        device="cuda") -> BaselineState:
+                        extra=None, device="cuda") -> BaselineState:
     dev = device_mod.resolve(device)
     if params is None:
         if generator is None:
             raise ValueError("params not given: pass the torch.Generator "
                              "to draw them from")
         params = binding.init(generator)
-    return BaselineState(params=_stack_n(params, n, dev), round=0)
+    return BaselineState(params=_stack_n(params, n, dev), round=0,
+                         extra=None if extra is None else tree_map(
+                             lambda l: l.to(dev), extra))

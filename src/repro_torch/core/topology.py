@@ -1,10 +1,12 @@
-"""Randomized communication topologies (paper Sec. III-D step 1).
+"""Communication topologies (paper Sec. III-D step 1).
 
 Each round FACADE (and the EL baseline) uses a fresh random r-regular
 undirected graph, built as the union of ``r/2`` random cyclic permutations
 (plus their inverses), with one extra random matching for odd r. The
 permutations are an input, so a run can replay another's draws exactly;
-:func:`draw_perms` draws them from a ``torch.Generator``.
+:func:`draw_perms` draws them from a ``torch.Generator``. D-PSGD and DEPRL
+use the static :func:`ring`; DAC samples its own graph (``baselines/dac``)
+and mixes with :func:`weighted_mixing`.
 
 All of them return a dense adjacency ``A [n, n]`` (float32, 0/1, zero
 diagonal); :func:`mixing_matrix` turns it into the row-stochastic W of
@@ -59,6 +61,19 @@ def random_regular(perms, n: int, r: int) -> torch.Tensor:
     return a
 
 
+def ring(n: int, r: int = 2, device="cpu") -> torch.Tensor:
+    """Static ring with ``max(1, r // 2)`` hops on each side. Raises
+    ``ValueError`` when ``r`` is outside ``[1, n - 1]``."""
+    _check_degree(n, r)
+    a = torch.zeros((n, n), dtype=torch.float32, device=device)
+    idx = torch.arange(n, device=device)
+    for hop in range(1, max(1, r // 2) + 1):
+        a[idx, (idx + hop) % n] = 1.0
+        a[(idx + hop) % n, idx] = 1.0
+    a.fill_diagonal_(0.0)
+    return a
+
+
 def fully_connected(n: int, device="cpu") -> torch.Tensor:
     return (torch.ones((n, n), dtype=torch.float32, device=device)
             - torch.eye(n, device=device))
@@ -70,6 +85,15 @@ def mixing_matrix(adj) -> torch.Tensor:
     n = adj.shape[0]
     a_hat = adj + torch.eye(n, dtype=adj.dtype, device=adj.device)
     return a_hat / a_hat.sum(dim=1, keepdim=True)
+
+
+def weighted_mixing(adj, weights) -> torch.Tensor:
+    """DAC's row-stochastic W: nonnegative ``weights`` masked by the
+    adjacency, plus a self edge weighing the row's largest weight (at
+    least 1e-6), each row normalised."""
+    w = weights * adj
+    w = w + torch.diag(w.max(dim=1).values.clamp(min=1e-6))
+    return w / w.sum(dim=1, keepdim=True)
 
 
 def degrees(adj) -> torch.Tensor:

@@ -1,2 +1,2 @@
-from .ops import wkv  # noqa: F401
+from .ops import wkv, wkv_train  # noqa: F401
 from .ref import wkv_scan  # noqa: F401

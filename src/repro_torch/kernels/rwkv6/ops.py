@@ -9,6 +9,10 @@ The kernel has no backward: on CUDA tensors that need a gradient (grad
 mode on and any input ``requires_grad``) the wrapper raises instead of
 returning outputs cut off from autograd. ``wkv.launches`` counts kernel
 launches.
+
+``wkv_train`` is the recurrence for training: an autograd function whose
+forward is ``wkv`` (the kernel on CUDA tensors) and whose backward
+recomputes the plain ``wkv_scan`` and differentiates it.
 """
 from __future__ import annotations
 
@@ -86,3 +90,56 @@ def wkv(r, k, v, w, u):
 
 
 wkv.launches = 0
+
+
+class WkvFunction(torch.autograd.Function):
+    """The wkv recurrence under autograd.
+
+    *Forward:* :func:`wkv` without grad (one kernel launch on CUDA
+    tensors, the plain ``wkv_scan`` on CPU tensors); it keeps r, k, v, w
+    and u, 4 x ``[B,S,H,hd]`` fp32 and ``[H,hd]``, for the backward pass,
+    instead of the per-step states autograd would keep through the plain
+    loop (three ``[B,H,hd,hd]`` tensors a step).
+
+    *Backward:* recomputes the plain ``wkv_scan`` on the kept inputs with
+    grad on, eagerly, and returns autograd's gradients through it, so the
+    gradients are exactly those of the plain recurrence at the same
+    inputs. That loop of S small steps runs on the host's issue rate and
+    is the expected bottleneck of a training step; it needs the per-step
+    states of one call while that call's backward runs. Only ``y``'s
+    gradient is used when the final state's is ``None`` (training).
+    """
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u):
+        ctx.set_materialize_grads(False)
+        with torch.no_grad():
+            y, s_final = wkv(r, k, v, w, u)
+        ctx.save_for_backward(r, k, v, w, u)
+        return y, s_final
+
+    @staticmethod
+    def backward(ctx, grad_y, grad_s):
+        pairs = [(o, g) for o, g in zip((0, 1), (grad_y, grad_s))
+                 if g is not None]
+        if not pairs or not any(ctx.needs_input_grad):
+            return (None,) * 5
+        with torch.enable_grad():
+            inputs = [x.detach().requires_grad_(need) for x, need in
+                      zip(ctx.saved_tensors, ctx.needs_input_grad)]
+            outs = wkv_scan(*inputs)
+            wanted = [x for x in inputs if x.requires_grad]
+            # materialize_grads: an input the used outputs do not reach
+            # (w for y at S = 1) gets a zero gradient
+            grads = iter(torch.autograd.grad(
+                [outs[o] for o, _ in pairs], wanted, [g for _, g in pairs],
+                materialize_grads=True))
+        return tuple(next(grads) if x.requires_grad else None
+                     for x in inputs)
+
+
+def wkv_train(r, k, v, w, u):
+    """:func:`wkv` for training: the same outputs, differentiable in r, k,
+    v, w and u (:class:`WkvFunction`). On CUDA tensors the forward
+    launches the kernel or raises; it never runs the plain loop there."""
+    return WkvFunction.apply(r, k, v, w, u)

@@ -86,11 +86,10 @@ def node_forward(cfg: CNNConfig, params: dict, x) -> torch.Tensor:
     return lenet_head(cfg, params, node_features(cfg, params, x))
 
 
-def node_loss(cfg: CNNConfig, params: dict, batch: dict) -> torch.Tensor:
-    """Sum over nodes of each node's mean CE. The nodes' parameters are
-    disjoint, so the gradient of the sum is each node's own gradient."""
+def node_losses(cfg: CNNConfig, params: dict, batch: dict) -> torch.Tensor:
+    """Each node's mean CE on its own batch, ``[n]``."""
     logits = node_forward(cfg, params, batch["x"])
-    return layers.nll(logits, batch["y"]).mean(dim=-1).sum()
+    return layers.nll(logits, batch["y"]).mean(dim=-1)
 
 
 def _one(params: dict) -> dict:

@@ -8,17 +8,19 @@ Per head (head_dim = d/H) the time-mixing state is the matrix
     S_t   = diag(w_t) S_{t-1} + k_t^T v_t
 
 with the data-dependent per-channel decay ``w_t = exp(-exp(wb + lora(x_t)))``.
-Over a full sequence from a zero state (prefill, forward) the recurrence
-runs on the card through the hand-written kernel ``kernels/rwkv6``; with a
-carried state (decode, one step) and on the CPU it is the plain
-``wkv_scan``, as the reference's decode is.
+Over a full sequence from a zero state (prefill, forward, training) the
+recurrence goes through ``kernels/rwkv6.wkv_train``: its forward is the
+hand-written kernel on the card (the plain ``wkv_scan`` on the CPU), and
+under autograd its backward recomputes the plain ``wkv_scan`` and
+differentiates it. With a carried state (decode, one step) it is the
+plain ``wkv_scan``, as the reference's decode is.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels.rwkv6 import wkv, wkv_scan
+from repro_torch.kernels.rwkv6 import wkv_scan, wkv_train
 
 from . import layers
 from .base import ModelConfig
@@ -108,8 +110,9 @@ def time_mix(cfg: ModelConfig, p, x, state=None, last_x=None):
     k = k / HEAD_DIM ** 0.5
 
     if state is None:
-        y, sf = wkv(r.contiguous(), k.contiguous(), v.contiguous(),
-                    w.contiguous(), p["bonus_u"])
+        # the kernel takes contiguous rows only; the function keeps these
+        y, sf = wkv_train(r.contiguous(), k.contiguous(), v.contiguous(),
+                          w.contiguous(), p["bonus_u"])
     else:
         y, sf = wkv_scan(r, k, v, w, p["bonus_u"], s0=state)
     b, s = x.shape[:2]

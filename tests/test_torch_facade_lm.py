@@ -46,8 +46,8 @@ ARCH = "llama3.2-1b"
 VALUE_TOL, GRAD_TOL = 1e-5, 1e-4
 
 
-def _cfgs():
-    return ref_get_config(ARCH, smoke=True), get_config(ARCH, smoke=True)
+def _cfgs(arch=ARCH):
+    return ref_get_config(arch, smoke=True), get_config(arch, smoke=True)
 
 
 def _batch(vocab, b, s, seed, masked=0.0):
@@ -65,7 +65,13 @@ def _close(got, want, tol, msg=""):
 
 @pytest.mark.parametrize("untied", [False, True], ids=["tied", "untied"])
 def test_loss_fn_value_and_gradients_match_the_reference(untied):
-    rcfg, cfg = _cfgs()
+    check_loss_fn(ARCH, untied)
+
+
+def check_loss_fn(arch, untied):
+    """``transformer.loss_fn`` of ``arch``'s smoke config against the
+    reference's on one batch: value 1e-5, every gradient 1e-4."""
+    rcfg, cfg = _cfgs(arch)
     key = jax.random.PRNGKey(4)
     ref_params = (ref_make_binding(rcfg).init(key) if untied else
                   ref_tf.init_params(rcfg, key))
@@ -206,10 +212,15 @@ def test_gqa_forward_trains_through_the_plain_sdpa():
 
 @pytest.mark.parametrize("warmup", [False, True], ids=["main", "warmup"])
 def test_facade_round_matches_the_reference(warmup):
-    """One round at ``tests/test_facade_lm.py``'s shapes (n 2, k 2, H 1,
-    B 2, S 32, head_jitter 1e-3) from the reference's draws, replayed by
-    ``JaxDraws``: initial state, batch indices and topology."""
-    rcfg, cfg = _cfgs()
+    check_facade_round(ARCH, warmup)
+
+
+def check_facade_round(arch, warmup):
+    """One round of ``arch``'s smoke config at ``tests/test_facade_lm.py``'s
+    shapes (n 2, k 2, H 1, B 2, S 32, head_jitter 1e-3) from the
+    reference's draws, replayed by ``JaxDraws``: initial state, batch
+    indices and topology."""
+    rcfg, cfg = _cfgs(arch)
     rb, pb = ref_make_binding(rcfg), make_binding(cfg)
     n, k, h, b, s, deg, lr, jitter, seed = 2, 2, 1, 2, 32, 1, 1e-2, 1e-3, 0
     train = tokens.make_clustered_tokens(

@@ -3,9 +3,11 @@ loop (``engine=False``) at a quickstart-like size, with the reference's
 draws replayed (``torch_caps.JaxDraws``): the same initial parameters,
 batches and topologies go through both.
 
-Tolerances: accuracies, fair accuracy, DP and EO within 0.1, the
-reference's own precedent across layouts (``tests/test_mesh.py``);
-the per-round bytes and the FACADE cluster history are exact.
+All five algorithms are held to the same checks. Tolerances: accuracies,
+fair accuracy, DP and EO within 0.1, the reference's own precedent
+across layouts (``tests/test_mesh.py``); the per-round bytes and the
+FACADE cluster history are exact; DAC's Gumbel draws and sampled
+neighbours exact, its similarities 1e-5 relative.
 
 The FACADE runs decorrelate the initial heads (``head_jitter``): with
 identical heads every round-1 selection is a loss tie at the last ulp,
@@ -14,15 +16,26 @@ which the two frameworks may break differently
 and cluster ids are exact only away from near-ties."""
 from __future__ import annotations
 
+import functools
+
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from repro.configs import facade_paper as ref_configs
 from repro.core import runner as ref_runner
+from repro.core.baselines import dac as ref_dac
+from repro.core.bindings import make_binding as ref_make_binding
+from repro.core.state import init_baseline_state as ref_init_baseline
+from repro.data import pipeline as ref_pipeline
 from repro_torch.configs import facade_paper
 from repro_torch.core import runner
-from repro_torch.data import synthetic
+from repro_torch.core.baselines import dac
+from repro_torch.core.bindings import make_binding
+from repro_torch.core.state import init_baseline_state
+from repro_torch.data import pipeline, synthetic
 from torch_caps import JaxDraws
 
 torch.set_num_threads(1)
@@ -48,7 +61,10 @@ def _cfgs():
     ("facade", {"head_jitter": 0.05}),
     ("facade", {"head_jitter": 0.2, "degree": 3}),
     ("el", {}),
-], ids=["facade", "facade-degree3", "el"])
+    ("dpsgd", {}),
+    ("deprl", {}),
+    ("dac", {}),
+], ids=["facade", "facade-degree3", "el", "dpsgd", "deprl", "dac"])
 def test_run_experiment_matches_the_reference(ds, algo, extra):
     rcfg, cfg = _cfgs()
     kw = {**KW, **extra}
@@ -85,6 +101,48 @@ def _leaves(tree):
     return [tree]
 
 
+def test_dac_rounds_sample_the_reference_neighbours(ds):
+    """Two DAC rounds from the reference's draws (``JaxDraws``): each
+    round's Gumbel matrix equals the reference's, and so do the neighbours
+    it samples (the similarity entries a round writes; round 2 ranks
+    ``tau * sim`` of round 1 plus its noise). Similarities within 1e-5
+    relative: inverse losses of the same models on the same batches."""
+    rcfg, cfg = _cfgs()
+    rb, pb = ref_make_binding(rcfg), make_binding(cfg)
+    n, h, b, deg = ds.n_nodes, KW["local_steps"], KW["batch_size"], 2
+    k_init, k_data = jax.random.split(jax.random.PRNGKey(0))
+    want = ref_init_baseline(rb, k_init, n,
+                             extra=ref_dac.init_dac_extra(n))
+    step = jax.jit(functools.partial(
+        ref_dac.dac_round, ref_dac.DACConfig(n_nodes=n, degree=deg,
+                                             local_steps=h, lr=0.05), rb))
+    draws = JaxDraws(0)
+    got = init_baseline_state(pb, n, params=draws.baseline_init(pb),
+                              extra=dac.init_dac_extra(n), device="cpu")
+    train_x, train_y = pipeline.place(ds, "cpu")
+    pcfg = dac.DACConfig(n_nodes=n, degree=deg, lr=0.05)
+    for _ in range(2):
+        k_data, k_b = jax.random.split(k_data)
+        g_want = jax.random.gumbel(jax.random.split(want.rng)[1], (n, n))
+        want, want_info = step(want, ref_pipeline.sample_round_batches(
+            k_b, jnp.asarray(ds.train_x), jnp.asarray(ds.train_y), h, b))
+        batches = pipeline.sample_round_batches(
+            draws.batch_indices(n, h, b, train_x.shape[1]), train_x,
+            train_y)
+        gumbel = draws.gumbel(n)
+        np.testing.assert_array_equal(gumbel.numpy(), np.asarray(g_want))
+        before = got.extra["sim"]
+        got, info = dac.dac_round(pcfg, pb, got, batches, gumbel)
+        written = (got.extra["sim"] != before).numpy()
+        np.testing.assert_array_equal(
+            written, np.asarray(want.extra["sim"]) != before.numpy())
+        assert (written.sum(1) == deg).all() and not written.diagonal().any()
+        np.testing.assert_allclose(got.extra["sim"].numpy(),
+                                   np.asarray(want.extra["sim"]),
+                                   rtol=1e-5, atol=0)
+        assert info["round_bytes"] == float(want_info["round_bytes"])
+
+
 def test_port_draws_are_seeded_and_device_independent(ds):
     _, cfg = _cfgs()
     kw = dict(KW, rounds=2, eval_every=2)
@@ -109,7 +167,7 @@ def test_invalid_settings_raise(ds, bad, match):
 def test_unported_algorithms_and_options_are_refused(ds):
     _, cfg = _cfgs()
     with pytest.raises(ValueError, match="not ported"):
-        runner.run_experiment("dac", cfg, ds, device="cpu", **KW)
+        runner.run_experiment("sgp", cfg, ds, device="cpu", **KW)
     with pytest.raises(TypeError):
         runner.run_experiment("el", cfg, ds, device="cpu", engine=False,
                               **KW)

@@ -53,3 +53,33 @@ def test_degree_out_of_range_raises(r):
 def test_wrong_number_of_perms_raises():
     with pytest.raises(ValueError, match="perms must be"):
         topology.random_regular(torch.zeros((1, 8), dtype=torch.long), 8, 4)
+
+
+@pytest.mark.parametrize("n,r", [(8, 2), (8, 3), (8, 4), (5, 1), (9, 8)])
+def test_ring_matches_the_reference(n, r):
+    got = topology.ring(n, r)
+    assert got.dtype == torch.float32
+    np.testing.assert_array_equal(got.numpy(),
+                                  np.asarray(ref_topology.ring(n, r)))
+
+
+@pytest.mark.parametrize("r", [0, 8])
+def test_ring_degree_out_of_range_raises(r):
+    with pytest.raises(ValueError, match="out of range"):
+        topology.ring(8, r)
+
+
+def test_weighted_mixing_matches_the_reference():
+    """DAC's weights: similarities on a sampled graph, one node isolated
+    (its row is the self edge alone)."""
+    rng = np.random.default_rng(0)
+    adj = (rng.random((7, 7)) < 0.4).astype(np.float32)
+    adj = np.maximum(adj, adj.T)
+    np.fill_diagonal(adj, 0.0)
+    adj[3, :] = adj[:, 3] = 0.0
+    weights = np.maximum(rng.random((7, 7)).astype(np.float32), 1e-6)
+    got = topology.weighted_mixing(torch.from_numpy(adj),
+                                   torch.from_numpy(weights))
+    np.testing.assert_allclose(got.numpy(), np.asarray(
+        ref_topology.weighted_mixing(adj, weights)), rtol=1e-6, atol=1e-7)
+    np.testing.assert_allclose(got.sum(1).numpy(), 1.0, rtol=1e-6)

@@ -3,7 +3,12 @@ CPU tensors) against the reference's oracle ``wkv_ref`` and its Pallas
 kernel in interpret mode, on the same numpy inputs.
 
 Tolerance 1e-5 absolute and relative on y and on the final state, the
-reference kernel tests' (fp32 on both sides, other summation order)."""
+reference kernel tests' (fp32 on both sides, other summation order).
+
+``wkv_train`` (the recurrence for training) on the CPU: its outputs and
+gradients equal, bit for bit, autograd straight through ``wkv_scan`` on
+the same inputs and output gradients (the same plain arithmetic), and it
+passes ``torch.autograd.gradcheck`` in float64."""
 from __future__ import annotations
 
 import jax.numpy as jnp
@@ -13,7 +18,10 @@ import torch
 
 from conftest import requires_pallas
 from repro.kernels.rwkv6 import wkv_op, wkv_ref
-from repro_torch.kernels.rwkv6 import wkv, wkv_scan
+import repro_torch.configs  # noqa: F401  (registry)
+from repro_torch.kernels.rwkv6 import wkv, wkv_scan, wkv_train
+from repro_torch.models import rwkv
+from repro_torch.models.base import get_config
 from test_kernels import RW_SHAPES
 
 torch.set_num_threads(1)
@@ -121,3 +129,62 @@ def test_row_grouped_step_matches_the_scan(groups, hd):
     y_jax, s_jax = wkv_ref(*(jnp.asarray(x) for x in args))
     _close(y.numpy(), y_jax)
     _close(s.numpy(), s_jax)
+
+
+def _leaves(args, dtype=torch.float32):
+    return [torch.from_numpy(x).to(dtype).requires_grad_() for x in args]
+
+
+@pytest.mark.parametrize("b,t,h,hd", [(2, 1, 2, 64), (2, 31, 2, 64),
+                                      (1, 64, 3, 32), (3, 37, 1, 64)],
+                         ids=["S1", "S31", "S64", "ragged"])
+@pytest.mark.parametrize("outputs", ["y", "y+state"])
+def test_wkv_train_gradients_equal_autograd_through_the_scan(b, t, h, hd,
+                                                             outputs):
+    """At S 1, w reaches only the state: y's gradient leaves it zero."""
+    args = _case(b, t, h, hd, seed=t + 7)
+    got_in, want_in = _leaves(args), _leaves(args)
+    got, want = wkv_train(*got_in), wkv_scan(*want_in)
+    for g, w in zip(got, want, strict=True):
+        assert torch.equal(g, w)
+    rng = np.random.default_rng(t)
+    used = slice(None) if outputs == "y+state" else slice(0, 1)
+    seeds = [torch.from_numpy(rng.normal(size=x.shape).astype(np.float32))
+             for x in want[used]]
+    got_g = torch.autograd.grad(got[used], got_in, seeds)
+    want_g = torch.autograd.grad(want[used], want_in, seeds,
+                                 materialize_grads=True)
+    for name, g, w in zip("rkvwu", got_g, want_g, strict=True):
+        assert torch.equal(g, w), name
+
+
+def test_wkv_train_passes_gradcheck():
+    args = _case(1, 5, 2, 4, seed=3)
+    assert torch.autograd.gradcheck(wkv_train, _leaves(args, torch.float64))
+
+
+def test_wkv_train_differentiates_only_what_needs_it():
+    r, k, v, w, u = _leaves(_case(1, 9, 2, 32, seed=4))
+    y, _ = wkv_train(r.detach(), k, v.detach(), w.detach(), u.detach())
+    (gk,) = torch.autograd.grad(y.sum(), [k])
+    want = torch.autograd.grad(wkv_scan(r, k, v, w, u)[0].sum(), [k])[0]
+    assert torch.equal(gk, want)
+
+
+def test_time_mix_trains_through_wkv_train(monkeypatch):
+    """Under grad ``time_mix`` goes through ``wkv_train`` (no carried
+    state); with a carried state, through the plain ``wkv_scan``."""
+    cfg = get_config("rwkv6-1.6b", smoke=True)
+    g = torch.Generator().manual_seed(0)
+    p = rwkv.init_time_mix(g, cfg)
+    x = torch.randn((2, 12, cfg.d_model), generator=g).requires_grad_()
+    calls = []
+    monkeypatch.setattr(rwkv, "wkv_train",
+                        lambda *a: calls.append(1) or wkv_train(*a))
+    out, _, _ = rwkv.time_mix(cfg, p, x)
+    out.square().sum().backward()
+    assert calls == [1]
+    assert x.grad is not None and bool(torch.isfinite(x.grad).all())
+    state = torch.zeros((2, rwkv.n_heads(cfg), 64, 64))
+    rwkv.time_mix(cfg, p, x[:, :1], state=state, last_x=x[:, 0])
+    assert calls == [1]

@@ -104,6 +104,13 @@ class JaxDraws:
         self._rng, sub = self._jax.random.split(self._rng)
         return perms_from_key(sub, n, r)
 
+    def gumbel(self, n: int):
+        """DAC's round draw: ``key, k_top = split(state.rng)``, then
+        ``jax.random.gumbel(k_top, (n, n))``."""
+        self._rng, sub = self._jax.random.split(self._rng)
+        return torch.from_numpy(np.array(self._jax.random.gumbel(sub,
+                                                                 (n, n))))
+
 
 def _node0(tree, lead: int = 0, lm: bool = False):
     """Node 0 of a node-stacked reference tree, converted to the port (a
