@@ -59,8 +59,20 @@ failure raises and exits non-zero, before the last line is printed):
    clusters 24:8, degree 4, H = 10, B = 8); checks finite parameters,
    one head-select launch per FACADE round and none elsewhere, and each
    algorithm's bytes per round against its formula;
-4. a small FACADE/EL input on the card and on the CPU from the same seed,
-   which must agree;
+3b. the launcher's paper mode (``launch.train.paper_main``) on full-width
+   ResNet8 (64×64 images, 41 classes; ``RESNET8_PAPER``: 32 nodes in
+   clusters 24:8, degree 4, H = 10, B = 8, 8 rounds) for the five
+   algorithms, the data made once for the five (``one_dataset``): one
+   head-select launch per FACADE round and none elsewhere,
+   bytes per round exactly ``RESNET8_BYTES``, finite parameters,
+   accuracies in [0, 1], rounds per second with set-up; then head select
+   on the operands step 2c of such a round builds (``HS_RESNET8``: one
+   stream per (node, head), n·K 64, T 8, D 65, V 41, fp32) against its
+   plain version (2e-5 relative, equal argmins) and the round's own
+   selection losses, timed beside its bound, the library call and the
+   launch floor;
+4. a small FACADE/EL input on GN-LeNet and on ResNet8, on the card and on
+   the CPU from the same seed, which must agree;
 4b. FACADE on llama3.2-1b at full width (bf16, heads untied): 2 nodes in
    clusters 1:1, k 2, degree 1, H 2, B 4, S 256, lr 5e-3, head jitter
    1e-3, clustered token streams, 3 rounds driven through
@@ -83,6 +95,11 @@ failure raises and exits non-zero, before the last line is printed):
 4c. the smoke LM FACADE rounds (fp32) of both families on the card and on
    the CPU from the same draws: selection losses and parameters within
    1e-4, cluster ids and bytes equal;
+4e. the launcher's lm mode (``launch.train.main``) on both LM smoke configs
+   (``LM_MODE``: 20 AdamW steps) with ``--ckpt`` in a temporary directory
+   under ``build/``: finite losses, the checkpoint loads back bit-equal to
+   the final parameters, one wkv launch per layer and step for RWKV and no
+   other kernel launch;
 5. the serving path: ``serve`` for llama3.2-1b and then rwkv6-1.6b at full
    width (bf16, parameters from the port's init on the card), 8 requests
    in batches of 4, prompt length 512, 32 generated tokens, greedy, seed
@@ -94,7 +111,8 @@ failure raises and exits non-zero, before the last line is printed):
 6. both smoke configs (fp32) served on the card and on the CPU with the
    same parameters: greedy tokens equal, prefill logits within 1e-4;
 7. a ``kernels`` JSON line (each kernel's launches on its path, error,
-   times and bound), then the last line ``{"ok": true, "device": {...}}``.
+   times and bound; head select's ResNet8 step 2c under ``"resnet8"``),
+   the total time, then the last line ``{"ok": true, "device": {...}}``.
 
 Every kernel's launch count is set to 0 just before each path is driven
 and read just after (``counted``), each phase reading only its own. TF32
@@ -102,12 +120,14 @@ is off for every matmul and convolution of the run. A JSON record of every numbe
 """
 from __future__ import annotations
 
+import argparse
 import contextlib
 import json
 import pathlib
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
@@ -117,15 +137,20 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
-from repro_torch.configs.facade_paper import lenet  # noqa: E402
-from repro_torch.core import split  # noqa: E402
+from repro_torch.checkpoint import io as ckpt_io  # noqa: E402
+from repro_torch.configs.facade_paper import lenet, resnet8  # noqa: E402
+from repro_torch.core import facade, split  # noqa: E402
 from repro_torch.core.bindings import make_binding  # noqa: E402
-from repro_torch.core.runner import ALGOS, LMFacade, run_experiment  # noqa: E402
+from repro_torch.core.runner import (ALGOS, LMFacade, TorchDraws,  # noqa: E402
+                                     run_experiment)
+from repro_torch.core.state import init_facade_state  # noqa: E402
+from repro_torch.data import pipeline  # noqa: E402
 from repro_torch.data.synthetic import SynthSpec, make_clustered_data  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.flash_attention import attention_ref, flash_attention  # noqa: E402
 from repro_torch.kernels.head_select import head_losses, head_losses_ref  # noqa: E402
 from repro_torch.kernels.rwkv6 import wkv, wkv_scan, wkv_train  # noqa: E402
+from repro_torch.launch import train  # noqa: E402
 from repro_torch.launch.serve import make_requests, serve  # noqa: E402
 from repro_torch.models import api, transformer  # noqa: E402
 from repro_torch.models.base import get_config  # noqa: E402
@@ -154,6 +179,27 @@ HS_LM_RAGGED = [(2, 2, 1000, 2048, 1000), (4, 1, 200, 2048, 65536)]
 PAPER = dict(k=2, degree=4, local_steps=10, batch_size=8, lr=0.05, seed=0)
 ROUNDS, EVAL_EVERY = 8, 4
 SMALL_TOL = 0.1     # accuracy across devices (reference precedent)
+# the paper's Flickr-Mammals experiment through the launcher's paper_main:
+# full-width ResNet8 (64×64 images, 41 classes), 32 nodes in clusters 24:8
+# rotated rot0/rot180, k 2, degree 4, H 10, B 8, lr 0.05, 8 rounds with an
+# eval every 4, data and run seed 3 (paper_main uses one seed for both)
+RESNET8_PAPER = dict(
+    mode="paper", model="resnet8", smoke=False, clusters=[24, 8],
+    transforms=["rot0", "rot180"], k=2, rounds=ROUNDS, degree=4,
+    local_steps=10, warmup_rounds=0, eval_every=EVAL_EVERY, target_acc=None,
+    n_classes=41, image_size=64, samples_per_class=32, test_per_class=16,
+    batch=8, lr=0.05, seed=3, out=None, device="cuda")
+# bytes per round at that scale: 128 pushes of the core (5,136 fp32
+# parameters, 20,544 bytes), one head (74,729, 298,916 bytes) and the
+# 4-byte cluster id (FACADE), the core alone (DEPRL) or the model (79,865,
+# 319,460 bytes)
+RESNET8_BYTES = {"facade": 40891392.0, "el": 40890880.0,
+                 "dpsgd": 40890880.0, "deprl": 2629632.0, "dac": 40890880.0}
+# step 2c of that run: one stream per (node, head), (n·k, K', T, D, V) =
+# (64, 1, 8, 64 + bias, 41), fp32
+HS_RESNET8 = (64, 1, 8, 65, 41)
+# the launcher's lm mode on both LM smoke configs (fp32): steps, batch, seq
+LM_MODE = dict(steps=20, batch=4, seq=64)
 # (B, Hq, Hkv, S, D): the reference kernel tests' FA_SHAPES
 # (tests/test_kernels.py), then llama3.2-1b's serving shape and a long one
 FA_SHAPES = [(1, 4, 4, 128, 64), (2, 8, 2, 256, 64), (1, 4, 1, 128, 128),
@@ -617,27 +663,234 @@ def main_path_phase(rec):
 
 def small_input_phase(rec):
     """The same tiny experiment on the card and on the CPU (one seed, so
-    the same draws): bytes and cluster ids exact, accuracy within 0.1."""
+    the same draws), on GN-LeNet and on ResNet8: bytes and cluster ids
+    exact, accuracy within 0.1."""
     spec = SynthSpec(n_classes=4, image_size=16, samples_per_class=8,
                      test_per_class=16, seed=3)
     ds = make_clustered_data(spec, (6, 2), ("rot0", "rot180"))
-    cfg = lenet(smoke=True).replace(n_classes=4)
     kw = dict(rounds=4, k=2, degree=2, local_steps=3, batch_size=8,
               lr=0.05, eval_every=2, seed=0, head_jitter=0.05)
     out = {}
-    for algo in ("facade", "el"):
-        gpu = run_experiment(algo, cfg, ds, device="cuda", **kw)
-        cpu = run_experiment(algo, cfg, ds, device="cpu", **kw)
-        diff = float(np.abs(np.subtract(gpu.final_acc, cpu.final_acc)).max())
-        same_cid = all(np.array_equal(a, b) for (_, a), (_, b) in
-                       zip(gpu.cluster_history, cpu.cluster_history))
-        out[algo] = {"acc_diff": diff, "cluster_ids_equal": same_cid,
-                     "bytes_equal": gpu.comm.bytes == cpu.comm.bytes}
-        log(f"small input {algo}: card vs CPU {json.dumps(out[algo])}")
-        if not (diff <= SMALL_TOL and same_cid and gpu.comm.bytes ==
-                cpu.comm.bytes):
-            raise AssertionError(f"{algo}: card and CPU disagree {out}")
+    for model in (lenet, resnet8):
+        cfg = model(smoke=True).replace(n_classes=4)
+        for algo in ("facade", "el"):
+            gpu = run_experiment(algo, cfg, ds, device="cuda", **kw)
+            cpu = run_experiment(algo, cfg, ds, device="cpu", **kw)
+            diff = float(np.abs(np.subtract(gpu.final_acc,
+                                            cpu.final_acc)).max())
+            same_cid = all(np.array_equal(a, b) for (_, a), (_, b) in
+                           zip(gpu.cluster_history, cpu.cluster_history))
+            got = out.setdefault(cfg.kind, {})[algo] = {
+                "acc_diff": diff, "cluster_ids_equal": same_cid,
+                "bytes_equal": gpu.comm.bytes == cpu.comm.bytes}
+            log(f"small input {cfg.kind} {algo}: card vs CPU "
+                f"{json.dumps(got)}")
+            if not (diff <= SMALL_TOL and same_cid and gpu.comm.bytes ==
+                    cpu.comm.bytes):
+                raise AssertionError(f"{cfg.kind} {algo}: card and CPU "
+                                     f"disagree {got}")
     rec["small_input"] = out
+
+
+@contextlib.contextmanager
+def one_dataset(rec):
+    """``paper_main`` makes its dataset on every call, as the reference's
+    does; inside this block the launcher's ``make_clustered_data`` makes
+    each (spec, clusters, transforms) once and hands the same arrays to
+    later calls (the function is deterministic, and the runs only read
+    them), so the five runs of one spec pay for the data once. The host
+    time of each making goes to ``rec["data_s"]``."""
+    make, made = train.make_clustered_data, {}
+    rec["data_s"] = []
+
+    def shared(spec, sizes, transforms=None):
+        key = (spec, tuple(sizes), transforms and tuple(transforms))
+        if key not in made:
+            t0 = time.perf_counter()
+            made[key] = make(spec, sizes, transforms)
+            rec["data_s"].append(time.perf_counter() - t0)
+        return made[key]
+
+    train.make_clustered_data = shared
+    try:
+        yield
+    finally:
+        train.make_clustered_data = make
+
+
+def resnet8_paper_phase(rec) -> int:
+    """The launcher's paper mode (``train.paper_main``) on full-width
+    ResNet8 for the five algorithms (``RESNET8_PAPER``, the data made
+    once: ``one_dataset``); checks one K1 launch per FACADE round and none
+    in the baselines, the bytes per round against ``RESNET8_BYTES``,
+    finite parameters on the card and accuracies in [0, 1]; returns K1's
+    launches in the FACADE run."""
+    p = RESNET8_PAPER
+    cfg = resnet8().replace(n_classes=p["n_classes"],
+                            image_size=p["image_size"])
+    n = sum(p["clusters"])
+    out = {}
+    with one_dataset(out):
+        for algo in ALGOS:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with counted() as counts:
+                res = train.paper_main(argparse.Namespace(algo=algo, **p))
+                torch.cuda.synchronize()
+            out[algo] = resnet8_run_check(cfg, algo, n, res, counts,
+                                          time.perf_counter() - t0)
+    rec["resnet8_paper"] = out
+    return out["facade"]["launches"]["head_losses"]
+
+
+def resnet8_run_check(cfg, algo, n, res, counts, wall) -> dict:
+    """One ResNet8 paper run's checks and record."""
+    want = {fn.__name__: 0 for fn in KERNELS}
+    want["head_losses"] = ROUNDS if algo == "facade" else 0
+    if counts != want:
+        raise AssertionError(f"resnet8 {algo}: kernel launches {counts} "
+                             f"in {ROUNDS} rounds, want {want}")
+    leaves = tree_leaves(res.models)
+    if not all(bool(torch.isfinite(l).all()) for l in leaves):
+        raise AssertionError(f"resnet8 {algo}: non-finite parameters")
+    if leaves[0].shape[0] != n or leaves[0].device.type != "cuda":
+        raise AssertionError(f"resnet8 {algo}: models not [n, ...] on the "
+                             f"card")
+    want_bytes = round_bytes(cfg, algo, n, RESNET8_PAPER["degree"])
+    per_round = np.diff([0.0] + res.comm.bytes)
+    if not (want_bytes == RESNET8_BYTES[algo] and len(per_round) == ROUNDS
+            and (per_round == want_bytes).all()):
+        raise AssertionError(f"resnet8 {algo}: bytes per round "
+                             f"{per_round}, want {RESNET8_BYTES[algo]}")
+    accs = res.final_acc
+    if not (len(accs) == 2 and all(0.0 <= a <= 1.0 for a in accs)
+            and np.isfinite(res.best_fair_acc())):
+        raise AssertionError(f"resnet8 {algo}: bad accuracies {accs}")
+    log(f"resnet8 {algo}: {ROUNDS} rounds in {wall:.2f} s with set-up "
+        f"({ROUNDS / wall:.2f} rounds/s), acc per cluster {accs}, "
+        f"bytes/round {want_bytes:.0f}")
+    return {"wall_s": wall, "rounds_per_s": ROUNDS / wall,
+            "launches": counts, "final_acc": accs,
+            "fair_acc": res.fair_acc[-1][1], "dp": res.dp, "eo": res.eo,
+            "bytes_per_round": want_bytes}
+
+
+def resnet8_select_phase(rec) -> dict:
+    """K1 on the operands step 2c builds in a full-width ResNet8 FACADE
+    round (``HS_RESNET8``): the state drawn as the launcher's run draws it
+    (seed 3, head jitter 0.05 so that the heads differ), the first local
+    batch from that spec's data (one sample per class and node, to keep
+    the set-up short). Checks K1 against its plain version (2e-5 relative,
+    equal argmins) and against that round's own selection losses, then
+    times K1, the plain version and the library call beside the bound and
+    the launch floor."""
+    p = RESNET8_PAPER
+    cfg = resnet8()
+    n, k = sum(p["clusters"]), p["k"]
+    ds = make_clustered_data(
+        SynthSpec(n_classes=p["n_classes"], image_size=p["image_size"],
+                  samples_per_class=1, test_per_class=1, seed=p["seed"]),
+        tuple(p["clusters"]), tuple(p["transforms"]))
+    binding = make_binding(cfg)
+    draws = TorchDraws(p["seed"])
+    params, heads_k = draws.facade_init(binding, k, head_jitter=0.05)
+    state = init_facade_state(binding, n, k, params=params, heads_k=heads_k,
+                              device="cuda")
+    train_x, train_y = pipeline.place(ds, "cuda")
+    batches = pipeline.sample_round_batches(
+        draws.batch_indices(n, p["local_steps"], p["batch"],
+                            train_x.shape[1]).cuda(), train_x, train_y)
+    perms = draws.perms(n, p["degree"]).cuda()
+    first = {key: b[:, 0] for key, b in batches.items()}
+    with torch.no_grad():
+        feats = binding.features(state.cores, first)
+        f, w, labels = binding.select_operands(feats, state.heads, first)
+        got = head_losses(f, w, labels).reshape(n, k)
+        want = head_losses_ref(f, w, labels).reshape(n, k)
+    torch.cuda.synchronize()
+    shape = (w.shape[0], w.shape[1], f.shape[1], f.shape[2], w.shape[3])
+    if shape != HS_RESNET8 or f.dtype != torch.float32:
+        raise AssertionError(f"resnet8 step 2c operands {shape} {f.dtype}, "
+                             f"want {HS_RESNET8} fp32")
+    c = hs_check("head_select resnet8 path", got, want,
+                 operands=[list(f.shape), list(w.shape)])
+    # the round scores what was checked (at round 1 the aggregation leaves
+    # the replicated state as it is, up to rounding)
+    _, info = facade.facade_round(
+        facade.FacadeConfig(n_nodes=n, k=k, degree=p["degree"], lr=p["lr"]),
+        binding, state, batches, perms)
+    losses = info["selection_losses"]
+    c["round_vs_check_rel_err"] = float(
+        ((losses - got).abs() / got.abs().clamp(min=1)).max())
+    if not c["round_vs_check_rel_err"] <= HS_TOL:
+        raise AssertionError(f"resnet8 round 1 selected on {losses.tolist()}"
+                             f", the checked K1 call gave {got.tolist()}")
+    bound_ms, bound_by, nbytes, flops = hs_bound(f, w, labels)
+    t = {"shape": list(HS_RESNET8), "dtype": "fp32", "bound_ms": bound_ms,
+         "bound_by": bound_by, "bytes": nbytes, "flops": flops, "check": c}
+    for label, fn in (("ms", head_losses), ("plain_ms", head_losses_ref),
+                      ("library_ms", hs_library), ("ms_again", head_losses),
+                      ("plain_ms_again", head_losses_ref)):
+        t[label] = graph_ms(lambda: fn(f, w, labels))
+    one = torch.zeros(1, device="cuda")
+    t["launch_floor_ms"] = graph_ms(lambda: one.add_(1.0))
+    rec["head_select_resnet8"] = t
+    log("head_select resnet8 timing", json.dumps(t))
+    del ds, state, train_x, train_y, batches, feats, f, w, labels
+    torch.cuda.empty_cache()
+    return t
+
+
+def lm_mode_phase(rec) -> dict:
+    """The launcher's lm mode (``train.main``) on both LM smoke configs on
+    the card (``LM_MODE``; AdamW, the clustered token stream) with a
+    checkpoint in a temporary directory under ``build/``: finite losses,
+    the checkpoint loads back bit-equal to the final parameters, no K1 or
+    K2 launch (training attention is the plain ``sdpa``) and, for RWKV,
+    one K3 launch per layer and step (``wkv_train``'s forward); returns
+    each arch's launches."""
+    out = {}
+    build_dir = ROOT / "build"
+    build_dir.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
+        for arch in LM_SELECT_RANGE:
+            cfg = get_config(arch, smoke=True)
+            path = str(pathlib.Path(tmp) / "lm.npz")
+            argv = ["--mode", "lm", "--arch", arch, "--steps",
+                    str(LM_MODE["steps"]), "--batch", str(LM_MODE["batch"]),
+                    "--seq", str(LM_MODE["seq"]), "--log-every", "10",
+                    "--ckpt", path, "--device", "cuda"]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with counted() as counts:
+                res = train.main(argv)
+                torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            want = {fn.__name__: 0 for fn in KERNELS}
+            want["wkv"] = LM_MODE["steps"] * cfg.n_layers if cfg.rwkv else 0
+            if counts != want:
+                raise AssertionError(f"lm mode {arch}: kernel launches "
+                                     f"{counts}, want {want}")
+            if not np.isfinite(res["losses"]).all():
+                raise AssertionError(f"lm mode {arch}: losses "
+                                     f"{res['losses']}")
+            saved, _ = ckpt_io.load(path)
+            final = tree_leaves(res["params"])
+            loaded = tree_leaves(saved["params"])
+            same = len(loaded) == len(final) and all(
+                a.dtype == b.dtype and torch.equal(a, b.cpu())
+                for a, b in zip(loaded, final))
+            if not (same and int(saved["step"]) == LM_MODE["steps"]):
+                raise AssertionError(f"lm mode {arch}: the checkpoint does "
+                                     f"not hold the final parameters")
+            out[arch] = {**LM_MODE, "wall_s": wall,
+                         "steps_per_s": LM_MODE["steps"] / wall,
+                         "first_loss": res["losses"][0],
+                         "last_loss": res["losses"][-1],
+                         "launches": counts, "checkpoint_equal": same}
+            log(f"lm mode {arch}: {json.dumps(out[arch])}")
+    rec["lm_mode"] = out
+    return out
 
 
 def lm_payload_bytes(cfg) -> int:
@@ -1200,11 +1453,17 @@ def main() -> int:
     fa = flash_attention_phase(rec)
     rw = wkv_phase(rec, sm_clock_hz)
     hs["launches"] = main_path_phase(rec)
+    resnet8_launches = resnet8_paper_phase(rec)
+    hs["resnet8"] = dict(resnet8_select_phase(rec),
+                         launches=resnet8_launches)
     small_input_phase(rec)
     hs["lm"]["launches"] = lm_facade_phase(rec, "llama3.2-1b")["head_losses"]
     rwkv_launches = lm_facade_phase(rec, "rwkv6-1.6b")
     hs["lm"]["rwkv"]["launches"] = rwkv_launches["head_losses"]
     smoke_lm_facade_phase(rec)
+    # K3's launches on its third path: the launcher's lm mode on RWKV
+    rw["train"]["lm_mode_launches"] = lm_mode_phase(rec)["rwkv6-1.6b"][
+        "launches"]["wkv"]
     fa["launches"] = serve_phase(rec, "llama3.2-1b", flash_attention)
     rw["launches"] = serve_phase(rec, "rwkv6-1.6b", wkv)
     # K3's launches on its second path: the RWKV FACADE rounds
@@ -1220,6 +1479,7 @@ def main() -> int:
     entries = [hs, fa, rw]
     rec["kernels"] = entries
     rec["total_s"] = time.perf_counter() - t0
+    log(f"total_s {rec['total_s']:.1f}")
     out_dir = ROOT / "build"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(rec, indent=1))

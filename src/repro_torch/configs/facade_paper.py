@@ -1,8 +1,5 @@
 """The paper's own experimental models (Sec. V-A):
-GN-LeNet (CIFAR-10 / Imagenette) and ResNet8 (Flickr-Mammals).
-
-Data only. The port runs GN-LeNet; ResNet8's model is not ported yet.
-"""
+GN-LeNet (CIFAR-10 / Imagenette) and ResNet8 (Flickr-Mammals)."""
 from repro_torch.models.base import CNNConfig
 
 

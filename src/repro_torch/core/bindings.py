@@ -17,9 +17,10 @@ A binding exposes, over node-stacked trees (leading ``[n]``):
 The features / head-select pair is the paper's III-E optimization: the core
 runs once per round per node, and the k heads score its cached output. The
 kernel takes ``[m, T, D] x [m, K', D, V]``; a binding whose heads share the
-features passes ``m = n, K' = k`` (the CNN), one whose heads transform the
+features passes ``m = n, K' = k`` (GN-LeNet), one whose heads transform the
 features first passes one stream per (node, head), ``m = n * k, K' = 1``
-(the language models); either way the result reshapes to ``[n, k]``.
+(ResNet8, the language models); either way the result reshapes to
+``[n, k]``.
 """
 from __future__ import annotations
 
@@ -100,6 +101,17 @@ def make_binding(cfg) -> Binding:
         f"{type(cfg).__name__} models are not ported yet")
 
 
+def _fold_bias(feats, fc: dict):
+    """``feats @ w + b`` as one product: the features gain a ones column
+    and the weight the bias as an extra row, ``[..., T, D+1]`` and
+    ``[..., D+1, V]``."""
+    ones = torch.ones(feats.shape[:-1] + (1,), dtype=feats.dtype,
+                      device=feats.device)
+    f = torch.cat([feats, ones], dim=-1)
+    w = torch.cat([fc["w"], fc["b"].unsqueeze(-2)], dim=-2)
+    return f.contiguous(), w.to(f.dtype).contiguous()
+
+
 def _cnn_binding(cfg: CNNConfig) -> Binding:
     hk = cnn.head_keys(cfg)
 
@@ -110,19 +122,27 @@ def _cnn_binding(cfg: CNNConfig) -> Binding:
         return node_losses(params, batch).sum()
 
     def features(core, batch):
+        """LeNet ``[n, B, D]``; ResNet8 NHWC ``[n, B, H, W, C]``."""
         return cnn.node_features(cfg, core, batch["x"])
 
     def select_operands(feats, heads, batch):
-        """LeNet's head is ``feats @ w + b``; the bias folds into the
-        kernel's weight as an extra row, against a ones column of the
-        features: ``[n, B, D+1]`` and ``[n, K, D+1, V]``."""
-        fc = heads["fc"]
-        ones = torch.ones(feats.shape[:-1] + (1,), dtype=feats.dtype,
-                          device=feats.device)
-        f = torch.cat([feats, ones], dim=-1)
-        w = torch.cat([fc["w"], fc["b"].unsqueeze(-2)], dim=-2)
-        return (f.contiguous(), w.to(f.dtype).contiguous(),
-                batch["y"].to(torch.int32))
+        """The kernel scores ``fc`` only, with its bias folded in.
+
+        LeNet's heads share the features: ``[n, B, D+1]`` and
+        ``[n, k, D+1, V]``. ResNet8's head runs block2 and block3 first,
+        which differ per head: one grouped pass of all ``n*k`` (node, head)
+        streams on their node's features, mean-pooled, so the kernel gets
+        ``[n*k, B, 4C+1]``, ``[n*k, 1, 4C+1, V]`` and labels ``[n*k, B]``."""
+        y = batch["y"].to(torch.int32)
+        if cfg.kind == "lenet":
+            return _fold_bias(feats, heads["fc"]) + (y,)
+        n, k = heads["fc"]["w"].shape[:2]
+        streams = feats.unsqueeze(1).expand((n, k) + feats.shape[1:])
+        flat = tree_map(lambda l: l.flatten(0, 1), heads)
+        pooled = cnn.resnet8_node_pooled(cfg, flat, streams.flatten(0, 1))
+        f, w = _fold_bias(pooled, flat["fc"])
+        labels = y.unsqueeze(1).expand(n, k, -1).reshape(n * k, -1)
+        return f, w.unsqueeze(1), labels.contiguous()
 
     def forward(params, x):
         return cnn.node_forward(cfg, params, x)

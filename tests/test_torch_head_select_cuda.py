@@ -9,8 +9,8 @@ V multiples of 8 (and T > 0) take the tensor-core body (the LM regime),
 every other input the FMA body. So in bf16 the tensor-core body runs the
 first three SHAPES, EDGE_SHAPES' (2, 2, 8, 32, 16) and (2, 3, 1, 64, 24)
 (one 128 × 256 tile, mostly masked) and every LM_SHAPES case; the FMA body
-runs bf16 at the other SHAPES and EDGE_SHAPES (D 1, 31, 33, 70 or 513, or
-V 1, 10, 17 or 45) and in the bf16 identical-heads case; fp32 always runs
+runs bf16 at the other SHAPES and EDGE_SHAPES (D 1, 31, 33, 65, 70 or 513,
+or V 1, 10, 17, 41 or 45) and in the bf16 identical-heads case; fp32 always runs
 the FMA body.
 """
 from __future__ import annotations
@@ -22,10 +22,12 @@ import torch
 from repro_torch.kernels.head_select import head_losses, head_losses_ref
 from torch_caps import cuda_device, requires_cuda  # noqa: F401
 
-# (n, K, T, D, V): the reference kernel tests' HS_SHAPES with one node, and
-# the main path's shape (32 nodes, 2 heads, B = 8, LeNet's 512 + bias, 10)
+# (n, K, T, D, V): the reference kernel tests' HS_SHAPES with one node, the
+# main path's shape (32 nodes, 2 heads, B = 8, LeNet's 512 + bias, 10), and
+# ResNet8's step 2c at paper scale (one stream per (node, head): 32 · 2, B
+# 8, block3's 64 + bias, 41 classes)
 SHAPES = [(1, 2, 128, 64, 256), (1, 3, 256, 64, 512), (1, 5, 128, 128, 1024),
-          (32, 2, 8, 513, 10), (3, 4, 37, 70, 45)]
+          (32, 2, 8, 513, 10), (3, 4, 37, 70, 45), (64, 1, 8, 65, 41)]
 # the edges of the kernel's design: D around its 32 lanes (1, 31, 32, 33,
 # 513), V around its 16-column chunks (1, 10, 16, 17, 1024), T = 1, and n·K
 # odd, so every other head block starts off 16-byte alignment; T = 1 in

@@ -20,6 +20,7 @@ from repro_torch.configs import facade_paper
 from repro_torch.core.bindings import make_binding
 from repro_torch.interop import params_from_jax, params_to_jax
 from repro_torch.models import cnn, layers
+from repro_torch.models.base import CNNConfig
 
 torch.set_num_threads(1)
 TOL = 1e-5
@@ -129,5 +130,5 @@ def test_node_stacked_loss_is_the_sum_of_the_nodes_own_losses():
 
 
 def test_other_model_kinds_are_refused():
-    with pytest.raises(NotImplementedError, match="resnet8"):
-        make_binding(facade_paper.resnet8(smoke=True))
+    with pytest.raises(NotImplementedError, match="vgg"):
+        make_binding(CNNConfig(name="x", kind="vgg"))
