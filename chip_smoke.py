@@ -56,24 +56,43 @@ failure raises and exits non-zero, before the last line is printed):
      round's;
 3. the FACADE path: ``run_experiment`` for FACADE and the baselines EL,
    D-PSGD, DEPRL and DAC at paper scale (full-width GN-LeNet, 32 nodes in
-   clusters 24:8, degree 4, H = 10, B = 8); checks finite parameters,
-   one head-select launch per FACADE round and none elsewhere, and each
-   algorithm's bytes per round against its formula;
+   clusters 24:8, degree 4, H = 10, B = 8) on its default driver, the
+   segment engine (each round a replay of one captured CUDA graph, K1
+   inside FACADE's); checks finite parameters, one head-select launch
+   per FACADE round and per eager warm-up call before its capture
+   (``FACADE_LAUNCHES``), none elsewhere, and each algorithm's bytes per
+   round against its formula;
+3a. the engine (``engine_phase``, same data): for the five algorithms the
+   engine against the per-round loop bit for bit (every parameter leaf and
+   history; FACADE with 2 warmup rounds, so both of its graphs), the loop
+   against itself; the steady state, 40 rounds with an eval every 20
+   through one ``EngineCache``, the second run (seed 1) timed for both
+   drivers (rounds per second, peak allocated and reserved memory), the
+   capture seconds a graph, a ``compile_count`` that stays flat and the
+   run length from which the captures have paid for themselves;
+   after the last phase (``engine_profile_phase``), a ``torch.profiler``
+   run of one replayed 20-round FACADE segment (device-busy share,
+   largest kernels) that must hold 20 K1 executions by kernel name and
+   by counter;
 3b. the launcher's paper mode (``launch.train.paper_main``) on full-width
    ResNet8 (64×64 images, 41 classes; ``RESNET8_PAPER``: 32 nodes in
    clusters 24:8, degree 4, H = 10, B = 8, 8 rounds) for the five
-   algorithms, the data made once for the five (``one_dataset``): one
-   head-select launch per FACADE round and none elsewhere,
+   algorithms on the engine, the data made once for the five
+   (``one_dataset``): ``FACADE_LAUNCHES`` head-select launches in
+   FACADE's run and none elsewhere,
    bytes per round exactly ``RESNET8_BYTES``, finite parameters,
-   accuracies in [0, 1], rounds per second with set-up; then head select
+   accuracies in [0, 1], rounds per second with set-up; after each run
+   the per-round loop on the same run, which the engine's must equal bit
+   for bit, timed, and the run length from which the capture has paid
+   for itself; then head select
    on the operands step 2c of such a round builds (``HS_RESNET8``: one
    stream per (node, head), n·K 64, T 8, D 65, V 41, fp32) against its
    plain version (2e-5 relative, equal argmins) and the round's own
    selection losses, timed beside its bound, the library call and the
    launch floor;
-4. a small FACADE/EL input on GN-LeNet and on ResNet8, on the card and on
+3c. a small FACADE/EL input on GN-LeNet and on ResNet8, on the card and on
    the CPU from the same seed, which must agree;
-4b. FACADE on llama3.2-1b at full width (bf16, heads untied): 2 nodes in
+4. FACADE on llama3.2-1b at full width (bf16, heads untied): 2 nodes in
    clusters 1:1, k 2, degree 1, H 2, B 4, S 256, lr 5e-3, head jitter
    1e-3, clustered token streams, 3 rounds driven through
    ``runner.LMFacade`` (``facade_round``), then one more under
@@ -85,17 +104,17 @@ failure raises and exits non-zero, before the last line is printed):
    differentiable ``sdpa``), no wkv launch, round-1 selection losses in
    [11, 13], the bytes per round from the config alone and finite
    parameters; prints the round times and peak memory;
-4d. the same on rwkv6-1.6b at full width: one head-select call and 144
+4a. the same on rwkv6-1.6b at full width: one head-select call and 144
    wkv launches a round (24 a node in step 2c's feature pass and 24 a
    node in each local step's forward, through ``wkv_train``, whose
    backward is the plain recurrence), no flash attention, round-1
    selection losses in [10.5, 12.5], the bytes per round from the config
    (RWKV's fp32 leaves at 4 bytes); the profiled round also gives the
    host time under ``wkv_train``'s backward;
-4c. the smoke LM FACADE rounds (fp32) of both families on the card and on
+4b. the smoke LM FACADE rounds (fp32) of both families on the card and on
    the CPU from the same draws: selection losses and parameters within
    1e-4, cluster ids and bytes equal;
-4e. the launcher's lm mode (``launch.train.main``) on both LM smoke configs
+4c. the launcher's lm mode (``launch.train.main``) on both LM smoke configs
    (``LM_MODE``: 20 AdamW steps) with ``--ckpt`` in a temporary directory
    under ``build/``: finite losses, the checkpoint loads back bit-equal to
    the final parameters, one wkv launch per layer and step for RWKV and no
@@ -108,20 +127,27 @@ failure raises and exits non-zero, before the last line is printed):
    logits; prints prefill and decode tokens per second, and a
    ``torch.profiler`` breakdown of one prefill and 8 decode steps (device
    busy share, largest kernels);
-6. both smoke configs (fp32) served on the card and on the CPU with the
+5a. both smoke configs (fp32) served on the card and on the CPU with the
    same parameters: greedy tokens equal, prefill logits within 1e-4;
-7. a ``kernels`` JSON line (each kernel's launches on its path, error,
+6. a ``kernels`` JSON line (each kernel's launches on its path, error,
    times and bound; head select's ResNet8 step 2c under ``"resnet8"``),
    the total time, then the last line ``{"ok": true, "device": {...}}``.
 
 Every kernel's launch count is set to 0 just before each path is driven
-and read just after (``counted``), each phase reading only its own. TF32
-is off for every matmul and convolution of the run. A JSON record of every number goes to ``build/chip_smoke.json``.
+and read just after (``counted``), each phase reading only its own. The
+counts are what the card ran: the segment engine takes a capture's calls
+back and adds them once per replay. After the timed phases, K1's LM-body
+split runs in this process and, where the profiler records none of its
+launches there (as late in this process it has, also before the segment
+engine's phases were added), once more in a process of its own. TF32 is off for every matmul and
+convolution of the run. A JSON record of every number goes to
+``build/chip_smoke.json``.
 """
 from __future__ import annotations
 
 import argparse
 import contextlib
+import functools
 import json
 import pathlib
 import statistics
@@ -141,6 +167,8 @@ from repro_torch.checkpoint import io as ckpt_io  # noqa: E402
 from repro_torch.configs.facade_paper import lenet, resnet8  # noqa: E402
 from repro_torch.core import facade, split  # noqa: E402
 from repro_torch.core.bindings import make_binding  # noqa: E402
+from repro_torch.core.cache import EngineCache, EngineSpec  # noqa: E402
+from repro_torch.core.engine import WARMUP_ROUNDS  # noqa: E402
 from repro_torch.core.runner import (ALGOS, LMFacade, TorchDraws,  # noqa: E402
                                      run_experiment)
 from repro_torch.core.state import init_facade_state  # noqa: E402
@@ -178,6 +206,16 @@ HS_LM_RWKV = (4, 1, 1024, 2048, 65536)
 HS_LM_RAGGED = [(2, 2, 1000, 2048, 1000), (4, 1, 200, 2048, 65536)]
 PAPER = dict(k=2, degree=4, local_steps=10, batch_size=8, lr=0.05, seed=0)
 ROUNDS, EVAL_EVERY = 8, 4
+# a FACADE run through the segment engine captures one round (warmup 0) and
+# warms it up first: K1 runs once a warm-up call and once a replayed round
+FACADE_LAUNCHES = ROUNDS + WARMUP_ROUNDS
+# the engine phase: parity runs as above with FACADE's first 2 rounds in
+# its warmup phase (both of its rounds captured); steady state over 40
+# rounds with an eval every 20, the second run (seed 1) of one EngineCache
+# timed; the profile over one replayed 20-round FACADE segment
+PARITY_WARMUP = 2
+ENGINE_ROUNDS, ENGINE_EVAL_EVERY = 40, 20
+K1_KERNEL = "head_losses_kernel"      # K1's FMA body, by name in a profile
 SMALL_TOL = 0.1     # accuracy across devices (reference precedent)
 # the paper's Flickr-Mammals experiment through the launcher's paper_main:
 # full-width ResNet8 (64×64 images, 41 classes), 32 nodes in clusters 24:8
@@ -594,6 +632,22 @@ def head_select_lm_split() -> dict:
     return split
 
 
+def head_select_lm_split_apart() -> dict:
+    """``head_select_lm_split`` in a process of its own. Late in this
+    script's process the profiler has recorded no device event of that
+    call (also before the segment engine's phases were added), while a
+    fresh process records both launches, also after smoke serving, the
+    small inputs or CPU work alone."""
+    code = ("import json, sys; sys.path.insert(0, sys.argv[1]); "
+            "import chip_smoke; "
+            "print(json.dumps(chip_smoke.head_select_lm_split()))")
+    proc = subprocess.run([sys.executable, "-c", code, str(ROOT)],
+                          capture_output=True, text=True, timeout=600,
+                          check=True)
+    return json.loads(next(line for line in reversed(
+        proc.stdout.splitlines()) if line.startswith("{")))
+
+
 def round_bytes(cfg, algo: str, n: int, degree: int) -> float:
     """n * degree pushes a round, held as float32: FACADE pushes its core,
     one head and a 4-byte cluster id, DEPRL its core alone, EL, D-PSGD
@@ -608,12 +662,19 @@ def round_bytes(cfg, algo: str, n: int, degree: int) -> float:
     return float(np.float32(n * degree * payload))
 
 
-def main_path_phase(rec):
+def paper_lenet_data(rec):
+    """The paper-scale GN-LeNet data of the main path and the engine
+    phase: SynthSpec(10, 32, 32, 64, seed 3), 32 nodes in clusters 24:8
+    rotated rot0/rot180."""
     spec = SynthSpec(n_classes=10, image_size=32, samples_per_class=32,
                      test_per_class=64, seed=3)
     t0 = time.perf_counter()
     ds = make_clustered_data(spec, (24, 8), ("rot0", "rot180"))
     rec["data_s"] = time.perf_counter() - t0
+    return ds
+
+
+def main_path_phase(rec, ds):
     cfg = lenet()
     n = ds.n_nodes
     results = {}
@@ -628,10 +689,12 @@ def main_path_phase(rec):
             results[algo] = (res, time.perf_counter() - t0)
 
     out = {"launches": counts}
-    if counts != {"head_losses": ROUNDS, "flash_attention": 0, "wkv": 0}:
+    if counts != {"head_losses": FACADE_LAUNCHES, "flash_attention": 0,
+                  "wkv": 0}:
         raise AssertionError(f"kernel launches {counts} in {ROUNDS} rounds "
                              f"of each of {ALGOS} (want one head select per "
-                             f"FACADE round, none elsewhere)")
+                             f"FACADE round and per warm-up call before "
+                             f"its capture, none elsewhere)")
     for algo, (res, wall) in results.items():
         leaves = tree_leaves(res.models)
         if not all(bool(torch.isfinite(l).all()) for l in leaves):
@@ -659,6 +722,182 @@ def main_path_phase(rec):
             f"fair_acc {res.fair_acc[-1][1]:.4f}, bytes/round {want:.0f}")
     rec["main_path"] = out
     return counts["head_losses"]
+
+
+def run_diff(a, b) -> dict:
+    """How two runs of one configuration differ: whether they are the same
+    run bit for bit (every parameter leaf, the accuracy, fairness, bytes,
+    eval and cluster histories), and the largest parameter difference."""
+    la, lb = tree_leaves(a.models), tree_leaves(b.models)
+    leaves_equal = all(torch.equal(x, y) for x, y in zip(la, lb))
+    diff = max(float((x.double() - y.double()).abs().max())
+               for x, y in zip(la, lb))
+    same_cid = len(a.cluster_history) == len(b.cluster_history) and all(
+        r1 == r2 and np.array_equal(c1, c2) for (r1, c1), (r2, c2) in
+        zip(a.cluster_history, b.cluster_history))
+    histories = (a.acc_per_cluster == b.acc_per_cluster
+                 and a.fair_acc == b.fair_acc and (a.dp, a.eo) == (b.dp, b.eo)
+                 and a.comm.rounds == b.comm.rounds
+                 and a.comm.bytes == b.comm.bytes
+                 and a.comm.evaled == b.comm.evaled and same_cid)
+    return {"equal": leaves_equal and histories,
+            "leaves_equal": leaves_equal, "histories_equal": histories,
+            "max_abs_param_diff": diff}
+
+
+def paper_spec(algo, cfg, ds) -> EngineSpec:
+    """The cache key ``run_experiment`` builds for a PAPER run of
+    ``algo`` on the card (warmup 0)."""
+    return EngineSpec(
+        algo=algo, cfg=cfg, n=ds.n_nodes, k=PAPER["k"],
+        degree=PAPER["degree"], local_steps=PAPER["local_steps"],
+        batch_size=PAPER["batch_size"], lr=PAPER["lr"],
+        device=torch.device("cuda", torch.cuda.current_device()))
+
+
+def timed_run(algo, cfg, ds, **kw) -> tuple:
+    """``run_experiment`` between two synchronises: (result, host
+    seconds, peak allocated bytes, peak reserved bytes). The peaks start
+    from the memory held before the run (the allocator's cache released;
+    cuBLAS's workspaces are kept, since the cache's captured rounds use
+    theirs); a CUDA graph's intermediates come from its pool, which the
+    allocated peak does not see and the reserved one does."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = run_experiment(algo, cfg, ds, device="cuda", **kw)
+    torch.cuda.synchronize()
+    return (res, time.perf_counter() - t0, torch.cuda.max_memory_allocated(),
+            torch.cuda.max_memory_reserved())
+
+
+def break_even(capture_s: float, engine_round_s: float,
+               loop_round_s: float):
+    """The run length from which the engine's captures (warm-up included)
+    have paid for themselves against the loop: ``capture_s`` over what a
+    round saves, or None where the engine's round is no faster."""
+    saved = loop_round_s - engine_round_s
+    return capture_s / saved if saved > 0 else None
+
+
+def engine_phase(rec, ds):
+    """The segment engine at paper scale on GN-LeNet (the main path's
+    data), for the five algorithms:
+
+    - parity: the loop twice (whether it equals itself) and the engine
+      once, ROUNDS rounds with an eval every EVAL_EVERY and FACADE's first
+      PARITY_WARMUP rounds in its warmup phase (both of its rounds
+      captured): the engine must be the loop's run bit for bit; K1's
+      launches are the rounds plus the warm-up calls before each capture;
+    - steady state: ENGINE_ROUNDS rounds with an eval every
+      ENGINE_EVAL_EVERY through one EngineCache, seed 0 (which captures)
+      then seed 1 timed, and the loop timed on the same seed-1 run (which
+      the engine's must equal); rounds per second of both, peak memory,
+      capture seconds per graph, compile_count after each run, and the
+      run length from which the captures have paid for themselves
+      (``break_even``)."""
+    cfg = lenet()
+    out = {"parity": {}, "steady": {}}
+    for algo in ALGOS:
+        warm = PARITY_WARMUP if algo == "facade" else 0
+        kw = dict(PAPER, rounds=ROUNDS, eval_every=EVAL_EVERY,
+                  warmup_rounds=warm, device="cuda")
+        loop_a = run_experiment(algo, cfg, ds, engine=False, **kw)
+        loop_b = run_experiment(algo, cfg, ds, engine=False, **kw)
+        with counted() as counts:
+            eng = run_experiment(algo, cfg, ds, **kw)
+            torch.cuda.synchronize()
+        graphs = 2 if warm else 1
+        want = ROUNDS + WARMUP_ROUNDS * graphs if algo == "facade" else 0
+        got = out["parity"][algo] = {
+            "loop_vs_loop": run_diff(loop_a, loop_b),
+            "engine_vs_loop": run_diff(eng, loop_a), "launches": counts}
+        log(f"engine parity {algo}: {json.dumps(got)}")
+        if counts["head_losses"] != want:
+            raise AssertionError(f"engine {algo}: {counts} K1 launches, "
+                                 f"want {want}")
+        if not (got["loop_vs_loop"]["equal"]
+                and got["engine_vs_loop"]["equal"]):
+            raise AssertionError(f"engine {algo}: not the loop's run bit "
+                                 f"for bit: {json.dumps(got)}")
+    cache = EngineCache()
+    for algo in ALGOS:
+        kw = dict(PAPER, rounds=ENGINE_ROUNDS, eval_every=ENGINE_EVAL_EVERY)
+        run_experiment(algo, cfg, ds, cache=cache, device="cuda", **kw)
+        after_first = cache.compile_count
+        with counted() as counts:
+            eng, eng_s, eng_peak, eng_res = timed_run(
+                algo, cfg, ds, cache=cache, **dict(kw, seed=1))
+        after_second = cache.compile_count
+        loop, loop_s, loop_peak, loop_res = timed_run(
+            algo, cfg, ds, engine=False, **dict(kw, seed=1))
+        entry = cache.entry(paper_spec(algo, cfg, ds))
+        got = out["steady"][algo] = {
+            "engine_s": eng_s, "loop_s": loop_s,
+            "engine_rounds_per_s": ENGINE_ROUNDS / eng_s,
+            "loop_rounds_per_s": ENGINE_ROUNDS / loop_s,
+            "speedup": loop_s / eng_s,
+            "engine_peak_allocated": eng_peak,
+            "engine_peak_reserved": eng_res,
+            "loop_peak_allocated": loop_peak,
+            "loop_peak_reserved": loop_res,
+            "capture_s": entry.engine.capture_s,
+            "break_even_rounds": break_even(
+                sum(entry.engine.capture_s), eng_s / ENGINE_ROUNDS,
+                loop_s / ENGINE_ROUNDS),
+            "compile_count_after_first": after_first,
+            "compile_count_after_second": after_second,
+            "launches": counts, "vs_loop": run_diff(eng, loop)}
+        log(f"engine steady {algo}: {json.dumps(got)}")
+        want = ENGINE_ROUNDS if algo == "facade" else 0
+        if not (after_second == after_first and len(entry.engine.capture_s)
+                == 1 and counts["head_losses"] == want
+                and got["vs_loop"]["equal"]):
+            raise AssertionError(f"engine {algo}: steady-state run "
+                                 f"{json.dumps(got)}")
+    out["cache"] = cache.stats()
+    rec["engine"] = out
+    del cache
+    torch.cuda.empty_cache()
+    return out
+
+
+def engine_profile_phase(rec, ds) -> dict:
+    """Where a replayed FACADE round's time goes: one ENGINE_EVAL_EVERY-
+    round run through a fresh EngineCache (K1's count must be its rounds
+    plus the warm-up calls before the capture), then one replayed segment
+    of as many rounds under ``torch.profiler``, which must hold exactly
+    one K1 execution a round by kernel name and by counter. Run after the
+    last timed phase, which its profiler session would slow."""
+    cfg, seg, cache = lenet(), ENGINE_EVAL_EVERY, EngineCache()
+    with counted() as counts:
+        run_experiment("facade", cfg, ds, cache=cache, device="cuda",
+                       rounds=seg, eval_every=seg, **PAPER)
+        torch.cuda.synchronize()
+    if counts["head_losses"] != seg + WARMUP_ROUNDS:
+        raise AssertionError(f"{counts} K1 launches in a {seg}-round run, "
+                             f"want {seg + WARMUP_ROUNDS}")
+    entry = cache.entry(paper_spec("facade", cfg, ds))
+    draws = TorchDraws(2)
+    carry = entry.engine.init_carry(entry.setup(draws).state)
+    train_x, train_y = entry.engine.place_data(ds)
+    with counted() as counts:
+        prof = device_profile(lambda: entry.engine.run_segment(
+            carry, 0, seg, train_x, train_y, draws), kernels=(K1_KERNEL,))
+    k1_events, k1_s = prof["kernels"][K1_KERNEL]
+    prof["k1_us_per_round"] = 1e6 * k1_s / max(k1_events, 1)
+    prof["launches"] = counts
+    log(f"engine FACADE segment profile: {json.dumps(prof)}")
+    if not (k1_events == seg and counts["head_losses"] == seg):
+        raise AssertionError(f"a replayed {seg}-round FACADE segment ran "
+                             f"{k1_events} K1 kernels by name and "
+                             f"{counts['head_losses']} by counter, want "
+                             f"{seg}")
+    rec["engine"]["facade_segment_profile"] = prof
+    del cache, entry, carry, train_x, train_y
+    torch.cuda.empty_cache()
+    return prof
 
 
 def small_input_phase(rec):
@@ -718,27 +957,77 @@ def one_dataset(rec):
         train.make_clustered_data = make
 
 
+@contextlib.contextmanager
+def launcher_cache(cache: EngineCache):
+    """``paper_main`` builds a private ``EngineCache`` for its run; inside
+    this block its ``run_experiment`` goes through ``cache`` instead, so
+    that the run's capture seconds can be read after it."""
+    run = train.run_experiment
+    train.run_experiment = functools.partial(run, cache=cache)
+    try:
+        yield
+    finally:
+        train.run_experiment = run
+
+
 def resnet8_paper_phase(rec) -> int:
     """The launcher's paper mode (``train.paper_main``) on full-width
     ResNet8 for the five algorithms (``RESNET8_PAPER``, the data made
-    once: ``one_dataset``); checks one K1 launch per FACADE round and none
-    in the baselines, the bytes per round against ``RESNET8_BYTES``,
-    finite parameters on the card and accuracies in [0, 1]; returns K1's
-    launches in the FACADE run."""
+    once: ``one_dataset``), on the segment engine; checks one K1 launch
+    per FACADE round and per warm-up call before its capture and none in
+    the baselines, the bytes per round against ``RESNET8_BYTES``, finite
+    parameters on the card and accuracies in [0, 1]. Then the per-round
+    loop on the same run, timed, which the engine's run must equal bit for
+    bit, and the run length from which the engine's capture has paid for
+    itself (``break_even``, the capture counted whole against 8-round
+    runs). Returns K1's launches in the FACADE run."""
     p = RESNET8_PAPER
     cfg = resnet8().replace(n_classes=p["n_classes"],
                             image_size=p["image_size"])
     n = sum(p["clusters"])
+    spec = SynthSpec(n_classes=p["n_classes"], image_size=p["image_size"],
+                     samples_per_class=p["samples_per_class"],
+                     test_per_class=p["test_per_class"], seed=p["seed"])
+    loop_kw = dict(rounds=ROUNDS, k=p["k"], degree=p["degree"],
+                   local_steps=p["local_steps"], batch_size=p["batch"],
+                   lr=p["lr"], eval_every=p["eval_every"], seed=p["seed"],
+                   warmup_rounds=p["warmup_rounds"])
     out = {}
     with one_dataset(out):
         for algo in ALGOS:
+            cache, made = EngineCache(), len(out["data_s"])
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            with counted() as counts:
+            with counted() as counts, launcher_cache(cache):
                 res = train.paper_main(argparse.Namespace(algo=algo, **p))
                 torch.cuda.synchronize()
-            out[algo] = resnet8_run_check(cfg, algo, n, res, counts,
-                                          time.perf_counter() - t0)
+            wall = time.perf_counter() - t0
+            got = out[algo] = resnet8_run_check(cfg, algo, n, res, counts,
+                                                wall)
+            ds = train.make_clustered_data(spec, tuple(p["clusters"]),
+                                           p["transforms"])
+            loop, loop_s, _, _ = timed_run(algo, cfg, ds, engine=False,
+                                           **loop_kw)
+            key = paper_spec(algo, cfg, ds)
+            if len(cache) != 1 or key not in cache:
+                raise AssertionError(f"resnet8 {algo}: the run's cache "
+                                     f"holds {cache.stats()}")
+            capture = sum(cache.entry(key).engine.capture_s)
+            # the engine's rounds and evals: the run less its capture and
+            # the data, where this run made it
+            rounds_s = wall - capture - sum(out["data_s"][made:])
+            got.update(loop_s=loop_s, capture_s=capture,
+                       vs_loop=run_diff(res, loop),
+                       break_even_rounds=break_even(
+                           capture, rounds_s / ROUNDS, loop_s / ROUNDS))
+            log(f"resnet8 {algo}: the loop {loop_s:.2f} s, capture "
+                f"{capture:.2f} s, engine vs loop "
+                f"{json.dumps(got['vs_loop'])}, break-even "
+                f"{got['break_even_rounds']} rounds")
+            if not got["vs_loop"]["equal"]:
+                raise AssertionError(f"resnet8 {algo}: the engine is not "
+                                     f"the loop's run: {got['vs_loop']}")
+            del cache
     rec["resnet8_paper"] = out
     return out["facade"]["launches"]["head_losses"]
 
@@ -746,7 +1035,7 @@ def resnet8_paper_phase(rec) -> int:
 def resnet8_run_check(cfg, algo, n, res, counts, wall) -> dict:
     """One ResNet8 paper run's checks and record."""
     want = {fn.__name__: 0 for fn in KERNELS}
-    want["head_losses"] = ROUNDS if algo == "facade" else 0
+    want["head_losses"] = FACADE_LAUNCHES if algo == "facade" else 0
     if counts != want:
         raise AssertionError(f"resnet8 {algo}: kernel launches {counts} "
                              f"in {ROUNDS} rounds, want {want}")
@@ -1276,17 +1565,21 @@ def wkv_backward_timing(shape, reps: int = 5) -> dict:
         device_ms[1:]), "host_ms": statistics.median(host_ms[1:])}
 
 
-def device_profile(fn, host_spans=()) -> dict:
+def device_profile(fn, host_spans=(), kernels=()) -> dict:
     """Host wall time of ``fn()`` (ending in a synchronise) and the device
-    time of the kernels it ran, by ``torch.profiler``: busy share, and the
-    largest kernels by name ([name, seconds, launches recorded]); for each
+    time of the kernels it ran, by ``torch.profiler``: busy time (the
+    union of the kernels' intervals, since kernels of forked streams, a
+    graph's branches among them, run side by side; ``kernel_s`` is their
+    sum) and share, and the largest kernels by name ([name, seconds,
+    launches recorded]); for each
     string in ``host_spans``, the host time of the profiler's host events
     whose names hold it (their own and their children's) and their count.
     The profiler's raw events are read as they come (a round of the plain
     wkv backward records millions; building its event tree would take
     minutes), and the seconds the profiler took to stop and to be read
-    are recorded. Where the profiler records no device events, the device
-    numbers are None (not measured)."""
+    are recorded; for each string in ``kernels``, the device kernels whose
+    names hold it, as [events, seconds]. Where the profiler records no
+    device events, the device numbers are None (not measured)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -1297,7 +1590,7 @@ def device_profile(fn, host_spans=()) -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     t1 = time.perf_counter()
-    by_name, count = {}, {}
+    by_name, count, intervals = {}, {}, []
     spans = {name: [0.0, 0] for name in host_spans}
     events = prof.profiler.kineto_results.events()
     for e in events:
@@ -1305,19 +1598,33 @@ def device_profile(fn, host_spans=()) -> dict:
         if e.device_type() == DeviceType.CUDA:
             by_name[name] = by_name.get(name, 0.0) + e.duration_ns() * 1e-9
             count[name] = count.get(name, 0) + 1
+            intervals.append((e.start_ns(), e.start_ns() + e.duration_ns()))
         else:
             for span in spans:
                 if span in name:
                     spans[span][0] += e.duration_ns() * 1e-9
                     spans[span][1] += 1
-    busy = sum(by_name.values())
+    busy, reach = 0, None
+    for start, end in sorted(intervals):
+        if reach is None or start > reach:
+            busy += end - start
+            reach = end
+        elif end > reach:
+            busy += end - reach
+            reach = end
+    busy *= 1e-9
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
     out = {"wall_s": wall, "device_busy_s": busy if by_name else None,
            "busy_share": busy / wall if by_name else None,
+           "kernel_s": sum(by_name.values()) if by_name else None,
            "kernel_names": len(by_name),
            "top_kernels_s": [[n[:80], t, count[n]] for n, t in top],
            "events": len(events), "profiler_stop_s": t1 - t0 - wall,
            "profiler_read_s": time.perf_counter() - t1}
+    if kernels:
+        out["kernels"] = {k: [sum(c for n, c in count.items() if k in n),
+                              sum(t for n, t in by_name.items() if k in n)]
+                          for k in kernels}
     if spans:
         out["host_spans"] = {name: {"host_s": secs, "events": n,
                                     "share_of_wall": secs / wall}
@@ -1452,7 +1759,9 @@ def main() -> int:
     hs = kernel_phase(rec)
     fa = flash_attention_phase(rec)
     rw = wkv_phase(rec, sm_clock_hz)
-    hs["launches"] = main_path_phase(rec)
+    ds = paper_lenet_data(rec)
+    hs["launches"] = main_path_phase(rec, ds)
+    engine_phase(rec, ds)
     resnet8_launches = resnet8_paper_phase(rec)
     hs["resnet8"] = dict(resnet8_select_phase(rec),
                          launches=resnet8_launches)
@@ -1472,10 +1781,16 @@ def main() -> int:
     smoke_serve_phase(rec)
     # after the timed phases: a profiler run and one more graph timing
     split = head_select_lm_split()
+    if split["body_ms"] is None:
+        split = dict(head_select_lm_split_apart(), in_this_process=split)
+        log("head_select lm split (own process)", json.dumps(split))
     hs["lm"].update(split)
     rec["head_select_lm"].update(split)
     fa["lm_feature_pass"] = rec["flash_attention_timing"][
         "lm_feature_pass"] = fa_timing("lm_feature_pass", FA_LM, 50)
+    prof = engine_profile_phase(rec, ds)
+    hs["engine"] = {"launches_in_segment": prof["launches"]["head_losses"],
+                    "us_per_replayed_round": prof["k1_us_per_round"]}
     entries = [hs, fa, rw]
     rec["kernels"] = entries
     rec["total_s"] = time.perf_counter() - t0

@@ -12,6 +12,8 @@ for a target the log never measurably crossed.
 """
 from __future__ import annotations
 
+import numpy as np
+
 
 class CommLog:
     def __init__(self):
@@ -29,6 +31,31 @@ class CommLog:
             self.acc.append(float(acc))
         else:
             self.acc.append(self.acc[-1] if self.acc else 0.0)
+
+    def record_bulk(self, rounds, round_bytes):
+        """Append a whole engine segment of eval-less rounds at once.
+
+        ``rounds`` / ``round_bytes`` are equal-length arrays (per-round
+        values, not cumulative) drained from the segment in one transfer.
+        Accuracy backfills the last measured value (``evaled=False``
+        throughout), so target queries never credit these rounds.
+
+        Accumulation matches :meth:`record` bit for bit: a sequential
+        float64 running sum seeded with the current total.
+        """
+        rounds = np.asarray(rounds)
+        rb = np.asarray(round_bytes, np.float64)
+        if rounds.shape != rb.shape:
+            raise ValueError("record_bulk arrays must have equal length")
+        if rb.size == 0:
+            return
+        base = self.bytes[-1] if self.bytes else 0.0
+        self.rounds.extend(int(r) for r in rounds)
+        self.bytes.extend(np.cumsum(np.concatenate([[base], rb]))[1:]
+                          .tolist())
+        last_acc = self.acc[-1] if self.acc else 0.0
+        self.acc.extend([last_acc] * rb.size)
+        self.evaled.extend([False] * rb.size)
 
     def bytes_to_target(self, target_acc: float) -> float | None:
         """Cumulative bytes at the first MEASURED accuracy >= target, else

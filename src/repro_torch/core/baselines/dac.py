@@ -47,7 +47,7 @@ def dac_round(cfg: DACConfig, binding: Binding, state: BaselineState,
     nbr = sample_neighbors(sim, gumbel, r, cfg.tau)          # [n, r]
     rows = torch.arange(n, device=sim.device)[:, None]
     adj = torch.zeros((n, n), dtype=torch.float32, device=sim.device)
-    adj[rows, nbr] = 1.0
+    topology.set_edges(adj, rows, nbr)
     adj = torch.maximum(adj, adj.T)      # symmetrise (push-pull exchange)
 
     # similarity: the inverse loss of each neighbour's model on the node's

@@ -1,0 +1,428 @@
+"""Segment engine: the rounds between two evals as CUDA-graph replays.
+
+The counterpart of ``repro.core.engine``. The per-round loop
+(``run_experiment(engine=False)``) issues every op of every round from
+Python, and at paper scale that issue cost, not the card, sets the pace.
+This module runs the same round closures (FACADE's or a baseline's,
+``fn(state, batches, *topology) -> (state, info)``) span by span:
+
+* **one captured round per warmup flag**, replayed once per round of a
+  segment (FACADE's warmup and main rounds are two graphs, a baseline's
+  round one). The reference compiles one scan per ``(length, warmup)``
+  because a scan's length is static; capturing one round bounds capture
+  time and graph memory whatever ``eval_every`` is;
+* the node-stacked state lives in static buffers that the captured round
+  overwrites in place at its end (the counterpart of ``donate_argnums``),
+  and so do the train arrays the round gathers its batches from;
+* **draws stay host-drawn inputs.** The reference samples each round's
+  batches inside its scan from a carried PRNG key. Here a segment's L
+  rounds are drawn from the run's draws source in the loop's per-stream
+  order (batch indices ``[L, n, H, B]``, then FACADE's and EL's
+  permutations ``[L, n_perms, n]`` or DAC's Gumbel matrices ``[L, n, n]``;
+  D-PSGD and DEPRL draw nothing), stacked in pinned memory and copied to
+  the card once; before each replay a device-to-device copy moves round
+  i's draws into the graph's static inputs. The engine and the loop so
+  consume identical draws, and one seed still gives one run on every
+  device. This is the one deliberate difference from the reference
+  engine;
+* a segment's outputs leave the card once: ``round_bytes`` is a host float
+  from the formula, recorded when the round is captured (it never touches
+  the card), and FACADE's cluster ids are copied into row i of an ``[L,
+  n]`` device buffer after replay i and drained in one transfer.
+
+**Capture.** The first segment of a warmup flag (and of a train-array
+shape) runs ``WARMUP_ROUNDS`` eager rounds on the device's capture stream,
+on a scratch clone of the state and round 0's drawn inputs, and throws their
+results away: autograd, cuDNN and cuBLAS set up their per-stream state on
+a round's first call, not in the capture. Every warm-up and capture on a
+device runs on one stream (``_capture_stream``), so cuBLAS keeps one
+workspace for all of them. Host syncs are errors during that warm-up
+(``torch.cuda.set_sync_debug_mode``), and a round that syncs (``.item()``,
+``bool(tensor)``, a copy from pageable host memory) or otherwise cannot be
+captured raises, naming the round function. There is no fallback: on CUDA
+the engine captures or raises, and never replays eagerly or moves to the
+CPU. Both graphs of an engine share one memory pool; nothing allocated in
+a capture outlives it.
+
+**Launch counts.** The kernel wrappers count Python calls that launch
+(``head_losses.launches``, ...), and a replay makes none. So a capture's
+increase of each count is taken back and added again once per replay, and
+the counts say what the card ran; warm-up calls are real launches and
+count as themselves.
+
+**On the CPU** there is no graph: the same closures run eagerly, round by
+round, from the segment's stacked draws, with the same carry, static
+buffers and drain. ``compile_count`` counts captures on CUDA and, on the
+CPU, the round programs prepared (one per warmup flag and train-array
+shape), so it stays flat on a cell's second run either way.
+"""
+from __future__ import annotations
+
+import contextlib
+import time
+from typing import Callable, NamedTuple
+
+import numpy as np
+import torch
+
+from repro_torch.data import pipeline
+from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.head_select import head_losses
+from repro_torch.kernels.rwkv6 import wkv
+from repro_torch.tree import tree_map
+
+from .state import EngineCarry
+
+WARMUP_ROUNDS = 1          # eager rounds before a capture
+COUNTED = (head_losses, flash_attention, wkv)
+TOPOLOGY_DRAWS = ("perms", "gumbel")
+
+
+class Segment(NamedTuple):
+    start: int           # first round of the span (0-based)
+    length: int          # number of rounds in the span
+    warmup: bool         # FACADE warmup phase?
+    eval_at_end: bool    # the span's last round is an eval round
+
+
+def segment_plan(rounds: int, eval_every: int,
+                 warmup_rounds: int = 0) -> list[Segment]:
+    """Cut ``range(rounds)`` into segments.
+
+    Boundaries: every eval round (``(rnd+1) % eval_every == 0`` plus the
+    final round — the loop's eval schedule) and the warmup->main phase
+    switch (a cut without an eval). Segments never straddle the warmup
+    boundary, so each segment replays one round program.
+    """
+    evals = set(range(eval_every, rounds + 1, eval_every))
+    if rounds > 0:
+        evals.add(rounds)
+    cuts = {0, rounds} | evals
+    if 0 < warmup_rounds < rounds:
+        cuts.add(warmup_rounds)
+    cuts = sorted(cuts)
+    return [Segment(a, b - a, a < warmup_rounds, b in evals)
+            for a, b in zip(cuts[:-1], cuts[1:])]
+
+
+def _tensors(state) -> dict:
+    """The state's tensor fields: every field but the round counter."""
+    return {f: v for f, v in zip(state._fields, state)
+            if f != "round" and v is not None}
+
+
+def _name(fn) -> str:
+    fn = getattr(fn, "func", fn)            # functools.partial
+    return getattr(fn, "__qualname__", repr(fn))
+
+
+_CAPTURE_STREAMS: dict = {}
+
+
+def _capture_stream(dev: torch.device) -> torch.cuda.Stream:
+    """The one side stream of ``dev`` that every engine warms up and
+    captures on (cuBLAS keeps a workspace per stream it has run on)."""
+    if dev.index not in _CAPTURE_STREAMS:
+        _CAPTURE_STREAMS[dev.index] = torch.cuda.Stream(dev)
+    return _CAPTURE_STREAMS[dev.index]
+
+
+@contextlib.contextmanager
+def _no_host_sync():
+    prev = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(prev)
+
+
+class SegmentEngine:
+    """Runs eval-to-eval spans of one algorithm's rounds on one device.
+
+    ``round_fn`` / ``warmup_fn``: the round closures, ``fn(state, batches,
+    *topology) -> (state, info)`` with ``info["round_bytes"]`` a host
+    float (and ``info["cluster_id"]`` for FACADE, ``track_cluster``).
+    ``topology_draw``: what a round draws besides its batch indices,
+    ``"perms"`` (degree ``degree``), ``"gumbel"`` or ``None``.
+
+    The engine owns the static buffers its graphs read and write: the
+    state, the per-round inputs and, on CUDA, the train arrays. A run's
+    carry is made by :meth:`init_carry`, which copies the run's initial
+    state into them, so a later run through the same engine overwrites
+    what an earlier run left there: whatever outlives a run must be a
+    copy.
+    """
+
+    def __init__(self, round_fn: Callable, *, n: int, local_steps: int,
+                 batch_size: int, device, warmup_fn: Callable | None = None,
+                 track_cluster: bool = False,
+                 topology_draw: str | None = None, degree: int = 4):
+        if topology_draw not in (None,) + TOPOLOGY_DRAWS:
+            raise ValueError(f"unknown topology draw {topology_draw!r}")
+        self._round = round_fn
+        self._warm = warmup_fn if warmup_fn is not None else round_fn
+        self._n, self._h, self._b = n, local_steps, batch_size
+        self._dev = torch.device(device)
+        if self._dev.type == "cuda" and self._dev.index is None:
+            self._dev = torch.device("cuda", torch.cuda.current_device())
+        self._track = track_cluster
+        self._topology_draw = topology_draw
+        self._degree = degree
+        self._state = None       # static state tensors, {field: tree}
+        self._inputs = None      # static per-round inputs, {name: tensor}
+        self._data = {}          # CUDA: static train arrays per shape/dtype
+        self._graphs = {}        # key -> (graph, round_bytes, launches)
+        self._prepared = set()   # CPU: round programs prepared
+        self._pool = None
+        self.compile_count = 0
+        self.capture_s = []      # host seconds of each capture, warm-up in
+
+    # -- run-level set-up ---------------------------------------------------
+    def place_data(self, dataset):
+        """``(train_x, train_y)`` of ``dataset`` on the engine's device, as
+        ``pipeline.place`` gives them. On CUDA they land in the static
+        buffers of their shape and dtype, which the captured rounds read,
+        so a later run of the same shapes refills them with no new
+        capture."""
+        if self._dev.type != "cuda":
+            return pipeline.place(dataset, self._dev)
+        host = (torch.from_numpy(dataset.train_x),
+                torch.from_numpy(dataset.train_y).long())
+        static = self._static_data(*host)
+        for s, h in zip(static, host):
+            s.copy_(h)
+        return static
+
+    def _static_data(self, train_x, train_y) -> tuple:
+        key = _data_key(train_x, train_y)
+        if key not in self._data:
+            self._data[key] = tuple(
+                torch.empty(a.shape, dtype=a.dtype, device=self._dev)
+                for a in (train_x, train_y))
+        return self._data[key]
+
+    def init_carry(self, state) -> EngineCarry:
+        """The run's carry: ``state``'s tensors copied into the engine's
+        static buffers (allocated at the first run), its round counter as
+        given."""
+        if self._state is None:
+            self._state = tree_map(
+                lambda l: torch.empty(l.shape, dtype=l.dtype,
+                                      device=self._dev), _tensors(state))
+        self._load(state)
+        return EngineCarry(state._replace(**self._state))
+
+    def _load(self, state):
+        """Copy ``state``'s tensors into the static ones (those that are
+        not already them), leaf by key: a round may rebuild a dict in
+        another key order."""
+        def put(s, l):
+            if l is s:
+                return
+            if l.shape != s.shape or l.dtype != s.dtype:
+                raise ValueError(
+                    f"state leaf {tuple(l.shape)} {l.dtype} does not fit "
+                    f"the engine's {tuple(s.shape)} {s.dtype}")
+            s.copy_(l)
+
+        tree_map(put, self._state, _tensors(state))
+
+    def _store(self, new_state):
+        """End of a round: the new state's tensors into the static ones,
+        leaf by key."""
+        tree_map(lambda s, l: None if l is s else s.copy_(l), self._state,
+                 _tensors(new_state))
+
+    # -- draws --------------------------------------------------------------
+    def _draw_segment(self, source, length: int, per_node: int) -> dict:
+        """``length`` rounds of draws from ``source``, in the loop's
+        per-stream order, each stacked ``[length, ...]`` and moved to the
+        device in one copy (from pinned memory on CUDA)."""
+        n, idx, topo = self._n, [], []
+        for _ in range(length):
+            idx.append(source.batch_indices(n, self._h, self._b, per_node))
+            if self._topology_draw == "perms":
+                topo.append(source.perms(n, self._degree))
+            elif self._topology_draw == "gumbel":
+                topo.append(source.gumbel(n))
+        out = {"idx": self._stack(idx)}
+        if topo:
+            out[self._topology_draw] = self._stack(topo)
+        return out
+
+    def _stack(self, parts) -> torch.Tensor:
+        pin = self._dev.type == "cuda"
+        block = torch.empty((len(parts),) + tuple(parts[0].shape),
+                            dtype=parts[0].dtype, pin_memory=pin)
+        torch.stack([p.cpu() for p in parts], out=block)
+        return block.to(self._dev, non_blocking=pin)
+
+    def _set_inputs(self, draws: dict, i: int):
+        if self._inputs is None:
+            self._inputs = {k: torch.empty_like(v[0])
+                            for k, v in draws.items()}
+        for k, v in draws.items():
+            self._inputs[k].copy_(v[i])
+
+    def _topology_args(self, inputs: dict) -> tuple:
+        return tuple(inputs[k] for k in TOPOLOGY_DRAWS if k in inputs)
+
+    # -- one segment --------------------------------------------------------
+    def dispatch_segment(self, carry: EngineCarry, start: int, length: int,
+                         train_x, train_y, source, warmup: bool = False):
+        """Draw ``length`` rounds from ``source`` and run them from
+        ``carry``; returns ``(new_carry, outs)`` with the per-round outs
+        still on the device (pair with :meth:`drain`). ``start`` is the
+        segment's first round, 0-based; the state's round counter follows
+        it. On CUDA, apart from a round's first capture, nothing here waits
+        for the card."""
+        if carry.state.round != start:
+            raise ValueError(f"carry is at round {carry.state.round}, the "
+                             f"segment starts at {start}")
+        draws = self._draw_segment(source, length, train_x.shape[1])
+        self._load(carry.state)
+        state = carry.state._replace(**self._state)
+        fn = self._warm if warmup else self._round
+        key = (warmup,) + _data_key(train_x, train_y)
+        if self._dev.type == "cuda":
+            outs = self._replay(key, fn, draws, length, train_x, train_y,
+                                state)
+        else:
+            outs = self._eager(key, fn, draws, length, train_x, train_y,
+                               state)
+        return EngineCarry(state._replace(round=start + length)), outs
+
+    def drain(self, outs) -> dict:
+        """A dispatched segment's outs on the host: ``round_bytes`` ``[L]``
+        float64 and, for FACADE, ``cluster_id`` ``[L, n]`` in one
+        transfer."""
+        host = dict(outs)
+        if "cluster_id" in host:
+            host["cluster_id"] = host["cluster_id"].cpu()
+        return host
+
+    def run_segment(self, carry: EngineCarry, start: int, length: int,
+                    train_x, train_y, source, warmup: bool = False):
+        """:meth:`dispatch_segment`, then :meth:`drain`."""
+        carry, outs = self.dispatch_segment(carry, start, length, train_x,
+                                            train_y, source, warmup=warmup)
+        return carry, self.drain(outs)
+
+    def _cluster_buffer(self, length: int):
+        if not self._track:
+            return None
+        return torch.empty((length, self._n), dtype=torch.long,
+                           device=self._dev)
+
+    def _eager(self, key, fn, draws, length, train_x, train_y, state):
+        if key not in self._prepared:
+            self._prepared.add(key)
+            self.compile_count += 1
+        rb = np.empty(length, np.float64)
+        cid = self._cluster_buffer(length)
+        for i in range(length):
+            inputs = {k: v[i] for k, v in draws.items()}
+            batches = pipeline.sample_round_batches(inputs["idx"], train_x,
+                                                    train_y)
+            new, info = fn(state, batches, *self._topology_args(inputs))
+            self._store(new)
+            state = state._replace(round=state.round + 1)
+            rb[i] = info["round_bytes"]
+            if cid is not None:
+                cid[i].copy_(self._state["cluster_id"])
+        outs = {"round_bytes": rb}
+        if cid is not None:
+            outs["cluster_id"] = cid
+        return outs
+
+    def _replay(self, key, fn, draws, length, train_x, train_y, state):
+        train_x, train_y = self._bind_data(train_x, train_y)
+        if key not in self._graphs:
+            self._set_inputs(draws, 0)
+            self._graphs[key] = self._capture(fn, train_x, train_y, state)
+            self.compile_count += 1
+        graph, round_bytes, launches = self._graphs[key]
+        cid = self._cluster_buffer(length)
+        for i in range(length):
+            self._set_inputs(draws, i)
+            graph.replay()
+            for kernel, count in launches:
+                kernel.launches += count
+            if cid is not None:
+                cid[i].copy_(self._state["cluster_id"])
+        outs = {"round_bytes": np.full(length, round_bytes, np.float64)}
+        if cid is not None:
+            outs["cluster_id"] = cid
+        return outs
+
+    def _bind_data(self, train_x, train_y) -> tuple:
+        """The static train arrays of these shapes, refilled from the
+        given ones unless they are those arrays (``place_data``)."""
+        static = self._static_data(train_x, train_y)
+        for s, a in zip(static, (train_x, train_y)):
+            if a is not s:
+                s.copy_(a)
+        return static
+
+    def _capture(self, fn, train_x, train_y, state) -> tuple:
+        """Warm ``fn`` up on a scratch clone of ``state`` (the static
+        tensors), then capture one round of it into a graph that reads the
+        static inputs and state and ends by writing the new state over the
+        old. Returns ``(graph, round_bytes, [(kernel, launches a
+        replay)])``."""
+        t0 = time.perf_counter()
+        inputs, name = self._inputs, _name(fn)
+
+        def one_round(st):
+            batches = pipeline.sample_round_batches(inputs["idx"], train_x,
+                                                    train_y)
+            return fn(st, batches, *self._topology_args(inputs))
+
+        scratch = state._replace(**tree_map(torch.clone, self._state))
+        side = _capture_stream(self._dev)
+        side.wait_stream(torch.cuda.current_stream(self._dev))
+        try:
+            with torch.cuda.stream(side), _no_host_sync():
+                for _ in range(WARMUP_ROUNDS):
+                    one_round(scratch)
+        except RuntimeError as e:
+            raise RuntimeError(
+                f"round function {name} failed in its warm-up before "
+                f"capture, where a host sync (.item(), bool(tensor), a copy "
+                f"from pageable memory) is an error: {e}") from e
+        torch.cuda.current_stream(self._dev).wait_stream(side)
+        del scratch
+
+        def captured_round() -> float:
+            new, info = one_round(state)
+            self._store(new)
+            rb = info["round_bytes"]
+            if not isinstance(rb, (int, float)):
+                raise TypeError(f"round function {name} returned "
+                                f"round_bytes {type(rb).__name__}, not a "
+                                f"host number")
+            return float(rb)
+
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        graph = torch.cuda.CUDAGraph()
+        before = [k.launches for k in COUNTED]
+        try:
+            with torch.cuda.graph(graph, pool=self._pool, stream=side):
+                round_bytes = captured_round()
+        except RuntimeError as e:
+            raise RuntimeError(f"capturing round function {name} in a CUDA "
+                               f"graph failed: {e}") from e
+        finally:
+            # the capture launched nothing: take its counts back
+            made = [k.launches - b for k, b in zip(COUNTED, before)]
+            for k, b in zip(COUNTED, before):
+                k.launches = b
+        self.capture_s.append(time.perf_counter() - t0)
+        return graph, round_bytes, [(k, m) for k, m in zip(COUNTED, made)
+                                    if m]
+
+
+def _data_key(train_x, train_y) -> tuple:
+    return tuple((tuple(a.shape), str(a.dtype)) for a in (train_x, train_y))

@@ -4,11 +4,17 @@ metrics and communication volume — the harness behind the paper's
 tables, on one device — and FACADE rounds on a language model
 (:class:`LMFacade`).
 
-The counterpart of ``repro.core.runner`` with its per-round loop (the
-reference's ``engine=False`` path). The reference's segment engine,
-pipelining, mesh, cache, network simulation, adaptive topology,
-telemetry and checkpointing are not ported yet, and ``run_experiment``
-does not accept their parameters.
+The counterpart of ``repro.core.runner``. Two drivers share the set-up
+and the evaluation: ``engine=True`` (the default), the segment engine
+(:mod:`.engine`: on CUDA one captured round replayed per round of an
+eval-to-eval span, one host transfer a span), and ``engine=False``, the
+per-round loop, the engine's parity reference. On one device both give
+the same run bit for bit. The seed-independent machinery (binding, round
+closures, engine, evaluator) comes from an :class:`~.cache.EngineCache`
+(``cache=``; a private one by default). The reference's pipelined driver,
+checkpoint/resume, mesh, network simulation, adaptive topology and
+telemetry are not ported yet, and ``run_experiment`` does not accept
+their parameters.
 
 Randomness comes from a *draws* source (:class:`TorchDraws` by default):
 it supplies the initial parameters, each round's ``[n, H, B]`` batch
@@ -22,7 +28,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Any, Callable
+from typing import Any, Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -40,6 +46,8 @@ from .baselines import (DACConfig, DeprlConfig, DpsgdConfig, ELConfig,
                         dac_round, deprl_round, dpsgd_round, el_round,
                         init_dac_extra)
 from .bindings import Binding, make_binding
+from .cache import EngineCache, EngineSpec
+from .engine import SegmentEngine, segment_plan
 from .state import init_baseline_state, init_facade_state
 
 # baseline -> (config, round function, the round's topology draw)
@@ -102,6 +110,85 @@ class TorchDraws:
         u = torch.rand((n, n), generator=self._topo).clamp_(
             min=torch.finfo(torch.float32).tiny)
         return -torch.log(-torch.log(u))
+
+
+# --------------------------------------------------------------------------
+class AlgoProgram(NamedTuple):
+    """The seed-independent part of an algorithm, behind one round
+    signature: ``round_fn(state, batches, *topology) -> (state, info)``,
+    where ``topology`` is the round's ``topology_draw`` (FACADE and EL:
+    ``perms``, DAC: ``gumbel``, D-PSGD and DEPRL: none). ``EngineCache``
+    memoizes programs per static configuration and mints each run's
+    :class:`AlgoSetup` with :meth:`setup`. (The reference's
+    ``mixable_of``, which its async-gossip buffers read, comes with
+    netsim.)"""
+    init_state: Callable       # (draws, device) -> initial stacked state
+    round_fn: Callable         # main-phase round
+    warmup_fn: Callable        # warmup-phase round (== round_fn off-FACADE)
+    models_of: Callable        # state -> deployable models, stacked [n, ...]
+    finalize: Callable         # applied to the state after the last round
+    track_cluster: bool        # info carries a per-round cluster_id [n]
+    topology_draw: str | None  # "perms" | "gumbel" | None
+
+    def setup(self, draws, device) -> "AlgoSetup":
+        return AlgoSetup(self, self.init_state(draws, device))
+
+
+class AlgoSetup(NamedTuple):
+    """One run: its algorithm's program and the initial stacked state,
+    minted from the run's draws."""
+    program: AlgoProgram
+    state: Any
+
+
+def algo_program(algo: str, binding: Binding, n: int, k: int, *,
+                 degree: int, lr: float,
+                 head_jitter: float = 0.0) -> AlgoProgram:
+    """The program of ``algo`` (one of :data:`ALGOS`) on ``binding``'s
+    model, ``n`` nodes, ``k`` FACADE heads."""
+    if algo == "facade":
+        fcfg = facade_mod.FacadeConfig(n_nodes=n, k=k, degree=degree, lr=lr)
+
+        def init_state(draws, device):
+            params, heads_k = draws.facade_init(binding, k, head_jitter)
+            return init_facade_state(binding, n, k, params=params,
+                                     heads_k=heads_k, device=device)
+
+        return AlgoProgram(
+            init_state=init_state,
+            round_fn=functools.partial(facade_mod.facade_round, fcfg,
+                                       binding, warmup=False),
+            warmup_fn=functools.partial(facade_mod.facade_round, fcfg,
+                                        binding, warmup=True),
+            models_of=facade_mod.node_models,
+            finalize=functools.partial(facade_mod.final_allreduce, fcfg),
+            track_cluster=True, topology_draw="perms")
+    if algo in BASELINES:
+        cfg_cls, round_fn, topology_draw = BASELINES[algo]
+        fn = functools.partial(
+            round_fn, cfg_cls(n_nodes=n, degree=degree, lr=lr), binding)
+
+        def init_state(draws, device):
+            return init_baseline_state(
+                binding, n, params=draws.baseline_init(binding),
+                extra=init_dac_extra(n) if algo == "dac" else None,
+                device=device)
+
+        return AlgoProgram(
+            init_state=init_state, round_fn=fn, warmup_fn=fn,
+            models_of=lambda s: s.params, finalize=lambda s: s,
+            track_cluster=False, topology_draw=topology_draw)
+    raise ValueError(f"algorithm {algo!r} is not ported yet; the port "
+                     f"runs {ALGOS}")
+
+
+def algo_setup(algo: str, binding: Binding, draws, n: int, k: int, *,
+               degree: int, lr: float, head_jitter: float = 0.0,
+               device="cuda") -> AlgoSetup:
+    """One run's :class:`AlgoSetup`, its initial state from ``draws``."""
+    return algo_program(algo, binding, n, k, degree=degree, lr=lr,
+                        head_jitter=head_jitter).setup(
+        draws, device_mod.resolve(device))
 
 
 # --------------------------------------------------------------------------
@@ -191,7 +278,8 @@ class _History:
             [a * (self._weights == c).sum()
              for c, a in zip(cids, accs)]) * len(accs) / self._n)
         cid = getattr(state, "cluster_id", None)
-        eval_cid = None if cid is None else cid.cpu().numpy()
+        # a copy: under the engine the state's ids are a static buffer
+        eval_cid = None if cid is None else cid.cpu().numpy().copy()
         frame = compute_eval_frame(
             rnd, accs, cids, preds_c, labels_c, node_acc, self._n_classes,
             mean_acc=mean_acc, prev_cid=self._prev_eval_cid, cid=eval_cid)
@@ -223,29 +311,46 @@ def run_experiment(algo: str, cfg, dataset, *, rounds: int,
                    lr: float = 0.05, eval_every: int = 20, seed: int = 0,
                    warmup_rounds: int = 0, head_jitter: float = 0.0,
                    target_acc: float | None = None, eval_batch: int = 256,
-                   verbose: bool = False, device="cuda",
-                   draws=None) -> RunResult:
+                   verbose: bool = False, device="cuda", draws=None,
+                   engine: bool = True,
+                   cache: EngineCache | None = None) -> RunResult:
     """Run one (algorithm, dataset) experiment end to end on ``device``.
 
     ``algo`` is one of :data:`ALGOS`. ``draws`` supplies the initial
     parameters, batch indices and topology draws (default
     ``TorchDraws(seed)``); it has the methods of :class:`TorchDraws`.
-    The run computes fp32 in full fp32 (TF32 off, as the reference); the
-    caller's TF32 flags are restored when it returns or raises.
+
+    ``engine``: ``True`` runs the segment engine (:mod:`.engine`: on CUDA
+    each eval-to-eval span replays one captured round, with one host
+    transfer a span); ``False`` the per-round loop. On one device both
+    give the same run bit for bit.
+
+    ``cache``: an :class:`EngineCache` shared across calls, so that the
+    runs of one configuration capture their rounds and build their
+    evaluator once; ``None`` uses a fresh private cache.
+
+    The run computes fp32 in full fp32 (TF32 off, as the reference) with
+    cuDNN restricted to deterministic algorithms
+    (:func:`device.deterministic`): with cuDNN's defaults two runs of one
+    ResNet8 configuration on an H100 part in their parameters within 8
+    rounds, and the engine could not be held to the loop. The caller's
+    flags are restored when it returns or raises.
     """
-    with device_mod.no_tf32():
+    with device_mod.no_tf32(), device_mod.deterministic():
         return _run(algo, cfg, dataset, rounds=rounds, k=k, degree=degree,
                     local_steps=local_steps, batch_size=batch_size, lr=lr,
                     eval_every=eval_every, seed=seed,
                     warmup_rounds=warmup_rounds, head_jitter=head_jitter,
                     target_acc=target_acc, eval_batch=eval_batch,
-                    verbose=verbose, device=device, draws=draws)
+                    verbose=verbose, device=device, draws=draws,
+                    engine=engine, cache=cache)
 
 
 def _run(algo: str, cfg, dataset, *, rounds: int, k, degree: int,
          local_steps: int, batch_size: int, lr: float, eval_every: int,
          seed: int, warmup_rounds: int, head_jitter: float, target_acc,
-         eval_batch: int, verbose: bool, device, draws) -> RunResult:
+         eval_batch: int, verbose: bool, device, draws, engine: bool,
+         cache) -> RunResult:
     if algo not in ALGOS:
         raise ValueError(f"algorithm {algo!r} is not ported yet; the port "
                          f"runs {ALGOS}")
@@ -260,48 +365,64 @@ def _run(algo: str, cfg, dataset, *, rounds: int, k, degree: int,
     if not 1 <= degree < n:
         raise ValueError(f"degree={degree} out of range for n={n} nodes: "
                          "pick 1 <= degree <= n - 1")
+    if algo != "facade":
+        warmup_rounds = 0       # only FACADE has a warmup phase; keeps the
+        #                         baselines' cache keys from forking
     dev = device_mod.resolve(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
     k = k if k is not None else dataset.k
     draws = draws if draws is not None else TorchDraws(seed)
-    binding = make_binding(cfg)
-    train_x, train_y = pipeline.place(dataset, dev)
+    cache = cache if cache is not None else EngineCache()
+    spec = EngineSpec(algo=algo, cfg=cfg, n=n, k=k, degree=degree,
+                      local_steps=local_steps, batch_size=batch_size, lr=lr,
+                      warmup_rounds=warmup_rounds, head_jitter=head_jitter,
+                      eval_batch=eval_batch, device=dev)
+    entry = cache.entry(spec)
+    # pinned while the run is live: an LRU-bounded cache must never evict
+    # the engine whose static buffers the run is using
+    with cache.pin(spec):
+        setup = entry.setup(draws)
+        models_of = setup.program.models_of
+        evaluator = cache.evaluator(entry.binding, dataset,
+                                    batch=eval_batch, device=dev)
+        hist = _History(dataset.node_cluster, n, evaluator, models_of,
+                        target_acc, verbose, algo, cfg.n_classes)
+        if engine:
+            train_x, train_y = entry.engine.place_data(dataset)
+            state = _drive_engine(entry.engine, setup, hist, draws, train_x,
+                                  train_y, rounds=rounds,
+                                  eval_every=eval_every,
+                                  warmup_rounds=warmup_rounds)
+            # the state's tensors are the engine's static buffers, which a
+            # later run of this entry overwrites: the result keeps copies
+            models = tree_map(torch.clone, models_of(state))
+        else:
+            train_x, train_y = pipeline.place(dataset, dev)
+            state = _drive_loop(setup, hist, draws, train_x, train_y,
+                                rounds=rounds, eval_every=eval_every,
+                                warmup_rounds=warmup_rounds,
+                                local_steps=local_steps,
+                                batch_size=batch_size, n=n, degree=degree)
+            models = models_of(state)
+    return hist.result(algo, models)
+
+
+def _drive_loop(setup: AlgoSetup, hist: _History, draws, train_x, train_y,
+                *, rounds, eval_every, warmup_rounds, local_steps,
+                batch_size, n, degree):
+    """The per-round loop: every round drawn, run and recorded on its own.
+    Returns the final state."""
+    program, state = setup
+    dev = train_x.device
     per_node = train_x.shape[1]
-
-    if algo == "facade":
-        fcfg = facade_mod.FacadeConfig(n_nodes=n, k=k, degree=degree, lr=lr)
-        params, heads_k = draws.facade_init(binding, k, head_jitter)
-        state = init_facade_state(binding, n, k, params=params,
-                                  heads_k=heads_k, device=dev)
-        round_main = functools.partial(facade_mod.facade_round, fcfg,
-                                       binding, warmup=False)
-        round_warm = functools.partial(facade_mod.facade_round, fcfg,
-                                       binding, warmup=True)
-        models_of = facade_mod.node_models
-        finalize = functools.partial(facade_mod.final_allreduce, fcfg)
-        topology_draw = "perms"
-    else:
-        warmup_rounds = 0       # only FACADE has a warmup phase
-        cfg_cls, round_fn, topology_draw = BASELINES[algo]
-        state = init_baseline_state(
-            binding, n, params=draws.baseline_init(binding),
-            extra=init_dac_extra(n) if algo == "dac" else None, device=dev)
-        round_main = round_warm = functools.partial(
-            round_fn, cfg_cls(n_nodes=n, degree=degree, lr=lr), binding)
-        models_of = lambda s: s.params                          # noqa: E731
-        finalize = lambda s: s                                   # noqa: E731
-
-    evaluator = make_evaluator(binding, dataset.node_cluster,
-                               dataset.test_x, dataset.test_y,
-                               batch=eval_batch, device=dev)
-    hist = _History(dataset.node_cluster, n, evaluator, models_of,
-                    target_acc, verbose, algo, cfg.n_classes)
 
     def draw_topology() -> tuple:
         """The round's topology draw, which follows the algorithm (the
         reference splits its key only for a round that uses it)."""
-        if topology_draw == "perms":
+        if program.topology_draw == "perms":
             return (draws.perms(n, degree).to(dev),)
-        if topology_draw == "gumbel":
+        if program.topology_draw == "gumbel":
             return (draws.gumbel(n).to(dev),)
         return ()
 
@@ -309,19 +430,53 @@ def _run(algo: str, cfg, dataset, *, rounds: int, k, degree: int,
         idx = draws.batch_indices(n, local_steps, batch_size, per_node)
         batches = pipeline.sample_round_batches(idx.to(dev), train_x,
                                                 train_y)
-        fn = round_warm if rnd < warmup_rounds else round_main
+        fn = program.warmup_fn if rnd < warmup_rounds else program.round_fn
         state, info = fn(state, batches, *draw_topology())
         last_round = rnd == rounds - 1
         if last_round:
-            state = finalize(state)
+            state = program.finalize(state)
         if (rnd + 1) % eval_every == 0 or last_round:
             if hist.eval_round(state, rnd + 1, info["round_bytes"]):
                 break
         else:
             hist.comm.record(rnd + 1, info["round_bytes"])
-        if algo == "facade":
+        if program.track_cluster:
             hist.cluster_hist.append((rnd + 1, state.cluster_id))
-    return hist.result(algo, models_of(state))
+    return state
+
+
+def _drive_engine(eng: SegmentEngine, setup: AlgoSetup, hist: _History,
+                  draws, train_x, train_y, *, rounds, eval_every,
+                  warmup_rounds):
+    """Segment-engine driver: one dispatch and one host transfer per span
+    (the reference's serialized ``_drive_engine``). A ``target_acc`` hit
+    stops at the eval that reaches it, and the cluster history then ends
+    a round earlier, as the loop, which breaks before appending the eval
+    round's ids. Returns the final state (its tensors are ``eng``'s static
+    buffers, finalized ones after the last round)."""
+    program, state = setup
+    carry = eng.init_carry(state)
+    for seg in segment_plan(rounds, eval_every, warmup_rounds):
+        carry, outs = eng.run_segment(carry, seg.start, seg.length,
+                                      train_x, train_y, draws,
+                                      warmup=seg.warmup)
+        rnds = np.arange(seg.start + 1, seg.start + seg.length + 1)
+        hit = False
+        if seg.eval_at_end:
+            hist.comm.record_bulk(rnds[:-1], outs["round_bytes"][:-1])
+            if seg.start + seg.length == rounds:
+                carry = carry._replace(state=program.finalize(carry.state))
+            hit = hist.eval_round(carry.state, int(rnds[-1]),
+                                  float(outs["round_bytes"][-1]))
+        else:
+            hist.comm.record_bulk(rnds, outs["round_bytes"])
+        if program.track_cluster:
+            upto = len(rnds) - 1 if hit else len(rnds)
+            hist.cluster_hist.extend(
+                (int(rnds[i]), outs["cluster_id"][i]) for i in range(upto))
+        if hit:
+            break
+    return carry.state
 
 
 # --------------------------------------------------------------------------

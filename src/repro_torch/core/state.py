@@ -30,6 +30,19 @@ class BaselineState(NamedTuple):
     extra: Any = None    # algorithm state (DAC: {"sim": [n, n]})
 
 
+class EngineCarry(NamedTuple):
+    """What the segment engine (``core/engine.py``) carries from one
+    segment to the next: the algorithm state, whose tensors are the
+    engine's static buffers (overwritten in place round by round). A
+    segment's drawn inputs are not carried: the engine draws them at the
+    segment's start from the run's draws source, where the reference's
+    carry holds its data PRNG key. The reference's carry also holds the
+    netsim channel, the async-gossip buffer, the adaptive topology's EWMAs
+    and the crash chain; those join this carry when netsim, topo and
+    resil are ported."""
+    state: Any           # FacadeState | BaselineState
+
+
 def _stack_n(tree, n: int, dev):
     return tree_map(
         lambda l: l.to(dev).unsqueeze(0).expand((n,) + l.shape).clone(),

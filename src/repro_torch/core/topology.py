@@ -24,6 +24,14 @@ def _check_degree(n: int, r: int):
             f"supports 1 <= degree <= n - 1 (multi-edges collapse)")
 
 
+def set_edges(a, rows, cols):
+    """``a[rows, cols] = 1`` with the one made on ``a``'s device: a Python
+    scalar written into a CUDA tensor by indexing is staged on the host and
+    synchronises, which a round captured in a CUDA graph must not."""
+    a.index_put_((rows, cols), torch.ones((), dtype=a.dtype,
+                                          device=a.device))
+
+
 def n_perms(r: int) -> int:
     """How many permutations :func:`random_regular` reads for degree r."""
     return max(1, r // 2) + r % 2
@@ -49,14 +57,14 @@ def random_regular(perms, n: int, r: int) -> torch.Tensor:
     a = torch.zeros((n, n), dtype=torch.float32, device=perms.device)
     for perm in perms[:max(1, r // 2)]:
         dst = torch.roll(perm, 1)
-        a[perm, dst] = 1.0
-        a[dst, perm] = 1.0
+        set_edges(a, perm, dst)
+        set_edges(a, dst, perm)
     if r % 2 == 1:
         perm = perms[-1]
         half = n // 2
         u, v = perm[:half], perm[half:2 * half]
-        a[u, v] = 1.0
-        a[v, u] = 1.0
+        set_edges(a, u, v)
+        set_edges(a, v, u)
     a.fill_diagonal_(0.0)
     return a
 
@@ -68,8 +76,8 @@ def ring(n: int, r: int = 2, device="cpu") -> torch.Tensor:
     a = torch.zeros((n, n), dtype=torch.float32, device=device)
     idx = torch.arange(n, device=device)
     for hop in range(1, max(1, r // 2) + 1):
-        a[idx, (idx + hop) % n] = 1.0
-        a[(idx + hop) % n, idx] = 1.0
+        set_edges(a, idx, (idx + hop) % n)
+        set_edges(a, (idx + hop) % n, idx)
     a.fill_diagonal_(0.0)
     return a
 

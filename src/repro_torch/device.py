@@ -32,3 +32,22 @@ def no_tf32():
     finally:
         (torch.backends.cuda.matmul.allow_tf32,
          torch.backends.cudnn.allow_tf32) = prev
+
+
+@contextlib.contextmanager
+def deterministic():
+    """cuDNN restricted to deterministic algorithms inside the block
+    (``cudnn.deterministic`` on, ``cudnn.benchmark`` off, so no timed
+    algorithm search either), the caller's flags restored after it, also
+    on an exception. The segment engine's replays and the per-round loop
+    then run the same convolution algorithms, none of which accumulates
+    in a run-dependent order, so a run repeats bit for bit."""
+    prev = (torch.backends.cudnn.deterministic,
+            torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = prev
