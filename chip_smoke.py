@@ -74,6 +74,29 @@ failure raises and exits non-zero, before the last line is printed):
    run of one replayed 20-round FACADE segment (device-busy share,
    largest kernels) that must hold 20 K1 executions by kernel name and
    by counter;
+3a'. the engine's drivers (same data, 40 rounds with an eval every 10,
+   FACADE's first 2 rounds in its warmup phase, so both of its graphs):
+   - ``pipeline_phase``: for the five algorithms ``pipeline=True``
+     against ``pipeline=False`` bit for bit (every parameter leaf, the
+     histories, the cluster ids, the bytes) on seeds 0 and 1 through one
+     ``EngineCache``, seed 1 timed for both drivers (rounds per second);
+     each pipelined run must have overlapped at least one segment (the
+     next segment's end event still pending when a segment's host work
+     ended); K1 once a replayed round; then a ``target_acc`` exit on
+     FACADE (reached at round 10) on both drivers, the same run, K1 10
+     serialized and 20 pipelined (the segment dispatched past the hit
+     ran);
+   - ``resume_phase``: FACADE and DAC pipelined with a checkpoint under
+     ``build/``, killed at the third segment dispatch and resumed by the
+     same call through a fresh cache, against an uninterrupted
+     serialized run: the same run bit for bit, equal final checkpoints,
+     another seed refused; K1 the replayed rounds plus one warm-up call
+     a captured round;
+   - ``sweep_phase``: ``run_sweep`` of cells FACADE and EL over seeds 0,
+     1 and 2 with a ``ckpt_dir`` under ``build/``: ``compile_count``
+     flat after each cell's first seed, each seed's run a fresh
+     ``run_experiment`` call's bit for bit, a rerun that skips both cells
+     (no run; its wall time), rounds per second on the warm seeds;
 3b. the launcher's paper mode (``launch.train.paper_main``) on full-width
    ResNet8 (64×64 images, 41 classes; ``RESNET8_PAPER``: 32 nodes in
    clusters 24:8, degree 4, H = 10, B = 8, 8 rounds) for the five
@@ -130,7 +153,8 @@ failure raises and exits non-zero, before the last line is printed):
 5a. both smoke configs (fp32) served on the card and on the CPU with the
    same parameters: greedy tokens equal, prefill logits within 1e-4;
 6. a ``kernels`` JSON line (each kernel's launches on its path, error,
-   times and bound; head select's ResNet8 step 2c under ``"resnet8"``),
+   times and bound; head select's ResNet8 step 2c under ``"resnet8"``,
+   its launches on the driver phases under ``"driver_launches"``),
    the total time, then the last line ``{"ok": true, "device": {...}}``.
 
 Every kernel's launch count is set to 0 just before each path is driven
@@ -168,7 +192,8 @@ from repro_torch.configs.facade_paper import lenet, resnet8  # noqa: E402
 from repro_torch.core import facade, split  # noqa: E402
 from repro_torch.core.bindings import make_binding  # noqa: E402
 from repro_torch.core.cache import EngineCache, EngineSpec  # noqa: E402
-from repro_torch.core.engine import WARMUP_ROUNDS  # noqa: E402
+from repro_torch.core.engine import (WARMUP_ROUNDS, SegmentEngine,  # noqa: E402
+                                     segment_plan)
 from repro_torch.core.runner import (ALGOS, LMFacade, TorchDraws,  # noqa: E402
                                      run_experiment)
 from repro_torch.core.state import init_facade_state  # noqa: E402
@@ -182,6 +207,8 @@ from repro_torch.launch import train  # noqa: E402
 from repro_torch.launch.serve import make_requests, serve  # noqa: E402
 from repro_torch.models import api, transformer  # noqa: E402
 from repro_torch.models.base import get_config  # noqa: E402
+from repro_torch.sweep import SweepCell, run_sweep  # noqa: E402
+from repro_torch.sweep import driver as sweep_driver  # noqa: E402
 from repro_torch.tree import tree_leaves, tree_map  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
@@ -216,6 +243,12 @@ FACADE_LAUNCHES = ROUNDS + WARMUP_ROUNDS
 PARITY_WARMUP = 2
 ENGINE_ROUNDS, ENGINE_EVAL_EVERY = 40, 20
 K1_KERNEL = "head_losses_kernel"      # K1's FMA body, by name in a profile
+# the driver phases (pipelined, checkpoint/resume, sweep) on the same data:
+# 40 rounds with an eval every 10, FACADE's first PARITY_WARMUP rounds in
+# its warmup phase; the sweep over three seeds, FACADE and EL
+DRIVER_ROUNDS, DRIVER_EVAL_EVERY = 40, 10
+SWEEP_SEEDS = (0, 1, 2)
+CKPT_DIR = ROOT / "build" / "chip_smoke_ckpt"
 SMALL_TOL = 0.1     # accuracy across devices (reference precedent)
 # the paper's Flickr-Mammals experiment through the launcher's paper_main:
 # full-width ResNet8 (64×64 images, 41 classes), 32 nodes in clusters 24:8
@@ -745,13 +778,14 @@ def run_diff(a, b) -> dict:
             "max_abs_param_diff": diff}
 
 
-def paper_spec(algo, cfg, ds) -> EngineSpec:
+def paper_spec(algo, cfg, ds, warmup_rounds: int = 0) -> EngineSpec:
     """The cache key ``run_experiment`` builds for a PAPER run of
-    ``algo`` on the card (warmup 0)."""
+    ``algo`` on the card."""
     return EngineSpec(
         algo=algo, cfg=cfg, n=ds.n_nodes, k=PAPER["k"],
         degree=PAPER["degree"], local_steps=PAPER["local_steps"],
         batch_size=PAPER["batch_size"], lr=PAPER["lr"],
+        warmup_rounds=warmup_rounds,
         device=torch.device("cuda", torch.cuda.current_device()))
 
 
@@ -898,6 +932,259 @@ def engine_profile_phase(rec, ds) -> dict:
     del cache, entry, carry, train_x, train_y
     torch.cuda.empty_cache()
     return prof
+
+
+def driver_kw(algo) -> dict:
+    """The driver phases' run settings: DRIVER_ROUNDS rounds with an eval
+    every DRIVER_EVAL_EVERY, FACADE with PARITY_WARMUP warmup rounds."""
+    return dict(PAPER, rounds=DRIVER_ROUNDS, eval_every=DRIVER_EVAL_EVERY,
+                warmup_rounds=PARITY_WARMUP if algo == "facade" else 0)
+
+
+def pipeline_phase(rec, ds) -> dict:
+    """The pipelined driver against the serialized one at paper scale on
+    GN-LeNet, for the five algorithms, through one EngineCache a
+    algorithm: seed 0 serialized (which captures) then pipelined, seed 1
+    serialized then pipelined, timed (``timed_run``). Each pair must be
+    one run bit for bit (every parameter leaf and history, the cluster
+    ids and the bytes); each pipelined run must have overlapped at least
+    one segment (its successor's end event not yet complete when its
+    host work ended: ``SegmentEngine.overlapped``); a pipelined FACADE
+    run replays with no capture, so K1's count is its rounds. Then a
+    ``target_acc`` of 0.0 on FACADE, which the first eval (round 10)
+    reaches, serialized and pipelined: the same run, K1 10 serialized and
+    10 + 10 pipelined (the segment dispatched past the hit ran)."""
+    cfg = lenet()
+    out, launches = {}, 0
+    for algo in ALGOS:
+        kw = driver_kw(algo)
+        cache = EngineCache()
+        eng = cache.entry(paper_spec(algo, cfg, ds,
+                                     kw["warmup_rounds"])).engine
+        got = out[algo] = {}
+        ser = run_experiment(algo, cfg, ds, cache=cache, device="cuda",
+                             **kw)
+        for seed in (0, 1):
+            before = eng.overlapped
+            with counted() as counts:
+                if seed:
+                    ser, ser_s, _, _ = timed_run(algo, cfg, ds, cache=cache,
+                                                 **dict(kw, seed=seed))
+                pip, pip_s, _, _ = timed_run(algo, cfg, ds, cache=cache,
+                                             pipeline=True,
+                                             **dict(kw, seed=seed))
+            got[f"seed{seed}"] = {
+                "vs_serialized": run_diff(pip, ser),
+                "overlapped_segments": eng.overlapped - before,
+                "segments": len(segment_plan(DRIVER_ROUNDS,
+                                             DRIVER_EVAL_EVERY,
+                                             kw["warmup_rounds"])),
+                "launches": counts}
+            if seed:
+                got.update(serialized_s=ser_s, pipelined_s=pip_s,
+                           serialized_rounds_per_s=DRIVER_ROUNDS / ser_s,
+                           pipelined_rounds_per_s=DRIVER_ROUNDS / pip_s)
+        log(f"pipeline {algo}: {json.dumps(got)}")
+        k1 = {"seed0": DRIVER_ROUNDS, "seed1": 2 * DRIVER_ROUNDS}
+        for seed in ("seed0", "seed1"):
+            g = got[seed]
+            want = k1[seed] if algo == "facade" else 0
+            if not (g["vs_serialized"]["equal"]
+                    and g["overlapped_segments"] > 0
+                    and g["launches"]["head_losses"] == want):
+                raise AssertionError(f"pipelined {algo} {seed}: "
+                                     f"{json.dumps(g)} (K1 want {want})")
+            launches += g["launches"]["head_losses"]
+        if algo == "facade":
+            kt = dict(kw, target_acc=0.0, device="cuda")
+            with counted() as c_ser:
+                ser = run_experiment(algo, cfg, ds, cache=cache, **kt)
+                torch.cuda.synchronize()
+            with counted() as c_pip:
+                pip = run_experiment(algo, cfg, ds, cache=cache,
+                                     pipeline=True, **kt)
+                torch.cuda.synchronize()
+            stop = ser.comm.rounds[-1]
+            got["target_acc"] = {
+                "stop_round": stop, "vs_serialized": run_diff(pip, ser),
+                "launches_serialized": c_ser["head_losses"],
+                "launches_pipelined": c_pip["head_losses"]}
+            log(f"pipeline target_acc: {json.dumps(got['target_acc'])}")
+            if not (stop == DRIVER_EVAL_EVERY
+                    and got["target_acc"]["vs_serialized"]["equal"]
+                    and c_ser["head_losses"] == stop
+                    and c_pip["head_losses"] == stop + DRIVER_EVAL_EVERY):
+                raise AssertionError(f"target_acc under pipelining: "
+                                     f"{json.dumps(got['target_acc'])}")
+            launches += c_ser["head_losses"] + c_pip["head_losses"]
+        del cache, eng
+    rec["pipeline"] = out
+    return launches
+
+
+class Killed(Exception):
+    """The kill of ``resume_phase``: raised by a patched dispatch."""
+
+
+def killed_at_third_dispatch(fn):
+    """Run ``fn`` with ``SegmentEngine.dispatch_segment`` raising at its
+    third call, then restore the method."""
+    orig = SegmentEngine.dispatch_segment
+    calls = []
+
+    def killer(self, *a, **k):
+        if len(calls) == 2:
+            raise Killed
+        calls.append(1)
+        return orig(self, *a, **k)
+
+    SegmentEngine.dispatch_segment = killer
+    try:
+        fn()
+    except Killed:
+        return
+    finally:
+        SegmentEngine.dispatch_segment = orig
+    raise AssertionError("the run was not killed")
+
+
+def resume_phase(rec, ds) -> int:
+    """Kill and resume at paper scale on GN-LeNet, FACADE and DAC (the
+    Gumbel stream): an uninterrupted serialized run with a checkpoint;
+    the same run pipelined with a checkpoint, killed at its third segment
+    dispatch, then resumed by the same call through a fresh EngineCache
+    (as a new process would). The resumed run must be the uninterrupted
+    one bit for bit and the two final checkpoints equal (carry, draws
+    state, meta); a call with another seed on the checkpoint must be
+    refused; K1's count in the resumed run must be its replayed rounds
+    plus one warm-up call a round it captures."""
+    cfg, out, launches = lenet(), {}, 0
+    CKPT_DIR.mkdir(parents=True, exist_ok=True)
+    for algo in ("facade", "dac"):
+        kw = driver_kw(algo)
+        whole, ck = (str(CKPT_DIR / f"{algo}-{name}.npz")
+                     for name in ("whole", "killed"))
+        for path in (whole, ck):
+            if pathlib.Path(path).exists():
+                pathlib.Path(path).unlink()
+        kw["device"] = "cuda"
+        want = run_experiment(algo, cfg, ds, ckpt=whole, **kw)
+        killed_at_third_dispatch(lambda: run_experiment(
+            algo, cfg, ds, ckpt=ck, pipeline=True, **kw))
+        next_segment = ckpt_io.load(ck)[1]["next_segment"]
+        rest = segment_plan(DRIVER_ROUNDS, DRIVER_EVAL_EVERY,
+                            kw["warmup_rounds"])[next_segment:]
+        graphs = len({seg.warmup for seg in rest})
+        with counted() as counts:
+            t0 = time.perf_counter()
+            res = run_experiment(algo, cfg, ds, ckpt=ck, pipeline=True,
+                                 cache=EngineCache(), **kw)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        (pa, ma), (pb, mb) = ckpt_io.load(whole), ckpt_io.load(ck)
+        same_ckpt = ma == mb and all(
+            torch.equal(x, y) for name in ("carry", "draws")
+            for x, y in zip(tree_leaves(pa[name]), tree_leaves(pb[name]),
+                            strict=True))
+        try:
+            run_experiment(algo, cfg, ds, ckpt=ck, **dict(kw, seed=1))
+            refused = False
+        except ValueError as e:
+            refused = "fingerprint mismatch" in str(e)
+        replayed = sum(seg.length for seg in rest)
+        k1 = replayed + WARMUP_ROUNDS * graphs if algo == "facade" else 0
+        got = out[algo] = {
+            "resumed_at_round": rest[0].start, "resume_s": wall,
+            "vs_uninterrupted": run_diff(res, want),
+            "final_checkpoints_equal": same_ckpt, "mismatch_refused": refused,
+            "launches": counts, "k1_want": k1}
+        log(f"resume {algo}: {json.dumps(got)}")
+        if not (got["vs_uninterrupted"]["equal"] and same_ckpt and refused
+                and counts["head_losses"] == k1 and rest[0].start > 0):
+            raise AssertionError(f"kill and resume {algo}: "
+                                 f"{json.dumps(got)}")
+        launches += counts["head_losses"]
+    rec["resume"] = out
+    return launches
+
+
+def sweep_phase(rec, ds) -> int:
+    """``run_sweep`` at paper scale on GN-LeNet: cells FACADE and EL over
+    seeds 0, 1, 2, DRIVER_ROUNDS rounds each, through one EngineCache with
+    a ``ckpt_dir`` under ``build/``. Each run is timed (the sweep's
+    ``run_experiment`` wrapped); the cache's ``compile_count`` must stay
+    flat after each cell's first seed; each seed's result must equal a
+    fresh ``run_experiment`` call's bit for bit; a rerun must skip both
+    cells (no run). Rounds per second on the warm seeds (1 and 2, their
+    checkpoint writes included)."""
+    cfg = lenet()
+    sweep_dir = CKPT_DIR / "sweep"
+    if sweep_dir.exists():
+        for path in sweep_dir.iterdir():
+            path.unlink()
+    cells = [SweepCell(name=algo, algo=algo, cfg=cfg, dataset=ds,
+                       rounds=DRIVER_ROUNDS,
+                       kwargs={**{k: v for k, v in driver_kw(algo).items()
+                                  if k not in ("seed", "rounds")},
+                               "device": "cuda"})
+             for algo in ("facade", "el")]
+    cache, runs = EngineCache(), []
+    orig = sweep_driver.run_experiment
+
+    def timed(algo, *a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = orig(algo, *a, **kw)
+        torch.cuda.synchronize()
+        runs.append({"algo": algo, "seed": kw["seed"],
+                     "wall_s": time.perf_counter() - t0,
+                     "compile_count": kw["cache"].compile_count})
+        return res
+
+    sweep_driver.run_experiment = timed
+    try:
+        with counted() as counts:
+            sweep = run_sweep(cells, SWEEP_SEEDS, cache=cache,
+                              ckpt_dir=sweep_dir)
+        n_runs = len(runs)
+        t0 = time.perf_counter()
+        again = run_sweep(cells, SWEEP_SEEDS, cache=cache,
+                          ckpt_dir=sweep_dir)
+        rerun_s = time.perf_counter() - t0
+    finally:
+        sweep_driver.run_experiment = orig
+    fresh_equal = {
+        c.cell.name: [run_diff(res, run_experiment(
+            c.cell.algo, cfg, ds, rounds=DRIVER_ROUNDS, seed=seed,
+            **c.cell.kwargs))["equal"]
+            for seed, res in zip(SWEEP_SEEDS, c.results, strict=True)]
+        for c in sweep.cells}
+    flat = {algo: len({r["compile_count"] for r in runs
+                       if r["algo"] == algo}) == 1
+            for algo in ("facade", "el")}
+    out = rec["sweep"] = {
+        "runs": runs, "wall_s": sweep.wall_s,
+        "warm_rounds_per_s": {
+            algo: [DRIVER_ROUNDS / r["wall_s"] for r in runs
+                   if r["algo"] == algo and r["seed"] != SWEEP_SEEDS[0]]
+            for algo in ("facade", "el")},
+        "compile_count_flat_after_first_seed": flat,
+        "fresh_equal": fresh_equal,
+        "rerun": {"skipped": [c.skipped for c in again.cells],
+                  "runs": len(runs) - n_runs, "wall_s": rerun_s},
+        "errors": [c.error for c in sweep.cells],
+        "cache": cache.stats(), "launches": counts}
+    log(f"sweep: {json.dumps(out)}")
+    k1 = len(SWEEP_SEEDS) * DRIVER_ROUNDS + WARMUP_ROUNDS * 2
+    if not (all(flat.values()) and all(all(v) for v in fresh_equal.values())
+            and out["rerun"]["skipped"] == [True, True]
+            and out["rerun"]["runs"] == 0
+            and not any(out["errors"])
+            and counts["head_losses"] == k1):
+        raise AssertionError(f"sweep: {json.dumps(out)} (K1 want {k1})")
+    del cache, sweep, again
+    torch.cuda.empty_cache()
+    return counts["head_losses"]
 
 
 def small_input_phase(rec):
@@ -1762,6 +2049,11 @@ def main() -> int:
     ds = paper_lenet_data(rec)
     hs["launches"] = main_path_phase(rec, ds)
     engine_phase(rec, ds)
+    # K1's launches on the driver paths: pipelined and serialized runs
+    # (target_acc exits included), a resumed run of FACADE, the sweep
+    hs["driver_launches"] = {"pipeline": pipeline_phase(rec, ds),
+                             "resume": resume_phase(rec, ds),
+                             "sweep": sweep_phase(rec, ds)}
     resnet8_launches = resnet8_paper_phase(rec)
     hs["resnet8"] = dict(resnet8_select_phase(rec),
                          launches=resnet8_launches)

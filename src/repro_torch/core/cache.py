@@ -140,9 +140,11 @@ class EngineCache:
 
     ``entry(spec)`` returns the cell's entry, building it on first use;
     ``evaluator(binding, dataset, batch, device)`` the (cfg, batch,
-    fingerprint, device)-keyed evaluator. ``compile_count`` totals every
-    program the cache ever built (captured rounds plus evaluator builds,
-    monotone across LRU evictions), which stays flat once a cell is warm.
+    fingerprint, device)-keyed evaluator, on the card unless ``device``
+    says otherwise, as ``runner.make_evaluator``. ``compile_count``
+    totals every program the cache ever built (captured rounds plus
+    evaluator builds, monotone across LRU evictions), which stays flat
+    once a cell is warm.
     ``max_entries``: LRU bound on live entries; ``None`` keeps every
     entry.
     """
@@ -205,7 +207,7 @@ class EngineCache:
         return self._pins.get(spec, 0) > 0
 
     def evaluator(self, binding, dataset, batch: int = 256,
-                  device="cpu"):
+                  device="cuda"):
         device = torch.device(device)
         key = (binding.cfg, batch, data_fingerprint(dataset), device)
         ev = self._evaluators.get(key)

@@ -28,7 +28,13 @@ This module runs the same round closures (FACADE's or a baseline's,
 * a segment's outputs leave the card once: ``round_bytes`` is a host float
   from the formula, recorded when the round is captured (it never touches
   the card), and FACADE's cluster ids are copied into row i of an ``[L,
-  n]`` device buffer after replay i and drained in one transfer.
+  n]`` device buffer after replay i. :meth:`SegmentEngine.dispatch_segment`
+  enqueues that buffer's copy into pinned host memory behind the last
+  replay and records an event after it, and another at the segment's end;
+  :meth:`SegmentEngine.drain` waits on the copy's event alone, never on
+  the stream or the device. So a pipelined driver (``run_experiment(
+  pipeline=True)``) can dispatch segment t+1 and then drain segment t
+  while t+1's replays run.
 
 **Capture.** The first segment of a warmup flag (and of a train-array
 shape) runs ``WARMUP_ROUNDS`` eager rounds on the device's capture stream,
@@ -66,6 +72,7 @@ import numpy as np
 import torch
 
 from repro_torch.data import pipeline
+from repro_torch.device import HostCopy
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.head_select import head_losses
 from repro_torch.kernels.rwkv6 import wkv
@@ -105,8 +112,10 @@ def segment_plan(rounds: int, eval_every: int,
             for a, b in zip(cuts[:-1], cuts[1:])]
 
 
-def _tensors(state) -> dict:
-    """The state's tensor fields: every field but the round counter."""
+def state_tensors(state) -> dict:
+    """The state's tensor fields, by name: every field but the round
+    counter and those that are ``None``. They are what the engine keeps in
+    static buffers and what a checkpoint of the run saves."""
     return {f: v for f, v in zip(state._fields, state)
             if f != "round" and v is not None}
 
@@ -177,6 +186,9 @@ class SegmentEngine:
         self._pool = None
         self.compile_count = 0
         self.capture_s = []      # host seconds of each capture, warm-up in
+        self.overlapped = 0      # pipelined segments whose successor was
+        #                          still on the card when their host work
+        #                          (drain, eval, checkpoint) had ended
 
     # -- run-level set-up ---------------------------------------------------
     def place_data(self, dataset):
@@ -209,7 +221,7 @@ class SegmentEngine:
         if self._state is None:
             self._state = tree_map(
                 lambda l: torch.empty(l.shape, dtype=l.dtype,
-                                      device=self._dev), _tensors(state))
+                                      device=self._dev), state_tensors(state))
         self._load(state)
         return EngineCarry(state._replace(**self._state))
 
@@ -226,13 +238,13 @@ class SegmentEngine:
                     f"the engine's {tuple(s.shape)} {s.dtype}")
             s.copy_(l)
 
-        tree_map(put, self._state, _tensors(state))
+        tree_map(put, self._state, state_tensors(state))
 
     def _store(self, new_state):
         """End of a round: the new state's tensors into the static ones,
         leaf by key."""
         tree_map(lambda s, l: None if l is s else s.copy_(l), self._state,
-                 _tensors(new_state))
+                 state_tensors(new_state))
 
     # -- draws --------------------------------------------------------------
     def _draw_segment(self, source, length: int, per_node: int) -> dict:
@@ -273,10 +285,13 @@ class SegmentEngine:
                          train_x, train_y, source, warmup: bool = False):
         """Draw ``length`` rounds from ``source`` and run them from
         ``carry``; returns ``(new_carry, outs)`` with the per-round outs
-        still on the device (pair with :meth:`drain`). ``start`` is the
-        segment's first round, 0-based; the state's round counter follows
-        it. On CUDA, apart from a round's first capture, nothing here waits
-        for the card."""
+        still in flight (pair with :meth:`drain`): FACADE's cluster ids as
+        a :class:`~repro_torch.device.HostCopy` enqueued behind the
+        segment's last round, and ``outs["end"]``, on CUDA an event
+        recorded at the segment's end (``None`` on the CPU). ``start`` is
+        the segment's first round, 0-based; the state's round counter
+        follows it. On CUDA, apart from a round's first capture (which
+        synchronises the device), nothing here waits for the card."""
         if carry.state.round != start:
             raise ValueError(f"carry is at round {carry.state.round}, the "
                              f"segment starts at {start}")
@@ -291,15 +306,22 @@ class SegmentEngine:
         else:
             outs = self._eager(key, fn, draws, length, train_x, train_y,
                                state)
+        if "cluster_id" in outs:
+            outs["cluster_id"] = HostCopy(outs["cluster_id"])
+        outs["end"] = None
+        if self._dev.type == "cuda":
+            outs["end"] = torch.cuda.Event()
+            outs["end"].record(torch.cuda.current_stream(self._dev))
         return EngineCarry(state._replace(round=start + length)), outs
 
     def drain(self, outs) -> dict:
         """A dispatched segment's outs on the host: ``round_bytes`` ``[L]``
-        float64 and, for FACADE, ``cluster_id`` ``[L, n]`` in one
-        transfer."""
+        float64 and, for FACADE, ``cluster_id`` ``[L, n]``, waiting on
+        the event behind the cluster ids' copy and on nothing enqueued
+        after it."""
         host = dict(outs)
         if "cluster_id" in host:
-            host["cluster_id"] = host["cluster_id"].cpu()
+            host["cluster_id"] = host["cluster_id"].wait()
         return host
 
     def run_segment(self, carry: EngineCarry, start: int, length: int,

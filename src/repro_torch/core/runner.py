@@ -9,12 +9,15 @@ and the evaluation: ``engine=True`` (the default), the segment engine
 (:mod:`.engine`: on CUDA one captured round replayed per round of an
 eval-to-eval span, one host transfer a span), and ``engine=False``, the
 per-round loop, the engine's parity reference. On one device both give
-the same run bit for bit. The seed-independent machinery (binding, round
+the same run bit for bit. The engine runs its segments one after the
+other, or pipelined (``pipeline=True``: segment t+1 dispatched before
+segment t is drained), and checkpoints and resumes a run at segment
+boundaries (``ckpt=``). The seed-independent machinery (binding, round
 closures, engine, evaluator) comes from an :class:`~.cache.EngineCache`
-(``cache=``; a private one by default). The reference's pipelined driver,
-checkpoint/resume, mesh, network simulation, adaptive topology and
-telemetry are not ported yet, and ``run_experiment`` does not accept
-their parameters.
+(``cache=``; a private one by default). The reference's mesh, network
+simulation, adaptive topology and telemetry (``mesh=``, ``net=``,
+``topo=``, ``obs=``) are not ported yet, and ``run_experiment`` does not
+accept their parameters.
 
 Randomness comes from a *draws* source (:class:`TorchDraws` by default):
 it supplies the initial parameters, each round's ``[n, H, B]`` batch
@@ -22,22 +25,27 @@ indices and each round's topology draw (FACADE and EL: the permutations
 of a random regular graph; DAC: a Gumbel matrix; D-PSGD and DEPRL, on a
 static ring: none), so a run can replay another's draws exactly.
 ``TorchDraws`` draws on the CPU and the runner moves the draws to the
-run's device, so one seed gives the same draws on every device.
+run's device, so one seed gives the same draws on every device. The run's
+randomness lives in the draws source and not in the engine's carry, so a
+checkpoint holds the source's state (``state()`` / ``set_state``).
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
+import os
 from typing import Any, Callable, NamedTuple
 
 import numpy as np
 import torch
 
+from repro_torch import checkpoint
 from repro_torch import device as device_mod
 from repro_torch.comm import CommLog
-from repro_torch.data import pipeline
+from repro_torch.data import pipeline as pipeline_mod
 from repro_torch.data.tokens import TokenSpec, make_clustered_tokens
-from repro_torch.obs import compute_eval_frame
+from repro_torch.device import HostCopy
+from repro_torch.obs import EvalFrame, compute_eval_frame, fingerprint
 from repro_torch.tree import tree_map
 
 from . import facade as facade_mod
@@ -47,7 +55,7 @@ from .baselines import (DACConfig, DeprlConfig, DpsgdConfig, ELConfig,
                         init_dac_extra)
 from .bindings import Binding, make_binding
 from .cache import EngineCache, EngineSpec
-from .engine import SegmentEngine, segment_plan
+from .engine import SegmentEngine, segment_plan, state_tensors
 from .state import init_baseline_state, init_facade_state
 
 # baseline -> (config, round function, the round's topology draw)
@@ -99,7 +107,7 @@ class TorchDraws:
         return binding.init(self._init)
 
     def batch_indices(self, n: int, h: int, b: int, per_node: int):
-        return pipeline.draw_batch_indices(self._data, n, h, b, per_node)
+        return pipeline_mod.draw_batch_indices(self._data, n, h, b, per_node)
 
     def perms(self, n: int, r: int):
         return topology.draw_perms(self._topo, n, r)
@@ -110,6 +118,19 @@ class TorchDraws:
         u = torch.rand((n, n), generator=self._topo).clamp_(
             min=torch.finfo(torch.float32).tiny)
         return -torch.log(-torch.log(u))
+
+    def state(self) -> dict:
+        """The three generators' states: what a checkpoint must hold for a
+        resumed run to draw what the uninterrupted run draws."""
+        return {"init": self._init.get_state(),
+                "data": self._data.get_state(),
+                "topo": self._topo.get_state()}
+
+    def set_state(self, state: dict):
+        """Restore :meth:`state`'s generator states."""
+        for gen, name in ((self._init, "init"), (self._data, "data"),
+                          (self._topo, "topo")):
+            gen.set_state(state[name])
 
 
 # --------------------------------------------------------------------------
@@ -203,6 +224,14 @@ def make_evaluator(binding: Binding, node_cluster, test_x, test_y,
     predictions per cluster (for DP/EO), the labels, and the per-node
     accuracy ``[n]``. Clusters with no node are skipped;
     ``evaluate.cluster_ids`` says which cluster each entry is.
+
+    ``evaluate.begin(models)`` / ``evaluate.finish(pending)`` split the
+    call at the host boundary: ``begin`` enqueues every cluster's
+    prediction and their copy to the host (a
+    :class:`~repro_torch.device.HostCopy`) and makes no host sync;
+    ``finish`` waits for that copy and reduces on the host. The pipelined
+    driver dispatches the next segment in between. ``evaluate(models)``
+    is ``finish(begin(models))``.
     """
     dev = device_mod.resolve(device)
     node_cluster = np.asarray(node_cluster)
@@ -212,7 +241,7 @@ def make_evaluator(binding: Binding, node_cluster, test_x, test_y,
         if idx.size == 0:
             continue        # empty cluster: nothing to evaluate
         x = np.asarray(test_x[c])
-        xb, mask = pipeline.padded_eval_batches(
+        xb, mask = pipeline_mod.padded_eval_batches(
             x, min(batch, max(1, x.shape[0])))
         clusters.append((idx, torch.from_numpy(idx).to(dev),
                          torch.from_numpy(xb).to(dev),
@@ -222,13 +251,20 @@ def make_evaluator(binding: Binding, node_cluster, test_x, test_y,
     def predict(models_c, m: int, xb):               # xb [nb, B, ...]
         preds = [binding.forward(models_c, x.expand((m,) + x.shape))
                  .argmax(-1) for x in xb]
-        return torch.stack(preds).cpu().numpy()      # [nb, m, B]
+        return torch.stack(preds)                    # [nb, m, B]
 
-    def evaluate(models):
+    def begin(models) -> HostCopy:
+        return HostCopy({i: predict(tree_map(lambda l: l[idx_t], models),
+                                    len(idx), xb)
+                         for i, (idx, idx_t, xb, _, _) in
+                         enumerate(clusters)})
+
+    def finish(pending: HostCopy):
+        preds = pending.wait()
         accs, preds_c, labels_c = [], [], []
         node_acc = np.zeros(node_cluster.shape[0], np.float64)
-        for idx, idx_t, xb, valid, y in clusters:
-            p = predict(tree_map(lambda l: l[idx_t], models), len(idx), xb)
+        for i, (idx, _, _, valid, y) in enumerate(clusters):
+            p = preds[i].numpy()
             p = np.moveaxis(p, 1, 0).reshape(len(idx), -1)[:, valid]
             eq = p == y[None, :]
             accs.append(float(eq.mean()))
@@ -237,6 +273,11 @@ def make_evaluator(binding: Binding, node_cluster, test_x, test_y,
             labels_c.append(y)
         return accs, preds_c, labels_c, node_acc
 
+    def evaluate(models):
+        return finish(begin(models))
+
+    evaluate.begin = begin
+    evaluate.finish = finish
     evaluate.cluster_ids = tuple(int(node_cluster[c[0][0]])
                                  for c in clusters)
     return evaluate
@@ -265,11 +306,28 @@ class _History:
         self._algo = algo
         self._n_classes = n_classes
 
-    def eval_round(self, state, rnd: int, round_bytes: float) -> bool:
+    def eval_begin(self, state):
+        """Enqueue the eval of ``state``: every cluster's prediction and,
+        for FACADE, a copy of the state's cluster ids, each on its way to
+        the host (:class:`~repro_torch.device.HostCopy`), with no host
+        sync. Settle it with :meth:`eval_finish`. Enqueued before the
+        next segment's replays on the same stream, they read this
+        segment's state, which those replays then overwrite in place."""
+        cid = getattr(state, "cluster_id", None)
+        return (self._evaluator.begin(self._models_of(state)),
+                None if cid is None else HostCopy(cid))
+
+    def eval_round(self, state, rnd: int, round_bytes: float,
+                   round_s: float = 0.0) -> bool:
         """Evaluate at round ``rnd`` (1-based), record, and report whether
         ``target_acc`` is reached (the run then stops)."""
-        accs, preds_c, labels_c, node_acc = self._evaluator(
-            self._models_of(state))
+        return self.eval_finish(self.eval_begin(state), rnd, round_bytes,
+                                round_s)
+
+    def eval_finish(self, pending, rnd: int, round_bytes: float,
+                    round_s: float = 0.0) -> bool:
+        pending, cid = pending
+        accs, preds_c, labels_c, node_acc = self._evaluator.finish(pending)
         cids = self._evaluator.cluster_ids
         self.accs = accs
         self.node_acc = node_acc
@@ -277,9 +335,7 @@ class _History:
         mean_acc = float(np.mean(
             [a * (self._weights == c).sum()
              for c, a in zip(cids, accs)]) * len(accs) / self._n)
-        cid = getattr(state, "cluster_id", None)
-        # a copy: under the engine the state's ids are a static buffer
-        eval_cid = None if cid is None else cid.cpu().numpy().copy()
+        eval_cid = None if cid is None else cid.wait().numpy()
         frame = compute_eval_frame(
             rnd, accs, cids, preds_c, labels_c, node_acc, self._n_classes,
             mean_acc=mean_acc, prev_cid=self._prev_eval_cid, cid=eval_cid)
@@ -288,7 +344,7 @@ class _History:
         self.fair_hist.append((rnd, frame.fair_acc))
         self.dp = frame.dp
         self.eo = frame.eo
-        self.comm.record(rnd, round_bytes, mean_acc)
+        self.comm.record(rnd, round_bytes, mean_acc, round_s=round_s)
         if self._verbose:
             print(f"  [{self._algo}] round {rnd}: acc={accs} "
                   f"fair={frame.fair_acc:.3f}")
@@ -312,8 +368,9 @@ def run_experiment(algo: str, cfg, dataset, *, rounds: int,
                    warmup_rounds: int = 0, head_jitter: float = 0.0,
                    target_acc: float | None = None, eval_batch: int = 256,
                    verbose: bool = False, device="cuda", draws=None,
-                   engine: bool = True,
-                   cache: EngineCache | None = None) -> RunResult:
+                   engine: bool = True, pipeline: bool = False,
+                   cache: EngineCache | None = None,
+                   ckpt: str | None = None) -> RunResult:
     """Run one (algorithm, dataset) experiment end to end on ``device``.
 
     ``algo`` is one of :data:`ALGOS`. ``draws`` supplies the initial
@@ -325,9 +382,32 @@ def run_experiment(algo: str, cfg, dataset, *, rounds: int,
     transfer a span); ``False`` the per-round loop. On one device both
     give the same run bit for bit.
 
+    ``pipeline`` (engine only): dispatch segment t+1 before segment t is
+    drained, so the host's work on segment t (the drain, the eval's
+    reduction, the histories, a checkpoint write) and t+1's draws overlap
+    t+1's replays on the card. Everything runs on one stream: segment t's
+    eval and its copies to the host are enqueued before t+1's replays,
+    which then overwrite the state in place, and the host waits on events
+    recorded behind those copies, never on the stream. The run is
+    ``pipeline=False``'s bit for bit; a ``target_acc`` hit abandons the
+    one segment dispatched ahead (its rounds ran on the card, and the
+    result keeps the models of the eval that hit).
+
     ``cache``: an :class:`EngineCache` shared across calls, so that the
     runs of one configuration capture their rounds and build their
     evaluator once; ``None`` uses a fresh private cache.
+
+    ``ckpt`` (engine only): a checkpoint path. After every segment the
+    state, the draws source's state (its ``state()``, which a ``draws``
+    passed here must have) and the histories are written atomically
+    (:mod:`repro_torch.checkpoint`); the same call with the same path
+    resumes after the last segment written and ends bit for bit as the
+    uninterrupted run, with either driver. A checkpoint written by another
+    configuration is refused (a fingerprint over the :class:`EngineSpec`,
+    the seed, rounds, eval schedule, warmup, target and the draws
+    source's class). The spec holds the device, so a checkpoint written
+    on the card is refused on the CPU, as the reference's spec holds its
+    mesh.
 
     The run computes fp32 in full fp32 (TF32 off, as the reference) with
     cuDNN restricted to deterministic algorithms
@@ -343,14 +423,23 @@ def run_experiment(algo: str, cfg, dataset, *, rounds: int,
                     warmup_rounds=warmup_rounds, head_jitter=head_jitter,
                     target_acc=target_acc, eval_batch=eval_batch,
                     verbose=verbose, device=device, draws=draws,
-                    engine=engine, cache=cache)
+                    engine=engine, pipeline=pipeline, cache=cache,
+                    ckpt=ckpt)
 
 
 def _run(algo: str, cfg, dataset, *, rounds: int, k, degree: int,
          local_steps: int, batch_size: int, lr: float, eval_every: int,
          seed: int, warmup_rounds: int, head_jitter: float, target_acc,
          eval_batch: int, verbose: bool, device, draws, engine: bool,
-         cache) -> RunResult:
+         pipeline: bool, cache, ckpt) -> RunResult:
+    if ckpt is not None and not engine:
+        raise ValueError(
+            "ckpt= needs the segment engine (engine=True): the legacy "
+            "per-round loop has no segment boundaries to snapshot at")
+    if pipeline and not engine:
+        raise ValueError(
+            "pipeline=True needs the segment engine (engine=True): the "
+            "legacy per-round loop has no segment dispatch to overlap")
     if algo not in ALGOS:
         raise ValueError(f"algorithm {algo!r} is not ported yet; the port "
                          f"runs {ALGOS}")
@@ -373,38 +462,50 @@ def _run(algo: str, cfg, dataset, *, rounds: int, k, degree: int,
         dev = torch.device("cuda", torch.cuda.current_device())
     k = k if k is not None else dataset.k
     draws = draws if draws is not None else TorchDraws(seed)
+    if ckpt is not None and not hasattr(draws, "state"):
+        raise ValueError(
+            f"ckpt= needs a draws source with state()/set_state(): the "
+            f"run's randomness lives in it, and {type(draws).__name__} "
+            "cannot be saved, so a resume could not draw what the "
+            "uninterrupted run draws")
     cache = cache if cache is not None else EngineCache()
     spec = EngineSpec(algo=algo, cfg=cfg, n=n, k=k, degree=degree,
                       local_steps=local_steps, batch_size=batch_size, lr=lr,
                       warmup_rounds=warmup_rounds, head_jitter=head_jitter,
                       eval_batch=eval_batch, device=dev)
+    ckpt_fp = None
+    if ckpt is not None:
+        # everything that shapes the trajectory or the resume schedule; a
+        # checkpoint of any other configuration is refused
+        ckpt_fp = fingerprint({
+            "spec": repr(spec), "seed": seed, "rounds": rounds,
+            "eval_every": eval_every, "warmup_rounds": warmup_rounds,
+            "target": repr(target_acc), "draws": type(draws).__name__})
     entry = cache.entry(spec)
     # pinned while the run is live: an LRU-bounded cache must never evict
     # the engine whose static buffers the run is using
     with cache.pin(spec):
         setup = entry.setup(draws)
-        models_of = setup.program.models_of
         evaluator = cache.evaluator(entry.binding, dataset,
                                     batch=eval_batch, device=dev)
-        hist = _History(dataset.node_cluster, n, evaluator, models_of,
-                        target_acc, verbose, algo, cfg.n_classes)
+        hist = _History(dataset.node_cluster, n, evaluator,
+                        setup.program.models_of, target_acc, verbose, algo,
+                        cfg.n_classes)
         if engine:
             train_x, train_y = entry.engine.place_data(dataset)
-            state = _drive_engine(entry.engine, setup, hist, draws, train_x,
-                                  train_y, rounds=rounds,
-                                  eval_every=eval_every,
-                                  warmup_rounds=warmup_rounds)
-            # the state's tensors are the engine's static buffers, which a
-            # later run of this entry overwrites: the result keeps copies
-            models = tree_map(torch.clone, models_of(state))
+            models = _drive_engine(
+                entry.engine, setup, hist, draws, train_x, train_y,
+                rounds=rounds, eval_every=eval_every,
+                warmup_rounds=warmup_rounds, target_acc=target_acc,
+                ckpt=ckpt, ckpt_fp=ckpt_fp, pipeline=pipeline)
         else:
-            train_x, train_y = pipeline.place(dataset, dev)
+            train_x, train_y = pipeline_mod.place(dataset, dev)
             state = _drive_loop(setup, hist, draws, train_x, train_y,
                                 rounds=rounds, eval_every=eval_every,
                                 warmup_rounds=warmup_rounds,
                                 local_steps=local_steps,
                                 batch_size=batch_size, n=n, degree=degree)
-            models = models_of(state)
+            models = setup.program.models_of(state)
     return hist.result(algo, models)
 
 
@@ -428,8 +529,8 @@ def _drive_loop(setup: AlgoSetup, hist: _History, draws, train_x, train_y,
 
     for rnd in range(rounds):
         idx = draws.batch_indices(n, local_steps, batch_size, per_node)
-        batches = pipeline.sample_round_batches(idx.to(dev), train_x,
-                                                train_y)
+        batches = pipeline_mod.sample_round_batches(idx.to(dev), train_x,
+                                                    train_y)
         fn = program.warmup_fn if rnd < warmup_rounds else program.round_fn
         state, info = fn(state, batches, *draw_topology())
         last_round = rnd == rounds - 1
@@ -445,39 +546,267 @@ def _drive_loop(setup: AlgoSetup, hist: _History, draws, train_x, train_y,
     return state
 
 
+def _final_models(program: AlgoProgram, state):
+    """The run's deployable models as copies: the state's tensors are the
+    engine's static buffers, which a later run of its entry overwrites."""
+    return tree_map(torch.clone, program.models_of(state))
+
+
+def _settle(hist: _History, program: AlgoProgram, seg, outs, ev) -> bool:
+    """The host's work on a drained segment, in the loop's order: its
+    bytes, the eval at its end (``ev``, from ``hist.eval_begin``) and
+    FACADE's cluster ids. Returns whether ``target_acc`` was reached; the
+    cluster history then ends a round earlier, as the loop breaks before
+    appending the eval round's ids."""
+    rnds = np.arange(seg.start + 1, seg.start + seg.length + 1)
+    hit = False
+    if seg.eval_at_end:
+        hist.comm.record_bulk(rnds[:-1], outs["round_bytes"][:-1])
+        hit = hist.eval_finish(ev, int(rnds[-1]),
+                               float(outs["round_bytes"][-1]))
+    else:
+        hist.comm.record_bulk(rnds, outs["round_bytes"])
+    if program.track_cluster:
+        upto = len(rnds) - 1 if hit else len(rnds)
+        hist.cluster_hist.extend(
+            (int(rnds[i]), outs["cluster_id"][i]) for i in range(upto))
+    return hit
+
+
+def _eval_state(program: AlgoProgram, seg, carry, rounds: int, hist):
+    """At the end of an eval segment: the carry, finalized after the run's
+    last round, and its eval begun (``None`` for a segment without an
+    eval)."""
+    if not seg.eval_at_end:
+        return carry, None
+    if seg.start + seg.length == rounds:
+        carry = carry._replace(state=program.finalize(carry.state))
+    return carry, hist.eval_begin(carry.state)
+
+
 def _drive_engine(eng: SegmentEngine, setup: AlgoSetup, hist: _History,
                   draws, train_x, train_y, *, rounds, eval_every,
-                  warmup_rounds):
+                  warmup_rounds, target_acc=None, ckpt=None, ckpt_fp=None,
+                  pipeline=False):
     """Segment-engine driver: one dispatch and one host transfer per span
-    (the reference's serialized ``_drive_engine``). A ``target_acc`` hit
-    stops at the eval that reaches it, and the cluster history then ends
-    a round earlier, as the loop, which breaks before appending the eval
-    round's ids. Returns the final state (its tensors are ``eng``'s static
-    buffers, finalized ones after the last round)."""
+    (the reference's ``_drive_engine``). ``pipeline`` hands the segments
+    to :func:`_drive_pipelined`; otherwise each is dispatched, drained and
+    settled before the next. A ``target_acc`` hit stops at the eval that
+    reaches it.
+
+    ``ckpt``: after every segment the state, the draws source's state and
+    the histories are saved (:func:`_ckpt_save`); on entry a checkpoint
+    at that path with a matching fingerprint fast-forwards the run to the
+    segment after the last one saved, its state loaded into the engine's
+    static buffers through ``init_carry``. Returns the final models
+    (copies)."""
     program, state = setup
+    plan = segment_plan(rounds, eval_every, warmup_rounds)
+    start_idx, finished = 0, False
+    if ckpt is not None and os.path.exists(ckpt):
+        state, start_idx, finished = _ckpt_resume(ckpt, ckpt_fp, state,
+                                                  draws, hist)
     carry = eng.init_carry(state)
-    for seg in segment_plan(rounds, eval_every, warmup_rounds):
+    if finished:
+        return _final_models(program, carry.state)
+    if pipeline:
+        return _drive_pipelined(eng, program, hist, draws, carry, plan,
+                                start_idx, train_x, train_y, rounds=rounds,
+                                target_acc=target_acc, ckpt=ckpt,
+                                ckpt_fp=ckpt_fp)
+    for idx in range(start_idx, len(plan)):
+        seg = plan[idx]
         carry, outs = eng.run_segment(carry, seg.start, seg.length,
                                       train_x, train_y, draws,
                                       warmup=seg.warmup)
-        rnds = np.arange(seg.start + 1, seg.start + seg.length + 1)
-        hit = False
-        if seg.eval_at_end:
-            hist.comm.record_bulk(rnds[:-1], outs["round_bytes"][:-1])
-            if seg.start + seg.length == rounds:
-                carry = carry._replace(state=program.finalize(carry.state))
-            hit = hist.eval_round(carry.state, int(rnds[-1]),
-                                  float(outs["round_bytes"][-1]))
-        else:
-            hist.comm.record_bulk(rnds, outs["round_bytes"])
-        if program.track_cluster:
-            upto = len(rnds) - 1 if hit else len(rnds)
-            hist.cluster_hist.extend(
-                (int(rnds[i]), outs["cluster_id"][i]) for i in range(upto))
+        carry, ev = _eval_state(program, seg, carry, rounds, hist)
+        hit = _settle(hist, program, seg, outs, ev)
+        if ckpt is not None:
+            _ckpt_save(ckpt, ckpt_fp, _carry_snapshot(carry.state),
+                       draws.state(), hist, idx + 1,
+                       hit or idx + 1 == len(plan))
         if hit:
             break
-    return carry.state
+    return _final_models(program, carry.state)
 
+
+def _drive_pipelined(eng: SegmentEngine, program: AlgoProgram,
+                     hist: _History, draws, carry, plan, start_idx: int,
+                     train_x, train_y, *, rounds, target_acc, ckpt,
+                     ckpt_fp):
+    """Double-buffered segment loop (the reference's ``_drive_pipelined``):
+    while the host drains and settles segment t, the card runs segment
+    t+1. Per segment, in this order:
+
+    1. segment t's eval is begun (its forwards and their copies to the
+       host enqueued), and, under ``ckpt``, the state's copy to the host;
+    2. segment t+1 is dispatched: its draws taken on the host, its
+       replays enqueued behind step 1 on the same stream, so they
+       overwrite the state only after step 1 has read it;
+    3. segment t is drained and settled (bytes, eval, cluster history,
+       checkpoint), each wait on an event behind step 1's copies, never
+       on the stream;
+    4. a ``target_acc`` hit returns and abandons segment t+1.
+
+    The draws source's state goes into segment t's checkpoint as it was
+    right after t was dispatched: t+1's dispatch draws before t's
+    checkpoint is written. ``eng.overlapped`` counts the segments whose
+    successor was still on the card when step 3 ended. Returns the final
+    models (copies)."""
+    def dispatch(i, c):
+        s = plan[i]
+        c, outs = eng.dispatch_segment(c, s.start, s.length, train_x,
+                                       train_y, draws, warmup=s.warmup)
+        return c, outs, draws.state() if ckpt is not None else None
+
+    next_carry, pending, drawn = dispatch(start_idx, carry)
+    kept = None
+    for idx in range(start_idx, len(plan)):
+        seg, last = plan[idx], idx + 1 == len(plan)
+        carry, ev = _eval_state(program, seg, next_carry, rounds, hist)
+        if ev is not None and target_acc is not None and not last:
+            # a hit returns this eval's models, which segment t+1's
+            # replays overwrite in place
+            kept = _final_models(program, carry.state)
+        snap = _carry_snapshot(carry.state) if ckpt is not None else None
+        nxt = None
+        if not last:
+            next_carry, nxt, next_drawn = dispatch(idx + 1, carry)
+        outs = eng.drain(pending)
+        hit = _settle(hist, program, seg, outs, ev)
+        if ckpt is not None:
+            _ckpt_save(ckpt, ckpt_fp, snap, drawn, hist, idx + 1,
+                       hit or last)
+        if nxt is not None and nxt["end"] is not None \
+                and not nxt["end"].query():
+            eng.overlapped += 1
+        if hit:
+            return kept if not last else _final_models(program, carry.state)
+        if not last:
+            pending, drawn = nxt, next_drawn
+    return _final_models(program, carry.state)
+
+
+# --------------------------------------------------------------------------
+def _hist_snapshot(hist: _History) -> dict:
+    """The :class:`_History` as a checkpoint tree (numpy arrays and
+    tensors); the inverse of :func:`_hist_restore`. float64 and int64
+    round-trip exactly, so a restored history is the live one bit for
+    bit."""
+    c = hist.comm
+    return {
+        "comm": {"rounds": np.asarray(c.rounds, np.int64),
+                 "bytes": np.asarray(c.bytes, np.float64),
+                 "seconds": np.asarray(c.seconds, np.float64),
+                 "acc": np.asarray(c.acc, np.float64),
+                 "evaled": np.asarray(c.evaled, np.bool_)},
+        "acc_hist": [{"round": np.asarray(r, np.int64),
+                      "accs": np.asarray(a, np.float64)}
+                     for r, a in hist.acc_hist],
+        "fair_hist": {
+            "rounds": np.asarray([r for r, _ in hist.fair_hist], np.int64),
+            "vals": np.asarray([v for _, v in hist.fair_hist], np.float64)},
+        "cluster_hist": [{"round": np.asarray(r, np.int64), "cid": cid}
+                         for r, cid in hist.cluster_hist],
+        "dp": np.asarray(hist.dp, np.float64),
+        "eo": np.asarray(hist.eo, np.float64),
+        "accs": np.asarray(hist.accs, np.float64),
+        "node_acc": hist.node_acc,
+        # one dict of float64/int64 arrays per EvalFrame
+        "eval_frames": [
+            {name: np.asarray(getattr(f, name),
+                              np.int64 if name in ("round", "cluster_ids")
+                              else np.float64)
+             for name in EvalFrame._fields}
+            for f in hist.eval_frames],
+        "prev_eval_cid": hist._prev_eval_cid,
+    }
+
+
+def _hist_restore(hist: _History, snap: dict):
+    """Rehydrate ``hist`` from a loaded :func:`_hist_snapshot` tree (CPU
+    tensors), with the Python containers the drivers append (lists of
+    ints, floats and tuples), so that a resumed run's result cannot be
+    told from an uninterrupted one's."""
+    c, comm = hist.comm, snap["comm"]
+    c.rounds = comm["rounds"].tolist()
+    c.bytes = comm["bytes"].tolist()
+    c.seconds = comm["seconds"].tolist()
+    c.acc = comm["acc"].tolist()
+    c.evaled = comm["evaled"].tolist()
+    hist.acc_hist = [(int(e["round"]), e["accs"].tolist())
+                     for e in snap["acc_hist"]]
+    hist.fair_hist = list(zip(snap["fair_hist"]["rounds"].tolist(),
+                              snap["fair_hist"]["vals"].tolist()))
+    hist.cluster_hist = [(int(e["round"]), e["cid"])
+                         for e in snap["cluster_hist"]]
+    hist.dp = float(snap["dp"])
+    hist.eo = float(snap["eo"])
+    hist.accs = snap["accs"].tolist()
+    hist.node_acc = (None if snap["node_acc"] is None
+                     else snap["node_acc"].numpy())
+    hist.eval_frames = [
+        EvalFrame(**{name: (tuple(e[name].reshape(-1).tolist())
+                            if name in ("acc", "cluster_ids")
+                            else e[name].item())
+                     for name in EvalFrame._fields})
+        for e in snap["eval_frames"]]
+    prev = snap["prev_eval_cid"]
+    hist._prev_eval_cid = None if prev is None else prev.numpy()
+
+
+def _carry_snapshot(state) -> tuple:
+    """``(round, HostCopy of the state's tensors)``: the carry on its way
+    to the host, taken where it stands on the stream."""
+    return state.round, HostCopy(state_tensors(state))
+
+
+def _frame_path(ckpt: str, index: int) -> str:
+    """The reference's per-segment frame sidecar. The port has no frames
+    yet (``obs=`` is not ported), so its checkpoints list none."""
+    return f"{ckpt}.frames-{index}.npz"
+
+
+def _ckpt_save(path: str, fp: str, snapshot: tuple, draws_state,
+               hist: _History, next_segment: int, finished: bool):
+    """Write the whole resumable run at a segment boundary, atomically
+    (:func:`repro_torch.checkpoint.save`): the carry's state (from
+    :func:`_carry_snapshot`), the draws source's state after the saved
+    segment's draws and the histories; the meta holds the fingerprint,
+    the next segment, whether the run has finished, and ``frame_files``
+    (0: no frames yet)."""
+    rnd, tensors = snapshot
+    checkpoint.save(path, {"carry": {"round": rnd, **tensors.wait()},
+                           "draws": draws_state,
+                           "hist": _hist_snapshot(hist)},
+                    meta={"fingerprint": fp,
+                          "next_segment": int(next_segment),
+                          "finished": bool(finished), "frame_files": 0})
+
+
+def _ckpt_resume(ckpt: str, fp: str, state, draws, hist: _History):
+    """Fast-forward a checkpointed run: refuse a fingerprint mismatch,
+    rebuild the state on the freshly minted one (its type and its
+    ``None`` fields), restore the draws source and the histories. Returns
+    ``(state, next_segment, finished)``."""
+    payload, meta = checkpoint.load(ckpt)
+    if meta.get("fingerprint") != fp:
+        raise ValueError(
+            f"checkpoint {ckpt!r} was written by a different run "
+            "configuration (fingerprint mismatch) — refusing to "
+            "resume from it; delete the file or pick a fresh path")
+    for j in range(int(meta.get("frame_files", 0))):
+        if checkpoint.load(_frame_path(ckpt, j))[1].get("fingerprint") != fp:
+            raise ValueError(
+                f"frame sidecar {_frame_path(ckpt, j)!r} does not match "
+                f"checkpoint {ckpt!r} (fingerprint mismatch) — refusing "
+                "to resume; delete the checkpoint files to restart")
+    fields = dict(payload["carry"])
+    fields["round"] = int(fields["round"])
+    draws.set_state(payload["draws"])
+    _hist_restore(hist, payload["hist"])
+    return (state._replace(**fields), int(meta["next_segment"]),
+            bool(meta.get("finished")))
 
 # --------------------------------------------------------------------------
 class LMFacade:
@@ -515,7 +844,7 @@ class LMFacade:
         """The next round's (batches, topology permutations)."""
         idx = self.draws.batch_indices(self.n, self.local_steps, self.batch,
                                        self.train.shape[1])
-        batches = pipeline.sample_round_token_batches(
+        batches = pipeline_mod.sample_round_token_batches(
             idx.to(self.train.device), self.train)
         perms = self.draws.perms(self.n, self.fcfg.degree)
         return batches, perms.to(self.train.device)

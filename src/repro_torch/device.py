@@ -1,9 +1,12 @@
-"""Device resolution and numerics shared by the port's entry points."""
+"""Device resolution, numerics and host copies shared by the port's entry
+points."""
 from __future__ import annotations
 
 import contextlib
 
 import torch
+
+from repro_torch.tree import tree_leaves, tree_map
 
 
 def resolve(device) -> torch.device:
@@ -51,3 +54,38 @@ def deterministic():
     finally:
         (torch.backends.cudnn.deterministic,
          torch.backends.cudnn.benchmark) = prev
+
+
+class HostCopy:
+    """A tree of tensors (nested dicts) copied to the host as it stands at
+    this point of the current stream, without waiting for the card.
+
+    On CUDA each leaf is copied with ``non_blocking=True`` into pinned
+    memory and an event is recorded after the copies; :meth:`wait` waits
+    on that event alone, so work enqueued after the copy (the next
+    segment of a pipelined run) keeps the card busy while the host reads. On
+    the CPU each leaf is cloned: the copy is taken now, and a later
+    in-place write to the tensor (the segment engine's static buffers)
+    leaves it as it was.
+    """
+
+    def __init__(self, tree):
+        self._event = None
+        cuda = [leaf.device for leaf in tree_leaves(tree) if leaf.is_cuda]
+        if not cuda:
+            self._tree = tree_map(torch.clone, tree)
+            return
+
+        def copy(leaf):
+            host = torch.empty(leaf.shape, dtype=leaf.dtype, pin_memory=True)
+            return host.copy_(leaf, non_blocking=True)
+
+        self._tree = tree_map(copy, tree)
+        self._event = torch.cuda.Event()
+        self._event.record(torch.cuda.current_stream(cuda[0]))
+
+    def wait(self):
+        """The tree of CPU tensors, once the copies have landed."""
+        if self._event is not None:
+            self._event.synchronize()
+        return self._tree

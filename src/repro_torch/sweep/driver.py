@@ -1,0 +1,264 @@
+"""Sweep driver: fan (algorithm x config) cells over seeds on one shared
+:class:`~repro_torch.core.cache.EngineCache`.
+
+The counterpart of ``repro.sweep.driver``, on the ideal medium. Each
+:class:`SweepCell` is one grid cell, everything static; only the seed
+varies inside it. ``run_sweep`` routes every run through
+:func:`repro_torch.core.runner.run_experiment` with the shared cache, so
+a cell captures its rounds and builds its evaluator on the first seed and
+every further seed runs warm, bit for bit a fresh ``run_experiment``
+call's run.
+
+Long grids survive a killed process (``ckpt_dir=``): every engine run
+checkpoints per segment (``run_experiment(ckpt=...)``), so a killed cell
+resumes mid-run, and every completed cell leaves a summary and a manifest
+behind, so a rerun of the same sweep skips it (matched on a content
+fingerprint of the cell's static description: algorithm, config, dataset
+content, seeds, targets). A cell that raises is recorded on its
+:class:`CellResult` and the remaining cells run; only a sweep where every
+cell failed raises.
+
+Differences from the reference: a cell with ``net`` set is refused up
+front (network simulation is not ported); there is no ``obs`` (telemetry
+is not ported, so ``CellResult.health`` stays ``None``) and no
+``persist_dir`` (a CUDA graph cannot be serialised; see
+:mod:`repro_torch.core.cache`); and ``run_sweep`` owns ``draws`` besides
+``seed`` and ``ckpt``, since one draws source in a cell's kwargs would
+give every seed one stream.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import pathlib
+import time
+from typing import Any, Sequence
+
+from repro_torch.core.cache import EngineCache, data_fingerprint
+from repro_torch.core.runner import run_experiment
+from repro_torch.obs import RunManifest, fingerprint
+
+from .aggregate import aggregate_cell
+
+OWNED = ("seed", "ckpt", "draws")     # run_sweep sets these per run
+
+
+@dataclasses.dataclass
+class SweepCell:
+    """One grid cell. ``kwargs`` are passed through to ``run_experiment``
+    (``degree``, ``local_steps``, ``batch_size``, ``lr``, ``eval_every``,
+    ``warmup_rounds``, ``target_acc``, ``device``, ...), everything but
+    the keys ``run_sweep`` owns (:data:`OWNED`). ``net`` is the
+    reference's network-simulation preset; the port refuses a cell that
+    sets it."""
+    name: str
+    algo: str
+    cfg: Any
+    dataset: Any
+    rounds: int
+    net: Any = None
+    kwargs: dict = dataclasses.field(default_factory=dict)
+
+
+@dataclasses.dataclass
+class CellResult:
+    cell: SweepCell
+    seeds: tuple
+    results: list          # per-seed RunResult, in ``seeds`` order
+    summary: dict          # aggregate_cell(results, targets)
+    cache_stats: dict = dataclasses.field(default_factory=dict)
+    #                      cumulative EngineCache.stats() right after this
+    #                      cell
+    error: "str | None" = None   # repr of the exception that killed the
+    #                      cell (results/summary then hold no metrics)
+    skipped: bool = False  # completed in an earlier sweep run and skipped
+    #                      here (summary reloaded from ckpt_dir; no
+    #                      per-seed RunResults)
+    health: "dict | None" = None  # the reference's per-cell health
+    #                      rollup; None in the port (no telemetry)
+
+
+@dataclasses.dataclass
+class SweepResult:
+    cells: list
+    seeds: tuple
+    cache: EngineCache
+    wall_s: float
+
+    def cell(self, name: str) -> CellResult:
+        for c in self.cells:
+            if c.cell.name == name:
+                return c
+        raise KeyError(f"no sweep cell named {name!r}; "
+                       f"know {[c.cell.name for c in self.cells]}")
+
+    def to_json(self) -> dict:
+        cells = {}
+        for c in self.cells:
+            cells[c.cell.name] = {
+                "algo": c.cell.algo,
+                "net": c.cell.net,
+                "rounds": c.cell.rounds,
+                "kwargs": {k: repr(v) if not isinstance(
+                    v, (int, float, str, bool, type(None))) else v
+                    for k, v in c.cell.kwargs.items()},
+                "summary": c.summary,
+                "cache": c.cache_stats,
+                "error": c.error,
+                "skipped": c.skipped,
+                "health": c.health,
+            }
+        return {"seeds": list(self.seeds), "wall_s": self.wall_s,
+                "cache": self.cache.stats(), "cells": cells}
+
+    def save(self, path) -> pathlib.Path:
+        path = pathlib.Path(path)
+        path.parent.mkdir(parents=True, exist_ok=True)
+        path.write_text(json.dumps(self.to_json(), indent=2, default=float))
+        return path
+
+
+def _cell_fingerprint(cell: SweepCell, seeds, targets) -> str:
+    """Content hash of everything that shapes a cell's summary, from reprs
+    of frozen configs and :func:`data_fingerprint` of the dataset, never
+    ``repr(cell)``, whose dataset repr can embed memory addresses and
+    would break skip-on-rerun across processes. ``net`` is ``None``, as
+    every cell the port runs has it."""
+    return fingerprint({
+        "name": cell.name, "algo": cell.algo, "cfg": repr(cell.cfg),
+        "rounds": cell.rounds, "net": repr(cell.net),
+        "kwargs": {k: repr(v) for k, v in sorted(cell.kwargs.items())},
+        "data": data_fingerprint(cell.dataset),
+        "seeds": list(seeds), "targets": list(targets)})
+
+
+def run_sweep(cells: Sequence[SweepCell], seeds: Sequence[int], *,
+              cache: EngineCache | None = None, targets: Sequence[float] = (),
+              json_path=None, ckpt_dir=None, max_entries: int | None = None,
+              verbose: bool = False) -> SweepResult:
+    """Run every cell over every seed, reusing captured rounds.
+
+    ``cache``: share one :class:`EngineCache` across calls to keep rounds
+    captured between sweeps (``None`` builds a fresh one for this sweep).
+    ``max_entries``: forwarded to that fresh cache (an LRU bound on its
+    entries for large grids); refused together with ``cache``, which
+    carries its own settings.
+    ``targets``: accuracies for the per-cell bytes/seconds-to-target table.
+    ``json_path``: if set, the aggregated sweep is written there as JSON,
+    with a :class:`~repro_torch.obs.RunManifest` next to it
+    (``<json_path>.manifest.json``).
+    ``ckpt_dir``: if set, engine runs checkpoint per segment under
+    ``<ckpt_dir>/<cell>-s<seed>.npz``, and a completed cell writes
+    ``<cell>.summary.json`` and ``<cell>.manifest.json`` there; rerunning
+    the same sweep skips completed cells (fingerprint match) and resumes
+    the run that was killed.
+
+    A cell with ``net`` set, or with a key ``run_sweep`` owns in its
+    kwargs, and duplicate cell names are refused up front with
+    ``ValueError``, as are an empty grid and no seeds. A failing cell is
+    recorded (``CellResult.error``) and the grid continues;
+    ``RuntimeError`` is raised only when every cell failed.
+    """
+    if cache is not None and max_entries is not None:
+        raise ValueError(
+            "pass max_entries OR a prebuilt cache, not both: an existing "
+            "EngineCache already carries its own settings (build it with "
+            "EngineCache(max_entries=...))")
+    cache = cache if cache is not None else EngineCache(
+        max_entries=max_entries)
+    seeds = tuple(int(s) for s in seeds)
+    cells = list(cells)
+    if not cells:
+        raise ValueError("run_sweep got an empty cell grid; build at "
+                         "least one SweepCell")
+    if not seeds:
+        raise ValueError("run_sweep got no seeds; pass at least one "
+                         "(e.g. seeds=range(3))")
+    names = [c.name for c in cells]
+    if len(set(names)) != len(names):
+        raise ValueError(f"duplicate sweep cell names: {names}")
+    for cell in cells:
+        if cell.net is not None:
+            raise ValueError(
+                f"cell {cell.name!r} sets net={cell.net!r}; network "
+                "simulation (netsim) is not ported yet, so the port "
+                "sweeps the ideal medium only (net=None)")
+        for owned in OWNED:
+            if owned in cell.kwargs:
+                raise ValueError(
+                    f"cell {cell.name!r} sets {owned!r} in kwargs; "
+                    f"run_sweep owns {owned!r} — pass seeds/ckpt_dir to "
+                    "run_sweep instead")
+    if ckpt_dir is not None:
+        ckpt_dir = pathlib.Path(ckpt_dir)
+        ckpt_dir.mkdir(parents=True, exist_ok=True)
+
+    t0 = time.perf_counter()
+    out = []
+    for cell in cells:
+        if ckpt_dir is not None:
+            cell_fp = _cell_fingerprint(cell, seeds, targets)
+            man_path = ckpt_dir / f"{cell.name}.manifest.json"
+            sum_path = ckpt_dir / f"{cell.name}.summary.json"
+            if man_path.exists() and sum_path.exists():
+                man = RunManifest.load(man_path)
+                if man.settings.get("cell_fingerprint") == cell_fp:
+                    summary = json.loads(sum_path.read_text())
+                    out.append(CellResult(cell, seeds, [], summary,
+                                          cache_stats=cache.stats(),
+                                          skipped=True))
+                    if verbose:
+                        print(f"  [sweep] {cell.name}: skipped "
+                              "(completed in an earlier run)")
+                    continue
+        results = []
+        try:
+            for seed in seeds:
+                ckpt = None
+                if ckpt_dir is not None and cell.kwargs.get("engine", True):
+                    ckpt = str(ckpt_dir / f"{cell.name}-s{seed}.npz")
+                results.append(run_experiment(
+                    cell.algo, cell.cfg, cell.dataset, rounds=cell.rounds,
+                    seed=seed, cache=cache, ckpt=ckpt, **cell.kwargs))
+            summary = aggregate_cell(results, targets=targets)
+        except Exception as e:  # noqa: BLE001 — one bad cell, whole grid
+            out.append(CellResult(cell, seeds, results,
+                                  {"error": repr(e)},
+                                  cache_stats=cache.stats(),
+                                  error=repr(e)))
+            if verbose:
+                print(f"  [sweep] {cell.name}: FAILED ({e!r}); "
+                      "continuing with the remaining cells")
+            continue
+        out.append(CellResult(cell, seeds, results, summary,
+                              cache_stats=cache.stats()))
+        if ckpt_dir is not None:
+            sum_path.write_text(json.dumps(summary, indent=2,
+                                           default=float))
+            RunManifest.build(
+                kind="sweep-cell", name=cell.name, spec=repr(cell.cfg),
+                settings={"cell_fingerprint": cell_fp,
+                          "seeds": list(seeds), "targets": list(targets),
+                          "net": repr(cell.net)},
+                cache=cache.stats()).save(man_path)
+        if verbose:
+            fa = summary["best_fair_acc"]
+            print(f"  [sweep] {cell.name}: best_fair_acc="
+                  f"{fa['mean']:.3f}±{fa['std']:.3f} over {len(seeds)} "
+                  f"seeds ({cache.stats()['compiles']} compiles so far)")
+    if all(c.error is not None for c in out):
+        raise RuntimeError(
+            f"every sweep cell failed ({len(out)}/{len(out)}): "
+            + "; ".join(f"{c.cell.name}: {c.error}" for c in out))
+    sweep = SweepResult(out, seeds, cache, time.perf_counter() - t0)
+    if json_path is not None:
+        path = sweep.save(json_path)
+        RunManifest.build(
+            kind="sweep", name=path.stem,
+            spec=[repr(c.cell) for c in out],
+            settings={"seeds": list(seeds), "cells": names,
+                      "targets": list(targets)},
+            timing={"wall_s": sweep.wall_s},
+            cache=cache.stats()).save(
+                path.with_suffix(path.suffix + ".manifest.json"))
+    return sweep

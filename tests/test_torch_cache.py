@@ -113,10 +113,12 @@ def test_evaluators_are_shared_and_a_changed_eval_split_builds_one(ds):
     other = cache.entry(dataclasses.replace(SPEC, algo="dpsgd"))
     assert cache.evaluator(other.binding, ds, batch=16, device="cpu") is ev
     assert cache.evaluator_builds == 1
-    assert cache.evaluator(entry.binding, ds, batch=8) is not ev
+    assert cache.evaluator(entry.binding, ds, batch=8,
+                           device="cpu") is not ev
     changed = _data(test_per_class=4)
     assert data_fingerprint(changed) != data_fingerprint(ds)
-    assert cache.evaluator(entry.binding, changed, batch=16) is not ev
+    assert cache.evaluator(entry.binding, changed, batch=16,
+                           device="cpu") is not ev
     assert cache.evaluator_builds == 3
     assert cache.compile_count == 3
 

@@ -169,7 +169,7 @@ def test_unported_algorithms_and_options_are_refused(ds):
     with pytest.raises(ValueError, match="not ported"):
         runner.run_experiment("sgp", cfg, ds, device="cpu", **KW)
     with pytest.raises(TypeError):
-        runner.run_experiment("el", cfg, ds, device="cpu", pipeline=True,
+        runner.run_experiment("el", cfg, ds, device="cpu", net="edge-churn",
                               **KW)
 
 

@@ -11,7 +11,8 @@
   ``draws`` source for ``repro_torch.core.runner.run_experiment`` (or for
   a test that drives ``facade_round`` itself), so the port and the
   reference see the same initial parameters, batches and topologies, for
-  the CNNs and the language models. It imports JAX only when built.
+  the CNNs and the language models; its ``state()``/``set_state`` let a
+  checkpointed run resume it. It imports JAX only when built.
 """
 from __future__ import annotations
 
@@ -110,6 +111,19 @@ class JaxDraws:
         self._rng, sub = self._jax.random.split(self._rng)
         return torch.from_numpy(np.array(self._jax.random.gumbel(sub,
                                                                  (n, n))))
+
+    def state(self) -> dict:
+        """Where the key schedule stands: the data key and the state's
+        key, as numpy ``uint32`` arrays (what a checkpoint saves)."""
+        return {"k_data": np.asarray(self._k_data),
+                "rng": np.asarray(self._rng)}
+
+    def set_state(self, state: dict):
+        """Restore :meth:`state`'s keys (numpy arrays or CPU tensors)."""
+        jnp = self._jax.numpy
+        self._k_data, self._rng = (
+            jnp.asarray(np.asarray(state[k]), dtype=jnp.uint32)
+            for k in ("k_data", "rng"))
 
 
 def _node0(tree, lead: int = 0, lm: bool = False):
