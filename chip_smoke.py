@@ -97,6 +97,21 @@ failure raises and exits non-zero, before the last line is printed):
      flat after each cell's first seed, each seed's run a fresh
      ``run_experiment`` call's bit for bit, a rerun that skips both cells
      (no run; its wall time), rounds per second on the warm seeds;
+3a''. network simulation (``netsim_phase``, same data, 8 rounds with an
+   eval every 4): the five algorithms under ``edge-v2`` (bursty links,
+   core/edge tiers, async stale gossip) and ``edge-churn``, FACADE and EL
+   under ``bursty-wan``, ``core-edge``, ``async-edge`` and ``hostile``,
+   each on the engine (the netsim round inside the captured graph, K1 one
+   a replayed round plus one warm-up call) against the loop bit for bit,
+   simulated seconds included, each run's bytes recounted on the host
+   (whole delivering edges times the payload, at most n·degree of them,
+   DAC's symmetrised graph twice that) and its seconds finite, not
+   negative and positive in total; ``ideal`` against ``net=None`` (the
+   same trajectory) for FACADE and EL; ``edge-churn`` with async gossip
+   at ``max_staleness=0`` against the synchronous run, bit for bit, for
+   the five; FACADE's steady engine rate (20 rounds, seed 1 of one cache)
+   under ``net=None`` and each of the nine presets, with capture seconds
+   and peak memory;
 3b. the launcher's paper mode (``launch.train.paper_main``) on full-width
    ResNet8 (64×64 images, 41 classes; ``RESNET8_PAPER``: 32 nodes in
    clusters 24:8, degree 4, H = 10, B = 8, 8 rounds) for the five
@@ -171,6 +186,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import functools
 import json
 import pathlib
@@ -207,6 +223,7 @@ from repro_torch.launch import train  # noqa: E402
 from repro_torch.launch.serve import make_requests, serve  # noqa: E402
 from repro_torch.models import api, transformer  # noqa: E402
 from repro_torch.models.base import get_config  # noqa: E402
+from repro_torch.netsim import PRESETS, NetworkConfig  # noqa: E402
 from repro_torch.sweep import SweepCell, run_sweep  # noqa: E402
 from repro_torch.sweep import driver as sweep_driver  # noqa: E402
 from repro_torch.tree import tree_leaves, tree_map  # noqa: E402
@@ -250,6 +267,13 @@ DRIVER_ROUNDS, DRIVER_EVAL_EVERY = 40, 10
 SWEEP_SEEDS = (0, 1, 2)
 CKPT_DIR = ROOT / "build" / "chip_smoke_ckpt"
 SMALL_TOL = 0.1     # accuracy across devices (reference precedent)
+# the netsim phase (same data, ROUNDS rounds with an eval every EVAL_EVERY):
+# the five algorithms under NET_ALL, FACADE and EL under NET_TWO, engine
+# against loop; then FACADE's steady rate under every preset and net=None,
+# NET_RATE_ROUNDS rounds (one segment) of seed 1 after seed 0 captured
+NET_ALL = ("edge-v2", "edge-churn")
+NET_TWO = ("bursty-wan", "core-edge", "async-edge", "hostile")
+NET_RATE_ROUNDS = 20
 # the paper's Flickr-Mammals experiment through the launcher's paper_main:
 # full-width ResNet8 (64×64 images, 41 classes), 32 nodes in clusters 24:8
 # rotated rot0/rot180, k 2, degree 4, H 10, B 8, lr 0.05, 8 rounds with an
@@ -760,7 +784,8 @@ def main_path_phase(rec, ds):
 def run_diff(a, b) -> dict:
     """How two runs of one configuration differ: whether they are the same
     run bit for bit (every parameter leaf, the accuracy, fairness, bytes,
-    eval and cluster histories), and the largest parameter difference."""
+    simulated seconds, eval and cluster histories), and the largest
+    parameter difference."""
     la, lb = tree_leaves(a.models), tree_leaves(b.models)
     leaves_equal = all(torch.equal(x, y) for x, y in zip(la, lb))
     diff = max(float((x.double() - y.double()).abs().max())
@@ -772,6 +797,7 @@ def run_diff(a, b) -> dict:
                  and a.fair_acc == b.fair_acc and (a.dp, a.eo) == (b.dp, b.eo)
                  and a.comm.rounds == b.comm.rounds
                  and a.comm.bytes == b.comm.bytes
+                 and a.comm.seconds == b.comm.seconds
                  and a.comm.evaled == b.comm.evaled and same_cid)
     return {"equal": leaves_equal and histories,
             "leaves_equal": leaves_equal, "histories_equal": histories,
@@ -1185,6 +1211,161 @@ def sweep_phase(rec, ds) -> int:
     del cache, sweep, again
     torch.cuda.empty_cache()
     return counts["head_losses"]
+
+
+def payload_bytes(cfg, algo: str) -> int:
+    """What one node pushes to one neighbour, as ``round_bytes`` counts
+    it (FACADE: core, one head and a 4-byte cluster id; DEPRL: the core;
+    the others: the model)."""
+    binding = make_binding(cfg)
+    params = binding.init(torch.Generator().manual_seed(0))
+    core, head = split.split_params(params, binding.head_keys)
+    return {"facade": split.tree_size_bytes(core)
+            + split.tree_size_bytes(head) + 4,
+            "deprl": split.tree_size_bytes(core)}.get(
+        algo, split.tree_size_bytes(params))
+
+
+def net_run_check(algo, res, payload: int, n: int) -> dict:
+    """A netsim run's accounting, recounted on the host: each round's
+    drained bytes (the differences of the cumulative column, exact in
+    float64) is the float32 product of a whole number of delivering edges
+    and the payload (the edges read back as the nearest whole number of
+    payloads), at most ``n * degree`` of them (DAC's symmetrised
+    graph: at most ``2 * n * degree``), and the cumulative column is their
+    running sum; each round's simulated seconds is finite and not
+    negative, the run's total positive."""
+    per_round = np.diff([0.0] + res.comm.bytes)
+    edges = np.rint(per_round / payload)
+    cap = PAPER["degree"] * n * (2 if algo == "dac" else 1)
+    recount = [float(np.float32(np.float32(e) * np.float32(payload)))
+               for e in edges]
+    secs = np.diff([0.0] + res.comm.seconds)
+    ok = (bool((edges >= 0).all() and (edges <= cap).all())
+          and recount == per_round.tolist()
+          and np.cumsum(per_round).tolist() == res.comm.bytes
+          and bool(np.isfinite(secs).all() and (secs >= 0).all())
+          and res.comm.seconds[-1] > 0
+          and all(np.isfinite(a) for a in res.final_acc))
+    return {"ok": ok, "edges_per_round": edges.tolist(),
+            "seconds_per_round": secs.tolist(),
+            "total_gb": res.comm.total_gb,
+            "total_hours": res.comm.total_hours}
+
+
+def netsim_phase(rec, ds) -> int:
+    """Network simulation at paper scale on GN-LeNet (the main path's
+    data), ROUNDS rounds with an eval every EVAL_EVERY, FACADE's heads as
+    ``PAPER`` gives them:
+
+    - the five algorithms under NET_ALL and FACADE and EL under NET_TWO:
+      the engine (a fresh capture a run: K1 its rounds plus one warm-up
+      call for FACADE) against the loop, bit for bit, simulated seconds
+      included; each run's bytes and seconds recounted on the host
+      (``net_run_check``);
+    - ``preset("ideal")`` against ``net=None`` for FACADE and EL: the same
+      trajectory (parameters, accuracies, cluster ids);
+    - ``edge-churn`` with ``async_gossip=True, max_staleness=0`` against
+      the synchronous ``edge-churn`` run of the same algorithm, for the
+      five, bit for bit, bytes and seconds included;
+    - FACADE's engine rate under ``net=None`` and each of the nine
+      presets: NET_RATE_ROUNDS rounds of seed 1 through the cache whose
+      seed-0 run captured (``timed_run``: host clock, peak memory), the
+      capture seconds, K1 one a replayed round.
+    Returns K1's launches in the phase."""
+    cfg, n = lenet(), ds.n_nodes
+    out = {"parity": {}, "ideal": {}, "async0": {}, "rates": {}}
+    payloads = {algo: payload_bytes(cfg, algo) for algo in ALGOS}
+    kw = dict(PAPER, rounds=ROUNDS, eval_every=EVAL_EVERY, device="cuda")
+    launches, sync_runs = 0, {}
+    cells = [(p, a) for p in NET_ALL for a in ALGOS] + \
+        [(p, a) for p in NET_TWO for a in ("facade", "el")]
+    for preset, algo in cells:
+        net = NetworkConfig.preset(preset)
+        loop = run_experiment(algo, cfg, ds, engine=False, net=net, **kw)
+        with counted() as counts:
+            eng = run_experiment(algo, cfg, ds, net=net, **kw)
+            torch.cuda.synchronize()
+        want = ROUNDS + WARMUP_ROUNDS if algo == "facade" else 0
+        got = out["parity"][f"{preset}/{algo}"] = {
+            "engine_vs_loop": run_diff(eng, loop), "launches": counts,
+            "check": net_run_check(algo, eng, payloads[algo], n)}
+        log(f"netsim {preset} {algo}: {json.dumps(got)}")
+        if not (got["engine_vs_loop"]["equal"] and got["check"]["ok"]
+                and counts["head_losses"] == want):
+            raise AssertionError(f"netsim {preset} {algo}: "
+                                 f"{json.dumps(got)} (K1 want {want})")
+        launches += counts["head_losses"]
+        if preset == "edge-churn":
+            sync_runs[algo] = eng
+    for algo in ("facade", "el"):
+        with counted() as counts:
+            base = run_experiment(algo, cfg, ds, **kw)
+            ideal = run_experiment(algo, cfg, ds,
+                                   net=NetworkConfig.preset("ideal"), **kw)
+        diff = run_diff(base, ideal)
+        got = out["ideal"][algo] = {
+            "leaves_equal": diff["leaves_equal"],
+            "accs_equal": base.acc_per_cluster == ideal.acc_per_cluster,
+            "cluster_ids_equal": all(
+                np.array_equal(c1, c2) for (_, c1), (_, c2) in
+                zip(base.cluster_history, ideal.cluster_history,
+                    strict=True)),
+            "ideal_seconds": ideal.comm.seconds[-1], "launches": counts}
+        log(f"netsim ideal vs none {algo}: {json.dumps(got)}")
+        if not (got["leaves_equal"] and got["accs_equal"]
+                and got["cluster_ids_equal"]):
+            raise AssertionError(f"netsim ideal {algo}: {json.dumps(got)}")
+        launches += counts["head_losses"]
+    zero = NetworkConfig.preset("edge-churn", async_gossip=True,
+                                max_staleness=0)
+    for algo in ALGOS:
+        with counted() as counts:
+            res = run_experiment(algo, cfg, ds, net=zero, **kw)
+        got = out["async0"][algo] = dict(run_diff(res, sync_runs[algo]),
+                                         launches=counts)
+        log(f"netsim async max_staleness=0 vs sync {algo}: "
+            f"{json.dumps(got)}")
+        if not got["equal"]:
+            raise AssertionError(f"netsim async0 {algo}: {json.dumps(got)}")
+        launches += counts["head_losses"]
+    rate_kw = dict(PAPER, rounds=NET_RATE_ROUNDS,
+                   eval_every=NET_RATE_ROUNDS)
+    for name in ("none",) + tuple(PRESETS):
+        net = None if name == "none" else NetworkConfig.preset(name)
+        cache = EngineCache()
+        with counted() as counts:
+            run_experiment("facade", cfg, ds, cache=cache, device="cuda",
+                           net=net, **rate_kw)
+            res, wall, peak, reserved = timed_run(
+                "facade", cfg, ds, cache=cache, net=net,
+                **dict(rate_kw, seed=1))
+        spec = dataclasses.replace(paper_spec("facade", cfg, ds), net=net)
+        if spec not in cache:
+            raise AssertionError(f"netsim rate {name}: the run's cache "
+                                 f"entry is not {spec}")
+        got = out["rates"][name] = {
+            "rounds_per_s": NET_RATE_ROUNDS / wall, "wall_s": wall,
+            "capture_s": cache.entry(spec).engine.capture_s,
+            "peak_allocated": peak, "peak_reserved": reserved,
+            "sim_seconds": res.comm.seconds[-1],
+            "gb": res.comm.total_gb, "launches": counts}
+        log(f"netsim rate {name}: {json.dumps(got)}")
+        want = 2 * NET_RATE_ROUNDS + WARMUP_ROUNDS
+        if counts["head_losses"] != want:
+            raise AssertionError(f"netsim rate {name}: {counts} K1, want "
+                                 f"{want}")
+        launches += counts["head_losses"]
+        del cache
+    ideal_rate = out["rates"]["none"]["rounds_per_s"]
+    for name, got in out["rates"].items():
+        got["vs_ideal_medium"] = got["rounds_per_s"] / ideal_rate
+    log("netsim rounds/s " + json.dumps(
+        {k: round(v["rounds_per_s"], 2) for k, v in out["rates"].items()}))
+    out["launches"] = launches
+    rec["netsim"] = out
+    torch.cuda.empty_cache()
+    return launches
 
 
 def small_input_phase(rec):
@@ -2053,7 +2234,8 @@ def main() -> int:
     # (target_acc exits included), a resumed run of FACADE, the sweep
     hs["driver_launches"] = {"pipeline": pipeline_phase(rec, ds),
                              "resume": resume_phase(rec, ds),
-                             "sweep": sweep_phase(rec, ds)}
+                             "sweep": sweep_phase(rec, ds),
+                             "netsim": netsim_phase(rec, ds)}
     resnet8_launches = resnet8_paper_phase(rec)
     hs["resnet8"] = dict(resnet8_select_phase(rec),
                          launches=resnet8_launches)

@@ -6,14 +6,14 @@ from __future__ import annotations
 
 import dataclasses
 
-import numpy as np
 import torch
 
 from repro_torch.tree import tree_map
 
 from .. import split, topology
 from ..bindings import Binding, gossip_mix, local_sgd
-from ..state import BaselineState
+from ..netwire import comm_info, masked_topology, sent_view
+from ..state import BaselineState, freeze_inactive
 
 
 @dataclasses.dataclass(frozen=True)
@@ -39,9 +39,12 @@ def sample_neighbors(sim, gumbel, degree: int, tau: float):
 
 
 def dac_round(cfg: DACConfig, binding: Binding, state: BaselineState,
-              batches, gumbel):
+              batches, gumbel, net=None, gossip=None):
     """batches: ``{"x": [n, H, B, ...], "y": [n, H, B]}``; gumbel: the
-    round's ``[n, n]`` Gumbel draw (``TorchDraws.gumbel``)."""
+    round's ``[n, n]`` Gumbel draw (``TorchDraws.gumbel``). net/gossip: as
+    ``el_round``; a peer delivers its published snapshot when stale, an
+    exchange that did not deliver keeps the old similarity, and an
+    offline node keeps its similarities."""
     n, r = cfg.n_nodes, cfg.degree
     sim = state.extra["sim"]
     nbr = sample_neighbors(sim, gumbel, r, cfg.tau)          # [n, r]
@@ -49,24 +52,35 @@ def dac_round(cfg: DACConfig, binding: Binding, state: BaselineState,
     adj = torch.zeros((n, n), dtype=torch.float32, device=sim.device)
     topology.set_edges(adj, rows, nbr)
     adj = torch.maximum(adj, adj.T)      # symmetrise (push-pull exchange)
+    adj = masked_topology(net, adj)
+
+    # what each peer delivers: its published snapshot when stale
+    vis = sent_view(net, gossip, state.params)
+    delivered_params = state.params if vis is None else vis
 
     # similarity: the inverse loss of each neighbour's model on the node's
     # first local batch, all n * r pairs in one node-batched call
     with torch.no_grad():
-        peers = tree_map(lambda l: l[nbr.reshape(-1)], state.params)
+        peers = tree_map(lambda l: l[nbr.reshape(-1)], delivered_params)
         mine = {key: b[:, 0].repeat_interleave(r, dim=0)
                 for key, b in batches.items()}
         l_peer = binding.node_losses(peers, mine).reshape(n, r)
+    inv_loss = 1.0 / l_peer.float().clamp(min=1e-6)
+    if net is not None:
+        # a lost or offline exchange brings no model to score
+        inv_loss = torch.where(adj[rows, nbr] > 0, inv_loss, sim[rows, nbr])
     new_sim = sim.clone()
-    new_sim[rows, nbr] = 1.0 / l_peer.float().clamp(min=1e-6)
+    new_sim[rows, nbr] = inv_loss
 
     # aggregate with similarity weights, then train locally
     w = topology.weighted_mixing(adj, new_sim.clamp(min=1e-6))
-    params = local_sgd(binding, gossip_mix(w, state.params), batches,
+    params = local_sgd(binding, gossip_mix(w, state.params, vis), batches,
                        cfg.lr)
+    if net is not None:
+        params = freeze_inactive(net.active, params, state.params)
+        new_sim = torch.where(net.active[:, None] > 0, new_sim, sim)
     model_bytes = split.tree_size_bytes(
         tree_map(lambda l: l[0], state.params))
-    round_bytes = float(np.float32(n * r * model_bytes))
     return (BaselineState(params=params, round=state.round + 1,
                           extra={"sim": new_sim}),
-            {"round_bytes": round_bytes})
+            comm_info(net, adj, model_bytes, n * r))

@@ -6,13 +6,12 @@ from __future__ import annotations
 
 import dataclasses
 
-import numpy as np
-
 from repro_torch.tree import tree_map
 
 from .. import split, topology
 from ..bindings import Binding, gossip_mix, local_sgd
-from ..state import BaselineState
+from ..netwire import comm_info, masked_topology, sent_view
+from ..state import BaselineState, freeze_inactive
 
 
 @dataclasses.dataclass(frozen=True)
@@ -23,16 +22,24 @@ class DeprlConfig:
 
 
 def deprl_round(cfg: DeprlConfig, binding: Binding, state: BaselineState,
-                batches):
+                batches, net=None, gossip=None):
     """Mix the cores over the ring, then H local steps on the merged core
-    and each node's own head. ``state.params`` holds full models."""
+    and each node's own head. ``state.params`` holds full models.
+    net/gossip: as ``el_round``; the published snapshot holds full models,
+    of which a stale node exposes the core."""
     leaf = next(iter(batches.values()))
-    adj = topology.ring(cfg.n_nodes, cfg.degree, device=leaf.device)
+    adj = masked_topology(net, topology.ring(cfg.n_nodes, cfg.degree,
+                                             device=leaf.device))
     cores, heads = split.split_params(state.params, binding.head_keys)
-    cores = gossip_mix(topology.mixing_matrix(adj), cores)
+    pub_cores = None
+    if gossip is not None:
+        pub_cores, _ = split.split_params(gossip, binding.head_keys)
+    vis = sent_view(net, pub_cores, cores)
+    cores = gossip_mix(topology.mixing_matrix(adj), cores, vis)
     params = local_sgd(binding, split.merge_params(cores, heads), batches,
                        cfg.lr)
+    if net is not None:
+        params = freeze_inactive(net.active, params, state.params)
     core_bytes = split.tree_size_bytes(tree_map(lambda l: l[0], cores))
-    round_bytes = float(np.float32(cfg.n_nodes * cfg.degree * core_bytes))
     return (state._replace(params=params, round=state.round + 1),
-            {"round_bytes": round_bytes})
+            comm_info(net, adj, core_bytes, cfg.n_nodes * cfg.degree))

@@ -5,13 +5,12 @@ from __future__ import annotations
 
 import dataclasses
 
-import numpy as np
-
 from repro_torch.tree import tree_map
 
 from .. import split, topology
 from ..bindings import Binding, gossip_mix, local_sgd
-from ..state import BaselineState
+from ..netwire import comm_info, masked_topology, sent_view
+from ..state import BaselineState, freeze_inactive
 
 
 @dataclasses.dataclass(frozen=True)
@@ -22,15 +21,20 @@ class DpsgdConfig:
 
 
 def dpsgd_round(cfg: DpsgdConfig, binding: Binding, state: BaselineState,
-                batches):
+                batches, net=None, gossip=None):
     """batches: ``{"x": [n, H, B, ...], "y": [n, H, B]}``. The ring is
-    static, so the round draws nothing."""
+    static, so the round draws nothing. net/gossip: as ``el_round``; a
+    stale neighbour contributes its last published model instead of this
+    round's trained one."""
     leaf = next(iter(batches.values()))
-    adj = topology.ring(cfg.n_nodes, cfg.degree, device=leaf.device)
+    adj = masked_topology(net, topology.ring(cfg.n_nodes, cfg.degree,
+                                             device=leaf.device))
     params = local_sgd(binding, state.params, batches, cfg.lr)
-    params = gossip_mix(topology.mixing_matrix(adj), params)
+    vis = sent_view(net, gossip, params)
+    params = gossip_mix(topology.mixing_matrix(adj), params, vis)
+    if net is not None:
+        params = freeze_inactive(net.active, params, state.params)
     model_bytes = split.tree_size_bytes(
         tree_map(lambda l: l[0], state.params))
-    round_bytes = float(np.float32(cfg.n_nodes * cfg.degree * model_bytes))
     return (state._replace(params=params, round=state.round + 1),
-            {"round_bytes": round_bytes})
+            comm_info(net, adj, model_bytes, cfg.n_nodes * cfg.degree))

@@ -5,13 +5,12 @@ from __future__ import annotations
 
 import dataclasses
 
-import numpy as np
-
 from repro_torch.tree import tree_map
 
 from .. import split, topology
 from ..bindings import Binding, gossip_mix, local_sgd
-from ..state import BaselineState
+from ..netwire import comm_info, masked_topology, sent_view
+from ..state import BaselineState, freeze_inactive
 
 
 @dataclasses.dataclass(frozen=True)
@@ -22,14 +21,19 @@ class ELConfig:
 
 
 def el_round(cfg: ELConfig, binding: Binding, state: BaselineState, batches,
-             perms):
+             perms, net=None, gossip=None):
     """batches: ``{"x": [n, H, B, ...], "y": [n, H, B]}``; perms: the
-    round's topology permutations (:func:`topology.random_regular`)."""
-    adj = topology.random_regular(perms, cfg.n_nodes, cfg.degree)
-    params = gossip_mix(topology.mixing_matrix(adj), state.params)
+    round's topology permutations (:func:`topology.random_regular`); net:
+    the round's ``netsim.RoundConditions`` (see ``facade_round``); gossip:
+    the async-gossip published params."""
+    adj = masked_topology(net, topology.random_regular(perms, cfg.n_nodes,
+                                                       cfg.degree))
+    vis = sent_view(net, gossip, state.params)
+    params = gossip_mix(topology.mixing_matrix(adj), state.params, vis)
     params = local_sgd(binding, params, batches, cfg.lr)
+    if net is not None:
+        params = freeze_inactive(net.active, params, state.params)
     model_bytes = split.tree_size_bytes(
         tree_map(lambda l: l[0], state.params))
-    round_bytes = float(np.float32(cfg.n_nodes * cfg.degree * model_bytes))
     return (BaselineState(params=params, round=state.round + 1),
-            {"round_bytes": round_bytes})
+            comm_info(net, adj, model_bytes, cfg.n_nodes * cfg.degree))

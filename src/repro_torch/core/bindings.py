@@ -75,10 +75,27 @@ def local_sgd(binding: Binding, params, batches, lr: float):
     return params
 
 
-def gossip_mix(w, tree):
+def gossip_mix(w, tree, visible=None):
     """Row-stochastic gossip mixing (Eq. 3) ``out_i = sum_j W_ij x_j`` over
-    a node-stacked tree; the one mixing definition of every algorithm."""
-    return tree_map(lambda p: node_matmul(w.to(p.dtype), p), tree)
+    a node-stacked tree; the one mixing definition of every algorithm.
+
+    ``visible`` (async stale gossip, ``netwire.sent_view``): a tree of the
+    same structure holding what each node's neighbours observe (a stale
+    node exposes its last published snapshot). Neighbour terms then read
+    ``visible`` while each node's self term keeps its own fresh leaf:
+    ``out_i = sum_j W_ij v_j + W_ii (x_i - v_i)``. With no stale node
+    (``visible == tree``) the correction is exactly zero."""
+    if visible is None:
+        return tree_map(lambda p: node_matmul(w.to(p.dtype), p), tree)
+    diag = torch.diagonal(w)
+
+    def mix(p, v):
+        v = v.to(p.dtype)
+        out = node_matmul(w.to(p.dtype), v)
+        d = diag.reshape((diag.shape[0],) + (1,) * (p.dim() - 1))
+        return (out + d.to(p.dtype) * (p - v)).to(p.dtype)
+
+    return tree_map(mix, tree, visible)
 
 
 def _untie_lm_head(cfg: ModelConfig, params: dict,

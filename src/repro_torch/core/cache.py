@@ -69,6 +69,9 @@ class EngineSpec:
     head_jitter: float = 0.0
     eval_batch: int = 256        # make_evaluator batch size
     device: torch.device = torch.device("cuda")
+    net: Any = None              # netsim.NetworkConfig | None (frozen): the
+    #                              captured round runs its masks, channel
+    #                              and gossip buffer
 
 
 _FP_MEMO: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
@@ -125,7 +128,8 @@ class CacheEntry:
             n=spec.n, local_steps=spec.local_steps,
             batch_size=spec.batch_size, device=spec.device,
             track_cluster=self.program.track_cluster,
-            topology_draw=self.program.topology_draw, degree=spec.degree)
+            topology_draw=self.program.topology_draw, degree=spec.degree,
+            net=spec.net, mixable_of=self.program.mixable_of)
 
     def setup(self, draws):
         return self.program.setup(draws, self.spec.device)

@@ -19,18 +19,27 @@ This module runs the same round closures (FACADE's or a baseline's,
   rounds are drawn from the run's draws source in the loop's per-stream
   order (batch indices ``[L, n, H, B]``, then FACADE's and EL's
   permutations ``[L, n_perms, n]`` or DAC's Gumbel matrices ``[L, n, n]``;
-  D-PSGD and DEPRL draw nothing), stacked in pinned memory and copied to
-  the card once; before each replay a device-to-device copy moves round
-  i's draws into the graph's static inputs. The engine and the loop so
-  consume identical draws, and one seed still gives one run on every
-  device. This is the one deliberate difference from the reference
-  engine;
-* a segment's outputs leave the card once: ``round_bytes`` is a host float
-  from the formula, recorded when the round is captured (it never touches
-  the card), and FACADE's cluster ids are copied into row i of an ``[L,
-  n]`` device buffer after replay i. :meth:`SegmentEngine.dispatch_segment`
-  enqueues that buffer's copy into pinned host memory behind the last
-  replay and records an event after it, and another at the segment's end;
+  D-PSGD and DEPRL draw nothing; under ``net`` the round's netsim
+  uniforms and event masks, ``[L, n, n]`` and ``[L, n]``, from the run's
+  ``netsim.NetSchedule``), stacked in pinned memory and copied to the card
+  once; before each replay a device-to-device copy moves round i's draws
+  into the graph's static inputs. The engine and the loop so consume
+  identical draws, and one seed still gives one run on every device.
+  This is the one deliberate difference from the reference engine;
+* **network simulation** (``net``, a ``netsim.NetworkConfig``): the
+  captured round runs ``netwire.net_round`` (advance the channel, the
+  masks, the stale marks, the round, the gossip fold, the round's
+  seconds) as the loop does, with the channel and the gossip buffer in
+  static buffers of the carry beside the state;
+* a segment's outputs leave the card once. Off ``net``, ``round_bytes``
+  is a host float from the formula, recorded when the round is captured
+  (it never touches the card); under ``net`` each replay writes its
+  bytes and simulated seconds (float32, per round: the delivered edges
+  vary) into a static pair that is copied into row i of an ``[L, 2]``
+  device buffer after replay i, and FACADE's cluster ids likewise into
+  an ``[L, n]`` one. :meth:`SegmentEngine.dispatch_segment` enqueues those
+  buffers' copy into pinned host memory behind the last replay and
+  records an event after it, and another at the segment's end;
   :meth:`SegmentEngine.drain` waits on the copy's event alone, never on
   the stream or the device. So a pipelined driver (``run_experiment(
   pipeline=True)``) can dispatch segment t+1 and then drain segment t
@@ -76,8 +85,10 @@ from repro_torch.device import HostCopy
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.head_select import head_losses
 from repro_torch.kernels.rwkv6 import wkv
+from repro_torch.netsim import ChannelState, GossipState, NetDraws
 from repro_torch.tree import tree_map
 
+from . import netwire
 from .state import EngineCarry
 
 WARMUP_ROUNDS = 1          # eager rounds before a capture
@@ -150,23 +161,28 @@ class SegmentEngine:
     """Runs eval-to-eval spans of one algorithm's rounds on one device.
 
     ``round_fn`` / ``warmup_fn``: the round closures, ``fn(state, batches,
-    *topology) -> (state, info)`` with ``info["round_bytes"]`` a host
-    float (and ``info["cluster_id"]`` for FACADE, ``track_cluster``).
+    *topology, net=conds, gossip=published) -> (state, info)`` with
+    ``info["round_bytes"]`` a host float off ``net`` (and
+    ``info["cluster_id"]`` for FACADE, ``track_cluster``).
     ``topology_draw``: what a round draws besides its batch indices,
-    ``"perms"`` (degree ``degree``), ``"gumbel"`` or ``None``.
+    ``"perms"`` (degree ``degree``), ``"gumbel"`` or ``None``. ``net``:
+    the run's ``netsim.NetworkConfig`` or ``None``; ``mixable_of`` (state
+    -> what gossip exchanges) is needed for async gossip.
 
     The engine owns the static buffers its graphs read and write: the
-    state, the per-round inputs and, on CUDA, the train arrays. A run's
-    carry is made by :meth:`init_carry`, which copies the run's initial
-    state into them, so a later run through the same engine overwrites
-    what an earlier run left there: whatever outlives a run must be a
-    copy.
+    carry (the state and, under ``net``, the channel and the gossip
+    buffer), the per-round inputs and outputs and, on CUDA, the train
+    arrays. A run's carry is made by :meth:`init_carry`, which copies the
+    run's initial carry into them, so a later run through the same engine
+    overwrites what an earlier run left there: whatever outlives a run
+    must be a copy.
     """
 
     def __init__(self, round_fn: Callable, *, n: int, local_steps: int,
                  batch_size: int, device, warmup_fn: Callable | None = None,
                  track_cluster: bool = False,
-                 topology_draw: str | None = None, degree: int = 4):
+                 topology_draw: str | None = None, degree: int = 4,
+                 net=None, mixable_of: Callable | None = None):
         if topology_draw not in (None,) + TOPOLOGY_DRAWS:
             raise ValueError(f"unknown topology draw {topology_draw!r}")
         self._round = round_fn
@@ -178,10 +194,20 @@ class SegmentEngine:
         self._track = track_cluster
         self._topology_draw = topology_draw
         self._degree = degree
+        self._net = net
+        self._mixable_of = mixable_of
+        if net is not None and net.async_gossip and mixable_of is None:
+            raise ValueError("async_gossip needs mixable_of (state -> the "
+                             "tree gossip exchanges); "
+                             "runner.algo_program provides it")
         self._state = None       # static state tensors, {field: tree}
+        self._chan = None        # net: static ChannelState.bad [n, n]
+        self._gossip = None      # net: static {"published", "age"}
+        self._scalars = None     # net: static (bytes, seconds) of a round
         self._inputs = None      # static per-round inputs, {name: tensor}
         self._data = {}          # CUDA: static train arrays per shape/dtype
-        self._graphs = {}        # key -> (graph, round_bytes, launches)
+        self._graphs = {}        # key -> (graph, round_bytes or None,
+        #                          launches)
         self._prepared = set()   # CPU: round programs prepared
         self._pool = None
         self.compile_count = 0
@@ -214,19 +240,46 @@ class SegmentEngine:
                 for a in (train_x, train_y))
         return self._data[key]
 
-    def init_carry(self, state) -> EngineCarry:
-        """The run's carry: ``state``'s tensors copied into the engine's
-        static buffers (allocated at the first run), its round counter as
-        given."""
-        if self._state is None:
-            self._state = tree_map(
-                lambda l: torch.empty(l.shape, dtype=l.dtype,
-                                      device=self._dev), state_tensors(state))
-        self._load(state)
-        return EngineCarry(state._replace(**self._state))
+    def init_carry(self, state, chan=None, gossip=None) -> EngineCarry:
+        """The run's carry: ``state``'s tensors and, under ``net``, the
+        channel (bursty presets) and the gossip buffer (async gossip),
+        copied into the engine's static buffers (allocated at the first
+        run); the round counter as given."""
+        net = self._net
+        if (chan is None) != (net is None or net.burst is None):
+            raise ValueError(f"the engine's network {net!r} "
+                             f"{'needs' if chan is None else 'has no'} "
+                             "channel state")
+        if (gossip is None) != (net is None or not net.async_gossip):
+            raise ValueError(f"the engine's network {net!r} "
+                             f"{'needs' if gossip is None else 'has no'} "
+                             "async-gossip buffer")
 
-    def _load(self, state):
-        """Copy ``state``'s tensors into the static ones (those that are
+        def like(l):
+            return torch.empty(l.shape, dtype=l.dtype, device=self._dev)
+
+        if self._state is None:
+            self._state = tree_map(like, state_tensors(state))
+            if chan is not None:
+                self._chan = like(chan.bad)
+            if gossip is not None:
+                self._gossip = tree_map(like, dict(gossip._asdict()))
+            if net is not None:
+                self._scalars = torch.zeros((2,), dtype=torch.float32,
+                                            device=self._dev)
+        carry = EngineCarry(state, chan, gossip)
+        self._load(carry)
+        return self._static_carry(state)
+
+    def _static_carry(self, state) -> EngineCarry:
+        """A carry whose tensors are the static buffers."""
+        return EngineCarry(
+            state._replace(**self._state),
+            None if self._chan is None else ChannelState(self._chan),
+            None if self._gossip is None else GossipState(**self._gossip))
+
+    def _load(self, carry: EngineCarry):
+        """Copy ``carry``'s tensors into the static ones (those that are
         not already them), leaf by key: a round may rebuild a dict in
         another key order."""
         def put(s, l):
@@ -234,33 +287,58 @@ class SegmentEngine:
                 return
             if l.shape != s.shape or l.dtype != s.dtype:
                 raise ValueError(
-                    f"state leaf {tuple(l.shape)} {l.dtype} does not fit "
+                    f"carry leaf {tuple(l.shape)} {l.dtype} does not fit "
                     f"the engine's {tuple(s.shape)} {s.dtype}")
             s.copy_(l)
 
-        tree_map(put, self._state, state_tensors(state))
+        tree_map(put, self._state, state_tensors(carry.state))
+        if self._chan is not None:
+            put(self._chan, carry.chan.bad)
+        if self._gossip is not None:
+            tree_map(put, self._gossip, dict(carry.gossip._asdict()))
 
-    def _store(self, new_state):
-        """End of a round: the new state's tensors into the static ones,
-        leaf by key."""
-        tree_map(lambda s, l: None if l is s else s.copy_(l), self._state,
-                 state_tensors(new_state))
+    def _store(self, new_state, chan, gossip, info, round_s):
+        """End of a round: the new carry's tensors into the static ones,
+        leaf by key, and under ``net`` the round's bytes and seconds into
+        the static pair."""
+        def put(s, l):
+            if l is not s:
+                s.copy_(l)
+
+        tree_map(put, self._state, state_tensors(new_state))
+        if self._net is not None:
+            if self._chan is not None:
+                put(self._chan, chan.bad)
+            if self._gossip is not None:
+                tree_map(put, self._gossip, dict(gossip._asdict()))
+            self._scalars[0].copy_(info["round_bytes"])
+            self._scalars[1].copy_(round_s)
 
     # -- draws --------------------------------------------------------------
-    def _draw_segment(self, source, length: int, per_node: int) -> dict:
-        """``length`` rounds of draws from ``source``, in the loop's
-        per-stream order, each stacked ``[length, ...]`` and moved to the
-        device in one copy (from pinned memory on CUDA)."""
+    def _draw_segment(self, source, start: int, length: int, per_node: int,
+                      sched=None) -> dict:
+        """``length`` rounds of draws from ``source`` (and, under ``net``,
+        from its schedule ``sched``), in the loop's per-stream order, each
+        stacked ``[length, ...]`` and moved to the device in one copy
+        (from pinned memory on CUDA)."""
         n, idx, topo = self._n, [], []
-        for _ in range(length):
+        nets = {f: [] for f in NetDraws._fields}
+        for rnd in range(start, start + length):
             idx.append(source.batch_indices(n, self._h, self._b, per_node))
             if self._topology_draw == "perms":
                 topo.append(source.perms(n, self._degree))
             elif self._topology_draw == "gumbel":
                 topo.append(source.gumbel(n))
+            if sched is not None:
+                for f, v in zip(NetDraws._fields, sched.round(rnd)):
+                    if v is not None:
+                        nets[f].append(v)
         out = {"idx": self._stack(idx)}
         if topo:
             out[self._topology_draw] = self._stack(topo)
+        for f, parts in nets.items():
+            if parts:
+                out["net." + f] = self._stack(parts)
         return out
 
     def _stack(self, parts) -> torch.Tensor:
@@ -280,103 +358,149 @@ class SegmentEngine:
     def _topology_args(self, inputs: dict) -> tuple:
         return tuple(inputs[k] for k in TOPOLOGY_DRAWS if k in inputs)
 
+    def _step(self, fn, carry: EngineCarry, inputs: dict, train_x,
+              train_y) -> tuple:
+        """One round of ``fn`` from ``carry`` on ``inputs`` (one round's
+        draws, on the device): ``(state, chan, gossip, info, round_s)``,
+        under ``net`` through ``netwire.net_round``, the loop's path."""
+        batches = pipeline.sample_round_batches(inputs["idx"], train_x,
+                                                train_y)
+        topo = self._topology_args(inputs)
+        if self._net is None:
+            state, info = fn(carry.state, batches, *topo)
+            return state, None, None, info, None
+        draws = NetDraws(**{f: inputs.get("net." + f)
+                            for f in NetDraws._fields})
+        return netwire.net_round(fn, self._mixable_of, carry.state,
+                                 carry.chan, carry.gossip, batches, topo,
+                                 self._net, draws, self._h)
+
     # -- one segment --------------------------------------------------------
     def dispatch_segment(self, carry: EngineCarry, start: int, length: int,
-                         train_x, train_y, source, warmup: bool = False):
-        """Draw ``length`` rounds from ``source`` and run them from
+                         train_x, train_y, source, warmup: bool = False,
+                         net=None):
+        """Draw ``length`` rounds from ``source`` (under ``net``, the run's
+        ``netsim.NetSchedule``, also its network draws) and run them from
         ``carry``; returns ``(new_carry, outs)`` with the per-round outs
-        still in flight (pair with :meth:`drain`): FACADE's cluster ids as
-        a :class:`~repro_torch.device.HostCopy` enqueued behind the
-        segment's last round, and ``outs["end"]``, on CUDA an event
-        recorded at the segment's end (``None`` on the CPU). ``start`` is
-        the segment's first round, 0-based; the state's round counter
-        follows it. On CUDA, apart from a round's first capture (which
-        synchronises the device), nothing here waits for the card."""
+        still in flight (pair with :meth:`drain`): FACADE's cluster ids
+        and, under ``net``, each round's bytes and seconds as one
+        :class:`~repro_torch.device.HostCopy` enqueued behind the
+        segment's last round (``outs["copy"]``), and ``outs["end"]``, on
+        CUDA an event recorded at the segment's end (``None`` on the CPU).
+        ``start`` is the segment's first round, 0-based; the state's round
+        counter follows it. On CUDA, apart from a round's first capture
+        (which synchronises the device), nothing here waits for the
+        card."""
         if carry.state.round != start:
             raise ValueError(f"carry is at round {carry.state.round}, the "
                              f"segment starts at {start}")
-        draws = self._draw_segment(source, length, train_x.shape[1])
-        self._load(carry.state)
-        state = carry.state._replace(**self._state)
+        if (net is None) != (self._net is None) or (
+                net is not None and net.cfg != self._net):
+            raise ValueError(f"the engine runs network {self._net!r}; "
+                             f"dispatch_segment got the schedule of "
+                             f"{None if net is None else net.cfg!r}")
+        draws = self._draw_segment(source, start, length, train_x.shape[1],
+                                   net)
+        self._load(carry)
+        carry = self._static_carry(carry.state)
         fn = self._warm if warmup else self._round
         key = (warmup,) + _data_key(train_x, train_y)
         if self._dev.type == "cuda":
             outs = self._replay(key, fn, draws, length, train_x, train_y,
-                                state)
+                                carry)
         else:
             outs = self._eager(key, fn, draws, length, train_x, train_y,
-                               state)
-        if "cluster_id" in outs:
-            outs["cluster_id"] = HostCopy(outs["cluster_id"])
+                               carry)
+        device_outs = outs.pop("device")
+        outs["copy"] = HostCopy(device_outs) if device_outs else None
         outs["end"] = None
         if self._dev.type == "cuda":
             outs["end"] = torch.cuda.Event()
             outs["end"].record(torch.cuda.current_stream(self._dev))
-        return EngineCarry(state._replace(round=start + length)), outs
+        return carry._replace(
+            state=carry.state._replace(round=start + length)), outs
 
     def drain(self, outs) -> dict:
         """A dispatched segment's outs on the host: ``round_bytes`` ``[L]``
-        float64 and, for FACADE, ``cluster_id`` ``[L, n]``, waiting on
-        the event behind the cluster ids' copy and on nothing enqueued
-        after it."""
-        host = dict(outs)
-        if "cluster_id" in host:
-            host["cluster_id"] = host["cluster_id"].wait()
+        float64, under ``net`` ``round_s`` ``[L]`` float64 (the float32
+        values each round computed) and, for FACADE, ``cluster_id`` ``[L,
+        n]``, waiting on the event behind their copy and on nothing
+        enqueued after it."""
+        host = {"round_bytes": outs["round_bytes"]}
+        if outs["copy"] is not None:
+            got = outs["copy"].wait()
+            if "cluster_id" in got:
+                host["cluster_id"] = got["cluster_id"]
+            if "scalars" in got:
+                pair = got["scalars"].numpy().astype(np.float64)
+                host["round_bytes"], host["round_s"] = pair[:, 0], pair[:, 1]
         return host
 
     def run_segment(self, carry: EngineCarry, start: int, length: int,
-                    train_x, train_y, source, warmup: bool = False):
+                    train_x, train_y, source, warmup: bool = False,
+                    net=None):
         """:meth:`dispatch_segment`, then :meth:`drain`."""
         carry, outs = self.dispatch_segment(carry, start, length, train_x,
-                                            train_y, source, warmup=warmup)
+                                            train_y, source, warmup=warmup,
+                                            net=net)
         return carry, self.drain(outs)
 
-    def _cluster_buffer(self, length: int):
-        if not self._track:
-            return None
-        return torch.empty((length, self._n), dtype=torch.long,
-                           device=self._dev)
+    def _out_buffers(self, length: int) -> dict:
+        """The segment's device outputs, filled row by row after each
+        round: FACADE's cluster ids ``[L, n]`` and, under ``net``, the
+        rounds' (bytes, seconds) ``[L, 2]``."""
+        out = {}
+        if self._track:
+            out["cluster_id"] = torch.empty((length, self._n),
+                                            dtype=torch.long,
+                                            device=self._dev)
+        if self._net is not None:
+            out["scalars"] = torch.empty((length, 2), dtype=torch.float32,
+                                         device=self._dev)
+        return out
 
-    def _eager(self, key, fn, draws, length, train_x, train_y, state):
+    def _fill_row(self, bufs: dict, i: int):
+        if "cluster_id" in bufs:
+            bufs["cluster_id"][i].copy_(self._state["cluster_id"])
+        if "scalars" in bufs:
+            bufs["scalars"][i].copy_(self._scalars)
+
+    def _eager(self, key, fn, draws, length, train_x, train_y, carry):
         if key not in self._prepared:
             self._prepared.add(key)
             self.compile_count += 1
         rb = np.empty(length, np.float64)
-        cid = self._cluster_buffer(length)
+        bufs = self._out_buffers(length)
         for i in range(length):
             inputs = {k: v[i] for k, v in draws.items()}
-            batches = pipeline.sample_round_batches(inputs["idx"], train_x,
-                                                    train_y)
-            new, info = fn(state, batches, *self._topology_args(inputs))
-            self._store(new)
-            state = state._replace(round=state.round + 1)
-            rb[i] = info["round_bytes"]
-            if cid is not None:
-                cid[i].copy_(self._state["cluster_id"])
-        outs = {"round_bytes": rb}
-        if cid is not None:
-            outs["cluster_id"] = cid
-        return outs
+            state, chan, gossip, info, round_s = self._step(
+                fn, carry, inputs, train_x, train_y)
+            self._store(state, chan, gossip, info, round_s)
+            carry = carry._replace(
+                state=carry.state._replace(round=carry.state.round + 1))
+            if self._net is None:
+                rb[i] = info["round_bytes"]
+            self._fill_row(bufs, i)
+        return {"round_bytes": None if self._net is not None else rb,
+                "device": bufs}
 
-    def _replay(self, key, fn, draws, length, train_x, train_y, state):
+    def _replay(self, key, fn, draws, length, train_x, train_y, carry):
         train_x, train_y = self._bind_data(train_x, train_y)
         if key not in self._graphs:
             self._set_inputs(draws, 0)
-            self._graphs[key] = self._capture(fn, train_x, train_y, state)
+            self._graphs[key] = self._capture(fn, train_x, train_y, carry)
             self.compile_count += 1
         graph, round_bytes, launches = self._graphs[key]
-        cid = self._cluster_buffer(length)
+        bufs = self._out_buffers(length)
         for i in range(length):
             self._set_inputs(draws, i)
             graph.replay()
             for kernel, count in launches:
                 kernel.launches += count
-            if cid is not None:
-                cid[i].copy_(self._state["cluster_id"])
-        outs = {"round_bytes": np.full(length, round_bytes, np.float64)}
-        if cid is not None:
-            outs["cluster_id"] = cid
-        return outs
+            self._fill_row(bufs, i)
+        return {"round_bytes": None if round_bytes is None
+                else np.full(length, round_bytes, np.float64),
+                "device": bufs}
 
     def _bind_data(self, train_x, train_y) -> tuple:
         """The static train arrays of these shapes, refilled from the
@@ -387,21 +511,25 @@ class SegmentEngine:
                 s.copy_(a)
         return static
 
-    def _capture(self, fn, train_x, train_y, state) -> tuple:
-        """Warm ``fn`` up on a scratch clone of ``state`` (the static
+    def _capture(self, fn, train_x, train_y, carry) -> tuple:
+        """Warm ``fn`` up on a scratch clone of ``carry`` (the static
         tensors), then capture one round of it into a graph that reads the
-        static inputs and state and ends by writing the new state over the
-        old. Returns ``(graph, round_bytes, [(kernel, launches a
-        replay)])``."""
+        static inputs and carry and ends by writing the new carry (and,
+        under ``net``, the round's bytes and seconds) over the old.
+        Returns ``(graph, round_bytes or None under net, [(kernel,
+        launches a replay)])``."""
         t0 = time.perf_counter()
         inputs, name = self._inputs, _name(fn)
 
-        def one_round(st):
-            batches = pipeline.sample_round_batches(inputs["idx"], train_x,
-                                                    train_y)
-            return fn(st, batches, *self._topology_args(inputs))
+        def one_round(c):
+            return self._step(fn, c, inputs, train_x, train_y)
 
-        scratch = state._replace(**tree_map(torch.clone, self._state))
+        scratch = EngineCarry(
+            carry.state._replace(**tree_map(torch.clone, self._state)),
+            None if carry.chan is None else ChannelState(
+                carry.chan.bad.clone()),
+            None if carry.gossip is None else GossipState(
+                **tree_map(torch.clone, dict(carry.gossip._asdict()))))
         side = _capture_stream(self._dev)
         side.wait_stream(torch.cuda.current_stream(self._dev))
         try:
@@ -416,9 +544,11 @@ class SegmentEngine:
         torch.cuda.current_stream(self._dev).wait_stream(side)
         del scratch
 
-        def captured_round() -> float:
-            new, info = one_round(state)
-            self._store(new)
+        def captured_round():
+            new, chan, gossip, info, round_s = one_round(carry)
+            self._store(new, chan, gossip, info, round_s)
+            if self._net is not None:
+                return None
             rb = info["round_bytes"]
             if not isinstance(rb, (int, float)):
                 raise TypeError(f"round function {name} returned "

@@ -1,4 +1,5 @@
-"""The FACADE algorithm (paper Sec. III-D) on the ideal medium.
+"""The FACADE algorithm (paper Sec. III-D), on the ideal medium or under
+simulated network conditions (``net=``, :mod:`repro_torch.netsim`).
 
 One call to ``facade_round`` executes, for all nodes at once:
 
@@ -16,7 +17,6 @@ from __future__ import annotations
 
 import dataclasses
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -26,7 +26,8 @@ from repro_torch.tree import tree_map
 from . import split, topology
 from .bindings import (Binding, gossip_mix, local_sgd, node_head_matmul,
                        node_matmul)
-from .state import FacadeState
+from .netwire import comm_info, masked_topology, sent_view
+from .state import FacadeState, freeze_inactive
 
 
 @dataclasses.dataclass(frozen=True)
@@ -37,23 +38,26 @@ class FacadeConfig:
     lr: float = 0.01
 
 
-def _aggregate_heads(adj, cluster_id, heads, k: int):
+def _aggregate_heads(adj, cluster_id, heads, k: int, sent_heads=None):
     """Eq. 4: for each node i and cluster j, average the heads sent by
     neighbors claiming cluster j together with i's own stored head j.
-    heads [n, k, ...]; node j' sends its head ``heads[j', cid[j']]``."""
+    heads [n, k, ...]; node j' sends its head ``sent_heads[j', cid[j']]``.
+    ``cluster_id`` and ``sent_heads`` (default ``heads``) are what each
+    node publishes this round (under async gossip a stale node publishes
+    its old snapshot); ``heads`` is always the receiver's own bank."""
     n = adj.shape[0]
     rows = torch.arange(n, device=adj.device)
     onehot = F.one_hot(cluster_id, k).to(torch.float32)      # [n, k]
     denom = 1.0 + node_matmul(adj, onehot)                   # [n, k]
 
-    def agg(h_all):
-        sent = h_all[rows, cluster_id]                       # [n, ...]
+    def agg(h_all, h_sent):
+        sent = h_sent[rows, cluster_id]                      # [n, ...]
         recv = node_head_matmul(adj.to(sent.dtype), onehot.to(sent.dtype),
                                 sent)
         d = denom.reshape(denom.shape + (1,) * (h_all.dim() - 2))
         return ((h_all + recv) / d.to(h_all.dtype)).to(h_all.dtype)
 
-    return tree_map(agg, heads)
+    return tree_map(agg, heads, heads if sent_heads is None else sent_heads)
 
 
 def _select_heads(binding: Binding, cores, heads, batch, n: int):
@@ -75,7 +79,8 @@ def payload_bytes(state: FacadeState) -> int:
 
 
 def facade_round(fcfg: FacadeConfig, binding: Binding, state: FacadeState,
-                 batches, perms, warmup: bool = False):
+                 batches, perms, warmup: bool = False, net=None,
+                 gossip=None):
     """One synchronous FACADE round for all nodes.
 
     batches: per node and local step, ``{"x": [n, H, B, ...], "y": [n, H,
@@ -83,15 +88,37 @@ def facade_round(fcfg: FacadeConfig, binding: Binding, state: FacadeState,
     for a language model; perms: the round's topology permutations
     (:func:`topology.random_regular`). ``warmup`` (App. F) trains head 0
     everywhere and copies it to every slot.
-    Returns (new_state, info with losses, selection and round bytes).
+    net: the round's ``netsim.RoundConditions``, or ``None`` for the ideal
+    medium. With conditions, the drawn topology is filtered through
+    :func:`topology.effective_adjacency`, offline nodes neither mix nor
+    train (their state is frozen), and the bytes count the directed edges
+    that carried a message. gossip: the async-gossip published snapshot
+    (``cores`` / ``heads`` / ``cluster_id``), which stale nodes
+    (``net.stale``) expose to their neighbours instead of this round's
+    state.
+    Returns (new_state, info with losses, selection, the round's bytes and
+    what ``netwire.round_seconds`` needs).
     """
     n, k = fcfg.n_nodes, fcfg.k
-    adj = topology.random_regular(perms, n, fcfg.degree)
+    adj = masked_topology(net, topology.random_regular(perms, n,
+                                                       fcfg.degree))
     w = topology.mixing_matrix(adj)
 
+    # --- what each node's neighbours receive: its fresh state, unless it
+    # --- stays stale under async gossip ---
+    sent = sent_view(net, gossip, {"cores": state.cores,
+                                   "heads": state.heads,
+                                   "cluster_id": state.cluster_id})
+    if sent is None:
+        vis_cores, sent_heads, sent_cid = None, None, state.cluster_id
+    else:
+        vis_cores, sent_heads = sent["cores"], sent["heads"]
+        sent_cid = sent["cluster_id"]
+
     # --- aggregation (steps 2a/2b) ---
-    cores = gossip_mix(w, state.cores)
-    heads = _aggregate_heads(adj, state.cluster_id, state.heads, k)
+    cores = gossip_mix(w, state.cores, vis_cores)
+    heads = _aggregate_heads(adj, sent_cid, state.heads, k,
+                             sent_heads=sent_heads)
 
     # --- cluster identification (step 2c) on the first local batch ---
     first = {key: b[:, 0] for key, b in batches.items()}
@@ -111,14 +138,17 @@ def facade_round(fcfg: FacadeConfig, binding: Binding, state: FacadeState,
             new_head)
     else:
         new_heads = split.set_head(heads, new_cid, new_head)
+    if net is not None:
+        new_cid = torch.where(net.active > 0, new_cid, state.cluster_id)
+        new_cores = freeze_inactive(net.active, new_cores, state.cores)
+        new_heads = freeze_inactive(net.active, new_heads, state.heads)
 
-    # --- communication accounting: n * degree pushes of (core, head, cid),
-    # held as float32 like the reference's nominal count ---
-    round_bytes = float(np.float32(n * fcfg.degree * payload_bytes(state)))
+    # --- communication accounting: each node pushes (core, head, cid) ---
     new_state = FacadeState(cores=new_cores, heads=new_heads,
                             cluster_id=new_cid, round=state.round + 1)
     return new_state, {"selection_losses": losses, "cluster_id": new_cid,
-                       "round_bytes": round_bytes}
+                       **comm_info(net, adj, payload_bytes(state),
+                                   n * fcfg.degree)}
 
 
 def final_allreduce(fcfg: FacadeConfig, state: FacadeState) -> FacadeState:

@@ -1,0 +1,123 @@
+"""Shared network-simulation plumbing of every round function (FACADE and
+the baselines), the port of ``repro.core.netwire``.
+
+Each algorithm's round follows one contract: draw its topology, filter it
+through the round's network conditions, and, when a
+``netsim.RoundConditions`` is given, report the effective adjacency and
+the per-message payload, from which the drivers compute the round's
+simulated seconds. Keeping it here means a new algorithm needs no
+netsim-specific code, and the byte accounting lives in one place.
+
+Under async gossip (``conds.stale`` set; ``None`` on every synchronous
+path):
+
+* :func:`stale_view` is the per-node tree neighbours observe (stale nodes
+  expose their published snapshot), fed to ``bindings.gossip_mix``;
+* :func:`comm_info` counts no fresh bytes for what a stale node "sends":
+  its neighbours reuse the copy they hold;
+* :func:`round_seconds` drops stale nodes from the round's gating set.
+
+Offline nodes need no accounting of their own: ``active == 0`` zeroes
+their directed edges in ``effective_adjacency`` (0 bytes), and
+``round_time``'s ``active`` product keeps them out of the gating set.
+
+The reference's mesh constraint (``meshctx.constrain_rows``) is the
+identity on one device, and its payload corruption (``sent_view`` with a
+``FaultConfig``) comes with ``resil`` (ROADMAP.md queue 1 item 4b).
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch import netsim
+
+from . import topology
+
+
+def masked_topology(net, adj):
+    """The round's drop and churn masks applied to ``adj`` (the identity
+    when ``net is None``)."""
+    if net is None:
+        return adj
+    return topology.effective_adjacency(adj, net.edge_mask, net.active)
+
+
+def stale_view(net, published, fresh):
+    """The node-stacked tree neighbours observe under async gossip: the
+    published snapshot where ``net.stale == 1``, the fresh leaves
+    elsewhere. ``None`` (everyone fresh: the plain mixing path) whenever
+    async gossip is off or no buffer was given."""
+    if net is None or published is None or net.stale is None:
+        return None
+    return netsim.tree_select(net.stale, published, fresh)
+
+
+def sent_view(net, published, fresh):
+    """What each node's neighbours receive this round: the stale view.
+    The reference composes it with payload corruption, which comes with
+    ``resil``; until then this is :func:`stale_view`."""
+    return stale_view(net, published, fresh)
+
+
+def comm_info(net, adj_eff, payload_bytes: int, nominal_sends: int) -> dict:
+    """The round's bytes, and what the timing model needs.
+
+    Without netsim, the nominal count (``n * degree`` directed pushes) as
+    a host float, held as float32 as the reference holds it. Under netsim,
+    the directed edges that carried a message this round, a float32 0-d
+    tensor on the round's device (their float32 count times the payload);
+    under async gossip the edges out of a stale node carry no new bytes,
+    so its rows are left out. ``adj_eff`` and ``payload_bytes`` ride along
+    for :func:`round_seconds`."""
+    if net is None:
+        return {"round_bytes": float(np.float32(nominal_sends
+                                                * payload_bytes)),
+                "adj_eff": adj_eff, "payload_bytes": payload_bytes}
+    sends = adj_eff
+    if net.stale is not None:
+        sends = adj_eff * (1.0 - net.stale)[:, None]
+    return {"round_bytes": sends.sum() * payload_bytes, "adj_eff": adj_eff,
+            "payload_bytes": payload_bytes}
+
+
+def round_seconds(net, info: dict, conds, local_steps: int, tiers=None):
+    """Simulated wall-clock of one round from its :func:`comm_info`, a
+    float32 0-d tensor on the round's device (``0.0`` when netsim is off).
+    ``tiers``: the node tiers (``NetDraws.tiers``), needed iff
+    ``net.classes`` is set. Stale nodes (async gossip) leave the gating
+    set: only nodes that must finish this round can stretch it."""
+    if net is None:
+        return 0.0
+    active = conds.active
+    adj_gate = info["adj_eff"]
+    if conds.stale is not None:
+        # stale nodes neither gate the round nor make anyone wait on a
+        # transfer: receivers reuse the cached snapshot (column mask), and
+        # the stale node's own compute overlaps later rounds (gate)
+        active = active * (1.0 - conds.stale)
+        adj_gate = adj_gate * (1.0 - conds.stale)[None, :]
+    payload = torch.full((), float(info["payload_bytes"]),
+                         dtype=torch.float32, device=adj_gate.device)
+    return netsim.round_time(net, adj_gate, payload, active, conds.straggler,
+                             local_steps=local_steps, tiers=tiers)
+
+
+def net_round(fn, mixable_of, state, chan, gossip, batches,
+              topology_args: tuple, net, draws, local_steps: int):
+    """One round of ``fn`` (a round function) under network simulation,
+    in the reference drivers' order: advance the channel and make the
+    masks from the round's ``draws`` (a ``netsim.NetDraws`` on the
+    round's device), mark the stale nodes, run the round, fold the new
+    state's ``mixable_of`` into the gossip buffer, and time the round.
+    Returns ``(state, chan, gossip, info, round_s)``, ``round_s`` a
+    float32 0-d tensor. Both drivers (the loop and the engine's captured
+    round) run every netsim round through this."""
+    conds, chan = netsim.advance_conditions(net, draws, chan)
+    conds, published = netsim.apply_async(net, conds, gossip)
+    state, info = fn(state, batches, *topology_args, net=conds,
+                     gossip=published)
+    if published is not None:
+        gossip = netsim.fold_gossip(net, gossip, conds, mixable_of(state))
+    round_s = round_seconds(net, info, conds, local_steps, tiers=draws.tiers)
+    return state, chan, gossip, info, round_s

@@ -14,18 +14,25 @@ other, or pipelined (``pipeline=True``: segment t+1 dispatched before
 segment t is drained), and checkpoints and resumes a run at segment
 boundaries (``ckpt=``). The seed-independent machinery (binding, round
 closures, engine, evaluator) comes from an :class:`~.cache.EngineCache`
-(``cache=``; a private one by default). The reference's mesh, network
-simulation, adaptive topology and telemetry (``mesh=``, ``net=``,
-``topo=``, ``obs=``) are not ported yet, and ``run_experiment`` does not
-accept their parameters.
+(``cache=``; a private one by default). Both drivers run the five
+algorithms under simulated network conditions (``net=``, a
+``netsim.NetworkConfig``): each round's masks, the bursty channel and the
+async-gossip buffer are threaded through the loop, and carried in the
+engine's static buffers. The reference's mesh, adaptive topology, fault
+injection and telemetry (``mesh=``, ``topo=``, ``net.faults``, ``obs=``)
+are not ported yet; ``run_experiment`` has no parameter for the first,
+second and fourth and refuses a ``net`` with ``faults``.
 
 Randomness comes from a *draws* source (:class:`TorchDraws` by default):
 it supplies the initial parameters, each round's ``[n, H, B]`` batch
 indices and each round's topology draw (FACADE and EL: the permutations
 of a random regular graph; DAC: a Gumbel matrix; D-PSGD and DEPRL, on a
-static ring: none), so a run can replay another's draws exactly.
-``TorchDraws`` draws on the CPU and the runner moves the draws to the
-run's device, so one seed gives the same draws on every device. The run's
+static ring: none) and, under ``net``, the uniforms of the network
+simulation (``net_uniform``/``net_randint``, counter-based: a draw
+depends only on the network's seed, its stream and its round), so a run
+can replay another's draws exactly. ``TorchDraws`` draws on the CPU and
+the runner moves the draws to the run's device, so one seed gives the
+same draws on every device. The run's
 randomness lives in the draws source and not in the engine's carry, so a
 checkpoint holds the source's state (``state()`` / ``set_state``).
 """
@@ -41,22 +48,24 @@ import torch
 
 from repro_torch import checkpoint
 from repro_torch import device as device_mod
+from repro_torch import netsim
 from repro_torch.comm import CommLog
 from repro_torch.data import pipeline as pipeline_mod
 from repro_torch.data.tokens import TokenSpec, make_clustered_tokens
 from repro_torch.device import HostCopy
-from repro_torch.obs import EvalFrame, compute_eval_frame, fingerprint
+from repro_torch.obs import (EvalFrame, compute_eval_frame, fingerprint,
+                             tiers_of)
 from repro_torch.tree import tree_map
 
 from . import facade as facade_mod
-from . import split, topology
+from . import netwire, split, topology
 from .baselines import (DACConfig, DeprlConfig, DpsgdConfig, ELConfig,
                         dac_round, deprl_round, dpsgd_round, el_round,
                         init_dac_extra)
 from .bindings import Binding, make_binding
 from .cache import EngineCache, EngineSpec
 from .engine import SegmentEngine, segment_plan, state_tensors
-from .state import init_baseline_state, init_facade_state
+from .state import EngineCarry, init_baseline_state, init_facade_state
 
 # baseline -> (config, round function, the round's topology draw)
 BASELINES = {"el": (ELConfig, el_round, "perms"),
@@ -89,7 +98,12 @@ class RunResult:
 class TorchDraws:
     """The port's own draws, from CPU ``torch.Generator``s seeded with
     ``seed``: one stream for the initial parameters, one for batch
-    indices and one for topologies (permutations or Gumbel draws)."""
+    indices and one for topologies (permutations or Gumbel draws). The
+    network simulation's uniforms come from
+    :class:`~repro_torch.netsim.CounterDraws`, a generator per ``(network
+    seed, stream, index)``, which holds no state."""
+
+    _net = netsim.CounterDraws()
 
     def __init__(self, seed: int):
         streams = np.random.SeedSequence(seed).generate_state(3)
@@ -119,6 +133,13 @@ class TorchDraws:
             min=torch.finfo(torch.float32).tiny)
         return -torch.log(-torch.log(u))
 
+    def net_uniform(self, seed: int, tag: int, index: int, shape):
+        return self._net.net_uniform(seed, tag, index, shape)
+
+    def net_randint(self, seed: int, tag: int, index: int, shape,
+                    high: int):
+        return self._net.net_randint(seed, tag, index, shape, high)
+
     def state(self) -> dict:
         """The three generators' states: what a checkpoint must hold for a
         resumed run to draw what the uninterrupted run draws."""
@@ -136,13 +157,12 @@ class TorchDraws:
 # --------------------------------------------------------------------------
 class AlgoProgram(NamedTuple):
     """The seed-independent part of an algorithm, behind one round
-    signature: ``round_fn(state, batches, *topology) -> (state, info)``,
-    where ``topology`` is the round's ``topology_draw`` (FACADE and EL:
-    ``perms``, DAC: ``gumbel``, D-PSGD and DEPRL: none). ``EngineCache``
-    memoizes programs per static configuration and mints each run's
-    :class:`AlgoSetup` with :meth:`setup`. (The reference's
-    ``mixable_of``, which its async-gossip buffers read, comes with
-    netsim.)"""
+    signature: ``round_fn(state, batches, *topology, net=conds,
+    gossip=published) -> (state, info)``, where ``topology`` is the
+    round's ``topology_draw`` (FACADE and EL: ``perms``, DAC: ``gumbel``,
+    D-PSGD and DEPRL: none). ``EngineCache`` memoizes programs per static
+    configuration and mints each run's :class:`AlgoSetup` with
+    :meth:`setup`."""
     init_state: Callable       # (draws, device) -> initial stacked state
     round_fn: Callable         # main-phase round
     warmup_fn: Callable        # warmup-phase round (== round_fn off-FACADE)
@@ -150,6 +170,8 @@ class AlgoProgram(NamedTuple):
     finalize: Callable         # applied to the state after the last round
     track_cluster: bool        # info carries a per-round cluster_id [n]
     topology_draw: str | None  # "perms" | "gumbel" | None
+    mixable_of: Callable       # state -> what gossip exchanges (the async
+    #                            staleness buffer snapshots this tree)
 
     def setup(self, draws, device) -> "AlgoSetup":
         return AlgoSetup(self, self.init_state(draws, device))
@@ -183,7 +205,9 @@ def algo_program(algo: str, binding: Binding, n: int, k: int, *,
                                         binding, warmup=True),
             models_of=facade_mod.node_models,
             finalize=functools.partial(facade_mod.final_allreduce, fcfg),
-            track_cluster=True, topology_draw="perms")
+            track_cluster=True, topology_draw="perms",
+            mixable_of=lambda s: {"cores": s.cores, "heads": s.heads,
+                                  "cluster_id": s.cluster_id})
     if algo in BASELINES:
         cfg_cls, round_fn, topology_draw = BASELINES[algo]
         fn = functools.partial(
@@ -198,7 +222,8 @@ def algo_program(algo: str, binding: Binding, n: int, k: int, *,
         return AlgoProgram(
             init_state=init_state, round_fn=fn, warmup_fn=fn,
             models_of=lambda s: s.params, finalize=lambda s: s,
-            track_cluster=False, topology_draw=topology_draw)
+            track_cluster=False, topology_draw=topology_draw,
+            mixable_of=lambda s: s.params)
     raise ValueError(f"algorithm {algo!r} is not ported yet; the port "
                      f"runs {ALGOS}")
 
@@ -289,7 +314,8 @@ class _History:
     accuracy and the target-accuracy stop condition."""
 
     def __init__(self, node_cluster, n: int, evaluator, models_of,
-                 target_acc, verbose: bool, algo: str, n_classes: int):
+                 target_acc, verbose: bool, algo: str, n_classes: int,
+                 tiers=None):
         self.comm = CommLog()
         self.acc_hist, self.fair_hist, self.cluster_hist = [], [], []
         self.dp = self.eo = 0.0
@@ -305,6 +331,7 @@ class _History:
         self._verbose = verbose
         self._algo = algo
         self._n_classes = n_classes
+        self._tiers = tiers
 
     def eval_begin(self, state):
         """Enqueue the eval of ``state``: every cluster's prediction and,
@@ -338,7 +365,8 @@ class _History:
         eval_cid = None if cid is None else cid.wait().numpy()
         frame = compute_eval_frame(
             rnd, accs, cids, preds_c, labels_c, node_acc, self._n_classes,
-            mean_acc=mean_acc, prev_cid=self._prev_eval_cid, cid=eval_cid)
+            mean_acc=mean_acc, tiers=self._tiers,
+            prev_cid=self._prev_eval_cid, cid=eval_cid)
         self._prev_eval_cid = eval_cid
         self.eval_frames.append(frame)
         self.fair_hist.append((rnd, frame.fair_acc))
@@ -370,7 +398,8 @@ def run_experiment(algo: str, cfg, dataset, *, rounds: int,
                    verbose: bool = False, device="cuda", draws=None,
                    engine: bool = True, pipeline: bool = False,
                    cache: EngineCache | None = None,
-                   ckpt: str | None = None) -> RunResult:
+                   ckpt: str | None = None,
+                   net: "netsim.NetworkConfig | None" = None) -> RunResult:
     """Run one (algorithm, dataset) experiment end to end on ``device``.
 
     ``algo`` is one of :data:`ALGOS`. ``draws`` supplies the initial
@@ -381,6 +410,15 @@ def run_experiment(algo: str, cfg, dataset, *, rounds: int,
     each eval-to-eval span replays one captured round, with one host
     transfer a span); ``False`` the per-round loop. On one device both
     give the same run bit for bit.
+
+    ``net``: a :class:`repro_torch.netsim.NetworkConfig` (for example
+    ``NetworkConfig.preset("edge-churn")``) simulates message loss, churn,
+    stragglers, bursty links, link tiers and async stale gossip for any
+    algorithm on either driver; the ``CommLog`` then counts the bytes
+    actually delivered and carries simulated seconds beside them, and the
+    eval frames split accuracy by link tier. ``None`` is the ideal-medium
+    path. A config with ``faults`` set is refused (``ValueError``): fault
+    injection is not ported yet.
 
     ``pipeline`` (engine only): dispatch segment t+1 before segment t is
     drained, so the host's work on segment t (the drain, the eval's
@@ -424,14 +462,14 @@ def run_experiment(algo: str, cfg, dataset, *, rounds: int,
                     target_acc=target_acc, eval_batch=eval_batch,
                     verbose=verbose, device=device, draws=draws,
                     engine=engine, pipeline=pipeline, cache=cache,
-                    ckpt=ckpt)
+                    ckpt=ckpt, net=net)
 
 
 def _run(algo: str, cfg, dataset, *, rounds: int, k, degree: int,
          local_steps: int, batch_size: int, lr: float, eval_every: int,
          seed: int, warmup_rounds: int, head_jitter: float, target_acc,
          eval_batch: int, verbose: bool, device, draws, engine: bool,
-         pipeline: bool, cache, ckpt) -> RunResult:
+         pipeline: bool, cache, ckpt, net) -> RunResult:
     if ckpt is not None and not engine:
         raise ValueError(
             "ckpt= needs the segment engine (engine=True): the legacy "
@@ -443,6 +481,15 @@ def _run(algo: str, cfg, dataset, *, rounds: int, k, degree: int,
     if algo not in ALGOS:
         raise ValueError(f"algorithm {algo!r} is not ported yet; the port "
                          f"runs {ALGOS}")
+    if net is not None and not isinstance(net, netsim.NetworkConfig):
+        raise TypeError(f"net must be a netsim.NetworkConfig or None, not "
+                        f"{type(net).__name__}")
+    if net is not None and net.faults is not None:
+        raise ValueError(
+            "net.faults is set, but fault injection (repro.resil: the "
+            "crash chain, payload corruption and the robust aggregation "
+            "guard) is not ported yet (ROADMAP.md queue 1 item 4b); run "
+            "with faults=None")
     if eval_every <= 0:
         raise ValueError(
             f"eval_every={eval_every} must be a positive round count")
@@ -472,7 +519,7 @@ def _run(algo: str, cfg, dataset, *, rounds: int, k, degree: int,
     spec = EngineSpec(algo=algo, cfg=cfg, n=n, k=k, degree=degree,
                       local_steps=local_steps, batch_size=batch_size, lr=lr,
                       warmup_rounds=warmup_rounds, head_jitter=head_jitter,
-                      eval_batch=eval_batch, device=dev)
+                      eval_batch=eval_batch, device=dev, net=net)
     ckpt_fp = None
     if ckpt is not None:
         # everything that shapes the trajectory or the resume schedule; a
@@ -480,7 +527,8 @@ def _run(algo: str, cfg, dataset, *, rounds: int, k, degree: int,
         ckpt_fp = fingerprint({
             "spec": repr(spec), "seed": seed, "rounds": rounds,
             "eval_every": eval_every, "warmup_rounds": warmup_rounds,
-            "target": repr(target_acc), "draws": type(draws).__name__})
+            "target": repr(target_acc), "draws": type(draws).__name__,
+            "net": repr(net)})
     entry = cache.entry(spec)
     # pinned while the run is live: an LRU-bounded cache must never evict
     # the engine whose static buffers the run is using
@@ -488,33 +536,53 @@ def _run(algo: str, cfg, dataset, *, rounds: int, k, degree: int,
         setup = entry.setup(draws)
         evaluator = cache.evaluator(entry.binding, dataset,
                                     batch=eval_batch, device=dev)
+        sched = None if net is None else netsim.NetSchedule(net, n, draws)
         hist = _History(dataset.node_cluster, n, evaluator,
                         setup.program.models_of, target_acc, verbose, algo,
-                        cfg.n_classes)
+                        cfg.n_classes,
+                        tiers=None if net is None else tiers_of(net, n,
+                                                                draws))
+        carry = _initial_carry(setup, sched, n, dev)
         if engine:
             train_x, train_y = entry.engine.place_data(dataset)
             models = _drive_engine(
-                entry.engine, setup, hist, draws, train_x, train_y,
-                rounds=rounds, eval_every=eval_every,
+                entry.engine, setup.program, carry, hist, draws, train_x,
+                train_y, rounds=rounds, eval_every=eval_every,
                 warmup_rounds=warmup_rounds, target_acc=target_acc,
-                ckpt=ckpt, ckpt_fp=ckpt_fp, pipeline=pipeline)
+                ckpt=ckpt, ckpt_fp=ckpt_fp, pipeline=pipeline, sched=sched)
         else:
             train_x, train_y = pipeline_mod.place(dataset, dev)
-            state = _drive_loop(setup, hist, draws, train_x, train_y,
-                                rounds=rounds, eval_every=eval_every,
+            state = _drive_loop(setup.program, carry, hist, draws, train_x,
+                                train_y, rounds=rounds,
+                                eval_every=eval_every,
                                 warmup_rounds=warmup_rounds,
                                 local_steps=local_steps,
-                                batch_size=batch_size, n=n, degree=degree)
+                                batch_size=batch_size, n=n, degree=degree,
+                                sched=sched)
             models = setup.program.models_of(state)
     return hist.result(algo, models)
 
 
-def _drive_loop(setup: AlgoSetup, hist: _History, draws, train_x, train_y,
-                *, rounds, eval_every, warmup_rounds, local_steps,
-                batch_size, n, degree):
-    """The per-round loop: every round drawn, run and recorded on its own.
-    Returns the final state."""
-    program, state = setup
+def _initial_carry(setup: AlgoSetup, sched, n: int, dev) -> EngineCarry:
+    """The run's initial carry: the state and, under ``net`` (``sched``,
+    its :class:`~repro_torch.netsim.NetSchedule`), the channel drawn from
+    its stationary distribution and a fresh async-gossip buffer."""
+    if sched is None:
+        return EngineCarry(setup.state)
+    return EngineCarry(
+        setup.state, sched.init_channel(dev),
+        netsim.init_gossip(sched.cfg, n,
+                           setup.program.mixable_of(setup.state)))
+
+
+def _drive_loop(program: AlgoProgram, carry: EngineCarry, hist: _History,
+                draws, train_x, train_y, *, rounds, eval_every,
+                warmup_rounds, local_steps, batch_size, n, degree,
+                sched=None):
+    """The per-round loop: every round drawn, run and recorded on its own;
+    under ``net`` the channel and the gossip buffer are threaded through
+    as the engine carries them. Returns the final state."""
+    state, chan, gossip = carry
     dev = train_x.device
     per_node = train_x.shape[1]
 
@@ -532,15 +600,24 @@ def _drive_loop(setup: AlgoSetup, hist: _History, draws, train_x, train_y,
         batches = pipeline_mod.sample_round_batches(idx.to(dev), train_x,
                                                     train_y)
         fn = program.warmup_fn if rnd < warmup_rounds else program.round_fn
-        state, info = fn(state, batches, *draw_topology())
+        round_s = 0.0
+        if sched is None:
+            state, info = fn(state, batches, *draw_topology())
+        else:
+            state, chan, gossip, info, round_s = netwire.net_round(
+                fn, program.mixable_of, state, chan, gossip, batches,
+                draw_topology(), sched.cfg, sched.round(rnd).to(dev),
+                local_steps)
+            round_s = float(round_s)
+        round_bytes = float(info["round_bytes"])
         last_round = rnd == rounds - 1
         if last_round:
             state = program.finalize(state)
         if (rnd + 1) % eval_every == 0 or last_round:
-            if hist.eval_round(state, rnd + 1, info["round_bytes"]):
+            if hist.eval_round(state, rnd + 1, round_bytes, round_s):
                 break
         else:
-            hist.comm.record(rnd + 1, info["round_bytes"])
+            hist.comm.record(rnd + 1, round_bytes, round_s=round_s)
         if program.track_cluster:
             hist.cluster_hist.append((rnd + 1, state.cluster_id))
     return state
@@ -554,18 +631,22 @@ def _final_models(program: AlgoProgram, state):
 
 def _settle(hist: _History, program: AlgoProgram, seg, outs, ev) -> bool:
     """The host's work on a drained segment, in the loop's order: its
-    bytes, the eval at its end (``ev``, from ``hist.eval_begin``) and
-    FACADE's cluster ids. Returns whether ``target_acc`` was reached; the
-    cluster history then ends a round earlier, as the loop breaks before
-    appending the eval round's ids."""
+    bytes and simulated seconds, the eval at its end (``ev``, from
+    ``hist.eval_begin``) and FACADE's cluster ids. Returns whether
+    ``target_acc`` was reached; the cluster history then ends a round
+    earlier, as the loop breaks before appending the eval round's ids."""
     rnds = np.arange(seg.start + 1, seg.start + seg.length + 1)
+    rb = outs["round_bytes"]
+    rs = outs.get("round_s")
+    if rs is None:
+        rs = np.zeros_like(rb)
     hit = False
     if seg.eval_at_end:
-        hist.comm.record_bulk(rnds[:-1], outs["round_bytes"][:-1])
-        hit = hist.eval_finish(ev, int(rnds[-1]),
-                               float(outs["round_bytes"][-1]))
+        hist.comm.record_bulk(rnds[:-1], rb[:-1], rs[:-1])
+        hit = hist.eval_finish(ev, int(rnds[-1]), float(rb[-1]),
+                               float(rs[-1]))
     else:
-        hist.comm.record_bulk(rnds, outs["round_bytes"])
+        hist.comm.record_bulk(rnds, rb, rs)
     if program.track_cluster:
         upto = len(rnds) - 1 if hit else len(rnds)
         hist.cluster_hist.extend(
@@ -584,45 +665,47 @@ def _eval_state(program: AlgoProgram, seg, carry, rounds: int, hist):
     return carry, hist.eval_begin(carry.state)
 
 
-def _drive_engine(eng: SegmentEngine, setup: AlgoSetup, hist: _History,
-                  draws, train_x, train_y, *, rounds, eval_every,
-                  warmup_rounds, target_acc=None, ckpt=None, ckpt_fp=None,
-                  pipeline=False):
+def _drive_engine(eng: SegmentEngine, program: AlgoProgram,
+                  carry: EngineCarry, hist: _History, draws, train_x,
+                  train_y, *, rounds, eval_every, warmup_rounds,
+                  target_acc=None, ckpt=None, ckpt_fp=None, pipeline=False,
+                  sched=None):
     """Segment-engine driver: one dispatch and one host transfer per span
     (the reference's ``_drive_engine``). ``pipeline`` hands the segments
     to :func:`_drive_pipelined`; otherwise each is dispatched, drained and
     settled before the next. A ``target_acc`` hit stops at the eval that
     reaches it.
 
-    ``ckpt``: after every segment the state, the draws source's state and
-    the histories are saved (:func:`_ckpt_save`); on entry a checkpoint
-    at that path with a matching fingerprint fast-forwards the run to the
-    segment after the last one saved, its state loaded into the engine's
-    static buffers through ``init_carry``. Returns the final models
-    (copies)."""
-    program, state = setup
+    ``ckpt``: after every segment the carry (the state and, under
+    ``net``, the channel and the gossip buffer), the draws source's state
+    and the histories are saved (:func:`_ckpt_save`); on entry a
+    checkpoint at that path with a matching fingerprint fast-forwards the
+    run to the segment after the last one saved, its carry loaded into
+    the engine's static buffers through ``init_carry``. ``sched``: the
+    run's :class:`~repro_torch.netsim.NetSchedule` under ``net``. Returns
+    the final models (copies)."""
     plan = segment_plan(rounds, eval_every, warmup_rounds)
     start_idx, finished = 0, False
     if ckpt is not None and os.path.exists(ckpt):
-        state, start_idx, finished = _ckpt_resume(ckpt, ckpt_fp, state,
+        carry, start_idx, finished = _ckpt_resume(ckpt, ckpt_fp, carry,
                                                   draws, hist)
-    carry = eng.init_carry(state)
+    carry = eng.init_carry(*carry)
     if finished:
         return _final_models(program, carry.state)
     if pipeline:
         return _drive_pipelined(eng, program, hist, draws, carry, plan,
                                 start_idx, train_x, train_y, rounds=rounds,
                                 target_acc=target_acc, ckpt=ckpt,
-                                ckpt_fp=ckpt_fp)
+                                ckpt_fp=ckpt_fp, sched=sched)
     for idx in range(start_idx, len(plan)):
         seg = plan[idx]
         carry, outs = eng.run_segment(carry, seg.start, seg.length,
                                       train_x, train_y, draws,
-                                      warmup=seg.warmup)
+                                      warmup=seg.warmup, net=sched)
         carry, ev = _eval_state(program, seg, carry, rounds, hist)
         hit = _settle(hist, program, seg, outs, ev)
         if ckpt is not None:
-            _ckpt_save(ckpt, ckpt_fp, _carry_snapshot(carry.state),
+            _ckpt_save(ckpt, ckpt_fp, _carry_snapshot(carry),
                        draws.state(), hist, idx + 1,
                        hit or idx + 1 == len(plan))
         if hit:
@@ -633,7 +716,7 @@ def _drive_engine(eng: SegmentEngine, setup: AlgoSetup, hist: _History,
 def _drive_pipelined(eng: SegmentEngine, program: AlgoProgram,
                      hist: _History, draws, carry, plan, start_idx: int,
                      train_x, train_y, *, rounds, target_acc, ckpt,
-                     ckpt_fp):
+                     ckpt_fp, sched=None):
     """Double-buffered segment loop (the reference's ``_drive_pipelined``):
     while the host drains and settles segment t, the card runs segment
     t+1. Per segment, in this order:
@@ -656,7 +739,8 @@ def _drive_pipelined(eng: SegmentEngine, program: AlgoProgram,
     def dispatch(i, c):
         s = plan[i]
         c, outs = eng.dispatch_segment(c, s.start, s.length, train_x,
-                                       train_y, draws, warmup=s.warmup)
+                                       train_y, draws, warmup=s.warmup,
+                                       net=sched)
         return c, outs, draws.state() if ckpt is not None else None
 
     next_carry, pending, drawn = dispatch(start_idx, carry)
@@ -668,7 +752,7 @@ def _drive_pipelined(eng: SegmentEngine, program: AlgoProgram,
             # a hit returns this eval's models, which segment t+1's
             # replays overwrite in place
             kept = _final_models(program, carry.state)
-        snap = _carry_snapshot(carry.state) if ckpt is not None else None
+        snap = _carry_snapshot(carry) if ckpt is not None else None
         nxt = None
         if not last:
             next_carry, nxt, next_drawn = dispatch(idx + 1, carry)
@@ -755,10 +839,18 @@ def _hist_restore(hist: _History, snap: dict):
     hist._prev_eval_cid = None if prev is None else prev.numpy()
 
 
-def _carry_snapshot(state) -> tuple:
-    """``(round, HostCopy of the state's tensors)``: the carry on its way
-    to the host, taken where it stands on the stream."""
-    return state.round, HostCopy(state_tensors(state))
+def _carry_snapshot(carry: EngineCarry) -> tuple:
+    """``(round, HostCopy of the carry's tensors)``: the carry on its way
+    to the host, taken where it stands on the stream. The tensors are
+    ``{"state": the state's, "net": {"chan": ..., "gossip": {"published",
+    "age"}}}``, ``net`` holding only what the run carries."""
+    net = {}
+    if carry.chan is not None:
+        net["chan"] = carry.chan.bad
+    if carry.gossip is not None:
+        net["gossip"] = dict(carry.gossip._asdict())
+    return carry.state.round, HostCopy({"state": state_tensors(carry.state),
+                                        "net": net})
 
 
 def _frame_path(ckpt: str, index: int) -> str:
@@ -770,13 +862,16 @@ def _frame_path(ckpt: str, index: int) -> str:
 def _ckpt_save(path: str, fp: str, snapshot: tuple, draws_state,
                hist: _History, next_segment: int, finished: bool):
     """Write the whole resumable run at a segment boundary, atomically
-    (:func:`repro_torch.checkpoint.save`): the carry's state (from
-    :func:`_carry_snapshot`), the draws source's state after the saved
-    segment's draws and the histories; the meta holds the fingerprint,
-    the next segment, whether the run has finished, and ``frame_files``
-    (0: no frames yet)."""
+    (:func:`repro_torch.checkpoint.save`): the carry (from
+    :func:`_carry_snapshot`: the state under ``carry``, the network's
+    channel and gossip buffer under ``net``), the draws source's state
+    after the saved segment's draws and the histories; the meta holds the
+    fingerprint, the next segment, whether the run has finished, and
+    ``frame_files`` (0: no frames yet)."""
     rnd, tensors = snapshot
-    checkpoint.save(path, {"carry": {"round": rnd, **tensors.wait()},
+    tensors = tensors.wait()
+    checkpoint.save(path, {"carry": {"round": rnd, **tensors["state"]},
+                           "net": tensors["net"],
                            "draws": draws_state,
                            "hist": _hist_snapshot(hist)},
                     meta={"fingerprint": fp,
@@ -784,11 +879,12 @@ def _ckpt_save(path: str, fp: str, snapshot: tuple, draws_state,
                           "finished": bool(finished), "frame_files": 0})
 
 
-def _ckpt_resume(ckpt: str, fp: str, state, draws, hist: _History):
+def _ckpt_resume(ckpt: str, fp: str, carry: EngineCarry, draws,
+                 hist: _History):
     """Fast-forward a checkpointed run: refuse a fingerprint mismatch,
-    rebuild the state on the freshly minted one (its type and its
+    rebuild the carry on the freshly minted one (the state's type and its
     ``None`` fields), restore the draws source and the histories. Returns
-    ``(state, next_segment, finished)``."""
+    ``(carry, next_segment, finished)``."""
     payload, meta = checkpoint.load(ckpt)
     if meta.get("fingerprint") != fp:
         raise ValueError(
@@ -805,8 +901,12 @@ def _ckpt_resume(ckpt: str, fp: str, state, draws, hist: _History):
     fields["round"] = int(fields["round"])
     draws.set_state(payload["draws"])
     _hist_restore(hist, payload["hist"])
-    return (state._replace(**fields), int(meta["next_segment"]),
-            bool(meta.get("finished")))
+    net = payload.get("net") or {}
+    carry = EngineCarry(
+        carry.state._replace(**fields),
+        netsim.ChannelState(net["chan"]) if "chan" in net else None,
+        netsim.GossipState(**net["gossip"]) if "gossip" in net else None)
+    return carry, int(meta["next_segment"]), bool(meta.get("finished"))
 
 # --------------------------------------------------------------------------
 class LMFacade:

@@ -12,6 +12,7 @@ from typing import Any, NamedTuple
 import torch
 
 from repro_torch import device as device_mod
+from repro_torch.netsim import tree_select
 from repro_torch.tree import tree_map
 
 from . import split
@@ -32,15 +33,19 @@ class BaselineState(NamedTuple):
 
 class EngineCarry(NamedTuple):
     """What the segment engine (``core/engine.py``) carries from one
-    segment to the next: the algorithm state, whose tensors are the
-    engine's static buffers (overwritten in place round by round). A
-    segment's drawn inputs are not carried: the engine draws them at the
-    segment's start from the run's draws source, where the reference's
-    carry holds its data PRNG key. The reference's carry also holds the
-    netsim channel, the async-gossip buffer, the adaptive topology's EWMAs
-    and the crash chain; those join this carry when netsim, topo and
-    resil are ported."""
+    segment to the next, each tensor one of the engine's static buffers
+    (overwritten in place round by round): the algorithm state and, under
+    network simulation (``net=``), the Gilbert–Elliott channel
+    (``netsim.ChannelState``, bursty presets) and the async-gossip
+    staleness buffer (``netsim.GossipState``, ``async_gossip``); both are
+    ``None`` where the run has none. A segment's drawn inputs are not
+    carried: the engine draws them at the segment's start from the run's
+    draws source, where the reference's carry holds its data PRNG key.
+    The reference's carry also holds the adaptive topology's EWMAs and the
+    crash chain; those join this carry when topo and resil are ported."""
     state: Any           # FacadeState | BaselineState
+    chan: Any = None     # netsim.ChannelState | None
+    gossip: Any = None   # netsim.GossipState | None
 
 
 def _stack_n(tree, n: int, dev):
@@ -90,3 +95,9 @@ def init_baseline_state(binding, n: int, *, params=None,
     return BaselineState(params=_stack_n(params, n, dev), round=0,
                          extra=None if extra is None else tree_map(
                              lambda l: l.to(dev), extra))
+
+
+def freeze_inactive(active, new_tree, old_tree):
+    """Churn semantics: nodes with ``active == 0`` sat the round out, so
+    every leaf keeps its old value along the leading node axis."""
+    return tree_select(active, new_tree, old_tree)

@@ -87,6 +87,15 @@ def fully_connected(n: int, device="cpu") -> torch.Tensor:
             - torch.eye(n, device=device))
 
 
+def effective_adjacency(adj, edge_mask, active) -> torch.Tensor:
+    """The adjacency that carried messages this round (network
+    simulation): drawn edges masked by per-edge delivery and by both
+    endpoints being online. Symmetric when ``edge_mask`` is; an offline
+    node ends with degree 0, and :func:`mixing_matrix` then gives it the
+    self-weight-1 row (it keeps its own model)."""
+    return adj * edge_mask * active[:, None] * active[None, :]
+
+
 def mixing_matrix(adj) -> torch.Tensor:
     """Row-stochastic W with uniform weights over {neighbors} ∪ {self}:
     W[i, j] = 1/(deg_i + 1) for j ∈ N(i) ∪ {i} (Eq. 3 aggregation)."""

@@ -7,9 +7,10 @@ eval. The frame is pure host bookkeeping over the arrays the evaluator
 already brought back, and the run's final ``dp``/``eo``/``fair_acc`` are
 read off its last entry.
 
-The port has no network tiers yet (no ``netsim``), so every node counts as
-a core-tier node: ``acc_core`` is the mean node accuracy and ``acc_edge``
-and ``tier_gap`` are 0, as the reference computes them with ``tiers=None``.
+Under network simulation with link classes (``net.classes``, the
+``core-edge`` and ``edge-v2`` presets) the per-node accuracy splits by
+tier (:func:`tiers_of`): ``acc_core``, ``acc_edge`` and their gap. Without
+tiers every node counts as a core-tier node.
 """
 from __future__ import annotations
 
@@ -17,6 +18,7 @@ from typing import NamedTuple
 
 import numpy as np
 
+from repro_torch import netsim
 from repro_torch.fairness import (demographic_parity, equalized_odds,
                                   fair_accuracy)
 
@@ -39,19 +41,39 @@ class EvalFrame(NamedTuple):
     #                             eval and off-FACADE)
 
 
+def tiers_of(net, n: int, source) -> np.ndarray:
+    """The static per-node tier vector ``[n]`` float32 (1.0 = edge) of
+    ``net``'s link classes, from the run's draws source (its
+    ``net_uniform``); all-core when the run has no tiered link classes."""
+    if net is not None and net.classes is not None:
+        return netsim.NetSchedule(net, n, source).tiers.numpy().astype(
+            np.float32)
+    return np.zeros((n,), np.float32)
+
+
 def compute_eval_frame(rnd: int, accs, cluster_ids, preds_c, labels_c,
                        node_acc, n_classes: int, *, mean_acc: float,
-                       prev_cid=None, cid=None) -> EvalFrame:
+                       tiers=None, prev_cid=None, cid=None) -> EvalFrame:
     """Build one eval's :class:`EvalFrame` from what the evaluator returned
     (per-cluster accuracies, first-node predictions and labels per cluster,
     per-node accuracy). ``mean_acc`` is passed through, never recomputed;
-    ``prev_cid``/``cid`` are the cluster ids at the previous and current
-    eval (``None`` off-FACADE and at the first eval)."""
+    ``tiers`` is the static per-node tier vector (1.0 = edge,
+    :func:`tiers_of`) or ``None``; ``prev_cid``/``cid`` are the cluster ids
+    at the previous and current eval (``None`` off-FACADE and at the first
+    eval)."""
     accs = [float(a) for a in accs]
-    acc_core = 0.0
+    acc_core = acc_edge = tier_gap = 0.0
     if node_acc is not None:
         node_acc = np.asarray(node_acc, np.float64)
-        acc_core = float(node_acc.mean()) if node_acc.size else 0.0
+        if tiers is not None:
+            edge = np.asarray(tiers, np.float64) > 0.5
+            core_acc, edge_acc = node_acc[~edge], node_acc[edge]
+        else:
+            core_acc, edge_acc = node_acc, node_acc[:0]
+        acc_core = float(core_acc.mean()) if core_acc.size else 0.0
+        acc_edge = float(edge_acc.mean()) if edge_acc.size else 0.0
+        if core_acc.size and edge_acc.size:
+            tier_gap = acc_core - acc_edge
     churn = 0.0
     if prev_cid is not None and cid is not None:
         churn = float(np.sum(np.asarray(prev_cid) != np.asarray(cid)))
@@ -64,5 +86,5 @@ def compute_eval_frame(rnd: int, accs, cluster_ids, preds_c, labels_c,
         worst_cluster_acc=float(min(accs)) if accs else 0.0,
         acc=tuple(accs),
         cluster_ids=tuple(int(c) for c in cluster_ids),
-        acc_core=acc_core, acc_edge=0.0, tier_gap=0.0,
+        acc_core=acc_core, acc_edge=acc_edge, tier_gap=tier_gap,
         cluster_churn=churn)

@@ -1,7 +1,7 @@
-"""Sweep driver: fan (algorithm x config) cells over seeds on one shared
-:class:`~repro_torch.core.cache.EngineCache`.
+"""Sweep driver: fan (algorithm x netsim preset x config) cells over seeds
+on one shared :class:`~repro_torch.core.cache.EngineCache`.
 
-The counterpart of ``repro.sweep.driver``, on the ideal medium. Each
+The counterpart of ``repro.sweep.driver``. Each
 :class:`SweepCell` is one grid cell, everything static; only the seed
 varies inside it. ``run_sweep`` routes every run through
 :func:`repro_torch.core.runner.run_experiment` with the shared cache, so
@@ -13,14 +13,13 @@ Long grids survive a killed process (``ckpt_dir=``): every engine run
 checkpoints per segment (``run_experiment(ckpt=...)``), so a killed cell
 resumes mid-run, and every completed cell leaves a summary and a manifest
 behind, so a rerun of the same sweep skips it (matched on a content
-fingerprint of the cell's static description: algorithm, config, dataset
-content, seeds, targets). A cell that raises is recorded on its
+fingerprint of the cell's static description: algorithm, config, netsim
+preset, dataset content, seeds, targets). A cell that raises is recorded on its
 :class:`CellResult` and the remaining cells run; only a sweep where every
 cell failed raises.
 
-Differences from the reference: a cell with ``net`` set is refused up
-front (network simulation is not ported); there is no ``obs`` (telemetry
-is not ported, so ``CellResult.health`` stays ``None``) and no
+Differences from the reference: there is no ``obs`` (telemetry is not
+ported, so ``CellResult.health`` stays ``None``) and no
 ``persist_dir`` (a CUDA graph cannot be serialised; see
 :mod:`repro_torch.core.cache`); and ``run_sweep`` owns ``draws`` besides
 ``seed`` and ``ckpt``, since one draws source in a cell's kwargs would
@@ -36,6 +35,7 @@ from typing import Any, Sequence
 
 from repro_torch.core.cache import EngineCache, data_fingerprint
 from repro_torch.core.runner import run_experiment
+from repro_torch.netsim import NetworkConfig
 from repro_torch.obs import RunManifest, fingerprint
 
 from .aggregate import aggregate_cell
@@ -48,9 +48,9 @@ class SweepCell:
     """One grid cell. ``kwargs`` are passed through to ``run_experiment``
     (``degree``, ``local_steps``, ``batch_size``, ``lr``, ``eval_every``,
     ``warmup_rounds``, ``target_acc``, ``device``, ...), everything but
-    the keys ``run_sweep`` owns (:data:`OWNED`). ``net`` is the
-    reference's network-simulation preset; the port refuses a cell that
-    sets it."""
+    the keys ``run_sweep`` owns (:data:`OWNED`). ``net`` may be a
+    :class:`~repro_torch.netsim.NetworkConfig`, a preset name
+    (``"edge-churn"``) or ``None``."""
     name: str
     algo: str
     cfg: Any
@@ -58,6 +58,10 @@ class SweepCell:
     rounds: int
     net: Any = None
     kwargs: dict = dataclasses.field(default_factory=dict)
+
+    def resolved_net(self):
+        return (NetworkConfig.preset(self.net) if isinstance(self.net, str)
+                else self.net)
 
 
 @dataclasses.dataclass
@@ -95,9 +99,11 @@ class SweepResult:
     def to_json(self) -> dict:
         cells = {}
         for c in self.cells:
+            net = c.cell.net
             cells[c.cell.name] = {
                 "algo": c.cell.algo,
-                "net": c.cell.net,
+                "net": (net if isinstance(net, str) or net is None
+                        else net.name),
                 "rounds": c.cell.rounds,
                 "kwargs": {k: repr(v) if not isinstance(
                     v, (int, float, str, bool, type(None))) else v
@@ -118,15 +124,15 @@ class SweepResult:
         return path
 
 
-def _cell_fingerprint(cell: SweepCell, seeds, targets) -> str:
+def _cell_fingerprint(cell: SweepCell, net, seeds, targets) -> str:
     """Content hash of everything that shapes a cell's summary, from reprs
-    of frozen configs and :func:`data_fingerprint` of the dataset, never
-    ``repr(cell)``, whose dataset repr can embed memory addresses and
-    would break skip-on-rerun across processes. ``net`` is ``None``, as
-    every cell the port runs has it."""
+    of frozen configs (the resolved ``net`` among them) and
+    :func:`data_fingerprint` of the dataset, never ``repr(cell)``, whose
+    dataset repr can embed memory addresses and would break
+    skip-on-rerun across processes."""
     return fingerprint({
         "name": cell.name, "algo": cell.algo, "cfg": repr(cell.cfg),
-        "rounds": cell.rounds, "net": repr(cell.net),
+        "rounds": cell.rounds, "net": repr(net),
         "kwargs": {k: repr(v) for k, v in sorted(cell.kwargs.items())},
         "data": data_fingerprint(cell.dataset),
         "seeds": list(seeds), "targets": list(targets)})
@@ -153,9 +159,10 @@ def run_sweep(cells: Sequence[SweepCell], seeds: Sequence[int], *,
     the same sweep skips completed cells (fingerprint match) and resumes
     the run that was killed.
 
-    A cell with ``net`` set, or with a key ``run_sweep`` owns in its
-    kwargs, and duplicate cell names are refused up front with
-    ``ValueError``, as are an empty grid and no seeds. A failing cell is
+    A cell with a key ``run_sweep`` owns in its kwargs, and duplicate
+    cell names are refused up front with ``ValueError``, as are an empty
+    grid and no seeds; a cell with an unknown preset name raises
+    ``ValueError`` when its turn comes. A failing cell is
     recorded (``CellResult.error``) and the grid continues;
     ``RuntimeError`` is raised only when every cell failed.
     """
@@ -178,11 +185,6 @@ def run_sweep(cells: Sequence[SweepCell], seeds: Sequence[int], *,
     if len(set(names)) != len(names):
         raise ValueError(f"duplicate sweep cell names: {names}")
     for cell in cells:
-        if cell.net is not None:
-            raise ValueError(
-                f"cell {cell.name!r} sets net={cell.net!r}; network "
-                "simulation (netsim) is not ported yet, so the port "
-                "sweeps the ideal medium only (net=None)")
         for owned in OWNED:
             if owned in cell.kwargs:
                 raise ValueError(
@@ -196,8 +198,9 @@ def run_sweep(cells: Sequence[SweepCell], seeds: Sequence[int], *,
     t0 = time.perf_counter()
     out = []
     for cell in cells:
+        net = cell.resolved_net()
         if ckpt_dir is not None:
-            cell_fp = _cell_fingerprint(cell, seeds, targets)
+            cell_fp = _cell_fingerprint(cell, net, seeds, targets)
             man_path = ckpt_dir / f"{cell.name}.manifest.json"
             sum_path = ckpt_dir / f"{cell.name}.summary.json"
             if man_path.exists() and sum_path.exists():
@@ -219,7 +222,8 @@ def run_sweep(cells: Sequence[SweepCell], seeds: Sequence[int], *,
                     ckpt = str(ckpt_dir / f"{cell.name}-s{seed}.npz")
                 results.append(run_experiment(
                     cell.algo, cell.cfg, cell.dataset, rounds=cell.rounds,
-                    seed=seed, cache=cache, ckpt=ckpt, **cell.kwargs))
+                    seed=seed, cache=cache, ckpt=ckpt, net=net,
+                    **cell.kwargs))
             summary = aggregate_cell(results, targets=targets)
         except Exception as e:  # noqa: BLE001 — one bad cell, whole grid
             out.append(CellResult(cell, seeds, results,
@@ -239,7 +243,7 @@ def run_sweep(cells: Sequence[SweepCell], seeds: Sequence[int], *,
                 kind="sweep-cell", name=cell.name, spec=repr(cell.cfg),
                 settings={"cell_fingerprint": cell_fp,
                           "seeds": list(seeds), "targets": list(targets),
-                          "net": repr(cell.net)},
+                          "net": repr(net)},
                 cache=cache.stats()).save(man_path)
         if verbose:
             fa = summary["best_fair_acc"]

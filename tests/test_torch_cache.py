@@ -18,6 +18,7 @@ from repro_torch.core import runner
 from repro_torch.core.cache import (EngineCache, EngineSpec,
                                     data_fingerprint)
 from repro_torch.data import synthetic
+from repro_torch.netsim import NetworkConfig
 from repro_torch.tree import tree_leaves
 
 torch.set_num_threads(1)
@@ -31,7 +32,8 @@ SPEC = EngineSpec(algo="facade", cfg=CFG, n=4, k=2, degree=2,
 PERTURB = {"algo": "el", "cfg": CFG.replace(width=CFG.width + 1), "n": 5,
            "k": 3, "degree": 3, "local_steps": 3, "batch_size": 8,
            "lr": 0.01, "warmup_rounds": 2, "head_jitter": 0.1,
-           "eval_batch": 128, "device": torch.device("cuda")}
+           "eval_batch": 128, "device": torch.device("cuda"),
+           "net": NetworkConfig.preset("edge-churn")}
 
 
 def _data(seed=3, test_per_class=8):

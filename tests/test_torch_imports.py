@@ -56,3 +56,20 @@ def _imported_roots(path: pathlib.Path) -> set:
 def test_no_source_of_the_port_imports_jax_or_repro(path):
     bad = _imported_roots(path) & {"jax", "jaxlib", "repro"}
     assert not bad, f"{path.relative_to(REPO)} imports {sorted(bad)}"
+
+
+NETSIM_MODULES = ("repro_torch.netsim", "repro_torch.netsim.conditions",
+                  "repro_torch.netsim.events", "repro_torch.netsim.gossip",
+                  "repro_torch.netsim.timing",
+                  "repro_torch.netsim.diagnostics",
+                  "repro_torch.core.netwire")
+
+
+def test_the_walk_covers_the_network_simulation():
+    """The blocked-import walk above reaches the netsim modules."""
+    import pkgutil
+
+    import repro_torch
+    names = {m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                                   "repro_torch.")}
+    assert set(NETSIM_MODULES) <= names

@@ -236,8 +236,8 @@ def test_refused_grids(tiny_ds, bad, match):
     elif bad in ("seed", "ckpt", "draws"):
         cells[0].kwargs[bad] = {"seed": 7, "ckpt": "x.npz",
                                 "draws": runner.TorchDraws(7)}[bad]
-    elif bad == "net":
-        cells[0].net = "edge-churn"
+    elif bad == "net":              # an unknown netsim preset
+        cells[0].net = "no-such-preset"
     else:
         kw = {"cache": EngineCache(), "max_entries": 2}
     with pytest.raises(ValueError, match=match):

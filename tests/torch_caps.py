@@ -11,8 +11,10 @@
   ``draws`` source for ``repro_torch.core.runner.run_experiment`` (or for
   a test that drives ``facade_round`` itself), so the port and the
   reference see the same initial parameters, batches and topologies, for
-  the CNNs and the language models; its ``state()``/``set_state`` let a
-  checkpointed run resume it. It imports JAX only when built.
+  the CNNs and the language models, and under network simulation the
+  same netsim uniforms (``net_uniform``/``net_randint``: the reference's
+  counter stream); its ``state()``/``set_state`` let a checkpointed run
+  resume it. It imports JAX only when built.
 """
 from __future__ import annotations
 
@@ -111,6 +113,23 @@ class JaxDraws:
         self._rng, sub = self._jax.random.split(self._rng)
         return torch.from_numpy(np.array(self._jax.random.gumbel(sub,
                                                                  (n, n))))
+
+    def _net_key(self, seed: int, tag: int, index: int):
+        """``repro.netsim``'s counter stream, ``fold_in(fold_in(PRNGKey(
+        seed), tag), index)``."""
+        jax = self._jax
+        return jax.random.fold_in(
+            jax.random.fold_in(jax.random.PRNGKey(seed), tag), index)
+
+    def net_uniform(self, seed: int, tag: int, index: int, shape):
+        return torch.from_numpy(np.array(self._jax.random.uniform(
+            self._net_key(seed, tag, index), tuple(shape))))
+
+    def net_randint(self, seed: int, tag: int, index: int, shape,
+                    high: int):
+        return torch.from_numpy(np.array(self._jax.random.randint(
+            self._net_key(seed, tag, index), tuple(shape), 0,
+            high))).long()
 
     def state(self) -> dict:
         """Where the key schedule stands: the data key and the state's
