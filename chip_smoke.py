@@ -19,6 +19,11 @@ failure raises and exits non-zero, before the last line is printed):
      at the FACADE path's shape in fp32 and in bf16 (the FMA body; D 513),
      tolerance 2e-5 relative and equal argmins, timed at the FACADE path's
      shape and at ``HS_SHAPES[2]``;
+     and at the FACADE path's shape on non-finite inputs, as an unguarded
+     faulty round gives them (a token of NaN features, a head of NaN
+     weights, a +inf bias weight, a head of +inf weights): NaN and +inf
+     at the plain version's places, the finite losses within 2e-5 and
+     equal argmins (a row's first NaN);
      yardstick: a matmul and ``cross_entropy``; beside it the launch
      floor, one tiny in-place PyTorch op timed the same way. Then its
      tensor-core body (the LM regime, two device launches a call) at the
@@ -112,6 +117,20 @@ failure raises and exits non-zero, before the last line is printed):
    the five; FACADE's steady engine rate (20 rounds, seed 1 of one cache)
    under ``net=None`` and each of the nine presets, with capture seconds
    and peak memory;
+3a'''. node faults (``faults_phase``, same data and schedule, under
+   ``edge-v2``): the five algorithms under the reference's example faults
+   (crash 0.05, restart 0.5, NaN corruption 0.05, the guard on), FACADE
+   and DAC under ``reset`` restarts (crash 0.4, restart 0.6), FACADE under
+   noise corruption (crash 0.3, restart 0.5, corruption 0.3): the engine
+   (K1 one a replayed round plus one warm-up call) against the loop bit
+   for bit, bytes recounted, parameters finite; ``FaultConfig()`` and
+   ``FaultConfig(robust=False)`` against the fault-free run for FACADE and
+   EL; a NaN storm (corruption 0.1) on FACADE, the guarded run finite and
+   the unguarded one recorded; a ``reset`` FACADE run (4 segments) killed
+   at its third segment dispatch and resumed, against the uninterrupted
+   one; FACADE's steady rate (20 rounds) under no faults, the example's
+   and the noise faults, with capture seconds, peak memory and the host
+   seconds of a round's network and fault draws;
 3b. the launcher's paper mode (``launch.train.paper_main``) on full-width
    ResNet8 (64×64 images, 41 classes; ``RESNET8_PAPER``: 32 nodes in
    clusters 24:8, degree 4, H = 10, B = 8, 8 rounds) for the five
@@ -223,7 +242,9 @@ from repro_torch.launch import train  # noqa: E402
 from repro_torch.launch.serve import make_requests, serve  # noqa: E402
 from repro_torch.models import api, transformer  # noqa: E402
 from repro_torch.models.base import get_config  # noqa: E402
-from repro_torch.netsim import PRESETS, NetworkConfig  # noqa: E402
+from repro_torch.netsim import (PRESETS, NetSchedule,  # noqa: E402
+                                NetworkConfig)
+from repro_torch.resil import FaultConfig, noise_spec  # noqa: E402
 from repro_torch.sweep import SweepCell, run_sweep  # noqa: E402
 from repro_torch.sweep import driver as sweep_driver  # noqa: E402
 from repro_torch.tree import tree_leaves, tree_map  # noqa: E402
@@ -274,6 +295,18 @@ SMALL_TOL = 0.1     # accuracy across devices (reference precedent)
 NET_ALL = ("edge-v2", "edge-churn")
 NET_TWO = ("bursty-wan", "core-edge", "async-edge", "hostile")
 NET_RATE_ROUNDS = 20
+# the faults phase (same data, ROUNDS rounds with an eval every EVAL_EVERY,
+# all under edge-v2): the reference's own example (resil/__init__.py), its
+# tests' reset restarts, noise-mode corruption and a NaN storm; FaultConfig
+# fields as the reference's (tests/test_resil.py)
+FAULTS_NAN = FaultConfig(crash_rate=0.05, restart_rate=0.5,
+                         corrupt_rate=0.05, corrupt_mode="nan")
+FAULTS_RESET = FaultConfig(crash_rate=0.4, restart_rate=0.6,
+                           restart_mode="reset")
+FAULTS_NOISE = FaultConfig(crash_rate=0.3, restart_rate=0.5,
+                           corrupt_rate=0.3)
+FAULTS_STORM = FaultConfig(corrupt_rate=0.1, corrupt_mode="nan")
+FAULTS_RESUME_EVAL_EVERY = 2          # 4 segments: the kill at the third
 # the paper's Flickr-Mammals experiment through the launcher's paper_main:
 # full-width ResNet8 (64×64 images, 41 classes), 32 nodes in clusters 24:8
 # rotated rot0/rot180, k 2, degree 4, H 10, B 8, lr 0.05, 8 rounds with an
@@ -472,6 +505,52 @@ def hs_check(name, got, want, tol=HS_TOL, **info):
     return rec
 
 
+def hs_non_finite_case(seed):
+    """The FACADE path's inputs with non-finite values where an unguarded
+    faulty round puts them: node 0 a token of NaN features, node 1 a head
+    of NaN weights, node 2 a +inf bias weight in a column none of its
+    labels names (a +inf logit, a +inf loss), node 3 a head of +inf
+    weights (+inf and -inf products: NaN logits); the other nodes
+    finite."""
+    feats, heads, labels = hs_main_inputs(seed)
+    feats[0, 3, :-1] = float("nan")
+    heads[1, 1] = float("nan")
+    free = sorted(set(range(MAIN_SHAPE[4]))
+                  - set(labels[2].tolist()))[0]
+    heads[2, 0, -1, free] = float("inf")
+    heads[3, 1] = float("inf")
+    return feats, heads, labels
+
+
+def hs_non_finite_check() -> dict:
+    """K1 against its plain version on :func:`hs_non_finite_case`: NaN
+    and +inf at the same places, the finite losses within ``HS_TOL``
+    (relative) and equal argmins (the first NaN of a row, else the least
+    loss), or raise."""
+    feats, heads, labels = hs_non_finite_case(seed=97)
+    got = head_losses(feats, heads, labels)
+    want = head_losses_ref(feats, heads, labels)
+    torch.cuda.synchronize()
+    fin = torch.isfinite(want)
+    err = (got[fin] - want[fin]).abs()
+    rec = {"nan_equal": bool(torch.equal(got.isnan(), want.isnan())),
+           "posinf_equal": bool(torch.equal(got.isposinf(),
+                                            want.isposinf())),
+           "non_finite": int((~fin).sum()),
+           "max_abs_err": float(err.max()),
+           "max_rel_err": float((err / want[fin].abs().clamp(min=1)).max()),
+           "argmin_equal": bool(torch.equal(got.argmin(1),
+                                            want.argmin(1))),
+           "argmin_first_nodes": got.argmin(1)[:4].tolist()}
+    log("head_select non-finite check", json.dumps(rec))
+    if not (rec["nan_equal"] and rec["posinf_equal"] and rec["argmin_equal"]
+            and rec["max_rel_err"] <= HS_TOL and rec["non_finite"] == 5
+            and rec["argmin_first_nodes"] == [0, 1, 1, 1]):
+        raise AssertionError(f"head_select disagrees with its plain "
+                             f"version on non-finite inputs: {rec}")
+    return rec
+
+
 def hs_library(feats, heads, labels):
     """One PyTorch product and cross-entropy for the same function (the
     yardstick; the port never calls it)."""
@@ -572,6 +651,7 @@ def kernel_phase(rec):
                                head_losses_ref(feats, heads, labels),
                                shape=list(MAIN_SHAPE), dtype=str(dtype)))
     rec["head_select_checks"] = checks
+    rec["head_select_non_finite"] = hs_non_finite_check()
 
     feats, heads, labels = hs_main_inputs(seed=99)
     bound_ms, bound_by, nbytes, flops = hs_bound(feats, heads, labels)
@@ -1366,6 +1446,184 @@ def netsim_phase(rec, ds) -> int:
     rec["netsim"] = out
     torch.cuda.empty_cache()
     return launches
+
+
+def faults_phase(rec, ds) -> int:
+    """Node faults at paper scale on GN-LeNet (the main path's data),
+    ROUNDS rounds with an eval every EVAL_EVERY under ``edge-v2``:
+
+    - the five algorithms under FAULTS_NAN, FACADE and DAC under
+      FAULTS_RESET, FACADE under FAULTS_NOISE: the engine (a fresh capture
+      a run: K1 its rounds plus one warm-up call for FACADE) against the
+      loop, bit for bit, bytes and simulated seconds included, each run's
+      bytes recounted on the host (``net_run_check``), its parameters
+      finite;
+    - the off-switches: ``FaultConfig()`` and ``FaultConfig(robust=
+      False)`` against the fault-free ``edge-v2`` run, FACADE and EL, bit
+      for bit;
+    - a NaN storm (FAULTS_STORM) on FACADE: the guarded run's parameters
+      finite (a gate), and whether the unguarded run's go non-finite
+      (recorded);
+    - kill and resume: FACADE under FAULTS_RESET with an eval every
+      FAULTS_RESUME_EVAL_EVERY (four segments), pipelined with a
+      checkpoint under ``build/``, killed at its third segment dispatch
+      and resumed by the same call through a fresh cache, against the
+      uninterrupted serialized run;
+    - FACADE's steady engine rate (NET_RATE_ROUNDS rounds of seed 1
+      through the cache whose seed-0 run captured, ``timed_run``) under
+      ``edge-v2`` with no faults, FAULTS_NAN and FAULTS_NOISE, with the
+      capture seconds and peak memory, and the host seconds of drawing
+      those rounds' network and fault draws (``NetSchedule.round``, the
+      payload noise among them).
+    Returns K1's launches in the phase."""
+    cfg, n = lenet(), ds.n_nodes
+    out = {"parity": {}, "off": {}, "storm": {}, "resume": {}, "rates": {}}
+    payloads = {algo: payload_bytes(cfg, algo) for algo in ALGOS}
+    kw = dict(PAPER, rounds=ROUNDS, eval_every=EVAL_EVERY, device="cuda")
+    launches = 0
+    cells = ([("nan", FAULTS_NAN, a) for a in ALGOS]
+             + [("reset", FAULTS_RESET, a) for a in ("facade", "dac")]
+             + [("noise", FAULTS_NOISE, "facade")])
+    for name, faults, algo in cells:
+        net = NetworkConfig.preset("edge-v2", faults=faults)
+        loop = run_experiment(algo, cfg, ds, engine=False, net=net, **kw)
+        with counted() as counts:
+            eng = run_experiment(algo, cfg, ds, net=net, **kw)
+            torch.cuda.synchronize()
+        want = ROUNDS + WARMUP_ROUNDS if algo == "facade" else 0
+        finite = all(bool(torch.isfinite(l).all())
+                     for l in tree_leaves(eng.models))
+        got = out["parity"][f"{name}/{algo}"] = {
+            "engine_vs_loop": run_diff(eng, loop), "launches": counts,
+            "finite": finite,
+            "check": net_run_check(algo, eng, payloads[algo], n)}
+        log(f"faults {name} {algo}: {json.dumps(got)}")
+        if not (got["engine_vs_loop"]["equal"] and got["check"]["ok"]
+                and finite and counts["head_losses"] == want):
+            raise AssertionError(f"faults {name} {algo}: "
+                                 f"{json.dumps(got)} (K1 want {want})")
+        launches += counts["head_losses"]
+    for algo in ("facade", "el"):
+        with counted() as counts:
+            base = run_experiment(algo, cfg, ds,
+                                  net=NetworkConfig.preset("edge-v2"), **kw)
+            got = out["off"][algo] = {
+                label: run_diff(run_experiment(
+                    algo, cfg, ds, net=NetworkConfig.preset(
+                        "edge-v2", faults=fc), **kw), base)
+                for label, fc in (("FaultConfig()", FaultConfig()),
+                                  ("FaultConfig(robust=False)",
+                                   FaultConfig(robust=False)))}
+        got["launches"] = counts
+        log(f"faults off-switches {algo}: {json.dumps(got)}")
+        if not all(v["equal"] for k, v in got.items() if k != "launches"):
+            raise AssertionError(f"faults off-switch {algo}: "
+                                 f"{json.dumps(got)}")
+        launches += counts["head_losses"]
+    with counted() as counts:
+        for label, fc in (("guarded", FAULTS_STORM),
+                          ("unguarded", dataclasses.replace(
+                              FAULTS_STORM, robust=False))):
+            res = run_experiment("facade", cfg, ds, net=NetworkConfig.preset(
+                "edge-v2", faults=fc), **kw)
+            out["storm"][label] = {
+                "params_finite": all(bool(torch.isfinite(l).all())
+                                     for l in tree_leaves(res.models)),
+                "final_acc": res.final_acc,
+                "final_cluster_id": res.cluster_history[-1][1].tolist()}
+    out["storm"]["launches"] = counts
+    log(f"faults NaN storm: {json.dumps(out['storm'])}")
+    if not out["storm"]["guarded"]["params_finite"]:
+        raise AssertionError(f"faults NaN storm: the guarded run's "
+                             f"parameters are not finite: {out['storm']}")
+    launches += counts["head_losses"]
+    out["resume"] = faults_resume(cfg, ds)
+    launches += out["resume"]["launches"]["head_losses"]
+    rate_kw = dict(PAPER, rounds=NET_RATE_ROUNDS,
+                   eval_every=NET_RATE_ROUNDS)
+    for name, faults in (("none", None), ("nan", FAULTS_NAN),
+                         ("noise", FAULTS_NOISE)):
+        net = NetworkConfig.preset("edge-v2", faults=faults)
+        cache = EngineCache()
+        with counted() as counts:
+            run_experiment("facade", cfg, ds, cache=cache, device="cuda",
+                           net=net, **rate_kw)
+            res, wall, peak, reserved = timed_run(
+                "facade", cfg, ds, cache=cache, net=net,
+                **dict(rate_kw, seed=1))
+        spec = dataclasses.replace(paper_spec("facade", cfg, ds), net=net)
+        entry = cache.entry(spec)
+        draws = TorchDraws(1)
+        sched = NetSchedule(net, n, draws, noise=noise_spec(
+            net, entry.program.sent_of(entry.setup(draws).state),
+            entry.program.sent_lead))
+        t0 = time.perf_counter()
+        for rnd in range(NET_RATE_ROUNDS):
+            sched.round(rnd)
+        draw_s = time.perf_counter() - t0
+        got = out["rates"][name] = {
+            "rounds_per_s": NET_RATE_ROUNDS / wall, "wall_s": wall,
+            "capture_s": entry.engine.capture_s,
+            "peak_allocated": peak, "peak_reserved": reserved,
+            "net_draw_s_per_round": draw_s / NET_RATE_ROUNDS,
+            "launches": counts}
+        log(f"faults rate {name}: {json.dumps(got)}")
+        want = 2 * NET_RATE_ROUNDS + WARMUP_ROUNDS
+        if counts["head_losses"] != want:
+            raise AssertionError(f"faults rate {name}: {counts} K1, want "
+                                 f"{want}")
+        launches += counts["head_losses"]
+        del cache, entry
+    for got in out["rates"].values():
+        got["vs_fault_free"] = (got["rounds_per_s"]
+                                / out["rates"]["none"]["rounds_per_s"])
+    out["launches"] = launches
+    rec["faults"] = out
+    torch.cuda.empty_cache()
+    return launches
+
+
+def faults_resume(cfg, ds) -> dict:
+    """FACADE under FAULTS_RESET (its round-0 copy of the state in the
+    checkpoint), pipelined with a checkpoint, killed at the third segment
+    dispatch and resumed through a fresh cache, against the uninterrupted
+    serialized run: the same run bit for bit and equal final
+    checkpoints."""
+    CKPT_DIR.mkdir(parents=True, exist_ok=True)
+    kw = dict(PAPER, rounds=ROUNDS, eval_every=FAULTS_RESUME_EVAL_EVERY,
+              device="cuda",
+              net=NetworkConfig.preset("edge-v2", faults=FAULTS_RESET))
+    whole, ck = (str(CKPT_DIR / f"faults-{name}.npz")
+                 for name in ("whole", "killed"))
+    for path in (whole, ck):
+        if pathlib.Path(path).exists():
+            pathlib.Path(path).unlink()
+    want = run_experiment("facade", cfg, ds, ckpt=whole, **kw)
+    killed_at_third_dispatch(lambda: run_experiment(
+        "facade", cfg, ds, ckpt=ck, pipeline=True, **kw))
+    next_segment = ckpt_io.load(ck)[1]["next_segment"]
+    with counted() as counts:
+        res = run_experiment("facade", cfg, ds, ckpt=ck, pipeline=True,
+                             cache=EngineCache(), **kw)
+        torch.cuda.synchronize()
+    (pa, ma), (pb, mb) = ckpt_io.load(whole), ckpt_io.load(ck)
+    same_ckpt = ma == mb and all(
+        torch.equal(x, y) for name in ("carry", "net", "draws")
+        for x, y in zip(tree_leaves(pa[name]), tree_leaves(pb[name]),
+                        strict=True))
+    rest = segment_plan(ROUNDS, FAULTS_RESUME_EVAL_EVERY)[next_segment:]
+    k1 = sum(seg.length for seg in rest) + WARMUP_ROUNDS
+    got = {"resumed_at_round": rest[0].start,
+           "vs_uninterrupted": run_diff(res, want),
+           "final_checkpoints_equal": same_ckpt,
+           "checkpoint_holds_init": sorted(pa["net"]["fault"]),
+           "launches": counts, "k1_want": k1}
+    log(f"faults resume: {json.dumps(got)}")
+    if not (got["vs_uninterrupted"]["equal"] and same_ckpt
+            and got["checkpoint_holds_init"] == ["down", "init"]
+            and counts["head_losses"] == k1 and rest[0].start > 0):
+        raise AssertionError(f"faults kill and resume: {json.dumps(got)}")
+    return got
 
 
 def small_input_phase(rec):
@@ -2235,7 +2493,8 @@ def main() -> int:
     hs["driver_launches"] = {"pipeline": pipeline_phase(rec, ds),
                              "resume": resume_phase(rec, ds),
                              "sweep": sweep_phase(rec, ds),
-                             "netsim": netsim_phase(rec, ds)}
+                             "netsim": netsim_phase(rec, ds),
+                             "faults": faults_phase(rec, ds)}
     resnet8_launches = resnet8_paper_phase(rec)
     hs["resnet8"] = dict(resnet8_select_phase(rec),
                          launches=resnet8_launches)

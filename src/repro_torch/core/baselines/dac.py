@@ -8,6 +8,7 @@ import dataclasses
 
 import torch
 
+from repro_torch import resil
 from repro_torch.tree import tree_map
 
 from .. import split, topology
@@ -39,12 +40,15 @@ def sample_neighbors(sim, gumbel, degree: int, tau: float):
 
 
 def dac_round(cfg: DACConfig, binding: Binding, state: BaselineState,
-              batches, gumbel, net=None, gossip=None):
+              batches, gumbel, net=None, gossip=None, fault_cfg=None):
     """batches: ``{"x": [n, H, B, ...], "y": [n, H, B]}``; gumbel: the
-    round's ``[n, n]`` Gumbel draw (``TorchDraws.gumbel``). net/gossip: as
-    ``el_round``; a peer delivers its published snapshot when stale, an
-    exchange that did not deliver keeps the old similarity, and an
-    offline node keeps its similarities."""
+    round's ``[n, n]`` Gumbel draw (``TorchDraws.gumbel``).
+    net/gossip/fault_cfg: as ``el_round``; a peer delivers its published
+    snapshot when stale (perhaps corrupted in transit), an exchange that
+    did not deliver keeps the old similarity, and an offline node keeps
+    its similarities. Under the guard a peer whose model scores a
+    non-finite loss scores 1e9 (as dissimilar as can be) instead of
+    poisoning the similarity table."""
     n, r = cfg.n_nodes, cfg.degree
     sim = state.extra["sim"]
     nbr = sample_neighbors(sim, gumbel, r, cfg.tau)          # [n, r]
@@ -55,7 +59,8 @@ def dac_round(cfg: DACConfig, binding: Binding, state: BaselineState,
     adj = masked_topology(net, adj)
 
     # what each peer delivers: its published snapshot when stale
-    vis = sent_view(net, gossip, state.params)
+    vis = sent_view(net, gossip, state.params, fault_cfg)
+    guard = resil.guard_of(fault_cfg)
     delivered_params = state.params if vis is None else vis
 
     # similarity: the inverse loss of each neighbour's model on the node's
@@ -65,6 +70,9 @@ def dac_round(cfg: DACConfig, binding: Binding, state: BaselineState,
         mine = {key: b[:, 0].repeat_interleave(r, dim=0)
                 for key, b in batches.items()}
         l_peer = binding.node_losses(peers, mine).reshape(n, r)
+    if guard is not None:
+        l_peer = torch.where(torch.isfinite(l_peer), l_peer,
+                             torch.full_like(l_peer, 1e9))
     inv_loss = 1.0 / l_peer.float().clamp(min=1e-6)
     if net is not None:
         # a lost or offline exchange brings no model to score
@@ -74,13 +82,15 @@ def dac_round(cfg: DACConfig, binding: Binding, state: BaselineState,
 
     # aggregate with similarity weights, then train locally
     w = topology.weighted_mixing(adj, new_sim.clamp(min=1e-6))
-    params = local_sgd(binding, gossip_mix(w, state.params, vis), batches,
-                       cfg.lr)
+    params = local_sgd(binding, gossip_mix(w, state.params, vis,
+                                           guard=guard), batches, cfg.lr)
     if net is not None:
         params = freeze_inactive(net.active, params, state.params)
         new_sim = torch.where(net.active[:, None] > 0, new_sim, sim)
     model_bytes = split.tree_size_bytes(
         tree_map(lambda l: l[0], state.params))
+    info = comm_info(net, adj, model_bytes, n * r)
+    info["quarantined"] = resil.quarantined_count(guard, vis,
+                                                  device=adj.device)
     return (BaselineState(params=params, round=state.round + 1,
-                          extra={"sim": new_sim}),
-            comm_info(net, adj, model_bytes, n * r))
+                          extra={"sim": new_sim}), info)

@@ -6,6 +6,7 @@ from __future__ import annotations
 
 import dataclasses
 
+from repro_torch import resil
 from repro_torch.tree import tree_map
 
 from .. import split, topology
@@ -22,11 +23,12 @@ class DeprlConfig:
 
 
 def deprl_round(cfg: DeprlConfig, binding: Binding, state: BaselineState,
-                batches, net=None, gossip=None):
+                batches, net=None, gossip=None, fault_cfg=None):
     """Mix the cores over the ring, then H local steps on the merged core
     and each node's own head. ``state.params`` holds full models.
-    net/gossip: as ``el_round``; the published snapshot holds full models,
-    of which a stale node exposes the core."""
+    net/gossip/fault_cfg: as ``el_round``; the published snapshot holds
+    full models, of which a stale node exposes the core, and corruption
+    mangles only the cores (the heads are never sent)."""
     leaf = next(iter(batches.values()))
     adj = masked_topology(net, topology.ring(cfg.n_nodes, cfg.degree,
                                              device=leaf.device))
@@ -34,12 +36,15 @@ def deprl_round(cfg: DeprlConfig, binding: Binding, state: BaselineState,
     pub_cores = None
     if gossip is not None:
         pub_cores, _ = split.split_params(gossip, binding.head_keys)
-    vis = sent_view(net, pub_cores, cores)
-    cores = gossip_mix(topology.mixing_matrix(adj), cores, vis)
+    vis = sent_view(net, pub_cores, cores, fault_cfg)
+    guard = resil.guard_of(fault_cfg)
+    cores = gossip_mix(topology.mixing_matrix(adj), cores, vis, guard=guard)
     params = local_sgd(binding, split.merge_params(cores, heads), batches,
                        cfg.lr)
     if net is not None:
         params = freeze_inactive(net.active, params, state.params)
     core_bytes = split.tree_size_bytes(tree_map(lambda l: l[0], cores))
-    return (state._replace(params=params, round=state.round + 1),
-            comm_info(net, adj, core_bytes, cfg.n_nodes * cfg.degree))
+    info = comm_info(net, adj, core_bytes, cfg.n_nodes * cfg.degree)
+    info["quarantined"] = resil.quarantined_count(guard, vis,
+                                                  device=adj.device)
+    return state._replace(params=params, round=state.round + 1), info

@@ -5,6 +5,7 @@ from __future__ import annotations
 
 import dataclasses
 
+from repro_torch import resil
 from repro_torch.tree import tree_map
 
 from .. import split, topology
@@ -21,20 +22,25 @@ class DpsgdConfig:
 
 
 def dpsgd_round(cfg: DpsgdConfig, binding: Binding, state: BaselineState,
-                batches, net=None, gossip=None):
+                batches, net=None, gossip=None, fault_cfg=None):
     """batches: ``{"x": [n, H, B, ...], "y": [n, H, B]}``. The ring is
-    static, so the round draws nothing. net/gossip: as ``el_round``; a
-    stale neighbour contributes its last published model instead of this
-    round's trained one."""
+    static, so the round draws nothing. net/gossip/fault_cfg: as
+    ``el_round``; a stale neighbour contributes its last published model
+    instead of this round's trained one, a corrupting one a mangled
+    copy of its trained one."""
     leaf = next(iter(batches.values()))
     adj = masked_topology(net, topology.ring(cfg.n_nodes, cfg.degree,
                                              device=leaf.device))
     params = local_sgd(binding, state.params, batches, cfg.lr)
-    vis = sent_view(net, gossip, params)
-    params = gossip_mix(topology.mixing_matrix(adj), params, vis)
+    vis = sent_view(net, gossip, params, fault_cfg)
+    guard = resil.guard_of(fault_cfg)
+    params = gossip_mix(topology.mixing_matrix(adj), params, vis,
+                        guard=guard)
     if net is not None:
         params = freeze_inactive(net.active, params, state.params)
     model_bytes = split.tree_size_bytes(
         tree_map(lambda l: l[0], state.params))
-    return (state._replace(params=params, round=state.round + 1),
-            comm_info(net, adj, model_bytes, cfg.n_nodes * cfg.degree))
+    info = comm_info(net, adj, model_bytes, cfg.n_nodes * cfg.degree)
+    info["quarantined"] = resil.quarantined_count(guard, vis,
+                                                  device=adj.device)
+    return state._replace(params=params, round=state.round + 1), info

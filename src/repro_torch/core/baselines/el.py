@@ -5,6 +5,7 @@ from __future__ import annotations
 
 import dataclasses
 
+from repro_torch import resil
 from repro_torch.tree import tree_map
 
 from .. import split, topology
@@ -21,19 +22,25 @@ class ELConfig:
 
 
 def el_round(cfg: ELConfig, binding: Binding, state: BaselineState, batches,
-             perms, net=None, gossip=None):
+             perms, net=None, gossip=None, fault_cfg=None):
     """batches: ``{"x": [n, H, B, ...], "y": [n, H, B]}``; perms: the
     round's topology permutations (:func:`topology.random_regular`); net:
     the round's ``netsim.RoundConditions`` (see ``facade_round``); gossip:
-    the async-gossip published params."""
+    the async-gossip published params; fault_cfg: the run's
+    ``resil.FaultConfig`` (payload corruption and the mix's guard, see
+    ``facade_round``)."""
     adj = masked_topology(net, topology.random_regular(perms, cfg.n_nodes,
                                                        cfg.degree))
-    vis = sent_view(net, gossip, state.params)
-    params = gossip_mix(topology.mixing_matrix(adj), state.params, vis)
+    vis = sent_view(net, gossip, state.params, fault_cfg)
+    guard = resil.guard_of(fault_cfg)
+    params = gossip_mix(topology.mixing_matrix(adj), state.params, vis,
+                        guard=guard)
     params = local_sgd(binding, params, batches, cfg.lr)
     if net is not None:
         params = freeze_inactive(net.active, params, state.params)
     model_bytes = split.tree_size_bytes(
         tree_map(lambda l: l[0], state.params))
-    return (BaselineState(params=params, round=state.round + 1),
-            comm_info(net, adj, model_bytes, cfg.n_nodes * cfg.degree))
+    info = comm_info(net, adj, model_bytes, cfg.n_nodes * cfg.degree)
+    info["quarantined"] = resil.quarantined_count(guard, vis,
+                                                  device=adj.device)
+    return BaselineState(params=params, round=state.round + 1), info

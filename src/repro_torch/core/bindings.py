@@ -28,6 +28,7 @@ from typing import Any, Callable, NamedTuple
 
 import torch
 
+from repro_torch import resil
 from repro_torch.models import cnn, layers, transformer
 from repro_torch.models.base import CNNConfig, ModelConfig
 from repro_torch.tree import (tree_leaves, tree_map, tree_unflatten,
@@ -75,27 +76,71 @@ def local_sgd(binding: Binding, params, batches, lr: float):
     return params
 
 
-def gossip_mix(w, tree, visible=None):
+def gossip_mix(w, tree, visible=None, guard=None):
     """Row-stochastic gossip mixing (Eq. 3) ``out_i = sum_j W_ij x_j`` over
     a node-stacked tree; the one mixing definition of every algorithm.
 
-    ``visible`` (async stale gossip, ``netwire.sent_view``): a tree of the
-    same structure holding what each node's neighbours observe (a stale
-    node exposes its last published snapshot). Neighbour terms then read
-    ``visible`` while each node's self term keeps its own fresh leaf:
+    ``visible`` (async stale gossip and payload corruption,
+    ``netwire.sent_view``): a tree of the same structure holding what each
+    node's neighbours receive (a stale node exposes its last published
+    snapshot, a corrupting one a mangled payload). Neighbour terms then
+    read ``visible`` while each node's self term keeps its own fresh leaf:
     ``out_i = sum_j W_ij v_j + W_ii (x_i - v_i)``. With no stale node
-    (``visible == tree``) the correction is exactly zero."""
-    if visible is None:
-        return tree_map(lambda p: node_matmul(w.to(p.dtype), p), tree)
-    diag = torch.diagonal(w)
+    (``visible == tree``) the correction is exactly zero.
+
+    ``guard`` (robust aggregation, :func:`repro_torch.resil.guard_of`):
+    with a ``FaultConfig``, poisoned payloads degrade the mix instead of
+    NaN'ing every receiver:
+
+    * quarantine: a sender with any non-finite float leaf loses its
+      off-diagonal weight, and each row of ``W`` is renormalised over its
+      surviving neighbours (the self weight always kept);
+    * norm clip: every surviving neighbour's weight is scaled by
+      ``min(1, clip * |self| / |sender|)``, so a blown-up payload pulls a
+      receiver by at most ``clip`` times its own norm.
+
+    ``guard=None`` is the fault-free arithmetic bit for bit."""
+    if guard is None:
+        if visible is None:
+            return tree_map(lambda p: node_matmul(w.to(p.dtype), p), tree)
+        diag = torch.diagonal(w)
+
+        def mix(p, v):
+            v = v.to(p.dtype)
+            out = node_matmul(w.to(p.dtype), v)
+            d = diag.reshape((diag.shape[0],) + (1,) * (p.dim() - 1))
+            return (out + d.to(p.dtype) * (p - v)).to(p.dtype)
+
+        return tree_map(mix, tree, visible)
+
+    v_tree = tree if visible is None else visible
+    n = w.shape[0]
+    finite = resil.node_finite(v_tree)                         # [n]
+    vnorm = torch.where(finite > 0, resil.node_norm(v_tree),
+                        torch.ones_like(finite))
+    pnorm = resil.node_norm(tree)                              # own, fresh
+    eye = torch.eye(n, dtype=w.dtype, device=w.device)
+    off = 1.0 - eye
+    # quarantine: drop poisoned senders' off-diagonal mass, renormalise
+    # each row over the survivors (the self weight is always kept)
+    wq = w * off * finite[None, :] + w * eye
+    wr = wq / wq.sum(dim=1, keepdim=True).clamp(min=1e-12)
+    # norm clip: cap each neighbour's contribution at clip x own norm
+    scale = torch.clamp(guard.clip * pnorm.clamp(min=1e-12)[:, None]
+                        / vnorm.clamp(min=1e-12)[None, :], max=1.0)
+    scale = scale * off + eye          # never clip the self term
+    ws = wr * scale
+    diag = torch.diagonal(wr)
 
     def mix(p, v):
-        v = v.to(p.dtype)
-        out = node_matmul(w.to(p.dtype), v)
-        d = diag.reshape((diag.shape[0],) + (1,) * (p.dim() - 1))
-        return (out + d.to(p.dtype) * (p - v)).to(p.dtype)
+        m = finite.reshape((n,) + (1,) * (p.dim() - 1))
+        # zero quarantined leaves before the product: 0 weight x NaN = NaN
+        vs = torch.where(m > 0, v.to(p.dtype), torch.zeros_like(p))
+        out = node_matmul(ws.to(p.dtype), vs)
+        d = diag.reshape((n,) + (1,) * (p.dim() - 1))
+        return (out + d.to(p.dtype) * (p - vs)).to(p.dtype)
 
-    return tree_map(mix, tree, visible)
+    return tree_map(mix, tree, v_tree)
 
 
 def _untie_lm_head(cfg: ModelConfig, params: dict,

@@ -70,8 +70,9 @@ class EngineSpec:
     eval_batch: int = 256        # make_evaluator batch size
     device: torch.device = torch.device("cuda")
     net: Any = None              # netsim.NetworkConfig | None (frozen): the
-    #                              captured round runs its masks, channel
-    #                              and gossip buffer
+    #                              captured round runs its masks, channel,
+    #                              gossip buffer and node faults (every
+    #                              field of net.faults forks the key)
 
 
 _FP_MEMO: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
@@ -122,7 +123,8 @@ class CacheEntry:
         self.binding = make_binding(spec.cfg)
         self.program = runner.algo_program(
             spec.algo, self.binding, spec.n, spec.k, degree=spec.degree,
-            lr=spec.lr, head_jitter=spec.head_jitter)
+            lr=spec.lr, head_jitter=spec.head_jitter,
+            faults=None if spec.net is None else spec.net.faults)
         self.engine = SegmentEngine(
             self.program.round_fn, warmup_fn=self.program.warmup_fn,
             n=spec.n, local_steps=spec.local_steps,

@@ -20,17 +20,23 @@ This module runs the same round closures (FACADE's or a baseline's,
   order (batch indices ``[L, n, H, B]``, then FACADE's and EL's
   permutations ``[L, n_perms, n]`` or DAC's Gumbel matrices ``[L, n, n]``;
   D-PSGD and DEPRL draw nothing; under ``net`` the round's netsim
-  uniforms and event masks, ``[L, n, n]`` and ``[L, n]``, from the run's
-  ``netsim.NetSchedule``), stacked in pinned memory and copied to the card
-  once; before each replay a device-to-device copy moves round i's draws
-  into the graph's static inputs. The engine and the loop so consume
-  identical draws, and one seed still gives one run on every device.
+  uniforms and event masks, ``[L, n, n]`` and ``[L, n]``, and under
+  ``net.faults`` the crash, restart and corruption uniforms ``[L, n]`` and
+  in noise mode the payload noise, ``[L, ...]`` a leaf of the sent tree,
+  from the run's ``netsim.NetSchedule``), stacked in pinned memory and
+  copied to the card once; before each replay a device-to-device copy
+  moves round i's draws into the graph's static inputs. The engine and
+  the loop so consume identical draws, and one seed still gives one run
+  on every device.
   This is the one deliberate difference from the reference engine;
 * **network simulation** (``net``, a ``netsim.NetworkConfig``): the
   captured round runs ``netwire.net_round`` (advance the channel, the
-  masks, the stale marks, the round, the gossip fold, the round's
-  seconds) as the loop does, with the channel and the gossip buffer in
-  static buffers of the carry beside the state;
+  masks, the node faults and a reset of restarting nodes, the stale
+  marks, the round, the gossip fold, the round's seconds) as the loop
+  does, with the channel, the gossip buffer and the crash chain (its
+  ``down [n]`` and, under ``restart_mode="reset"``, the round-0 copy of
+  the state, written once a run) in static buffers of the carry beside
+  the state;
 * a segment's outputs leave the card once. Off ``net``, ``round_bytes``
   is a host float from the formula, recorded when the round is captured
   (it never touches the card); under ``net`` each replay writes its
@@ -86,6 +92,7 @@ from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.head_select import head_losses
 from repro_torch.kernels.rwkv6 import wkv
 from repro_torch.netsim import ChannelState, GossipState, NetDraws
+from repro_torch.resil import FaultState
 from repro_torch.tree import tree_map
 
 from . import netwire
@@ -203,6 +210,8 @@ class SegmentEngine:
         self._state = None       # static state tensors, {field: tree}
         self._chan = None        # net: static ChannelState.bad [n, n]
         self._gossip = None      # net: static {"published", "age"}
+        self._down = None        # net.faults: static crash chain [n]
+        self._init = None        # reset restarts: static round-0 state
         self._scalars = None     # net: static (bytes, seconds) of a round
         self._inputs = None      # static per-round inputs, {name: tensor}
         self._data = {}          # CUDA: static train arrays per shape/dtype
@@ -240,12 +249,25 @@ class SegmentEngine:
                 for a in (train_x, train_y))
         return self._data[key]
 
-    def init_carry(self, state, chan=None, gossip=None) -> EngineCarry:
+    def init_carry(self, state, chan=None, gossip=None,
+                   fault=None) -> EngineCarry:
         """The run's carry: ``state``'s tensors and, under ``net``, the
-        channel (bursty presets) and the gossip buffer (async gossip),
-        copied into the engine's static buffers (allocated at the first
-        run); the round counter as given."""
+        channel (bursty presets), the gossip buffer (async gossip) and the
+        crash chain (``net.faults`` with a crash rate; under ``reset`` its
+        round-0 copy of the state), copied into the engine's static
+        buffers (allocated at the first run); the round counter as
+        given."""
         net = self._net
+        faults = None if net is None else net.faults
+        chain = faults is not None and faults.crash_rate > 0
+        if (fault is None) == chain:
+            raise ValueError(f"the engine's network {net!r} "
+                             f"{'needs' if chain else 'has no'} "
+                             "crash-chain state")
+        if chain and (fault.init is None) == (faults.restart_mode
+                                              == "reset"):
+            raise ValueError("the crash chain's round-0 state copy is "
+                             "needed exactly under restart_mode='reset'")
         if (chan is None) != (net is None or net.burst is None):
             raise ValueError(f"the engine's network {net!r} "
                              f"{'needs' if chan is None else 'has no'} "
@@ -264,19 +286,28 @@ class SegmentEngine:
                 self._chan = like(chan.bad)
             if gossip is not None:
                 self._gossip = tree_map(like, dict(gossip._asdict()))
+            if fault is not None:
+                self._down = like(fault.down)
+                if fault.init is not None:
+                    self._init = tree_map(like, state_tensors(fault.init))
             if net is not None:
                 self._scalars = torch.zeros((2,), dtype=torch.float32,
                                             device=self._dev)
-        carry = EngineCarry(state, chan, gossip)
+        carry = EngineCarry(state, chan, gossip, fault)
         self._load(carry)
         return self._static_carry(state)
 
     def _static_carry(self, state) -> EngineCarry:
         """A carry whose tensors are the static buffers."""
+        fault = None
+        if self._down is not None:
+            fault = FaultState(self._down, None if self._init is None
+                               else state._replace(**self._init))
         return EngineCarry(
             state._replace(**self._state),
             None if self._chan is None else ChannelState(self._chan),
-            None if self._gossip is None else GossipState(**self._gossip))
+            None if self._gossip is None else GossipState(**self._gossip),
+            fault)
 
     def _load(self, carry: EngineCarry):
         """Copy ``carry``'s tensors into the static ones (those that are
@@ -296,11 +327,16 @@ class SegmentEngine:
             put(self._chan, carry.chan.bad)
         if self._gossip is not None:
             tree_map(put, self._gossip, dict(carry.gossip._asdict()))
+        if self._down is not None:
+            put(self._down, carry.fault.down)
+        if self._init is not None:
+            tree_map(put, self._init, state_tensors(carry.fault.init))
 
-    def _store(self, new_state, chan, gossip, info, round_s):
+    def _store(self, new_state, chan, gossip, fault, info, round_s):
         """End of a round: the new carry's tensors into the static ones,
-        leaf by key, and under ``net`` the round's bytes and seconds into
-        the static pair."""
+        leaf by key (the crash chain's ``down``; its round-0 copy is never
+        written a round), and under ``net`` the round's bytes and seconds
+        into the static pair."""
         def put(s, l):
             if l is not s:
                 s.copy_(l)
@@ -311,6 +347,8 @@ class SegmentEngine:
                 put(self._chan, chan.bad)
             if self._gossip is not None:
                 tree_map(put, self._gossip, dict(gossip._asdict()))
+            if self._down is not None:
+                put(self._down, fault.down)
             self._scalars[0].copy_(info["round_bytes"])
             self._scalars[1].copy_(round_s)
 
@@ -331,7 +369,10 @@ class SegmentEngine:
                 topo.append(source.gumbel(n))
             if sched is not None:
                 for f, v in zip(NetDraws._fields, sched.round(rnd)):
-                    if v is not None:
+                    if isinstance(v, tuple):        # the payload noise
+                        for i, leaf in enumerate(v):
+                            nets.setdefault(f"{f}.{i}", []).append(leaf)
+                    elif v is not None:
                         nets[f].append(v)
         out = {"idx": self._stack(idx)}
         if topo:
@@ -361,19 +402,24 @@ class SegmentEngine:
     def _step(self, fn, carry: EngineCarry, inputs: dict, train_x,
               train_y) -> tuple:
         """One round of ``fn`` from ``carry`` on ``inputs`` (one round's
-        draws, on the device): ``(state, chan, gossip, info, round_s)``,
-        under ``net`` through ``netwire.net_round``, the loop's path."""
+        draws, on the device): ``(state, chan, gossip, fault, info,
+        round_s)``, under ``net`` through ``netwire.net_round``, the loop's
+        path."""
         batches = pipeline.sample_round_batches(inputs["idx"], train_x,
                                                 train_y)
         topo = self._topology_args(inputs)
         if self._net is None:
             state, info = fn(carry.state, batches, *topo)
-            return state, None, None, info, None
-        draws = NetDraws(**{f: inputs.get("net." + f)
-                            for f in NetDraws._fields})
+            return state, None, None, None, info, None
+        fields = {f: inputs.get("net." + f) for f in NetDraws._fields}
+        noise = []             # the payload noise, one input a leaf
+        while f"net.noise.{len(noise)}" in inputs:
+            noise.append(inputs[f"net.noise.{len(noise)}"])
+        fields["noise"] = tuple(noise) if noise else None
         return netwire.net_round(fn, self._mixable_of, carry.state,
-                                 carry.chan, carry.gossip, batches, topo,
-                                 self._net, draws, self._h)
+                                 carry.chan, carry.gossip, carry.fault,
+                                 batches, topo, self._net,
+                                 NetDraws(**fields), self._h)
 
     # -- one segment --------------------------------------------------------
     def dispatch_segment(self, carry: EngineCarry, start: int, length: int,
@@ -473,9 +519,9 @@ class SegmentEngine:
         bufs = self._out_buffers(length)
         for i in range(length):
             inputs = {k: v[i] for k, v in draws.items()}
-            state, chan, gossip, info, round_s = self._step(
+            state, chan, gossip, fault, info, round_s = self._step(
                 fn, carry, inputs, train_x, train_y)
-            self._store(state, chan, gossip, info, round_s)
+            self._store(state, chan, gossip, fault, info, round_s)
             carry = carry._replace(
                 state=carry.state._replace(round=carry.state.round + 1))
             if self._net is None:
@@ -529,7 +575,9 @@ class SegmentEngine:
             None if carry.chan is None else ChannelState(
                 carry.chan.bad.clone()),
             None if carry.gossip is None else GossipState(
-                **tree_map(torch.clone, dict(carry.gossip._asdict()))))
+                **tree_map(torch.clone, dict(carry.gossip._asdict()))),
+            None if carry.fault is None else carry.fault._replace(
+                down=carry.fault.down.clone()))
         side = _capture_stream(self._dev)
         side.wait_stream(torch.cuda.current_stream(self._dev))
         try:
@@ -545,8 +593,8 @@ class SegmentEngine:
         del scratch
 
         def captured_round():
-            new, chan, gossip, info, round_s = one_round(carry)
-            self._store(new, chan, gossip, info, round_s)
+            new, chan, gossip, fault, info, round_s = one_round(carry)
+            self._store(new, chan, gossip, fault, info, round_s)
             if self._net is not None:
                 return None
             rb = info["round_bytes"]

@@ -16,10 +16,12 @@ round's mixing matrix.
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch import resil
 from repro_torch.kernels.head_select import head_losses
 from repro_torch.tree import tree_map
 
@@ -38,26 +40,62 @@ class FacadeConfig:
     lr: float = 0.01
 
 
-def _aggregate_heads(adj, cluster_id, heads, k: int, sent_heads=None):
+def _aggregate_heads(adj, cluster_id, heads, k: int, sent_heads=None,
+                     guard=None):
     """Eq. 4: for each node i and cluster j, average the heads sent by
     neighbors claiming cluster j together with i's own stored head j.
     heads [n, k, ...]; node j' sends its head ``sent_heads[j', cid[j']]``.
     ``cluster_id`` and ``sent_heads`` (default ``heads``) are what each
     node publishes this round (under async gossip a stale node publishes
-    its old snapshot); ``heads`` is always the receiver's own bank."""
+    its old snapshot, under payload corruption perhaps a mangled one);
+    ``heads`` is always the receiver's own bank.
+
+    ``guard`` (:func:`repro_torch.resil.guard_of`): the head-bank
+    counterpart of ``gossip_mix``'s guard. A sender whose published head
+    is non-finite is quarantined (out of both the sum and the count), and
+    finite senders are norm-clipped against the receiver's own per-slot
+    RMS head norm. ``None`` is the fault-free arithmetic bit for bit."""
     n = adj.shape[0]
     rows = torch.arange(n, device=adj.device)
+    sent = tree_map(lambda h: h[rows, cluster_id],
+                    heads if sent_heads is None else sent_heads)  # [n, ...]
     onehot = F.one_hot(cluster_id, k).to(torch.float32)      # [n, k]
+    adj_w = adj
+    if guard is not None:
+        finite = resil.node_finite(sent)                     # [n]
+        snorm = torch.where(finite > 0, resil.node_norm(sent),
+                            torch.ones_like(finite))
+        own = resil.node_norm(heads) / math.sqrt(float(k))   # per-slot RMS
+        clip = torch.clamp(
+            guard.clip * own.clamp(min=1e-12)[:, None]
+            / snorm.clamp(min=1e-12)[None, :], max=1.0)      # [n, n]
+        # quarantined senders leave both the weighted sum and the count;
+        # their (perhaps NaN) head leaves are zeroed before the product
+        adj = adj * finite[None, :]
+        adj_w = adj * clip
+        sent = resil_tree_zero(sent, finite)
     denom = 1.0 + node_matmul(adj, onehot)                   # [n, k]
 
     def agg(h_all, h_sent):
-        sent = h_sent[rows, cluster_id]                      # [n, ...]
-        recv = node_head_matmul(adj.to(sent.dtype), onehot.to(sent.dtype),
-                                sent)
+        recv = node_head_matmul(adj_w.to(h_sent.dtype),
+                                onehot.to(h_sent.dtype), h_sent)
         d = denom.reshape(denom.shape + (1,) * (h_all.dim() - 2))
         return ((h_all + recv) / d.to(h_all.dtype)).to(h_all.dtype)
 
-    return tree_map(agg, heads, heads if sent_heads is None else sent_heads)
+    return tree_map(agg, heads, sent)
+
+
+def resil_tree_zero(tree, keep):
+    """Zero the float leaves of nodes with ``keep == 0`` along the leading
+    axis (quarantine hygiene: 0 weight times NaN is still NaN in a
+    product)."""
+    def z(leaf):
+        if not leaf.is_floating_point():
+            return leaf
+        m = keep.reshape((keep.shape[0],) + (1,) * (leaf.dim() - 1))
+        return torch.where(m > 0, leaf, torch.zeros_like(leaf))
+
+    return tree_map(z, tree)
 
 
 def _select_heads(binding: Binding, cores, heads, batch, n: int):
@@ -80,7 +118,7 @@ def payload_bytes(state: FacadeState) -> int:
 
 def facade_round(fcfg: FacadeConfig, binding: Binding, state: FacadeState,
                  batches, perms, warmup: bool = False, net=None,
-                 gossip=None):
+                 gossip=None, fault_cfg=None):
     """One synchronous FACADE round for all nodes.
 
     batches: per node and local step, ``{"x": [n, H, B, ...], "y": [n, H,
@@ -96,8 +134,14 @@ def facade_round(fcfg: FacadeConfig, binding: Binding, state: FacadeState,
     (``cores`` / ``heads`` / ``cluster_id``), which stale nodes
     (``net.stale``) expose to their neighbours instead of this round's
     state.
-    Returns (new_state, info with losses, selection, the round's bytes and
-    what ``netwire.round_seconds`` needs).
+    fault_cfg: the run's static :class:`repro_torch.resil.FaultConfig`
+    (or ``None``): payload corruption mangles what a flagged node
+    delivers (``netwire.sent_view``) and, when robust, the guard
+    quarantines and clips poisoned senders in both the core mix and the
+    head aggregation.
+    Returns (new_state, info with losses, selection, the senders the guard
+    quarantined, the round's bytes and what ``netwire.round_seconds``
+    needs).
     """
     n, k = fcfg.n_nodes, fcfg.k
     adj = masked_topology(net, topology.random_regular(perms, n,
@@ -105,10 +149,11 @@ def facade_round(fcfg: FacadeConfig, binding: Binding, state: FacadeState,
     w = topology.mixing_matrix(adj)
 
     # --- what each node's neighbours receive: its fresh state, unless it
-    # --- stays stale under async gossip ---
+    # --- stays stale under async gossip or ships a corrupted payload ---
     sent = sent_view(net, gossip, {"cores": state.cores,
                                    "heads": state.heads,
-                                   "cluster_id": state.cluster_id})
+                                   "cluster_id": state.cluster_id},
+                     fault_cfg)
     if sent is None:
         vis_cores, sent_heads, sent_cid = None, None, state.cluster_id
     else:
@@ -116,9 +161,10 @@ def facade_round(fcfg: FacadeConfig, binding: Binding, state: FacadeState,
         sent_cid = sent["cluster_id"]
 
     # --- aggregation (steps 2a/2b) ---
-    cores = gossip_mix(w, state.cores, vis_cores)
+    guard = resil.guard_of(fault_cfg)
+    cores = gossip_mix(w, state.cores, vis_cores, guard=guard)
     heads = _aggregate_heads(adj, sent_cid, state.heads, k,
-                             sent_heads=sent_heads)
+                             sent_heads=sent_heads, guard=guard)
 
     # --- cluster identification (step 2c) on the first local batch ---
     first = {key: b[:, 0] for key, b in batches.items()}
@@ -147,6 +193,8 @@ def facade_round(fcfg: FacadeConfig, binding: Binding, state: FacadeState,
     new_state = FacadeState(cores=new_cores, heads=new_heads,
                             cluster_id=new_cid, round=state.round + 1)
     return new_state, {"selection_losses": losses, "cluster_id": new_cid,
+                       "quarantined": resil.quarantined_count(
+                           guard, sent, device=adj.device),
                        **comm_info(net, adj, payload_bytes(state),
                                    n * fcfg.degree)}
 

@@ -17,20 +17,22 @@ path):
   its neighbours reuse the copy they hold;
 * :func:`round_seconds` drops stale nodes from the round's gating set.
 
-Offline nodes need no accounting of their own: ``active == 0`` zeroes
-their directed edges in ``effective_adjacency`` (0 bytes), and
-``round_time``'s ``active`` product keeps them out of the gating set.
+Node faults (:mod:`repro_torch.resil`) ride the same contracts:
+:func:`sent_view` composes the stale view with per-sender payload
+corruption, and crashed nodes need no accounting of their own. Offline
+and crashed nodes are ``active == 0``, which zeroes their directed edges
+in ``effective_adjacency`` (0 bytes), and ``round_time``'s ``active``
+product keeps them out of the gating set.
 
 The reference's mesh constraint (``meshctx.constrain_rows``) is the
-identity on one device, and its payload corruption (``sent_view`` with a
-``FaultConfig``) comes with ``resil`` (ROADMAP.md queue 1 item 4b).
+identity on one device.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from repro_torch import netsim
+from repro_torch import netsim, resil
 
 from . import topology
 
@@ -53,11 +55,18 @@ def stale_view(net, published, fresh):
     return netsim.tree_select(net.stale, published, fresh)
 
 
-def sent_view(net, published, fresh):
-    """What each node's neighbours receive this round: the stale view.
-    The reference composes it with payload corruption, which comes with
-    ``resil``; until then this is :func:`stale_view`."""
-    return stale_view(net, published, fresh)
+def sent_view(net, published, fresh, fault_cfg=None):
+    """What each node's neighbours receive this round: the stale view
+    (:func:`stale_view`) composed with per-sender payload corruption
+    (:func:`repro_torch.resil.corrupt_view`). A corrupting node mangles
+    whatever it delivers, fresh state or stale snapshot; its own state is
+    untouched. ``None`` (the plain mixing path) when both are off, so
+    every zero-rate off-switch keeps the fault-free arithmetic."""
+    vis = stale_view(net, published, fresh)
+    if (fault_cfg is None or fault_cfg.corrupt_rate <= 0
+            or net is None or net.corrupt is None):
+        return vis
+    return resil.corrupt_view(fault_cfg, net, fresh if vis is None else vis)
 
 
 def comm_info(net, adj_eff, payload_bytes: int, nominal_sends: int) -> dict:
@@ -103,21 +112,28 @@ def round_seconds(net, info: dict, conds, local_steps: int, tiers=None):
                              local_steps=local_steps, tiers=tiers)
 
 
-def net_round(fn, mixable_of, state, chan, gossip, batches,
+def net_round(fn, mixable_of, state, chan, gossip, fault, batches,
               topology_args: tuple, net, draws, local_steps: int):
     """One round of ``fn`` (a round function) under network simulation,
     in the reference drivers' order: advance the channel and make the
     masks from the round's ``draws`` (a ``netsim.NetDraws`` on the
-    round's device), mark the stale nodes, run the round, fold the new
-    state's ``mixable_of`` into the gossip buffer, and time the round.
-    Returns ``(state, chan, gossip, info, round_s)``, ``round_s`` a
-    float32 0-d tensor. Both drivers (the loop and the engine's captured
-    round) run every netsim round through this."""
+    round's device), advance the node faults (``resil.advance``; under
+    ``restart_mode="reset"`` the restarting nodes are reset before the
+    round), mark the stale nodes, run the round, fold the new state's
+    ``mixable_of`` into the gossip buffer, and time the round. ``fault``
+    is the crash chain's ``resil.FaultState`` (``None`` without one).
+    Returns ``(state, chan, gossip, fault, info, round_s)``, ``round_s``
+    a float32 0-d tensor. Both drivers (the loop and the engine's
+    captured round) run every netsim round through this."""
+    n = draws.straggle.shape[0]
     conds, chan = netsim.advance_conditions(net, draws, chan)
+    conds, fault, restarted = resil.advance(net, n, conds, fault, draws)
+    if restarted is not None:
+        state = resil.reset_nodes(n, restarted, fault.init, state)
     conds, published = netsim.apply_async(net, conds, gossip)
     state, info = fn(state, batches, *topology_args, net=conds,
                      gossip=published)
     if published is not None:
         gossip = netsim.fold_gossip(net, gossip, conds, mixable_of(state))
     round_s = round_seconds(net, info, conds, local_steps, tiers=draws.tiers)
-    return state, chan, gossip, info, round_s
+    return state, chan, gossip, fault, info, round_s

@@ -16,20 +16,22 @@ boundaries (``ckpt=``). The seed-independent machinery (binding, round
 closures, engine, evaluator) comes from an :class:`~.cache.EngineCache`
 (``cache=``; a private one by default). Both drivers run the five
 algorithms under simulated network conditions (``net=``, a
-``netsim.NetworkConfig``): each round's masks, the bursty channel and the
-async-gossip buffer are threaded through the loop, and carried in the
-engine's static buffers. The reference's mesh, adaptive topology, fault
-injection and telemetry (``mesh=``, ``topo=``, ``net.faults``, ``obs=``)
-are not ported yet; ``run_experiment`` has no parameter for the first,
-second and fourth and refuses a ``net`` with ``faults``.
+``netsim.NetworkConfig``) and node faults (``net.faults``, a
+``resil.FaultConfig``: crashes and restarts, payload corruption, the
+robust guard): each round's masks, the bursty channel, the async-gossip
+buffer and the crash chain are threaded through the loop, and carried in
+the engine's static buffers. The reference's mesh, adaptive topology and
+telemetry (``mesh=``, ``topo=``, ``obs=``) are not ported yet;
+``run_experiment`` has no parameter for them.
 
 Randomness comes from a *draws* source (:class:`TorchDraws` by default):
 it supplies the initial parameters, each round's ``[n, H, B]`` batch
 indices and each round's topology draw (FACADE and EL: the permutations
 of a random regular graph; DAC: a Gumbel matrix; D-PSGD and DEPRL, on a
 static ring: none) and, under ``net``, the uniforms of the network
-simulation (``net_uniform``/``net_randint``, counter-based: a draw
-depends only on the network's seed, its stream and its round), so a run
+simulation and its node faults (``net_uniform``/``net_randint``/
+``net_normal``, counter-based: a draw depends only on the network's seed,
+its stream, its round and, for payload noise, the leaf), so a run
 can replay another's draws exactly. ``TorchDraws`` draws on the CPU and
 the runner moves the draws to the run's device, so one seed gives the
 same draws on every device. The run's
@@ -48,7 +50,7 @@ import torch
 
 from repro_torch import checkpoint
 from repro_torch import device as device_mod
-from repro_torch import netsim
+from repro_torch import netsim, resil
 from repro_torch.comm import CommLog
 from repro_torch.data import pipeline as pipeline_mod
 from repro_torch.data.tokens import TokenSpec, make_clustered_tokens
@@ -140,6 +142,10 @@ class TorchDraws:
                     high: int):
         return self._net.net_randint(seed, tag, index, shape, high)
 
+    def net_normal(self, seed: int, tag: int, index: int, leaf: int,
+                   shape):
+        return self._net.net_normal(seed, tag, index, leaf, shape)
+
     def state(self) -> dict:
         """The three generators' states: what a checkpoint must hold for a
         resumed run to draw what the uninterrupted run draws."""
@@ -172,6 +178,10 @@ class AlgoProgram(NamedTuple):
     topology_draw: str | None  # "perms" | "gumbel" | None
     mixable_of: Callable       # state -> what gossip exchanges (the async
     #                            staleness buffer snapshots this tree)
+    sent_of: Callable          # state -> what a node sends, the tree
+    #                            payload corruption mangles
+    sent_lead: Any             # stacked axes in front of each model leaf
+    #                            of ``sent_of``: an int or a dict by key
 
     def setup(self, draws, device) -> "AlgoSetup":
         return AlgoSetup(self, self.init_state(draws, device))
@@ -185,10 +195,12 @@ class AlgoSetup(NamedTuple):
 
 
 def algo_program(algo: str, binding: Binding, n: int, k: int, *,
-                 degree: int, lr: float,
-                 head_jitter: float = 0.0) -> AlgoProgram:
+                 degree: int, lr: float, head_jitter: float = 0.0,
+                 faults=None) -> AlgoProgram:
     """The program of ``algo`` (one of :data:`ALGOS`) on ``binding``'s
-    model, ``n`` nodes, ``k`` FACADE heads."""
+    model, ``n`` nodes, ``k`` FACADE heads. ``faults``: the run's frozen
+    ``resil.FaultConfig`` (``net.faults``) or ``None``, closed over the
+    round closures (payload corruption and the robust guard)."""
     if algo == "facade":
         fcfg = facade_mod.FacadeConfig(n_nodes=n, k=k, degree=degree, lr=lr)
 
@@ -200,18 +212,21 @@ def algo_program(algo: str, binding: Binding, n: int, k: int, *,
         return AlgoProgram(
             init_state=init_state,
             round_fn=functools.partial(facade_mod.facade_round, fcfg,
-                                       binding, warmup=False),
+                                       binding, warmup=False,
+                                       fault_cfg=faults),
             warmup_fn=functools.partial(facade_mod.facade_round, fcfg,
-                                        binding, warmup=True),
+                                        binding, warmup=True,
+                                        fault_cfg=faults),
             models_of=facade_mod.node_models,
             finalize=functools.partial(facade_mod.final_allreduce, fcfg),
             track_cluster=True, topology_draw="perms",
-            mixable_of=lambda s: {"cores": s.cores, "heads": s.heads,
-                                  "cluster_id": s.cluster_id})
+            mixable_of=_facade_sent, sent_of=_facade_sent,
+            sent_lead={"cores": 1, "heads": 2})
     if algo in BASELINES:
         cfg_cls, round_fn, topology_draw = BASELINES[algo]
         fn = functools.partial(
-            round_fn, cfg_cls(n_nodes=n, degree=degree, lr=lr), binding)
+            round_fn, cfg_cls(n_nodes=n, degree=degree, lr=lr), binding,
+            fault_cfg=faults)
 
         def init_state(draws, device):
             return init_baseline_state(
@@ -223,9 +238,17 @@ def algo_program(algo: str, binding: Binding, n: int, k: int, *,
             init_state=init_state, round_fn=fn, warmup_fn=fn,
             models_of=lambda s: s.params, finalize=lambda s: s,
             track_cluster=False, topology_draw=topology_draw,
-            mixable_of=lambda s: s.params)
+            mixable_of=lambda s: s.params,
+            # DEPRL sends its core alone
+            sent_of=(lambda s: split.split_params(
+                s.params, binding.head_keys)[0]) if algo == "deprl"
+            else (lambda s: s.params), sent_lead=1)
     raise ValueError(f"algorithm {algo!r} is not ported yet; the port "
                      f"runs {ALGOS}")
+
+
+def _facade_sent(s) -> dict:
+    return {"cores": s.cores, "heads": s.heads, "cluster_id": s.cluster_id}
 
 
 def algo_setup(algo: str, binding: Binding, draws, n: int, k: int, *,
@@ -417,8 +440,10 @@ def run_experiment(algo: str, cfg, dataset, *, rounds: int,
     algorithm on either driver; the ``CommLog`` then counts the bytes
     actually delivered and carries simulated seconds beside them, and the
     eval frames split accuracy by link tier. ``None`` is the ideal-medium
-    path. A config with ``faults`` set is refused (``ValueError``): fault
-    injection is not ported yet.
+    path. ``net.faults`` (a :class:`repro_torch.resil.FaultConfig`) adds
+    node crashes and restarts, payload corruption and the robust guard,
+    on both drivers; ``None`` and every zero-rate off-switch are the
+    fault-free run bit for bit.
 
     ``pipeline`` (engine only): dispatch segment t+1 before segment t is
     drained, so the host's work on segment t (the drain, the eval's
@@ -484,12 +509,10 @@ def _run(algo: str, cfg, dataset, *, rounds: int, k, degree: int,
     if net is not None and not isinstance(net, netsim.NetworkConfig):
         raise TypeError(f"net must be a netsim.NetworkConfig or None, not "
                         f"{type(net).__name__}")
-    if net is not None and net.faults is not None:
-        raise ValueError(
-            "net.faults is set, but fault injection (repro.resil: the "
-            "crash chain, payload corruption and the robust aggregation "
-            "guard) is not ported yet (ROADMAP.md queue 1 item 4b); run "
-            "with faults=None")
+    if net is not None and net.faults is not None and not isinstance(
+            net.faults, resil.FaultConfig):
+        raise TypeError(f"net.faults must be a resil.FaultConfig or None, "
+                        f"not {type(net.faults).__name__}")
     if eval_every <= 0:
         raise ValueError(
             f"eval_every={eval_every} must be a positive round count")
@@ -536,7 +559,10 @@ def _run(algo: str, cfg, dataset, *, rounds: int, k, degree: int,
         setup = entry.setup(draws)
         evaluator = cache.evaluator(entry.binding, dataset,
                                     batch=eval_batch, device=dev)
-        sched = None if net is None else netsim.NetSchedule(net, n, draws)
+        sched = None if net is None else netsim.NetSchedule(
+            net, n, draws, noise=resil.noise_spec(
+                net, setup.program.sent_of(setup.state),
+                setup.program.sent_lead))
         hist = _History(dataset.node_cluster, n, evaluator,
                         setup.program.models_of, target_acc, verbose, algo,
                         cfg.n_classes,
@@ -566,13 +592,15 @@ def _run(algo: str, cfg, dataset, *, rounds: int, k, degree: int,
 def _initial_carry(setup: AlgoSetup, sched, n: int, dev) -> EngineCarry:
     """The run's initial carry: the state and, under ``net`` (``sched``,
     its :class:`~repro_torch.netsim.NetSchedule`), the channel drawn from
-    its stationary distribution and a fresh async-gossip buffer."""
+    its stationary distribution, a fresh async-gossip buffer and a fresh
+    crash chain (every node up; under ``reset`` a copy of the state)."""
     if sched is None:
         return EngineCarry(setup.state)
     return EngineCarry(
         setup.state, sched.init_channel(dev),
         netsim.init_gossip(sched.cfg, n,
-                           setup.program.mixable_of(setup.state)))
+                           setup.program.mixable_of(setup.state)),
+        resil.init_state(sched.cfg, n, setup.state))
 
 
 def _drive_loop(program: AlgoProgram, carry: EngineCarry, hist: _History,
@@ -580,9 +608,10 @@ def _drive_loop(program: AlgoProgram, carry: EngineCarry, hist: _History,
                 warmup_rounds, local_steps, batch_size, n, degree,
                 sched=None):
     """The per-round loop: every round drawn, run and recorded on its own;
-    under ``net`` the channel and the gossip buffer are threaded through
-    as the engine carries them. Returns the final state."""
-    state, chan, gossip = carry
+    under ``net`` the channel, the gossip buffer and the crash chain are
+    threaded through as the engine carries them. Returns the final
+    state."""
+    state, chan, gossip, fault = carry
     dev = train_x.device
     per_node = train_x.shape[1]
 
@@ -604,8 +633,8 @@ def _drive_loop(program: AlgoProgram, carry: EngineCarry, hist: _History,
         if sched is None:
             state, info = fn(state, batches, *draw_topology())
         else:
-            state, chan, gossip, info, round_s = netwire.net_round(
-                fn, program.mixable_of, state, chan, gossip, batches,
+            state, chan, gossip, fault, info, round_s = netwire.net_round(
+                fn, program.mixable_of, state, chan, gossip, fault, batches,
                 draw_topology(), sched.cfg, sched.round(rnd).to(dev),
                 local_steps)
             round_s = float(round_s)
@@ -843,12 +872,17 @@ def _carry_snapshot(carry: EngineCarry) -> tuple:
     """``(round, HostCopy of the carry's tensors)``: the carry on its way
     to the host, taken where it stands on the stream. The tensors are
     ``{"state": the state's, "net": {"chan": ..., "gossip": {"published",
-    "age"}}}``, ``net`` holding only what the run carries."""
+    "age"}, "fault": {"down", "init"}}}``, ``net`` holding only what the
+    run carries (``init``, the state's tensors, under ``reset``)."""
     net = {}
     if carry.chan is not None:
         net["chan"] = carry.chan.bad
     if carry.gossip is not None:
         net["gossip"] = dict(carry.gossip._asdict())
+    if carry.fault is not None:
+        net["fault"] = {"down": carry.fault.down}
+        if carry.fault.init is not None:
+            net["fault"]["init"] = state_tensors(carry.fault.init)
     return carry.state.round, HostCopy({"state": state_tensors(carry.state),
                                         "net": net})
 
@@ -864,7 +898,8 @@ def _ckpt_save(path: str, fp: str, snapshot: tuple, draws_state,
     """Write the whole resumable run at a segment boundary, atomically
     (:func:`repro_torch.checkpoint.save`): the carry (from
     :func:`_carry_snapshot`: the state under ``carry``, the network's
-    channel and gossip buffer under ``net``), the draws source's state
+    channel, gossip buffer and crash chain under ``net``), the draws
+    source's state
     after the saved segment's draws and the histories; the meta holds the
     fingerprint, the next segment, whether the run has finished, and
     ``frame_files`` (0: no frames yet)."""
@@ -902,10 +937,17 @@ def _ckpt_resume(ckpt: str, fp: str, carry: EngineCarry, draws,
     draws.set_state(payload["draws"])
     _hist_restore(hist, payload["hist"])
     net = payload.get("net") or {}
+    fault = None
+    if "fault" in net:
+        saved = net["fault"]
+        fault = resil.FaultState(
+            saved["down"], None if "init" not in saved
+            else carry.fault.init._replace(**saved["init"]))
     carry = EngineCarry(
         carry.state._replace(**fields),
         netsim.ChannelState(net["chan"]) if "chan" in net else None,
-        netsim.GossipState(**net["gossip"]) if "gossip" in net else None)
+        netsim.GossipState(**net["gossip"]) if "gossip" in net else None,
+        fault)
     return carry, int(meta["next_segment"]), bool(meta.get("finished"))
 
 # --------------------------------------------------------------------------

@@ -36,16 +36,20 @@ class EngineCarry(NamedTuple):
     segment to the next, each tensor one of the engine's static buffers
     (overwritten in place round by round): the algorithm state and, under
     network simulation (``net=``), the Gilbert–Elliott channel
-    (``netsim.ChannelState``, bursty presets) and the async-gossip
-    staleness buffer (``netsim.GossipState``, ``async_gossip``); both are
-    ``None`` where the run has none. A segment's drawn inputs are not
-    carried: the engine draws them at the segment's start from the run's
-    draws source, where the reference's carry holds its data PRNG key.
-    The reference's carry also holds the adaptive topology's EWMAs and the
-    crash chain; those join this carry when topo and resil are ported."""
+    (``netsim.ChannelState``, bursty presets), the async-gossip staleness
+    buffer (``netsim.GossipState``, ``async_gossip``) and the node-crash
+    chain (``resil.FaultState``, ``net.faults`` with ``crash_rate > 0``:
+    ``down [n]`` and, under ``restart_mode="reset"``, the copy of the
+    round-0 state restarted nodes return to); each is ``None`` where the
+    run has none. A segment's drawn inputs are not carried: the engine
+    draws them at the segment's start from the run's draws source, where
+    the reference's carry holds its data PRNG key. The reference's carry
+    also holds the adaptive topology's EWMAs; they join this carry when
+    topo is ported."""
     state: Any           # FacadeState | BaselineState
     chan: Any = None     # netsim.ChannelState | None
     gossip: Any = None   # netsim.GossipState | None
+    fault: Any = None    # resil.FaultState | None
 
 
 def _stack_n(tree, n: int, dev):

@@ -197,10 +197,16 @@ head_losses_kernel(const T* __restrict__ feats, const T* __restrict__ heads,
       for (int o = 2; o < 32; o <<= 1)
         zmax = fmaxf(zmax, __shfl_xor_sync(kFull, zmax, o));
       const float m_new = fmaxf(m, zmax);
-      float e = col < vc ? expf(z - m_new) : 0.f;
+      // a term at the running max is exp(0) = 1, written so that an
+      // infinite max gives 1 and not exp(inf - inf) = NaN: a +inf logit
+      // then makes the loss +inf, as the plain version's logsumexp does
+      // (fmaxf drops a NaN logit from the max; it still reaches s through
+      // expf(NaN) and makes the loss NaN). Finite values take the same
+      // bits either way.
+      float e = col < vc ? (z == m_new ? 1.f : expf(z - m_new)) : 0.f;
 #pragma unroll
       for (int o = 2; o < 32; o <<= 1) e += __shfl_xor_sync(kFull, e, o);
-      s = s * expf(m - m_new) + e;
+      s = (m == m_new ? s : s * expf(m - m_new)) + e;
       m = m_new;
       if (y >= v0 && y < v0 + vc)  // uniform across the warp
         gold = __shfl_sync(kFull, total, 2 * (y - v0));

@@ -44,10 +44,12 @@ round a good link turns bad with ``p_bad`` and a bad one recovers with
 device in the engine's carry (or the loop's variables) and is advanced by
 :func:`advance_conditions`.
 
-Not ported yet: ``NetworkConfig.faults`` (the crash chain and payload
-corruption of ``repro.resil``) is a field, and ``run_experiment`` refuses
-a config that sets it (ROADMAP.md queue 1 item 4b); so ``RoundConditions``
-has no ``crashed``/``corrupt`` fields yet.
+Node faults (``NetworkConfig.faults``, a
+:class:`repro_torch.resil.FaultConfig`) ride the same draws: under a crash
+chain the round's ``crash`` and ``restart`` uniforms, under corruption
+its ``corrupt`` uniforms and, in noise mode, one normal tensor per float
+leaf of the sent tree (``net_normal``); :func:`repro_torch.resil.advance`
+folds them into the round's ``crashed``, ``corrupt`` and ``fault_noise``.
 """
 from __future__ import annotations
 
@@ -56,6 +58,8 @@ from typing import Any, NamedTuple
 
 import numpy as np
 import torch
+
+from repro_torch.resil import faults as faults_mod
 
 from . import events as events_mod
 
@@ -70,6 +74,13 @@ class RoundConditions(NamedTuple):
     straggler: Any       # [n]    1 = node slow this round
     stale: Any = None    # [n]    1 = neighbours see this node's stale
     #                      snapshot (async gossip); None when sync
+    crashed: Any = None  # [n]    1 = node crashed (resil's chain, already
+    #                      folded into ``active``); None without the chain
+    corrupt: Any = None  # [n]    1 = node ships a corrupted payload this
+    #                      round (resil); None without corruption
+    fault_noise: Any = None  # the round's payload noise, one tensor per
+    #                      float leaf of the sent tree (resil, noise mode);
+    #                      the reference's ``fault_key``
 
 
 class ChannelState(NamedTuple):
@@ -89,10 +100,17 @@ class NetDraws(NamedTuple):
     ev_active: Any = None  # [n] float32 events' availability (cfg.events)
     ev_edges: Any = None   # [n, n] float32 events' link mask (cfg.events)
     tiers: Any = None    # [n] int32 node tiers, static (cfg.classes)
+    crash: Any = None    # [n] uniforms, resil's tag 8 (crash chain)
+    restart: Any = None  # [n] uniforms, resil's tag 9 (crash chain)
+    corrupt: Any = None  # [n] uniforms, resil's tag 10 (corruption)
+    noise: Any = None    # tuple of normal tensors, tag 11 (noise mode)
 
     def to(self, device) -> "NetDraws":
-        return NetDraws(*(None if v is None else v.to(device)
-                          for v in self))
+        def move(v):
+            if isinstance(v, tuple):
+                return tuple(t.to(device) for t in v)
+            return None if v is None else v.to(device)
+        return NetDraws(*(move(v) for v in self))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -163,8 +181,9 @@ class NetworkConfig:
     #                                  instead of stretching the round
     max_staleness: int = 3           # max rounds a straggler may lag; 0
     #                                  makes async_gossip the sync path
-    faults: Any = None               # the reference's resil.FaultConfig;
-    #                                  not ported: run_experiment refuses it
+    faults: Any = None               # resil.FaultConfig | None: node
+    #                                  crashes, restarts and payload
+    #                                  corruption (frozen: a cache key too)
 
     @classmethod
     def preset(cls, name: str, **overrides) -> "NetworkConfig":
@@ -228,8 +247,9 @@ PRESETS: dict[str, dict] = {
 
 
 # ---------------------------------------------------------------- draws --
-def _generator(seed: int, tag: int, index: int) -> torch.Generator:
-    state = np.random.SeedSequence([int(seed), int(tag), int(index)])
+def _generator(seed: int, tag: int, index: int, *more) -> torch.Generator:
+    state = np.random.SeedSequence([int(seed), int(tag), int(index),
+                                    *map(int, more)])
     return torch.Generator().manual_seed(
         int(state.generate_state(1, np.uint64)[0]))
 
@@ -251,16 +271,27 @@ class CounterDraws:
         return torch.randint(0, int(high), tuple(shape),
                              generator=_generator(seed, tag, index))
 
+    def net_normal(self, seed: int, tag: int, index: int, leaf: int,
+                   shape):
+        """float32 standard normals of ``shape``, on the CPU, from a
+        generator of their own per ``(seed, tag, index, leaf)``."""
+        return torch.randn(tuple(shape),
+                           generator=_generator(seed, tag, index, leaf))
+
 
 class NetSchedule:
     """The host side of one run's network: ``round(rnd)`` draws round
     ``rnd``'s :class:`NetDraws` on the CPU from ``source`` (which has
-    ``net_uniform``/``net_randint``); the node tiers and the channel's
-    initial uniforms are drawn once, here. Both drivers draw through one
-    of these, so they consume the same uniforms."""
+    ``net_uniform``/``net_randint``, and ``net_normal`` for payload
+    noise); the node tiers and the channel's initial uniforms are drawn
+    once, here. Both drivers draw through one of these, so they consume
+    the same uniforms. ``noise``: the payload noise's layout
+    (``resil.noise_spec``), needed iff the faults corrupt in noise
+    mode."""
 
-    def __init__(self, cfg: NetworkConfig, n: int, source):
+    def __init__(self, cfg: NetworkConfig, n: int, source, noise=None):
         self.cfg, self.n, self.source = cfg, n, source
+        self.noise = noise if faults_mod.needs_noise(cfg) else None
         self.tiers = None
         if cfg.classes is not None:
             self.tiers = node_tiers(cfg, n, source.net_uniform(
@@ -286,12 +317,28 @@ class NetSchedule:
         if cfg.events:
             ev_active, ev_edges = events_mod.event_masks(
                 cfg.seed, cfg.events, n, rnd, src)
+        faults = faults_mod.faults_of(cfg)
+        crash = restart = corrupt = noise = None
+        if faults is not None and faults.crash_rate > 0:
+            crash = src.net_uniform(cfg.seed, faults_mod.CRASH, rnd, (n,))
+            restart = src.net_uniform(cfg.seed, faults_mod.RESTART, rnd,
+                                      (n,))
+        if faults is not None and faults.corrupt_rate > 0:
+            corrupt = src.net_uniform(cfg.seed, faults_mod.CORRUPT, rnd,
+                                      (n,))
+        if faults_mod.needs_noise(cfg):
+            if self.noise is None:
+                raise ValueError("payload noise (corrupt_mode='noise') "
+                                 "needs the sent tree's layout: build the "
+                                 "schedule with noise=resil.noise_spec(...)")
+            noise = faults_mod.draw_noise(src, cfg.seed, rnd, self.noise)
         return NetDraws(
             drop=src.net_uniform(cfg.seed, _DROP, rnd, (n, n)),
             churn=src.net_uniform(cfg.seed, _CHURN, block, (n,)),
             straggle=src.net_uniform(cfg.seed, _STRAGGLE, rnd, (n,)),
             burst=burst, ev_active=ev_active, ev_edges=ev_edges,
-            tiers=self.tiers)
+            tiers=self.tiers, crash=crash, restart=restart, corrupt=corrupt,
+            noise=noise)
 
 
 # ----------------------------------------------------------- the masks --

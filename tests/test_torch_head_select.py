@@ -100,10 +100,12 @@ def _emulate_kernel(feats, heads, labels):
                 half //= 2
             total = (acc[..., 0] + acc[:, LANES ^ 1, 0]).astype(np.float32)
             z = np.where(col < vc, total, -np.inf).astype(np.float32)
-            m_new = np.maximum(m, _butterfly(z, np.maximum))
-            e = np.where(col < vc, np.exp(z - m_new[:, None]), 0)
-            s = (s * np.exp(m - m_new) + _butterfly(e, np.add)).astype(
-                np.float32)
+            # fmaxf: a NaN drops out of the max; a term at the max is 1
+            m_new = np.fmax(m, _butterfly(z, np.fmax))
+            e = np.where(col < vc, np.where(z == m_new[:, None], 1,
+                                            np.exp(z - m_new[:, None])), 0)
+            s = (np.where(m == m_new, s, s * np.exp(m - m_new))
+                 + _butterfly(e, np.add)).astype(np.float32)
             m = m_new
             hit = (y >= v0) & (y < v0 + vc)
             at = np.clip(2 * (y - v0), 0, 31)
@@ -189,6 +191,53 @@ def test_kernel_order_matches_the_pallas_kernel(k, t, d, v, n):
             interpret=True))
         np.testing.assert_allclose(got[i], want, rtol=1e-5, atol=1e-5)
         assert int(np.argmin(got[i])) == int(np.argmin(want))
+
+
+def non_finite_case(seed: int = 21):
+    """FACADE-shape inputs (n 4, K 2, T 8, D 513, V 10, the bias folded)
+    with non-finite values where an unguarded faulty round puts them:
+    node 0 a token of NaN features, node 1 a head of NaN weights, node 2 a
+    +inf bias weight in a column none of its labels names (a +inf logit:
+    a +inf loss), node 3 a head of +inf weights (+inf and -inf products:
+    NaN logits)."""
+    feats, heads, labels = _case(*MAIN_SHAPE, seed=seed, n=4, drop=0.0)
+    feats[..., -1] = 1.0
+    feats[0, 3] = np.nan
+    heads[1, 1] = np.nan
+    free = sorted(set(range(MAIN_SHAPE[3])) - set(labels[2].tolist()))[0]
+    heads[2, 0, -1, free] = np.inf
+    heads[3, 1] = np.inf
+    return feats, heads, labels
+
+
+def test_kernel_order_on_non_finite_inputs():
+    """The FMA body's order (``fmaxf`` drops a NaN from the running max,
+    a term at an infinite max counts 1) against the plain version and the
+    reference's oracle on :func:`non_finite_case`: NaN and +inf at the
+    same places, the finite losses within 1e-5, and ``torch.argmin`` of
+    the kernel's losses the plain version's and ``jnp.argmin`` of the
+    oracle's (the first NaN of a row, else the least loss)."""
+    feats, heads, labels = non_finite_case()
+    with np.errstate(invalid="ignore", over="ignore"):
+        got = _emulate_kernel(feats, heads, labels)
+    plain = head_losses_ref(torch.from_numpy(feats),
+                            torch.from_numpy(heads),
+                            torch.from_numpy(labels)).numpy()
+    oracle = np.stack([np.asarray(jax_ref(
+        jnp.asarray(feats[i]), jnp.asarray(heads[i]), labels[i]))
+        for i in range(feats.shape[0])])
+    for want in (plain, oracle):
+        np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+        np.testing.assert_array_equal(np.isposinf(got), np.isposinf(want))
+        fin = np.isfinite(want)
+        np.testing.assert_allclose(got[fin], want[fin], rtol=1e-5,
+                                   atol=1e-5)
+    assert np.isnan(got[[0, 0, 1, 3], [0, 1, 1, 1]]).all()
+    assert np.isposinf(got[2, 0]) and np.isfinite(got[2, 1])
+    pick = torch.argmin(torch.from_numpy(got), dim=1)
+    assert pick.tolist() == torch.argmin(torch.from_numpy(plain),
+                                         dim=1).tolist() == [0, 1, 1, 1]
+    assert pick.tolist() == np.asarray(jnp.argmin(oracle, axis=1)).tolist()
 
 
 def test_kernel_order_keeps_identical_heads_bit_identical():

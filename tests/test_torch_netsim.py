@@ -43,7 +43,8 @@ CONFIGS["edge-churn+events"] = netsim.NetworkConfig.preset(
 
 
 def ref_net(cfg: netsim.NetworkConfig):
-    """The reference's ``NetworkConfig`` with the same fields."""
+    """The reference's ``NetworkConfig`` with the same fields, its
+    ``faults`` a reference ``resil.FaultConfig``."""
     kw = {f.name: getattr(cfg, f.name)
           for f in dataclasses.fields(netsim.NetworkConfig)}
     if cfg.burst is not None:
@@ -53,6 +54,10 @@ def ref_net(cfg: netsim.NetworkConfig):
     kw["events"] = tuple(
         getattr(ref, type(ev).__name__)(**dataclasses.asdict(ev))
         for ev in cfg.events)
+    if cfg.faults is not None:
+        from repro import resil as ref_resil
+        kw["faults"] = ref_resil.FaultConfig(
+            **dataclasses.asdict(cfg.faults))
     return ref.NetworkConfig(**kw)
 
 

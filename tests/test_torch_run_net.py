@@ -226,10 +226,3 @@ def test_sweep_with_a_net_preset(ds, tmp_path):
     assert sweep.to_json()["cells"]["el-churn"]["net"] == "edge-churn"
     again = run_sweep(cells, (0, 1), ckpt_dir=tmp_path, targets=(0.0,))
     assert all(c.skipped for c in again.cells)
-
-
-def test_faults_are_refused(ds):
-    with pytest.raises(ValueError, match="queue 1 item 4b"):
-        runner.run_experiment("el", CFG, ds,
-                              net=_net("edge-churn", faults=object()),
-                              **_kw("el"))

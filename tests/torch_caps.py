@@ -12,9 +12,10 @@
   a test that drives ``facade_round`` itself), so the port and the
   reference see the same initial parameters, batches and topologies, for
   the CNNs and the language models, and under network simulation the
-  same netsim uniforms (``net_uniform``/``net_randint``: the reference's
-  counter stream); its ``state()``/``set_state`` let a checkpointed run
-  resume it. It imports JAX only when built.
+  same netsim uniforms and fault draws (``net_uniform``/``net_randint``/
+  ``net_normal``: the reference's counter stream); its ``state()``/
+  ``set_state`` let a checkpointed run resume it. It imports JAX only
+  when built.
 """
 from __future__ import annotations
 
@@ -130,6 +131,15 @@ class JaxDraws:
         return torch.from_numpy(np.array(self._jax.random.randint(
             self._net_key(seed, tag, index), tuple(shape), 0,
             high))).long()
+
+    def net_normal(self, seed: int, tag: int, index: int, leaf: int,
+                   shape):
+        """``repro.resil``'s payload noise: ``normal(fold_in(stream,
+        leaf), shape)`` on the stream of ``(seed, tag, index)``."""
+        jax = self._jax
+        key = jax.random.fold_in(self._net_key(seed, tag, index), leaf)
+        return torch.from_numpy(np.array(jax.random.normal(
+            key, tuple(shape), jax.numpy.float32)))
 
     def state(self) -> dict:
         """Where the key schedule stands: the data key and the state's
