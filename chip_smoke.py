@@ -131,6 +131,24 @@ failure raises and exits non-zero, before the last line is printed):
    one; FACADE's steady rate (20 rounds) under no faults, the example's
    and the noise faults, with capture seconds, peak memory and the host
    seconds of a round's network and fault draws;
+3a''''. the adaptive topology policy (``topo_phase``, same data and
+   schedule; ``TopoConfig(policy, decay=0.7, min_inclusion=0.25,
+   ref_payload_bytes=5e4)``, the reference benchmark's): the five
+   algorithms under ``reliability`` and ``core-edge``, FACADE and EL under
+   ``bandwidth`` on ``core-edge`` and ``reliability`` on ``bursty-wan``
+   and ``edge-v2`` and without ``net``: the engine (the policy's sampler
+   inside the captured round, its EWMAs in static buffers; K1 one a
+   replayed round plus one warm-up call) against the loop bit for bit,
+   bytes recounted on the host, parameters finite; ``TopoConfig()``
+   against ``topo=None`` for the five; the fairness floor on the card
+   (``inclusion_stats`` on ``core-edge``, 32 nodes, degree 4, 400 rounds:
+   every node's inclusion and participation at least 0.25 less three
+   standard errors); a FACADE run (4 segments) killed at its third
+   segment dispatch and resumed, against the uninterrupted one; FACADE's
+   steady rate (20 rounds) under a comm-bound ``core-edge``
+   (``compute_s_per_step=0.002``) with no policy, ``reliability`` and
+   ``bandwidth``, with capture seconds, peak memory, simulated seconds
+   and bytes;
 3b. the launcher's paper mode (``launch.train.paper_main``) on full-width
    ResNet8 (64×64 images, 41 classes; ``RESNET8_PAPER``: 32 nodes in
    clusters 24:8, degree 4, H = 10, B = 8, 8 rounds) for the five
@@ -247,6 +265,7 @@ from repro_torch.netsim import (PRESETS, NetSchedule,  # noqa: E402
 from repro_torch.resil import FaultConfig, noise_spec  # noqa: E402
 from repro_torch.sweep import SweepCell, run_sweep  # noqa: E402
 from repro_torch.sweep import driver as sweep_driver  # noqa: E402
+from repro_torch.topo import TopoConfig, inclusion_stats  # noqa: E402
 from repro_torch.tree import tree_leaves, tree_map  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
@@ -307,6 +326,13 @@ FAULTS_NOISE = FaultConfig(crash_rate=0.3, restart_rate=0.5,
                            corrupt_rate=0.3)
 FAULTS_STORM = FaultConfig(corrupt_rate=0.1, corrupt_mode="nan")
 FAULTS_RESUME_EVAL_EVERY = 2          # 4 segments: the kill at the third
+# the topo phase (same data and schedule): the reference benchmark's
+# policies (benchmarks/topo_adapt.py), its comm-bound presets for the
+# rates, and the floor measured as its tests measure it (tests/test_topo.py)
+TOPO_KW = dict(decay=0.7, min_inclusion=0.25, ref_payload_bytes=5e4)
+TOPO_REL = TopoConfig(policy="reliability", **TOPO_KW)
+TOPO_BW = TopoConfig(policy="bandwidth", **TOPO_KW)
+TOPO_FLOOR_ROUNDS = 400
 # the paper's Flickr-Mammals experiment through the launcher's paper_main:
 # full-width ResNet8 (64×64 images, 41 classes), 32 nodes in clusters 24:8
 # rotated rot0/rot180, k 2, degree 4, H 10, B 8, lr 0.05, 8 rounds with an
@@ -1626,6 +1652,210 @@ def faults_resume(cfg, ds) -> dict:
     return got
 
 
+def topo_bytes_check(algo, res, payload: int, n: int, net) -> dict:
+    """An adaptive run's accounting, recounted on the host: under ``net``
+    as ``net_run_check``; without it each round's drained bytes are the
+    drawn graph's directed edges (a whole number, more than 0, at most
+    ``n * degree``; DAC's symmetrised picks twice that) times the payload
+    as float32, their running sum the cumulative column, and the
+    simulated seconds 0."""
+    if net is not None:
+        return net_run_check(algo, res, payload, n)
+    per_round = np.diff([0.0] + res.comm.bytes)
+    edges = np.rint(per_round / payload)
+    cap = PAPER["degree"] * n * (2 if algo == "dac" else 1)
+    recount = [float(np.float32(np.float32(e) * np.float32(payload)))
+               for e in edges]
+    ok = (bool((edges > 0).all() and (edges <= cap).all())
+          and recount == per_round.tolist()
+          and np.cumsum(per_round).tolist() == res.comm.bytes
+          and res.comm.seconds == [0.0] * len(per_round)
+          and all(np.isfinite(a) for a in res.final_acc))
+    return {"ok": ok, "edges_per_round": edges.tolist(),
+            "total_gb": res.comm.total_gb}
+
+
+def topo_phase(rec, ds) -> int:
+    """The adaptive topology policy at paper scale on GN-LeNet (the main
+    path's data), ROUNDS rounds with an eval every EVAL_EVERY:
+
+    - the five algorithms under TOPO_REL and ``core-edge``; FACADE and EL
+      under TOPO_BW on ``core-edge``, TOPO_REL on ``bursty-wan`` and
+      ``edge-v2``, and TOPO_REL without ``net``: the engine (a fresh
+      capture a run: K1 its rounds plus one warm-up call for FACADE)
+      against the loop, bit for bit, simulated seconds included, each
+      run's bytes recounted on the host (``topo_bytes_check``), its
+      parameters finite;
+    - the off-switch: ``TopoConfig()`` against ``topo=None`` under
+      ``core-edge`` for the five, bit for bit;
+    - the floor on the card: ``inclusion_stats`` of TOPO_REL on
+      ``core-edge`` at 32 nodes, degree 4, TOPO_FLOOR_ROUNDS rounds
+      (the port's counter draws): every node's inclusion and
+      participation at least 0.25 - 3 sigma, symmetric 0/1 graphs within
+      the edge budget;
+    - kill and resume: FACADE under TOPO_REL on ``core-edge`` with an
+      eval every FAULTS_RESUME_EVAL_EVERY (four segments), pipelined with
+      a checkpoint under ``build/``, killed at its third segment dispatch
+      and resumed through a fresh cache, against the uninterrupted
+      serialized run;
+    - FACADE's steady engine rate (NET_RATE_ROUNDS rounds of seed 1
+      through the cache whose seed-0 run captured, ``timed_run``) under
+      ``core-edge`` made comm-bound (``compute_s_per_step=0.002``) with
+      no policy, TOPO_REL and TOPO_BW: capture seconds, peak memory, the
+      simulated seconds and bytes of the run.
+    Returns K1's launches in the phase."""
+    cfg, n = lenet(), ds.n_nodes
+    out = {"parity": {}, "off": {}, "floor": {}, "resume": {}, "rates": {}}
+    payloads = {algo: payload_bytes(cfg, algo) for algo in ALGOS}
+    kw = dict(PAPER, rounds=ROUNDS, eval_every=EVAL_EVERY, device="cuda")
+    launches = 0
+    cells = ([("reliability", TOPO_REL, "core-edge", a) for a in ALGOS]
+             + [(p, t, net, a) for p, t, net in (
+                 ("bandwidth", TOPO_BW, "core-edge"),
+                 ("reliability", TOPO_REL, "bursty-wan"),
+                 ("reliability", TOPO_REL, "edge-v2"),
+                 ("reliability", TOPO_REL, None))
+                for a in ("facade", "el")])
+    for policy, topo, preset, algo in cells:
+        net = None if preset is None else NetworkConfig.preset(preset)
+        loop = run_experiment(algo, cfg, ds, engine=False, net=net,
+                              topo=topo, **kw)
+        with counted() as counts:
+            eng = run_experiment(algo, cfg, ds, net=net, topo=topo, **kw)
+            torch.cuda.synchronize()
+        want = ROUNDS + WARMUP_ROUNDS if algo == "facade" else 0
+        finite = all(bool(torch.isfinite(l).all())
+                     for l in tree_leaves(eng.models))
+        got = out["parity"][f"{policy}/{preset}/{algo}"] = {
+            "engine_vs_loop": run_diff(eng, loop), "launches": counts,
+            "finite": finite,
+            "check": topo_bytes_check(algo, eng, payloads[algo], n, net)}
+        log(f"topo {policy} {preset} {algo}: {json.dumps(got)}")
+        if not (got["engine_vs_loop"]["equal"] and got["check"]["ok"]
+                and finite and counts["head_losses"] == want):
+            raise AssertionError(f"topo {policy} {preset} {algo}: "
+                                 f"{json.dumps(got)} (K1 want {want})")
+        launches += counts["head_losses"]
+    net = NetworkConfig.preset("core-edge")
+    for algo in ALGOS:
+        with counted() as counts:
+            got = out["off"][algo] = run_diff(
+                run_experiment(algo, cfg, ds, net=net, topo=TopoConfig(),
+                               **kw),
+                run_experiment(algo, cfg, ds, net=net, **kw))
+        got["launches"] = counts
+        log(f"topo off-switch {algo}: {json.dumps(got)}")
+        if not got["equal"]:
+            raise AssertionError(f"topo off-switch {algo}: "
+                                 f"{json.dumps(got)}")
+        launches += counts["head_losses"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st = inclusion_stats(TOPO_REL, net, n=n, rounds=TOPO_FLOOR_ROUNDS,
+                         degree=PAPER["degree"], device="cuda")
+    floor = TOPO_REL.min_inclusion
+    bar = floor - 3 * np.sqrt(floor * (1 - floor) / TOPO_FLOOR_ROUNDS)
+    got = out["floor"] = {
+        "wall_s": time.perf_counter() - t0, "bar": bar,
+        "min_inclusion": float(st["inclusion"].min()),
+        "min_participation": float(st["participation"].min()),
+        "mean_participation": float(st["participation"].mean()),
+        "mean_degree": st["mean_degree"], "max_degree": st["max_degree"],
+        "mean_edges": st["mean_edges"], "edge_budget": st["edge_budget"],
+        "symmetric": st["symmetric"], "binary": st["binary"]}
+    log(f"topo floor: {json.dumps(got)}")
+    if not (got["min_inclusion"] >= bar and got["min_participation"] >= bar
+            and st["symmetric"] and st["binary"]
+            and st["mean_edges"] <= st["edge_budget"]):
+        raise AssertionError(f"topo floor: {json.dumps(got)}")
+    out["resume"] = topo_resume(cfg, ds)
+    launches += out["resume"]["launches"]["head_losses"]
+    rate_kw = dict(PAPER, rounds=NET_RATE_ROUNDS,
+                   eval_every=NET_RATE_ROUNDS)
+    net = NetworkConfig.preset("core-edge", compute_s_per_step=0.002)
+    for name, topo in (("none", None), ("reliability", TOPO_REL),
+                       ("bandwidth", TOPO_BW)):
+        cache = EngineCache()
+        with counted() as counts:
+            run_experiment("facade", cfg, ds, cache=cache, device="cuda",
+                           net=net, topo=topo, **rate_kw)
+            res, wall, peak, reserved = timed_run(
+                "facade", cfg, ds, cache=cache, net=net, topo=topo,
+                **dict(rate_kw, seed=1))
+        spec = dataclasses.replace(paper_spec("facade", cfg, ds), net=net,
+                                   topo=topo)
+        if spec not in cache:
+            raise AssertionError(f"topo rate {name}: the run's cache "
+                                 f"entry is not {spec}")
+        got = out["rates"][name] = {
+            "rounds_per_s": NET_RATE_ROUNDS / wall, "wall_s": wall,
+            "capture_s": cache.entry(spec).engine.capture_s,
+            "peak_allocated": peak, "peak_reserved": reserved,
+            "sim_seconds": res.comm.seconds[-1], "gb": res.comm.total_gb,
+            "final_acc": res.final_acc, "launches": counts}
+        log(f"topo rate {name}: {json.dumps(got)}")
+        want = 2 * NET_RATE_ROUNDS + WARMUP_ROUNDS
+        if counts["head_losses"] != want:
+            raise AssertionError(f"topo rate {name}: {counts} K1, want "
+                                 f"{want}")
+        launches += counts["head_losses"]
+        del cache
+    base = out["rates"]["none"]
+    for got in out["rates"].values():
+        got["vs_no_policy"] = got["rounds_per_s"] / base["rounds_per_s"]
+        got["peak_allocated_vs_no_policy"] = (got["peak_allocated"]
+                                              - base["peak_allocated"])
+    log("topo rounds/s " + json.dumps(
+        {k: round(v["rounds_per_s"], 2) for k, v in out["rates"].items()}))
+    out["launches"] = launches
+    rec["topo"] = out
+    torch.cuda.empty_cache()
+    return launches
+
+
+def topo_resume(cfg, ds) -> dict:
+    """FACADE under TOPO_REL on ``core-edge`` (the EWMAs in the
+    checkpoint), pipelined with a checkpoint, killed at the third segment
+    dispatch and resumed through a fresh cache, against the uninterrupted
+    serialized run: the same run bit for bit and equal final
+    checkpoints."""
+    CKPT_DIR.mkdir(parents=True, exist_ok=True)
+    kw = dict(PAPER, rounds=ROUNDS, eval_every=FAULTS_RESUME_EVAL_EVERY,
+              device="cuda", net=NetworkConfig.preset("core-edge"),
+              topo=TOPO_REL)
+    whole, ck = (str(CKPT_DIR / f"topo-{name}.npz")
+                 for name in ("whole", "killed"))
+    for path in (whole, ck):
+        if pathlib.Path(path).exists():
+            pathlib.Path(path).unlink()
+    want = run_experiment("facade", cfg, ds, ckpt=whole, **kw)
+    killed_at_third_dispatch(lambda: run_experiment(
+        "facade", cfg, ds, ckpt=ck, pipeline=True, **kw))
+    next_segment = ckpt_io.load(ck)[1]["next_segment"]
+    with counted() as counts:
+        res = run_experiment("facade", cfg, ds, ckpt=ck, pipeline=True,
+                             cache=EngineCache(), **kw)
+        torch.cuda.synchronize()
+    (pa, ma), (pb, mb) = ckpt_io.load(whole), ckpt_io.load(ck)
+    same_ckpt = ma == mb and all(
+        torch.equal(x, y) for name in ("carry", "net", "topo", "draws")
+        for x, y in zip(tree_leaves(pa[name]), tree_leaves(pb[name]),
+                        strict=True))
+    rest = segment_plan(ROUNDS, FAULTS_RESUME_EVAL_EVERY)[next_segment:]
+    k1 = sum(seg.length for seg in rest) + WARMUP_ROUNDS
+    got = {"resumed_at_round": rest[0].start,
+           "vs_uninterrupted": run_diff(res, want),
+           "final_checkpoints_equal": same_ckpt,
+           "checkpoint_holds": sorted(pa["topo"]),
+           "launches": counts, "k1_want": k1}
+    log(f"topo resume: {json.dumps(got)}")
+    if not (got["vs_uninterrupted"]["equal"] and same_ckpt
+            and got["checkpoint_holds"] == ["delivery", "link_s"]
+            and counts["head_losses"] == k1 and rest[0].start > 0):
+        raise AssertionError(f"topo kill and resume: {json.dumps(got)}")
+    return got
+
+
 def small_input_phase(rec):
     """The same tiny experiment on the card and on the CPU (one seed, so
     the same draws), on GN-LeNet and on ResNet8: bytes and cluster ids
@@ -2494,7 +2724,8 @@ def main() -> int:
                              "resume": resume_phase(rec, ds),
                              "sweep": sweep_phase(rec, ds),
                              "netsim": netsim_phase(rec, ds),
-                             "faults": faults_phase(rec, ds)}
+                             "faults": faults_phase(rec, ds),
+                             "topo": topo_phase(rec, ds)}
     resnet8_launches = resnet8_paper_phase(rec)
     hs["resnet8"] = dict(resnet8_select_phase(rec),
                          launches=resnet8_launches)

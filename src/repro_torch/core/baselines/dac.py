@@ -9,6 +9,7 @@ import dataclasses
 import torch
 
 from repro_torch import resil
+from repro_torch import topo as topo_mod
 from repro_torch.tree import tree_map
 
 from .. import split, topology
@@ -40,22 +41,37 @@ def sample_neighbors(sim, gumbel, degree: int, tau: float):
 
 
 def dac_round(cfg: DACConfig, binding: Binding, state: BaselineState,
-              batches, gumbel, net=None, gossip=None, fault_cfg=None):
-    """batches: ``{"x": [n, H, B, ...], "y": [n, H, B]}``; gumbel: the
-    round's ``[n, n]`` Gumbel draw (``TorchDraws.gumbel``).
+              batches, drawn, net=None, gossip=None, topo=None,
+              topo_cfg=None, fault_cfg=None):
+    """batches: ``{"x": [n, H, B, ...], "y": [n, H, B]}``; drawn: the
+    round's ``[n, n]`` Gumbel draw (``TorchDraws.gumbel``) or, under an
+    adaptive ``topo_cfg``, its ``topo.TopoDraw``.
     net/gossip/fault_cfg: as ``el_round``; a peer delivers its published
     snapshot when stale (perhaps corrupted in transit), an exchange that
     did not deliver keeps the old similarity, and an offline node keeps
     its similarities. Under the guard a peer whose model scores a
     non-finite loss scores 1e9 (as dissimilar as can be) instead of
-    poisoning the similarity table."""
+    poisoning the similarity table.
+    topo/topo_cfg: an adaptive policy composes with DAC's own sampler
+    through the shared participation-gated pipeline
+    (``topo.gumbel_graph``): the link-quality logits add to the
+    similarity logits and the fairness floor gates the round, at the
+    policy's degree budget; an exchange with or by a non-participant
+    keeps the old similarity too."""
     n, r = cfg.n_nodes, cfg.degree
     sim = state.extra["sim"]
-    nbr = sample_neighbors(sim, gumbel, r, cfg.tau)          # [n, r]
     rows = torch.arange(n, device=sim.device)[:, None]
-    adj = torch.zeros((n, n), dtype=torch.float32, device=sim.device)
-    topology.set_edges(adj, rows, nbr)
-    adj = torch.maximum(adj, adj.T)      # symmetrise (push-pull exchange)
+    part = None
+    if topo_mod.adaptive(topo_cfg):
+        extra = cfg.tau * sim - 1e9 * torch.eye(n, device=sim.device)
+        r = topo_mod.budget(topo_cfg, cfg.degree)
+        adj, nbr, part = topo_mod.gumbel_graph(
+            topo_cfg, topo, drawn.u, drawn.gumbel, n, r, extra_logits=extra)
+    else:
+        nbr = sample_neighbors(sim, drawn, r, cfg.tau)       # [n, r]
+        adj = torch.zeros((n, n), dtype=torch.float32, device=sim.device)
+        topology.set_edges(adj, rows, nbr)
+        adj = torch.maximum(adj, adj.T)  # symmetrise (push-pull exchange)
     adj = masked_topology(net, adj)
 
     # what each peer delivers: its published snapshot when stale
@@ -74,8 +90,9 @@ def dac_round(cfg: DACConfig, binding: Binding, state: BaselineState,
         l_peer = torch.where(torch.isfinite(l_peer), l_peer,
                              torch.full_like(l_peer, 1e9))
     inv_loss = 1.0 / l_peer.float().clamp(min=1e-6)
-    if net is not None:
-        # a lost or offline exchange brings no model to score
+    if net is not None or part is not None:
+        # a lost, offline or non-participating exchange brings no model
+        # to score
         inv_loss = torch.where(adj[rows, nbr] > 0, inv_loss, sim[rows, nbr])
     new_sim = sim.clone()
     new_sim[rows, nbr] = inv_loss
@@ -89,7 +106,8 @@ def dac_round(cfg: DACConfig, binding: Binding, state: BaselineState,
         new_sim = torch.where(net.active[:, None] > 0, new_sim, sim)
     model_bytes = split.tree_size_bytes(
         tree_map(lambda l: l[0], state.params))
-    info = comm_info(net, adj, model_bytes, n * r)
+    info = comm_info(net, adj, model_bytes, n * cfg.degree,
+                     actual=part is not None)
     info["quarantined"] = resil.quarantined_count(guard, vis,
                                                   device=adj.device)
     return (BaselineState(params=params, round=state.round + 1,

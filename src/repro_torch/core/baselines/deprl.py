@@ -7,6 +7,7 @@ from __future__ import annotations
 import dataclasses
 
 from repro_torch import resil
+from repro_torch import topo as topo_mod
 from repro_torch.tree import tree_map
 
 from .. import split, topology
@@ -23,15 +24,23 @@ class DeprlConfig:
 
 
 def deprl_round(cfg: DeprlConfig, binding: Binding, state: BaselineState,
-                batches, net=None, gossip=None, fault_cfg=None):
+                batches, drawn=None, net=None, gossip=None, topo=None,
+                topo_cfg=None, fault_cfg=None):
     """Mix the cores over the ring, then H local steps on the merged core
     and each node's own head. ``state.params`` holds full models.
+    drawn/topo/topo_cfg: an adaptive topology policy's round draw, state
+    and config, which replace the ring (see ``dpsgd_round``).
     net/gossip/fault_cfg: as ``el_round``; the published snapshot holds
     full models, of which a stale node exposes the core, and corruption
     mangles only the cores (the heads are never sent)."""
-    leaf = next(iter(batches.values()))
-    adj = masked_topology(net, topology.ring(cfg.n_nodes, cfg.degree,
-                                             device=leaf.device))
+    adaptive = topo_mod.adaptive(topo_cfg)
+    if adaptive:
+        adj = topo_mod.sample(topo_cfg, topo, drawn.u, drawn.gumbel,
+                              cfg.n_nodes, cfg.degree)
+    else:
+        leaf = next(iter(batches.values()))
+        adj = topology.ring(cfg.n_nodes, cfg.degree, device=leaf.device)
+    adj = masked_topology(net, adj)
     cores, heads = split.split_params(state.params, binding.head_keys)
     pub_cores = None
     if gossip is not None:
@@ -44,7 +53,8 @@ def deprl_round(cfg: DeprlConfig, binding: Binding, state: BaselineState,
     if net is not None:
         params = freeze_inactive(net.active, params, state.params)
     core_bytes = split.tree_size_bytes(tree_map(lambda l: l[0], cores))
-    info = comm_info(net, adj, core_bytes, cfg.n_nodes * cfg.degree)
+    info = comm_info(net, adj, core_bytes, cfg.n_nodes * cfg.degree,
+                     actual=adaptive)
     info["quarantined"] = resil.quarantined_count(guard, vis,
                                                   device=adj.device)
     return state._replace(params=params, round=state.round + 1), info

@@ -6,6 +6,7 @@ from __future__ import annotations
 import dataclasses
 
 from repro_torch import resil
+from repro_torch import topo as topo_mod
 from repro_torch.tree import tree_map
 
 from .. import split, topology
@@ -22,15 +23,24 @@ class DpsgdConfig:
 
 
 def dpsgd_round(cfg: DpsgdConfig, binding: Binding, state: BaselineState,
-                batches, net=None, gossip=None, fault_cfg=None):
+                batches, drawn=None, net=None, gossip=None, topo=None,
+                topo_cfg=None, fault_cfg=None):
     """batches: ``{"x": [n, H, B, ...], "y": [n, H, B]}``. The ring is
-    static, so the round draws nothing. net/gossip/fault_cfg: as
+    static, so the round draws nothing, unless an adaptive ``topo_cfg``
+    samples the graph: ``drawn`` is then the round's ``topo.TopoDraw``,
+    from the policy's own seeded round stream (``topo.static_draw``), and
+    ``topo`` its ``TopoState``. net/gossip/fault_cfg: as
     ``el_round``; a stale neighbour contributes its last published model
     instead of this round's trained one, a corrupting one a mangled
     copy of its trained one."""
-    leaf = next(iter(batches.values()))
-    adj = masked_topology(net, topology.ring(cfg.n_nodes, cfg.degree,
-                                             device=leaf.device))
+    adaptive = topo_mod.adaptive(topo_cfg)
+    if adaptive:
+        adj = topo_mod.sample(topo_cfg, topo, drawn.u, drawn.gumbel,
+                              cfg.n_nodes, cfg.degree)
+    else:
+        leaf = next(iter(batches.values()))
+        adj = topology.ring(cfg.n_nodes, cfg.degree, device=leaf.device)
+    adj = masked_topology(net, adj)
     params = local_sgd(binding, state.params, batches, cfg.lr)
     vis = sent_view(net, gossip, params, fault_cfg)
     guard = resil.guard_of(fault_cfg)
@@ -40,7 +50,8 @@ def dpsgd_round(cfg: DpsgdConfig, binding: Binding, state: BaselineState,
         params = freeze_inactive(net.active, params, state.params)
     model_bytes = split.tree_size_bytes(
         tree_map(lambda l: l[0], state.params))
-    info = comm_info(net, adj, model_bytes, cfg.n_nodes * cfg.degree)
+    info = comm_info(net, adj, model_bytes, cfg.n_nodes * cfg.degree,
+                     actual=adaptive)
     info["quarantined"] = resil.quarantined_count(guard, vis,
                                                   device=adj.device)
     return state._replace(params=params, round=state.round + 1), info

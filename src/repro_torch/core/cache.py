@@ -73,6 +73,9 @@ class EngineSpec:
     #                              captured round runs its masks, channel,
     #                              gossip buffer and node faults (every
     #                              field of net.faults forks the key)
+    topo: Any = None             # topo.TopoConfig | None (frozen): the
+    #                              adaptive policy the captured round
+    #                              samples with (every field forks the key)
 
 
 _FP_MEMO: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
@@ -124,14 +127,16 @@ class CacheEntry:
         self.program = runner.algo_program(
             spec.algo, self.binding, spec.n, spec.k, degree=spec.degree,
             lr=spec.lr, head_jitter=spec.head_jitter,
-            faults=None if spec.net is None else spec.net.faults)
+            faults=None if spec.net is None else spec.net.faults,
+            topo=spec.topo)
         self.engine = SegmentEngine(
             self.program.round_fn, warmup_fn=self.program.warmup_fn,
             n=spec.n, local_steps=spec.local_steps,
             batch_size=spec.batch_size, device=spec.device,
             track_cluster=self.program.track_cluster,
             topology_draw=self.program.topology_draw, degree=spec.degree,
-            net=spec.net, mixable_of=self.program.mixable_of)
+            net=spec.net, mixable_of=self.program.mixable_of,
+            topo=spec.topo)
 
     def setup(self, draws):
         return self.program.setup(draws, self.spec.device)

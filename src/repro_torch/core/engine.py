@@ -19,7 +19,11 @@ This module runs the same round closures (FACADE's or a baseline's,
   rounds are drawn from the run's draws source in the loop's per-stream
   order (batch indices ``[L, n, H, B]``, then FACADE's and EL's
   permutations ``[L, n_perms, n]`` or DAC's Gumbel matrices ``[L, n, n]``;
-  D-PSGD and DEPRL draw nothing; under ``net`` the round's netsim
+  D-PSGD and DEPRL draw nothing; under an adaptive topology policy the
+  five draw its participation uniforms ``[L, n]`` and Gumbel noise ``[L,
+  n, n]`` instead, FACADE, EL and DAC from the source's topology stream,
+  the ring baselines from its counter stream at each round's index;
+  under ``net`` the round's netsim
   uniforms and event masks, ``[L, n, n]`` and ``[L, n]``, and under
   ``net.faults`` the crash, restart and corruption uniforms ``[L, n]`` and
   in noise mode the payload noise, ``[L, ...]`` a leaf of the sent tree,
@@ -32,18 +36,20 @@ This module runs the same round closures (FACADE's or a baseline's,
 * **network simulation** (``net``, a ``netsim.NetworkConfig``): the
   captured round runs ``netwire.net_round`` (advance the channel, the
   masks, the node faults and a reset of restarting nodes, the stale
-  marks, the round, the gossip fold, the round's seconds) as the loop
-  does, with the channel, the gossip buffer and the crash chain (its
-  ``down [n]`` and, under ``restart_mode="reset"``, the round-0 copy of
-  the state, written once a run) in static buffers of the carry beside
-  the state;
-* a segment's outputs leave the card once. Off ``net``, ``round_bytes``
-  is a host float from the formula, recorded when the round is captured
-  (it never touches the card); under ``net`` each replay writes its
-  bytes and simulated seconds (float32, per round: the delivered edges
-  vary) into a static pair that is copied into row i of an ``[L, 2]``
-  device buffer after replay i, and FACADE's cluster ids likewise into
-  an ``[L, n]`` one. :meth:`SegmentEngine.dispatch_segment` enqueues those
+  marks, the round, the gossip fold, the topology policy's EWMAs, the
+  round's seconds) as the loop does, with the channel, the gossip buffer,
+  the crash chain (its ``down [n]`` and, under ``restart_mode="reset"``,
+  the round-0 copy of the state, written once a run) and the policy's
+  EWMAs in static buffers of the carry beside the state (the EWMAs ride
+  the carry on the ideal medium too, where nothing advances them);
+* a segment's outputs leave the card once. Off ``net`` and without an
+  adaptive topology policy, ``round_bytes`` is a host float from the
+  formula, recorded when the round is captured (it never touches the
+  card); under ``net`` or a policy each replay writes its bytes and
+  simulated seconds (float32, per round: the delivered or drawn edges
+  vary; the seconds 0 off ``net``) into a static pair that is copied
+  into row i of an ``[L, 2]`` device buffer after replay i, and FACADE's
+  cluster ids likewise into an ``[L, n]`` one. :meth:`SegmentEngine.dispatch_segment` enqueues those
   buffers' copy into pinned host memory behind the last replay and
   records an event after it, and another at the segment's end;
   :meth:`SegmentEngine.drain` waits on the copy's event alone, never on
@@ -93,6 +99,7 @@ from repro_torch.kernels.head_select import head_losses
 from repro_torch.kernels.rwkv6 import wkv
 from repro_torch.netsim import ChannelState, GossipState, NetDraws
 from repro_torch.resil import FaultState
+from repro_torch.topo import TopoDraw, TopoState, adaptive, static_draw
 from repro_torch.tree import tree_map
 
 from . import netwire
@@ -100,7 +107,11 @@ from .state import EngineCarry
 
 WARMUP_ROUNDS = 1          # eager rounds before a capture
 COUNTED = (head_losses, flash_attention, wkv)
-TOPOLOGY_DRAWS = ("perms", "gumbel")
+# the round's topology draw: FACADE's and EL's permutations, DAC's Gumbel
+# matrix, an adaptive policy's TopoDraw from the source's topology stream
+# (FACADE, EL, DAC) or from its counter stream at the round (the rings)
+TOPOLOGY_DRAWS = ("perms", "gumbel", "policy", "policy_at")
+POLICY_DRAWS = ("policy", "policy_at")
 
 
 class Segment(NamedTuple):
@@ -172,26 +183,34 @@ class SegmentEngine:
     ``info["round_bytes"]`` a host float off ``net`` (and
     ``info["cluster_id"]`` for FACADE, ``track_cluster``).
     ``topology_draw``: what a round draws besides its batch indices,
-    ``"perms"`` (degree ``degree``), ``"gumbel"`` or ``None``. ``net``:
-    the run's ``netsim.NetworkConfig`` or ``None``; ``mixable_of`` (state
-    -> what gossip exchanges) is needed for async gossip.
+    ``"perms"`` (degree ``degree``), ``"gumbel"``, ``"policy"``,
+    ``"policy_at"`` (an adaptive ``topo``'s
+    :class:`~repro_torch.topo.TopoDraw`, from the source's topology
+    stream or its counter stream) or ``None``. ``net``: the run's
+    ``netsim.NetworkConfig`` or ``None``; ``mixable_of`` (state -> what
+    gossip exchanges) is needed for async gossip. ``topo``: the run's
+    ``topo.TopoConfig`` or ``None``; under an adaptive one the round
+    closures get its state as ``topo=``.
 
     The engine owns the static buffers its graphs read and write: the
     carry (the state and, under ``net``, the channel and the gossip
-    buffer), the per-round inputs and outputs and, on CUDA, the train
-    arrays. A run's carry is made by :meth:`init_carry`, which copies the
-    run's initial carry into them, so a later run through the same engine
-    overwrites what an earlier run left there: whatever outlives a run
-    must be a copy.
+    buffer, under an adaptive ``topo`` the policy's EWMAs), the per-round
+    inputs and outputs and, on CUDA, the train arrays. A run's carry is
+    made by :meth:`init_carry`, which copies the run's initial carry into
+    them, so a later run through the same engine overwrites what an
+    earlier run left there: whatever outlives a run must be a copy.
     """
 
     def __init__(self, round_fn: Callable, *, n: int, local_steps: int,
                  batch_size: int, device, warmup_fn: Callable | None = None,
                  track_cluster: bool = False,
                  topology_draw: str | None = None, degree: int = 4,
-                 net=None, mixable_of: Callable | None = None):
+                 net=None, mixable_of: Callable | None = None, topo=None):
         if topology_draw not in (None,) + TOPOLOGY_DRAWS:
             raise ValueError(f"unknown topology draw {topology_draw!r}")
+        if adaptive(topo) != (topology_draw in POLICY_DRAWS):
+            raise ValueError(f"topology draw {topology_draw!r} does not "
+                             f"fit the topology policy {topo!r}")
         self._round = round_fn
         self._warm = warmup_fn if warmup_fn is not None else round_fn
         self._n, self._h, self._b = n, local_steps, batch_size
@@ -202,6 +221,10 @@ class SegmentEngine:
         self._topology_draw = topology_draw
         self._degree = degree
         self._net = net
+        self._topo_cfg = topo
+        # the round's bytes are a device value: the delivered edges under
+        # net, the drawn ones under an adaptive policy
+        self._drains = net is not None or adaptive(topo)
         self._mixable_of = mixable_of
         if net is not None and net.async_gossip and mixable_of is None:
             raise ValueError("async_gossip needs mixable_of (state -> the "
@@ -212,7 +235,9 @@ class SegmentEngine:
         self._gossip = None      # net: static {"published", "age"}
         self._down = None        # net.faults: static crash chain [n]
         self._init = None        # reset restarts: static round-0 state
-        self._scalars = None     # net: static (bytes, seconds) of a round
+        self._topo = None        # adaptive topo: static EWMAs, {field: [n, n]}
+        self._scalars = None     # net or adaptive topo: static (bytes,
+        #                          seconds) of a round
         self._inputs = None      # static per-round inputs, {name: tensor}
         self._data = {}          # CUDA: static train arrays per shape/dtype
         self._graphs = {}        # key -> (graph, round_bytes or None,
@@ -249,14 +274,14 @@ class SegmentEngine:
                 for a in (train_x, train_y))
         return self._data[key]
 
-    def init_carry(self, state, chan=None, gossip=None,
-                   fault=None) -> EngineCarry:
+    def init_carry(self, state, chan=None, gossip=None, fault=None,
+                   topo=None) -> EngineCarry:
         """The run's carry: ``state``'s tensors and, under ``net``, the
         channel (bursty presets), the gossip buffer (async gossip) and the
         crash chain (``net.faults`` with a crash rate; under ``reset`` its
-        round-0 copy of the state), copied into the engine's static
-        buffers (allocated at the first run); the round counter as
-        given."""
+        round-0 copy of the state), and under an adaptive topology policy
+        its ``TopoState``, copied into the engine's static buffers
+        (allocated at the first run); the round counter as given."""
         net = self._net
         faults = None if net is None else net.faults
         chain = faults is not None and faults.crash_rate > 0
@@ -276,6 +301,11 @@ class SegmentEngine:
             raise ValueError(f"the engine's network {net!r} "
                              f"{'needs' if gossip is None else 'has no'} "
                              "async-gossip buffer")
+        if (topo is None) == adaptive(self._topo_cfg):
+            raise ValueError(f"the engine's topology policy "
+                             f"{self._topo_cfg!r} "
+                             f"{'needs' if topo is None else 'has no'} "
+                             "TopoState")
 
         def like(l):
             return torch.empty(l.shape, dtype=l.dtype, device=self._dev)
@@ -290,10 +320,12 @@ class SegmentEngine:
                 self._down = like(fault.down)
                 if fault.init is not None:
                     self._init = tree_map(like, state_tensors(fault.init))
-            if net is not None:
+            if topo is not None:
+                self._topo = tree_map(like, dict(topo._asdict()))
+            if self._drains:
                 self._scalars = torch.zeros((2,), dtype=torch.float32,
                                             device=self._dev)
-        carry = EngineCarry(state, chan, gossip, fault)
+        carry = EngineCarry(state, chan, gossip, fault, topo)
         self._load(carry)
         return self._static_carry(state)
 
@@ -307,7 +339,7 @@ class SegmentEngine:
             state._replace(**self._state),
             None if self._chan is None else ChannelState(self._chan),
             None if self._gossip is None else GossipState(**self._gossip),
-            fault)
+            fault, None if self._topo is None else TopoState(**self._topo))
 
     def _load(self, carry: EngineCarry):
         """Copy ``carry``'s tensors into the static ones (those that are
@@ -331,12 +363,15 @@ class SegmentEngine:
             put(self._down, carry.fault.down)
         if self._init is not None:
             tree_map(put, self._init, state_tensors(carry.fault.init))
+        if self._topo is not None:
+            tree_map(put, self._topo, dict(carry.topo._asdict()))
 
-    def _store(self, new_state, chan, gossip, fault, info, round_s):
+    def _store(self, new_state, chan, gossip, fault, topo, info, round_s):
         """End of a round: the new carry's tensors into the static ones,
         leaf by key (the crash chain's ``down``; its round-0 copy is never
-        written a round), and under ``net`` the round's bytes and seconds
-        into the static pair."""
+        written a round; the policy's EWMAs, which only ``net`` advances),
+        and under ``net`` or an adaptive policy the round's bytes and
+        seconds (0 off ``net``) into the static pair."""
         def put(s, l):
             if l is not s:
                 s.copy_(l)
@@ -349,8 +384,12 @@ class SegmentEngine:
                 tree_map(put, self._gossip, dict(gossip._asdict()))
             if self._down is not None:
                 put(self._down, fault.down)
+        if self._topo is not None:
+            tree_map(put, self._topo, dict(topo._asdict()))
+        if self._drains:
             self._scalars[0].copy_(info["round_bytes"])
-            self._scalars[1].copy_(round_s)
+            if round_s is not None:
+                self._scalars[1].copy_(round_s)
 
     # -- draws --------------------------------------------------------------
     def _draw_segment(self, source, start: int, length: int, per_node: int,
@@ -367,6 +406,10 @@ class SegmentEngine:
                 topo.append(source.perms(n, self._degree))
             elif self._topology_draw == "gumbel":
                 topo.append(source.gumbel(n))
+            elif self._topology_draw == "policy":
+                topo.append(source.policy_draw(n))
+            elif self._topology_draw == "policy_at":
+                topo.append(static_draw(self._topo_cfg, rnd, n, source))
             if sched is not None:
                 for f, v in zip(NetDraws._fields, sched.round(rnd)):
                     if isinstance(v, tuple):        # the payload noise
@@ -375,7 +418,11 @@ class SegmentEngine:
                     elif v is not None:
                         nets[f].append(v)
         out = {"idx": self._stack(idx)}
-        if topo:
+        if topo and self._topology_draw in POLICY_DRAWS:
+            for f in TopoDraw._fields:
+                out["policy." + f] = self._stack([getattr(d, f)
+                                                  for d in topo])
+        elif topo:
             out[self._topology_draw] = self._stack(topo)
         for f, parts in nets.items():
             if parts:
@@ -397,20 +444,24 @@ class SegmentEngine:
             self._inputs[k].copy_(v[i])
 
     def _topology_args(self, inputs: dict) -> tuple:
+        if self._topology_draw in POLICY_DRAWS:
+            return (TopoDraw(*(inputs["policy." + f]
+                               for f in TopoDraw._fields)),)
         return tuple(inputs[k] for k in TOPOLOGY_DRAWS if k in inputs)
 
     def _step(self, fn, carry: EngineCarry, inputs: dict, train_x,
               train_y) -> tuple:
         """One round of ``fn`` from ``carry`` on ``inputs`` (one round's
-        draws, on the device): ``(state, chan, gossip, fault, info,
+        draws, on the device): ``(state, chan, gossip, fault, topo, info,
         round_s)``, under ``net`` through ``netwire.net_round``, the loop's
         path."""
         batches = pipeline.sample_round_batches(inputs["idx"], train_x,
                                                 train_y)
-        topo = self._topology_args(inputs)
+        drawn = self._topology_args(inputs)
         if self._net is None:
-            state, info = fn(carry.state, batches, *topo)
-            return state, None, None, None, info, None
+            state, info = fn(carry.state, batches, *drawn,
+                             **netwire.topo_kw(carry.topo))
+            return state, None, None, None, carry.topo, info, None
         fields = {f: inputs.get("net." + f) for f in NetDraws._fields}
         noise = []             # the payload noise, one input a leaf
         while f"net.noise.{len(noise)}" in inputs:
@@ -418,8 +469,9 @@ class SegmentEngine:
         fields["noise"] = tuple(noise) if noise else None
         return netwire.net_round(fn, self._mixable_of, carry.state,
                                  carry.chan, carry.gossip, carry.fault,
-                                 batches, topo, self._net,
-                                 NetDraws(**fields), self._h)
+                                 batches, drawn, self._net,
+                                 NetDraws(**fields), self._h,
+                                 topo_cfg=self._topo_cfg, topo=carry.topo)
 
     # -- one segment --------------------------------------------------------
     def dispatch_segment(self, carry: EngineCarry, start: int, length: int,
@@ -468,8 +520,9 @@ class SegmentEngine:
 
     def drain(self, outs) -> dict:
         """A dispatched segment's outs on the host: ``round_bytes`` ``[L]``
-        float64, under ``net`` ``round_s`` ``[L]`` float64 (the float32
-        values each round computed) and, for FACADE, ``cluster_id`` ``[L,
+        float64, under ``net`` (or an adaptive policy, where they are 0)
+        ``round_s`` ``[L]`` float64 (the float32 values each round
+        computed) and, for FACADE, ``cluster_id`` ``[L,
         n]``, waiting on the event behind their copy and on nothing
         enqueued after it."""
         host = {"round_bytes": outs["round_bytes"]}
@@ -493,14 +546,14 @@ class SegmentEngine:
 
     def _out_buffers(self, length: int) -> dict:
         """The segment's device outputs, filled row by row after each
-        round: FACADE's cluster ids ``[L, n]`` and, under ``net``, the
-        rounds' (bytes, seconds) ``[L, 2]``."""
+        round: FACADE's cluster ids ``[L, n]`` and, under ``net`` or an
+        adaptive policy, the rounds' (bytes, seconds) ``[L, 2]``."""
         out = {}
         if self._track:
             out["cluster_id"] = torch.empty((length, self._n),
                                             dtype=torch.long,
                                             device=self._dev)
-        if self._net is not None:
+        if self._drains:
             out["scalars"] = torch.empty((length, 2), dtype=torch.float32,
                                          device=self._dev)
         return out
@@ -519,15 +572,15 @@ class SegmentEngine:
         bufs = self._out_buffers(length)
         for i in range(length):
             inputs = {k: v[i] for k, v in draws.items()}
-            state, chan, gossip, fault, info, round_s = self._step(
+            state, chan, gossip, fault, topo, info, round_s = self._step(
                 fn, carry, inputs, train_x, train_y)
-            self._store(state, chan, gossip, fault, info, round_s)
+            self._store(state, chan, gossip, fault, topo, info, round_s)
             carry = carry._replace(
                 state=carry.state._replace(round=carry.state.round + 1))
-            if self._net is None:
+            if not self._drains:
                 rb[i] = info["round_bytes"]
             self._fill_row(bufs, i)
-        return {"round_bytes": None if self._net is not None else rb,
+        return {"round_bytes": None if self._drains else rb,
                 "device": bufs}
 
     def _replay(self, key, fn, draws, length, train_x, train_y, carry):
@@ -561,9 +614,9 @@ class SegmentEngine:
         """Warm ``fn`` up on a scratch clone of ``carry`` (the static
         tensors), then capture one round of it into a graph that reads the
         static inputs and carry and ends by writing the new carry (and,
-        under ``net``, the round's bytes and seconds) over the old.
-        Returns ``(graph, round_bytes or None under net, [(kernel,
-        launches a replay)])``."""
+        under ``net`` or an adaptive policy, the round's bytes and seconds)
+        over the old. Returns ``(graph, round_bytes or None where they are
+        drained, [(kernel, launches a replay)])``."""
         t0 = time.perf_counter()
         inputs, name = self._inputs, _name(fn)
 
@@ -577,7 +630,9 @@ class SegmentEngine:
             None if carry.gossip is None else GossipState(
                 **tree_map(torch.clone, dict(carry.gossip._asdict()))),
             None if carry.fault is None else carry.fault._replace(
-                down=carry.fault.down.clone()))
+                down=carry.fault.down.clone()),
+            None if carry.topo is None else TopoState(
+                *(t.clone() for t in carry.topo)))
         side = _capture_stream(self._dev)
         side.wait_stream(torch.cuda.current_stream(self._dev))
         try:
@@ -593,9 +648,9 @@ class SegmentEngine:
         del scratch
 
         def captured_round():
-            new, chan, gossip, fault, info, round_s = one_round(carry)
-            self._store(new, chan, gossip, fault, info, round_s)
-            if self._net is not None:
+            new, chan, gossip, fault, topo, info, round_s = one_round(carry)
+            self._store(new, chan, gossip, fault, topo, info, round_s)
+            if self._drains:
                 return None
             rb = info["round_bytes"]
             if not isinstance(rb, (int, float)):

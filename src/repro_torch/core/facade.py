@@ -3,7 +3,8 @@ simulated network conditions (``net=``, :mod:`repro_torch.netsim`).
 
 One call to ``facade_round`` executes, for all nodes at once:
 
-    1. the round's r-regular topology, from the given permutations (step 1)
+    1. the round's r-regular topology, from the given permutations, or
+       under an adaptive topology policy its Gumbel-top-k graph (step 1)
     2. core aggregation (Eq. 3) + cluster-wise head aggregation (Eq. 4)
     3. cluster identification: argmin_j loss(core ∘ head_j)  (step 2c),
        one call of the head-select kernel for all n nodes
@@ -22,6 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch import resil
+from repro_torch import topo as topo_mod
 from repro_torch.kernels.head_select import head_losses
 from repro_torch.tree import tree_map
 
@@ -117,15 +119,16 @@ def payload_bytes(state: FacadeState) -> int:
 
 
 def facade_round(fcfg: FacadeConfig, binding: Binding, state: FacadeState,
-                 batches, perms, warmup: bool = False, net=None,
-                 gossip=None, fault_cfg=None):
+                 batches, drawn, warmup: bool = False, net=None,
+                 gossip=None, topo=None, topo_cfg=None, fault_cfg=None):
     """One synchronous FACADE round for all nodes.
 
     batches: per node and local step, ``{"x": [n, H, B, ...], "y": [n, H,
     B]}`` for a CNN or ``{"tokens", "labels", "mask"}`` of ``[n, H, B, S]``
-    for a language model; perms: the round's topology permutations
-    (:func:`topology.random_regular`). ``warmup`` (App. F) trains head 0
-    everywhere and copies it to every slot.
+    for a language model; drawn: the round's topology draw, the
+    permutations of :func:`topology.random_regular`, or under an adaptive
+    ``topo_cfg`` a :class:`repro_torch.topo.TopoDraw`. ``warmup`` (App.
+    F) trains head 0 everywhere and copies it to every slot.
     net: the round's ``netsim.RoundConditions``, or ``None`` for the ideal
     medium. With conditions, the drawn topology is filtered through
     :func:`topology.effective_adjacency`, offline nodes neither mix nor
@@ -134,6 +137,11 @@ def facade_round(fcfg: FacadeConfig, binding: Binding, state: FacadeState,
     (``cores`` / ``heads`` / ``cluster_id``), which stale nodes
     (``net.stale``) expose to their neighbours instead of this round's
     state.
+    topo/topo_cfg: the adaptive topology policy's ``TopoState`` and its
+    static :class:`repro_torch.topo.TopoConfig` (or ``None``): an adaptive
+    policy samples the round's graph from its link scores instead of the
+    r-regular draw, and the bytes count that graph's edges on the ideal
+    medium too.
     fault_cfg: the run's static :class:`repro_torch.resil.FaultConfig`
     (or ``None``): payload corruption mangles what a flagged node
     delivers (``netwire.sent_view``) and, when robust, the guard
@@ -144,8 +152,13 @@ def facade_round(fcfg: FacadeConfig, binding: Binding, state: FacadeState,
     needs).
     """
     n, k = fcfg.n_nodes, fcfg.k
-    adj = masked_topology(net, topology.random_regular(perms, n,
-                                                       fcfg.degree))
+    adaptive = topo_mod.adaptive(topo_cfg)
+    if adaptive:
+        adj = topo_mod.sample(topo_cfg, topo, drawn.u, drawn.gumbel, n,
+                              fcfg.degree)
+    else:
+        adj = topology.random_regular(drawn, n, fcfg.degree)
+    adj = masked_topology(net, adj)
     w = topology.mixing_matrix(adj)
 
     # --- what each node's neighbours receive: its fresh state, unless it
@@ -196,7 +209,7 @@ def facade_round(fcfg: FacadeConfig, binding: Binding, state: FacadeState,
                        "quarantined": resil.quarantined_count(
                            guard, sent, device=adj.device),
                        **comm_info(net, adj, payload_bytes(state),
-                                   n * fcfg.degree)}
+                                   n * fcfg.degree, actual=adaptive)}
 
 
 def final_allreduce(fcfg: FacadeConfig, state: FacadeState) -> FacadeState:

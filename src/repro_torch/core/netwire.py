@@ -24,6 +24,11 @@ and crashed nodes are ``active == 0``, which zeroes their directed edges
 in ``effective_adjacency`` (0 bytes), and ``round_time``'s ``active``
 product keeps them out of the gating set.
 
+An adaptive topology policy (:mod:`repro_torch.topo`) rides the same
+entry point: :func:`net_round` folds each round's conditions into its
+EWMAs, and :func:`comm_info` counts the drawn graph's edges
+(``actual=True``) even on the ideal medium.
+
 The reference's mesh constraint (``meshctx.constrain_rows``) is the
 identity on one device.
 """
@@ -33,6 +38,7 @@ import numpy as np
 import torch
 
 from repro_torch import netsim, resil
+from repro_torch import topo as topo_mod
 
 from . import topology
 
@@ -69,17 +75,24 @@ def sent_view(net, published, fresh, fault_cfg=None):
     return resil.corrupt_view(fault_cfg, net, fresh if vis is None else vis)
 
 
-def comm_info(net, adj_eff, payload_bytes: int, nominal_sends: int) -> dict:
+def comm_info(net, adj_eff, payload_bytes: int, nominal_sends: int,
+              actual: bool = False) -> dict:
     """The round's bytes, and what the timing model needs.
 
     Without netsim, the nominal count (``n * degree`` directed pushes) as
-    a host float, held as float32 as the reference holds it. Under netsim,
-    the directed edges that carried a message this round, a float32 0-d
-    tensor on the round's device (their float32 count times the payload);
-    under async gossip the edges out of a stale node carry no new bytes,
-    so its rows are left out. ``adj_eff`` and ``payload_bytes`` ride along
-    for :func:`round_seconds`."""
+    a host float, held as float32 as the reference holds it, unless
+    ``actual`` is set (an adaptive topology policy: the drawn graph
+    varies a round, so the bytes count its directed edges even on the
+    ideal medium, a float32 0-d tensor on the round's device). Under
+    netsim, the directed edges that carried a message this round, a
+    float32 0-d tensor (their float32 count times the payload); under
+    async gossip the edges out of a stale node carry no new bytes, so its
+    rows are left out. ``adj_eff`` and ``payload_bytes`` ride along for
+    :func:`round_seconds`."""
     if net is None:
+        if actual:
+            return {"round_bytes": adj_eff.sum() * payload_bytes,
+                    "adj_eff": adj_eff, "payload_bytes": payload_bytes}
         return {"round_bytes": float(np.float32(nominal_sends
                                                 * payload_bytes)),
                 "adj_eff": adj_eff, "payload_bytes": payload_bytes}
@@ -112,19 +125,30 @@ def round_seconds(net, info: dict, conds, local_steps: int, tiers=None):
                              local_steps=local_steps, tiers=tiers)
 
 
+def topo_kw(topo) -> dict:
+    """The round closure's ``topo=`` argument: the policy's
+    ``TopoState``, passed only under an adaptive policy, so a closure
+    written without one keeps its signature."""
+    return {} if topo is None else {"topo": topo}
+
+
 def net_round(fn, mixable_of, state, chan, gossip, fault, batches,
-              topology_args: tuple, net, draws, local_steps: int):
+              topology_args: tuple, net, draws, local_steps: int,
+              topo_cfg=None, topo=None):
     """One round of ``fn`` (a round function) under network simulation,
     in the reference drivers' order: advance the channel and make the
     masks from the round's ``draws`` (a ``netsim.NetDraws`` on the
     round's device), advance the node faults (``resil.advance``; under
     ``restart_mode="reset"`` the restarting nodes are reset before the
     round), mark the stale nodes, run the round, fold the new state's
-    ``mixable_of`` into the gossip buffer, and time the round. ``fault``
-    is the crash chain's ``resil.FaultState`` (``None`` without one).
-    Returns ``(state, chan, gossip, fault, info, round_s)``, ``round_s``
-    a float32 0-d tensor. Both drivers (the loop and the engine's
-    captured round) run every netsim round through this."""
+    ``mixable_of`` into the gossip buffer, fold the round's conditions
+    into the topology policy's EWMAs (``topo.advance``; ``topo`` is its
+    ``TopoState`` under the static ``topo_cfg``, ``None`` without an
+    adaptive policy), and time the round. ``fault`` is the crash chain's
+    ``resil.FaultState`` (``None`` without one). Returns ``(state, chan,
+    gossip, fault, topo, info, round_s)``, ``round_s`` a float32 0-d
+    tensor. Both drivers (the loop and the engine's captured round) run
+    every netsim round through this."""
     n = draws.straggle.shape[0]
     conds, chan = netsim.advance_conditions(net, draws, chan)
     conds, fault, restarted = resil.advance(net, n, conds, fault, draws)
@@ -132,8 +156,10 @@ def net_round(fn, mixable_of, state, chan, gossip, fault, batches,
         state = resil.reset_nodes(n, restarted, fault.init, state)
     conds, published = netsim.apply_async(net, conds, gossip)
     state, info = fn(state, batches, *topology_args, net=conds,
-                     gossip=published)
+                     gossip=published, **topo_kw(topo))
     if published is not None:
         gossip = netsim.fold_gossip(net, gossip, conds, mixable_of(state))
+    # after the round: round t samples from what was observed up to t - 1
+    topo = topo_mod.advance(topo_cfg, net, topo, conds, tiers=draws.tiers)
     round_s = round_seconds(net, info, conds, local_steps, tiers=draws.tiers)
-    return state, chan, gossip, fault, info, round_s
+    return state, chan, gossip, fault, topo, info, round_s

@@ -20,15 +20,21 @@ algorithms under simulated network conditions (``net=``, a
 ``resil.FaultConfig``: crashes and restarts, payload corruption, the
 robust guard): each round's masks, the bursty channel, the async-gossip
 buffer and the crash chain are threaded through the loop, and carried in
-the engine's static buffers. The reference's mesh, adaptive topology and
-telemetry (``mesh=``, ``topo=``, ``obs=``) are not ported yet;
+the engine's static buffers. Both also run the five under an adaptive
+topology policy (``topo=``, a ``topo.TopoConfig``), with or without
+``net``: its per-link EWMAs are threaded and carried the same way. The
+reference's mesh and telemetry (``mesh=``, ``obs=``) are not ported yet;
 ``run_experiment`` has no parameter for them.
 
 Randomness comes from a *draws* source (:class:`TorchDraws` by default):
 it supplies the initial parameters, each round's ``[n, H, B]`` batch
 indices and each round's topology draw (FACADE and EL: the permutations
 of a random regular graph; DAC: a Gumbel matrix; D-PSGD and DEPRL, on a
-static ring: none) and, under ``net``, the uniforms of the network
+static ring: none; under an adaptive ``topo`` each of the five draws the
+policy's participation uniforms and Gumbel noise instead, a
+``topo.TopoDraw``: FACADE, EL and DAC from the topology stream
+(``policy_draw``), D-PSGD and DEPRL counter-based at the round's index
+(``policy_draw_at``)) and, under ``net``, the uniforms of the network
 simulation and its node faults (``net_uniform``/``net_randint``/
 ``net_normal``, counter-based: a draw depends only on the network's seed,
 its stream, its round and, for payload noise, the leaf), so a run
@@ -51,6 +57,7 @@ import torch
 from repro_torch import checkpoint
 from repro_torch import device as device_mod
 from repro_torch import netsim, resil
+from repro_torch import topo as topo_mod
 from repro_torch.comm import CommLog
 from repro_torch.data import pipeline as pipeline_mod
 from repro_torch.data.tokens import TokenSpec, make_clustered_tokens
@@ -100,12 +107,13 @@ class RunResult:
 class TorchDraws:
     """The port's own draws, from CPU ``torch.Generator``s seeded with
     ``seed``: one stream for the initial parameters, one for batch
-    indices and one for topologies (permutations or Gumbel draws). The
-    network simulation's uniforms come from
-    :class:`~repro_torch.netsim.CounterDraws`, a generator per ``(network
-    seed, stream, index)``, which holds no state."""
+    indices and one for topologies (permutations, Gumbel draws or an
+    adaptive policy's draws). The network simulation's uniforms and the
+    ring baselines' policy draws come from
+    :class:`~repro_torch.topo.CounterDraws`, a generator per ``(seed,
+    stream, index)``, which holds no state."""
 
-    _net = netsim.CounterDraws()
+    _net = topo_mod.CounterDraws()
 
     def __init__(self, seed: int):
         streams = np.random.SeedSequence(seed).generate_state(3)
@@ -131,9 +139,20 @@ class TorchDraws:
     def gumbel(self, n: int):
         """``[n, n]`` standard Gumbel draws, ``-log(-log(U))`` with U
         uniform in [tiny, 1)."""
-        u = torch.rand((n, n), generator=self._topo).clamp_(
-            min=torch.finfo(torch.float32).tiny)
-        return -torch.log(-torch.log(u))
+        return topo_mod.gumbel_of(torch.rand((n, n), generator=self._topo))
+
+    def policy_draw(self, n: int) -> "topo_mod.TopoDraw":
+        """An adaptive topology policy's round draw from the topology
+        stream: the participation uniforms ``[n]``, then the Gumbel noise
+        ``[n, n]`` (as :meth:`gumbel`)."""
+        u = torch.rand((n,), generator=self._topo)
+        return topo_mod.TopoDraw(u, self.gumbel(n))
+
+    def policy_draw_at(self, seed: int, tag, rnd: int,
+                       n: int) -> "topo_mod.TopoDraw":
+        """The policy's round draw for the ring baselines, counter-based
+        on ``(seed, tag, rnd)`` (``topo.counter_draw``)."""
+        return self._net.policy_draw_at(seed, tag, rnd, n)
 
     def net_uniform(self, seed: int, tag: int, index: int, shape):
         return self._net.net_uniform(seed, tag, index, shape)
@@ -164,9 +183,12 @@ class TorchDraws:
 class AlgoProgram(NamedTuple):
     """The seed-independent part of an algorithm, behind one round
     signature: ``round_fn(state, batches, *topology, net=conds,
-    gossip=published) -> (state, info)``, where ``topology`` is the
-    round's ``topology_draw`` (FACADE and EL: ``perms``, DAC: ``gumbel``,
-    D-PSGD and DEPRL: none). ``EngineCache`` memoizes programs per static
+    gossip=published[, topo=tstate]) -> (state, info)``, where ``topology``
+    is the round's ``topology_draw`` (FACADE and EL: ``perms``, DAC:
+    ``gumbel``, D-PSGD and DEPRL: none; under an adaptive topology policy
+    one ``topo.TopoDraw``, ``policy`` for FACADE, EL and DAC, ``policy_at``
+    for the rings) and ``tstate`` the policy's ``TopoState``, passed only
+    under an adaptive policy. ``EngineCache`` memoizes programs per static
     configuration and mints each run's :class:`AlgoSetup` with
     :meth:`setup`."""
     init_state: Callable       # (draws, device) -> initial stacked state
@@ -175,7 +197,8 @@ class AlgoProgram(NamedTuple):
     models_of: Callable        # state -> deployable models, stacked [n, ...]
     finalize: Callable         # applied to the state after the last round
     track_cluster: bool        # info carries a per-round cluster_id [n]
-    topology_draw: str | None  # "perms" | "gumbel" | None
+    topology_draw: str | None  # "perms" | "gumbel" | "policy" |
+    #                            "policy_at" | None
     mixable_of: Callable       # state -> what gossip exchanges (the async
     #                            staleness buffer snapshots this tree)
     sent_of: Callable          # state -> what a node sends, the tree
@@ -196,11 +219,15 @@ class AlgoSetup(NamedTuple):
 
 def algo_program(algo: str, binding: Binding, n: int, k: int, *,
                  degree: int, lr: float, head_jitter: float = 0.0,
-                 faults=None) -> AlgoProgram:
+                 faults=None, topo=None) -> AlgoProgram:
     """The program of ``algo`` (one of :data:`ALGOS`) on ``binding``'s
     model, ``n`` nodes, ``k`` FACADE heads. ``faults``: the run's frozen
     ``resil.FaultConfig`` (``net.faults``) or ``None``, closed over the
-    round closures (payload corruption and the robust guard)."""
+    round closures (payload corruption and the robust guard). ``topo``:
+    the run's frozen ``topo.TopoConfig`` or ``None``, closed over them
+    too; an adaptive one replaces the algorithm's topology draw with the
+    policy's."""
+    adaptive = topo_mod.adaptive(topo)
     if algo == "facade":
         fcfg = facade_mod.FacadeConfig(n_nodes=n, k=k, degree=degree, lr=lr)
 
@@ -213,20 +240,23 @@ def algo_program(algo: str, binding: Binding, n: int, k: int, *,
             init_state=init_state,
             round_fn=functools.partial(facade_mod.facade_round, fcfg,
                                        binding, warmup=False,
-                                       fault_cfg=faults),
+                                       topo_cfg=topo, fault_cfg=faults),
             warmup_fn=functools.partial(facade_mod.facade_round, fcfg,
                                         binding, warmup=True,
-                                        fault_cfg=faults),
+                                        topo_cfg=topo, fault_cfg=faults),
             models_of=facade_mod.node_models,
             finalize=functools.partial(facade_mod.final_allreduce, fcfg),
-            track_cluster=True, topology_draw="perms",
+            track_cluster=True,
+            topology_draw="policy" if adaptive else "perms",
             mixable_of=_facade_sent, sent_of=_facade_sent,
             sent_lead={"cores": 1, "heads": 2})
     if algo in BASELINES:
         cfg_cls, round_fn, topology_draw = BASELINES[algo]
         fn = functools.partial(
             round_fn, cfg_cls(n_nodes=n, degree=degree, lr=lr), binding,
-            fault_cfg=faults)
+            topo_cfg=topo, fault_cfg=faults)
+        if adaptive:    # the rings have no topology stream of their own
+            topology_draw = "policy" if topology_draw else "policy_at"
 
         def init_state(draws, device):
             return init_baseline_state(
@@ -422,7 +452,8 @@ def run_experiment(algo: str, cfg, dataset, *, rounds: int,
                    engine: bool = True, pipeline: bool = False,
                    cache: EngineCache | None = None,
                    ckpt: str | None = None,
-                   net: "netsim.NetworkConfig | None" = None) -> RunResult:
+                   net: "netsim.NetworkConfig | None" = None,
+                   topo: "topo_mod.TopoConfig | None" = None) -> RunResult:
     """Run one (algorithm, dataset) experiment end to end on ``device``.
 
     ``algo`` is one of :data:`ALGOS`. ``draws`` supplies the initial
@@ -444,6 +475,15 @@ def run_experiment(algo: str, cfg, dataset, *, rounds: int,
     node crashes and restarts, payload corruption and the robust guard,
     on both drivers; ``None`` and every zero-rate off-switch are the
     fault-free run bit for bit.
+
+    ``topo``: a :class:`repro_torch.topo.TopoConfig`, an adaptive
+    topology policy (per-link delivery and link-time EWMAs, carried like
+    the channel, driving a participation-gated Gumbel-top-k graph with a
+    ``min_inclusion`` fairness floor) for any algorithm on either driver,
+    with or without ``net`` (without it nothing is observed, the EWMAs
+    stay neutral, and the bytes count the drawn graph's edges).
+    ``None`` and ``TopoConfig()`` (``policy="uniform"``) are the run
+    without a policy bit for bit.
 
     ``pipeline`` (engine only): dispatch segment t+1 before segment t is
     drained, so the host's work on segment t (the drain, the eval's
@@ -487,14 +527,14 @@ def run_experiment(algo: str, cfg, dataset, *, rounds: int,
                     target_acc=target_acc, eval_batch=eval_batch,
                     verbose=verbose, device=device, draws=draws,
                     engine=engine, pipeline=pipeline, cache=cache,
-                    ckpt=ckpt, net=net)
+                    ckpt=ckpt, net=net, topo=topo)
 
 
 def _run(algo: str, cfg, dataset, *, rounds: int, k, degree: int,
          local_steps: int, batch_size: int, lr: float, eval_every: int,
          seed: int, warmup_rounds: int, head_jitter: float, target_acc,
          eval_batch: int, verbose: bool, device, draws, engine: bool,
-         pipeline: bool, cache, ckpt, net) -> RunResult:
+         pipeline: bool, cache, ckpt, net, topo) -> RunResult:
     if ckpt is not None and not engine:
         raise ValueError(
             "ckpt= needs the segment engine (engine=True): the legacy "
@@ -513,6 +553,9 @@ def _run(algo: str, cfg, dataset, *, rounds: int, k, degree: int,
             net.faults, resil.FaultConfig):
         raise TypeError(f"net.faults must be a resil.FaultConfig or None, "
                         f"not {type(net.faults).__name__}")
+    if topo is not None and not isinstance(topo, topo_mod.TopoConfig):
+        raise TypeError(f"topo must be a topo.TopoConfig or None, not "
+                        f"{type(topo).__name__}")
     if eval_every <= 0:
         raise ValueError(
             f"eval_every={eval_every} must be a positive round count")
@@ -521,9 +564,10 @@ def _run(algo: str, cfg, dataset, *, rounds: int, k, degree: int,
             f"target_acc={target_acc} can never trigger an early exit with "
             f"eval_every={eval_every} > rounds={rounds}")
     n = dataset.n_nodes
-    if not 1 <= degree < n:
-        raise ValueError(f"degree={degree} out of range for n={n} nodes: "
-                         "pick 1 <= degree <= n - 1")
+    for r in sorted({degree, topo_mod.budget(topo, degree)}):
+        if not 1 <= r < n:
+            raise ValueError(f"degree={r} out of range for n={n} nodes: "
+                             "pick 1 <= degree <= n - 1")
     if algo != "facade":
         warmup_rounds = 0       # only FACADE has a warmup phase; keeps the
         #                         baselines' cache keys from forking
@@ -542,7 +586,8 @@ def _run(algo: str, cfg, dataset, *, rounds: int, k, degree: int,
     spec = EngineSpec(algo=algo, cfg=cfg, n=n, k=k, degree=degree,
                       local_steps=local_steps, batch_size=batch_size, lr=lr,
                       warmup_rounds=warmup_rounds, head_jitter=head_jitter,
-                      eval_batch=eval_batch, device=dev, net=net)
+                      eval_batch=eval_batch, device=dev, net=net,
+                      topo=topo)
     ckpt_fp = None
     if ckpt is not None:
         # everything that shapes the trajectory or the resume schedule; a
@@ -568,7 +613,7 @@ def _run(algo: str, cfg, dataset, *, rounds: int, k, degree: int,
                         cfg.n_classes,
                         tiers=None if net is None else tiers_of(net, n,
                                                                 draws))
-        carry = _initial_carry(setup, sched, n, dev)
+        carry = _initial_carry(setup, sched, n, dev, topo)
         if engine:
             train_x, train_y = entry.engine.place_data(dataset)
             models = _drive_engine(
@@ -584,44 +629,53 @@ def _run(algo: str, cfg, dataset, *, rounds: int, k, degree: int,
                                 warmup_rounds=warmup_rounds,
                                 local_steps=local_steps,
                                 batch_size=batch_size, n=n, degree=degree,
-                                sched=sched)
+                                sched=sched, topo=topo)
             models = setup.program.models_of(state)
     return hist.result(algo, models)
 
 
-def _initial_carry(setup: AlgoSetup, sched, n: int, dev) -> EngineCarry:
+def _initial_carry(setup: AlgoSetup, sched, n: int, dev,
+                   topo=None) -> EngineCarry:
     """The run's initial carry: the state and, under ``net`` (``sched``,
     its :class:`~repro_torch.netsim.NetSchedule`), the channel drawn from
     its stationary distribution, a fresh async-gossip buffer and a fresh
-    crash chain (every node up; under ``reset`` a copy of the state)."""
+    crash chain (every node up; under ``reset`` a copy of the state), and
+    under an adaptive ``topo`` the policy's neutral ``TopoState``."""
+    tstate = topo_mod.init_state(topo, None if sched is None else
+                                 sched.cfg, n, dev)
     if sched is None:
-        return EngineCarry(setup.state)
+        return EngineCarry(setup.state, topo=tstate)
     return EngineCarry(
         setup.state, sched.init_channel(dev),
         netsim.init_gossip(sched.cfg, n,
                            setup.program.mixable_of(setup.state)),
-        resil.init_state(sched.cfg, n, setup.state))
+        resil.init_state(sched.cfg, n, setup.state), tstate)
 
 
 def _drive_loop(program: AlgoProgram, carry: EngineCarry, hist: _History,
                 draws, train_x, train_y, *, rounds, eval_every,
                 warmup_rounds, local_steps, batch_size, n, degree,
-                sched=None):
+                sched=None, topo=None):
     """The per-round loop: every round drawn, run and recorded on its own;
-    under ``net`` the channel, the gossip buffer and the crash chain are
-    threaded through as the engine carries them. Returns the final
-    state."""
-    state, chan, gossip, fault = carry
+    under ``net`` the channel, the gossip buffer and the crash chain, and
+    under an adaptive ``topo`` (the run's ``TopoConfig``) the policy's
+    EWMAs, are threaded through as the engine carries them. Returns the
+    final state."""
+    state, chan, gossip, fault, tstate = carry
     dev = train_x.device
     per_node = train_x.shape[1]
 
-    def draw_topology() -> tuple:
+    def draw_topology(rnd: int) -> tuple:
         """The round's topology draw, which follows the algorithm (the
         reference splits its key only for a round that uses it)."""
         if program.topology_draw == "perms":
             return (draws.perms(n, degree).to(dev),)
         if program.topology_draw == "gumbel":
             return (draws.gumbel(n).to(dev),)
+        if program.topology_draw == "policy":
+            return (draws.policy_draw(n).to(dev),)
+        if program.topology_draw == "policy_at":
+            return (topo_mod.static_draw(topo, rnd, n, draws).to(dev),)
         return ()
 
     for rnd in range(rounds):
@@ -631,12 +685,14 @@ def _drive_loop(program: AlgoProgram, carry: EngineCarry, hist: _History,
         fn = program.warmup_fn if rnd < warmup_rounds else program.round_fn
         round_s = 0.0
         if sched is None:
-            state, info = fn(state, batches, *draw_topology())
+            state, info = fn(state, batches, *draw_topology(rnd),
+                             **netwire.topo_kw(tstate))
         else:
-            state, chan, gossip, fault, info, round_s = netwire.net_round(
+            (state, chan, gossip, fault, tstate, info,
+             round_s) = netwire.net_round(
                 fn, program.mixable_of, state, chan, gossip, fault, batches,
-                draw_topology(), sched.cfg, sched.round(rnd).to(dev),
-                local_steps)
+                draw_topology(rnd), sched.cfg, sched.round(rnd).to(dev),
+                local_steps, topo_cfg=topo, topo=tstate)
             round_s = float(round_s)
         round_bytes = float(info["round_bytes"])
         last_round = rnd == rounds - 1
@@ -872,8 +928,10 @@ def _carry_snapshot(carry: EngineCarry) -> tuple:
     """``(round, HostCopy of the carry's tensors)``: the carry on its way
     to the host, taken where it stands on the stream. The tensors are
     ``{"state": the state's, "net": {"chan": ..., "gossip": {"published",
-    "age"}, "fault": {"down", "init"}}}``, ``net`` holding only what the
-    run carries (``init``, the state's tensors, under ``reset``)."""
+    "age"}, "fault": {"down", "init"}}, "topo": {"delivery", "link_s"}}``,
+    ``net`` holding only what the run carries (``init``, the state's
+    tensors, under ``reset``) and ``topo`` empty without an adaptive
+    policy."""
     net = {}
     if carry.chan is not None:
         net["chan"] = carry.chan.bad
@@ -883,8 +941,9 @@ def _carry_snapshot(carry: EngineCarry) -> tuple:
         net["fault"] = {"down": carry.fault.down}
         if carry.fault.init is not None:
             net["fault"]["init"] = state_tensors(carry.fault.init)
+    topo = {} if carry.topo is None else dict(carry.topo._asdict())
     return carry.state.round, HostCopy({"state": state_tensors(carry.state),
-                                        "net": net})
+                                        "net": net, "topo": topo})
 
 
 def _frame_path(ckpt: str, index: int) -> str:
@@ -898,8 +957,8 @@ def _ckpt_save(path: str, fp: str, snapshot: tuple, draws_state,
     """Write the whole resumable run at a segment boundary, atomically
     (:func:`repro_torch.checkpoint.save`): the carry (from
     :func:`_carry_snapshot`: the state under ``carry``, the network's
-    channel, gossip buffer and crash chain under ``net``), the draws
-    source's state
+    channel, gossip buffer and crash chain under ``net``, the topology
+    policy's EWMAs under ``topo``), the draws source's state
     after the saved segment's draws and the histories; the meta holds the
     fingerprint, the next segment, whether the run has finished, and
     ``frame_files`` (0: no frames yet)."""
@@ -907,6 +966,7 @@ def _ckpt_save(path: str, fp: str, snapshot: tuple, draws_state,
     tensors = tensors.wait()
     checkpoint.save(path, {"carry": {"round": rnd, **tensors["state"]},
                            "net": tensors["net"],
+                           "topo": tensors["topo"],
                            "draws": draws_state,
                            "hist": _hist_snapshot(hist)},
                     meta={"fingerprint": fp,
@@ -943,11 +1003,12 @@ def _ckpt_resume(ckpt: str, fp: str, carry: EngineCarry, draws,
         fault = resil.FaultState(
             saved["down"], None if "init" not in saved
             else carry.fault.init._replace(**saved["init"]))
+    topo = payload.get("topo") or {}
     carry = EngineCarry(
         carry.state._replace(**fields),
         netsim.ChannelState(net["chan"]) if "chan" in net else None,
         netsim.GossipState(**net["gossip"]) if "gossip" in net else None,
-        fault)
+        fault, topo_mod.TopoState(**topo) if topo else None)
     return carry, int(meta["next_segment"]), bool(meta.get("finished"))
 
 # --------------------------------------------------------------------------

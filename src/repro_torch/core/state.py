@@ -40,16 +40,18 @@ class EngineCarry(NamedTuple):
     buffer (``netsim.GossipState``, ``async_gossip``) and the node-crash
     chain (``resil.FaultState``, ``net.faults`` with ``crash_rate > 0``:
     ``down [n]`` and, under ``restart_mode="reset"``, the copy of the
-    round-0 state restarted nodes return to); each is ``None`` where the
-    run has none. A segment's drawn inputs are not carried: the engine
-    draws them at the segment's start from the run's draws source, where
-    the reference's carry holds its data PRNG key. The reference's carry
-    also holds the adaptive topology's EWMAs; they join this carry when
-    topo is ported."""
+    round-0 state restarted nodes return to), and, under an adaptive
+    topology policy (``topo=``, with or without ``net``), its per-link
+    EWMAs (``topo.TopoState``, ``delivery`` and ``link_s`` ``[n, n]``);
+    each is ``None`` where the run has none. A segment's drawn inputs are
+    not carried: the engine draws them at the segment's start from the
+    run's draws source, where the reference's carry holds its data PRNG
+    key."""
     state: Any           # FacadeState | BaselineState
     chan: Any = None     # netsim.ChannelState | None
     gossip: Any = None   # netsim.GossipState | None
     fault: Any = None    # resil.FaultState | None
+    topo: Any = None     # topo.TopoState | None (uniform policy or off)
 
 
 def _stack_n(tree, n: int, dev):

@@ -97,13 +97,13 @@ def test_drained_bytes_and_seconds_are_the_rounds_own(cuda_device, algo):
                                                    cuda_device)
 
     draws, sched, carry = start(5)
-    state, chan, gossip, fault = carry
+    state, chan, gossip, fault, tstate = carry
     want_b, want_s = [], []
     for rnd in range(4):
         idx = draws.batch_indices(n, h, b, train_x.shape[1])
         topo = ((draws.perms(n, deg),) if algo == "facade"
                 else (draws.gumbel(n),))
-        state, chan, gossip, fault, info, secs = netwire.net_round(
+        state, chan, gossip, fault, tstate, info, secs = netwire.net_round(
             program.round_fn, program.mixable_of, state, chan, gossip, fault,
             pipeline.sample_round_batches(idx.to(cuda_device), train_x,
                                           train_y),

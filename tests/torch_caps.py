@@ -13,7 +13,9 @@
   reference see the same initial parameters, batches and topologies, for
   the CNNs and the language models, and under network simulation the
   same netsim uniforms and fault draws (``net_uniform``/``net_randint``/
-  ``net_normal``: the reference's counter stream); its ``state()``/
+  ``net_normal``: the reference's counter stream) and, under an adaptive
+  topology policy, the same participation uniforms and Gumbel noise
+  (``policy_draw``/``policy_draw_at``: the reference's keys); its ``state()``/
   ``set_state`` let a checkpointed run resume it. It imports JAX only
   when built.
 """
@@ -114,6 +116,35 @@ class JaxDraws:
         self._rng, sub = self._jax.random.split(self._rng)
         return torch.from_numpy(np.array(self._jax.random.gumbel(sub,
                                                                  (n, n))))
+
+    def _policy_draw(self, key, n: int):
+        """``repro.topo.gumbel_graph``'s draws from ``key``: ``k_part, k_gum
+        = split(key)``, then ``uniform(k_part, (n,))`` and ``gumbel(k_gum,
+        (n, n))``."""
+        from repro_torch.topo import TopoDraw
+        jax = self._jax
+        k_part, k_gum = jax.random.split(key)
+        return TopoDraw(
+            torch.from_numpy(np.array(jax.random.uniform(k_part, (n,)))),
+            torch.from_numpy(np.array(jax.random.gumbel(k_gum, (n, n)))))
+
+    def policy_draw(self, n: int):
+        """An adaptive policy's round draw for FACADE, EL and DAC, from
+        the key the round splits off the state's: ``key, sub =
+        split(state.rng)``, then :meth:`_policy_draw` of ``sub``."""
+        self._rng, sub = self._jax.random.split(self._rng)
+        return self._policy_draw(sub, n)
+
+    def policy_draw_at(self, seed: int, tag, rnd: int, n: int):
+        """The ring baselines' round draw, ``repro.topo.static_key``:
+        ``fold_in(fold_in(PRNGKey(seed), tag), rnd)`` (no ``tag`` fold
+        when it is ``None``: ``repro.topo.inclusion_stats``'s round key),
+        then :meth:`_policy_draw`."""
+        jax = self._jax
+        key = jax.random.PRNGKey(seed)
+        if tag is not None:
+            key = jax.random.fold_in(key, tag)
+        return self._policy_draw(jax.random.fold_in(key, rnd), n)
 
     def _net_key(self, seed: int, tag: int, index: int):
         """``repro.netsim``'s counter stream, ``fold_in(fold_in(PRNGKey(
