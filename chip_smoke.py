@@ -149,6 +149,20 @@ failure raises and exits non-zero, before the last line is printed):
    (``compute_s_per_step=0.002``) with no policy, ``reliability`` and
    ``bandwidth``, with capture seconds, peak memory, simulated seconds
    and bytes;
+3a'''''. run telemetry (``obs_phase``, same data and schedule): the five
+   algorithms under ``core-edge`` with ``Obs(ObsConfig(), jsonl=...,
+   out_dir=...)`` under ``build/obs``: the observed engine (the frame
+   computed inside the captured round; K1 one a replayed round plus one
+   warm-up call) against the unobserved run and the observed loop, the
+   same run and the same frames bit for bit, each round's
+   ``delivered_edges`` times the payload against its drained bytes and
+   the tier split against them within 1e-6, ``stale_hist`` summing to
+   n, verdicts ``ok``, the manifest and JSONL on disk; FACADE under
+   ``edge-v2`` (stale nodes in the histogram); an unguarded NaN storm on
+   FACADE judged ``fail`` (``nonfinite``) and its report rendered;
+   FACADE's steady rate observed and unobserved (20 rounds, seed 1 of
+   one cache each, OBS_RATE_REPS runs in turns, medians and quartiles),
+   peak memory and capture seconds;
 3b. the launcher's paper mode (``launch.train.paper_main``) on full-width
    ResNet8 (64×64 images, 41 classes; ``RESNET8_PAPER``: 32 nodes in
    clusters 24:8, degree 4, H = 10, B = 8, 8 rounds) for the five
@@ -201,12 +215,18 @@ failure raises and exits non-zero, before the last line is printed):
    (RWKV) launch per layer and batch, none from decode steps, and finite
    logits; prints prefill and decode tokens per second, and a
    ``torch.profiler`` breakdown of one prefill and 8 decode steps (device
-   busy share, largest kernels);
+   busy share, largest kernels); then the same serve under both of the
+   CLI's overlays (``net=edge-v2`` and a JSONL tracer, ``traced_serve``):
+   the same tokens and launches, a ``prefill`` and a ``decode`` span and
+   a ``queue.wait`` event a batch and one ``slo`` event, its prefill
+   rate beside the untraced one;
 5a. both smoke configs (fp32) served on the card and on the CPU with the
    same parameters: greedy tokens equal, prefill logits within 1e-4;
 6. a ``kernels`` JSON line (each kernel's launches on its path, error,
    times and bound; head select's ResNet8 step 2c under ``"resnet8"``,
-   its launches on the driver phases under ``"driver_launches"``),
+   its launches on the driver phases under ``"driver_launches"``, the
+   telemetry phase's under ``"obs"``; K2's and K3's in the traced serves
+   under ``"traced_serve_launches"``),
    the total time, then the last line ``{"ok": true, "device": {...}}``.
 
 Every kernel's launch count is set to 0 just before each path is driven
@@ -227,6 +247,7 @@ import dataclasses
 import functools
 import json
 import pathlib
+import shutil
 import statistics
 import subprocess
 import sys
@@ -262,6 +283,9 @@ from repro_torch.models import api, transformer  # noqa: E402
 from repro_torch.models.base import get_config  # noqa: E402
 from repro_torch.netsim import (PRESETS, NetSchedule,  # noqa: E402
                                 NetworkConfig)
+from repro_torch.obs import (JsonlSink, Obs, ObsConfig, Tracer,  # noqa: E402
+                             read_jsonl)
+from repro_torch.obs.report import build_report  # noqa: E402
 from repro_torch.resil import FaultConfig, noise_spec  # noqa: E402
 from repro_torch.sweep import SweepCell, run_sweep  # noqa: E402
 from repro_torch.sweep import driver as sweep_driver  # noqa: E402
@@ -333,6 +357,9 @@ TOPO_KW = dict(decay=0.7, min_inclusion=0.25, ref_payload_bytes=5e4)
 TOPO_REL = TopoConfig(policy="reliability", **TOPO_KW)
 TOPO_BW = TopoConfig(policy="bandwidth", **TOPO_KW)
 TOPO_FLOOR_ROUNDS = 400
+# the telemetry phase: FACADE's observed rate in turns with the unobserved
+# one, OBS_RATE_REPS timed runs each (NET_RATE_ROUNDS rounds, seed 1)
+OBS_RATE_REPS = 5
 # the paper's Flickr-Mammals experiment through the launcher's paper_main:
 # full-width ResNet8 (64×64 images, 41 classes), 32 nodes in clusters 24:8
 # rotated rot0/rot180, k 2, degree 4, H 10, B 8, lr 0.05, 8 rounds with an
@@ -1856,6 +1883,206 @@ def topo_resume(cfg, ds) -> dict:
     return got
 
 
+def obs_frames_check(algo, obs, res, payload: int, n: int) -> dict:
+    """A run's frames, recounted on the host against its drained bytes:
+    ROUNDS rounds numbered from 1; each round's bytes (the differences of
+    the cumulative column) are the float32 product of its frame's
+    ``delivered_edges`` (a whole number, at most ``n * degree``, DAC's
+    symmetrised graph twice that) and the payload, and within 1e-6 of its
+    frame's ``bytes_core + bytes_edge`` (both tiers carrying some); each
+    ``stale_hist`` sums to ``n``; the other counts are whole numbers and
+    the norms finite."""
+    t = obs.run_frames_table()
+    per_round = np.diff([0.0] + res.comm.bytes)
+    edges = t["delivered_edges"]
+    cap = PAPER["degree"] * n * (2 if algo == "dac" else 1)
+    recount = [float(np.float32(e) * np.float32(payload)) for e in edges]
+    split_sum = (t["bytes_core"].astype(np.float64)
+                 + t["bytes_edge"].astype(np.float64))
+    whole = all(np.array_equal(t[f], np.rint(t[f])) for f in (
+        "cluster_switches", "delivered_edges", "stale_hist", "crashed",
+        "corrupted", "quarantined"))
+    ok = (t["round"].tolist() == list(range(1, ROUNDS + 1))
+          and recount == per_round.tolist()
+          and bool((edges <= cap).all() and (edges > 0).all())
+          and bool(np.allclose(split_sum, per_round, rtol=1e-6, atol=0))
+          and bool((t["bytes_edge"] > 0).any()
+                   and (t["bytes_core"] > 0).any())
+          and np.array_equal(t["stale_hist"].sum(1), np.full(ROUNDS, n))
+          and whole and bool(np.isfinite(t["update_norm"]).all()
+                             and np.isfinite(t["param_norm"]).all()))
+    return {"ok": ok, "edges_per_round": edges.tolist(),
+            "switches_per_round": t["cluster_switches"].tolist(),
+            "inclusion_per_round": t["inclusion"].tolist(),
+            "update_norm_per_round": t["update_norm"].tolist()}
+
+
+def frames_equal(a: dict, b: dict) -> bool:
+    return set(a) == set(b) and all(np.array_equal(a[f], b[f]) for f in a)
+
+
+def obs_phase(rec, ds) -> int:
+    """Run telemetry at paper scale on GN-LeNet (the main path's data),
+    ROUNDS rounds with an eval every EVAL_EVERY:
+
+    - the five algorithms under ``core-edge`` (link tiers, so the byte
+      split has both sides) with ``Obs(ObsConfig(), jsonl=..., out_dir=...)``
+      under ``build/obs``: the observed engine (a fresh capture a run: K1
+      its rounds plus one warm-up call for FACADE) against the unobserved
+      engine and the observed loop, the same run bit for bit and the same
+      frames bit for bit; each run's frames recounted against its bytes
+      (``obs_frames_check``); the health verdict ``ok``; the manifest on
+      disk and the JSONL's metrics and eval records;
+    - FACADE under ``edge-v2`` (async stale gossip): engine frames against
+      the loop's, ``stale_hist`` summing to n with stale nodes seen;
+    - an unguarded NaN storm (FAULTS_STORM, ``robust=False``, ideal
+      medium) on FACADE: the verdict ``fail`` with ``nonfinite``; a report
+      rendered from its manifest and JSONL (``obs.report``);
+    - FACADE's steady engine rate with ``ObsConfig()`` against
+      ``obs=None``: one ``EngineCache`` each, whose seed-0 run captures,
+      then OBS_RATE_REPS runs of NET_RATE_ROUNDS rounds of seed 1 each, in
+      turns (the order reversed every other turn; ``timed_run``), medians
+      and quartiles as ``tools/topo_rate.py`` takes them, peak memory and
+      capture seconds.
+    Returns K1's launches in the phase."""
+    cfg, n = lenet(), ds.n_nodes
+    out = {"parity": {}, "stale": {}, "storm": {}, "rates": {}}
+    obs_dir = ROOT / "build" / "obs"
+    if obs_dir.exists():
+        shutil.rmtree(obs_dir)
+    payloads = {algo: payload_bytes(cfg, algo) for algo in ALGOS}
+    kw = dict(PAPER, rounds=ROUNDS, eval_every=EVAL_EVERY, device="cuda")
+    launches = 0
+    net = NetworkConfig.preset("core-edge")
+    for algo in ALGOS:
+        plain = run_experiment(algo, cfg, ds, net=net, **kw)
+        loop_obs = Obs(ObsConfig())
+        loop = run_experiment(algo, cfg, ds, engine=False, net=net,
+                              obs=loop_obs, **kw)
+        obs = Obs(ObsConfig(), jsonl=obs_dir / f"{algo}.jsonl",
+                  out_dir=obs_dir)
+        with counted() as counts:
+            eng = run_experiment(algo, cfg, ds, net=net, obs=obs, **kw)
+            torch.cuda.synchronize()
+        obs.sink.close()
+        want = ROUNDS + WARMUP_ROUNDS if algo == "facade" else 0
+        recs = read_jsonl(obs_dir / f"{algo}.jsonl")
+        health = obs.manifests[-1].health
+        got = out["parity"][algo] = {
+            "observed_vs_unobserved": run_diff(eng, plain),
+            "loop_vs_unobserved": run_diff(loop, plain),
+            "frames_engine_vs_loop": frames_equal(
+                obs.frames_table(), loop_obs.frames_table()),
+            "check": obs_frames_check(algo, obs, eng, payloads[algo], n),
+            "verdict": health["verdict"], "launches": counts,
+            "manifest_on_disk": (obs_dir
+                                 / f"manifest_{algo}-seed0.json").exists(),
+            "jsonl_records": {t: sum(r["type"] == t for r in recs)
+                              for t in ("span", "event", "metrics",
+                                        "eval")},
+            "spans": obs.tracer.rollup()["spans"]}
+        log(f"obs {algo}: {json.dumps(got)}")
+        if not (got["observed_vs_unobserved"]["equal"]
+                and got["loop_vs_unobserved"]["equal"]
+                and got["frames_engine_vs_loop"] and got["check"]["ok"]
+                and got["verdict"] == "ok" and got["manifest_on_disk"]
+                and got["jsonl_records"]["eval"] == ROUNDS // EVAL_EVERY
+                and got["jsonl_records"]["metrics"] == ROUNDS // EVAL_EVERY
+                and counts["head_losses"] == want):
+            raise AssertionError(f"obs {algo}: {json.dumps(got)} (K1 want "
+                                 f"{want})")
+        launches += counts["head_losses"]
+    v2 = NetworkConfig.preset("edge-v2")
+    loop_obs, obs = Obs(ObsConfig()), Obs(ObsConfig())
+    run_experiment("facade", cfg, ds, engine=False, net=v2, obs=loop_obs,
+                   **kw)
+    with counted() as counts:
+        run_experiment("facade", cfg, ds, net=v2, obs=obs, **kw)
+        torch.cuda.synchronize()
+    hist = obs.frames_table()["stale_hist"]
+    got = out["stale"] = {
+        "frames_engine_vs_loop": frames_equal(obs.frames_table(),
+                                              loop_obs.frames_table()),
+        "stale_hist": hist.tolist(), "launches": counts}
+    log(f"obs edge-v2 facade: {json.dumps(got)}")
+    if not (got["frames_engine_vs_loop"]
+            and np.array_equal(hist.sum(1), np.full(ROUNDS, n))
+            and hist[:, 1:].sum() > 0):
+        raise AssertionError(f"obs edge-v2: {json.dumps(got)}")
+    launches += counts["head_losses"]
+    storm = NetworkConfig.preset("ideal", faults=dataclasses.replace(
+        FAULTS_STORM, robust=False))
+    obs = Obs(ObsConfig(), jsonl=obs_dir / "storm.jsonl", out_dir=obs_dir)
+    with counted() as counts:
+        run_experiment("facade", cfg, ds, net=storm, obs=obs,
+                       **dict(kw, seed=2))
+        torch.cuda.synchronize()
+    obs.sink.close()
+    report, md = build_report(obs_dir / "manifest_facade-seed2.json")
+    health = obs.manifests[-1].health
+    got = out["storm"] = {
+        "verdict": health["verdict"],
+        "rules": sorted({i["rule"] for i in health["issues"]}),
+        "issues": health["issues"], "report_evals": report["n_evals"],
+        "report_lines": md.count("\n"), "launches": counts}
+    log(f"obs unguarded NaN storm: {json.dumps(got)}")
+    if not (got["verdict"] == "fail" and "nonfinite" in got["rules"]
+            and "**verdict: fail**" in md
+            and report["n_evals"] == ROUNDS // EVAL_EVERY):
+        raise AssertionError(f"obs NaN storm: {json.dumps(got)}")
+    launches += counts["head_losses"]
+    rate_kw = dict(PAPER, rounds=NET_RATE_ROUNDS,
+                   eval_every=NET_RATE_ROUNDS)
+    configs = {"none": None, "obs": ObsConfig()}
+    caches = {name: EngineCache() for name in configs}
+    runs = {name: [] for name in configs}
+    with counted() as counts:
+        for name, ocfg in configs.items():
+            run_experiment("facade", cfg, ds, cache=caches[name],
+                           device="cuda",
+                           obs=None if ocfg is None else Obs(ocfg),
+                           **rate_kw)
+        for rep in range(OBS_RATE_REPS):
+            order = list(configs) if rep % 2 == 0 else list(configs)[::-1]
+            for name in order:
+                ocfg = configs[name]
+                res, wall, peak, reserved = timed_run(
+                    "facade", cfg, ds, cache=caches[name],
+                    obs=None if ocfg is None else Obs(ocfg),
+                    **dict(rate_kw, seed=1))
+                runs[name].append({"rounds_per_s": NET_RATE_ROUNDS / wall,
+                                   "peak_allocated": peak,
+                                   "peak_reserved": reserved})
+    for name, ocfg in configs.items():
+        rates = [r["rounds_per_s"] for r in runs[name]]
+        q1, med, q3 = np.percentile(rates, [25, 50, 75])
+        spec = dataclasses.replace(paper_spec("facade", cfg, ds), obs=ocfg)
+        if spec not in caches[name]:
+            raise AssertionError(f"obs rate {name}: the run's cache entry "
+                                 f"is not {spec}")
+        out["rates"][name] = {
+            "median": med, "q1": q1, "q3": q3, "rates": rates,
+            "peak_allocated": max(r["peak_allocated"] for r in runs[name]),
+            "peak_reserved": max(r["peak_reserved"] for r in runs[name]),
+            "capture_s": caches[name].entry(spec).engine.capture_s}
+    base = out["rates"]["none"]
+    for got in out["rates"].values():
+        got["median_vs_none"] = got["median"] / base["median"]
+        got["peak_allocated_vs_none"] = (got["peak_allocated"]
+                                         - base["peak_allocated"])
+    want = 2 * (1 + OBS_RATE_REPS) * NET_RATE_ROUNDS + 2 * WARMUP_ROUNDS
+    out["rates"]["launches"] = counts
+    log(f"obs rate: {json.dumps(out['rates'])}")
+    if counts["head_losses"] != want:
+        raise AssertionError(f"obs rate: {counts} K1, want {want}")
+    launches += counts["head_losses"]
+    del caches
+    out["launches"] = launches
+    rec["obs"] = out
+    torch.cuda.empty_cache()
+    return launches
+
+
 def small_input_phase(rec):
     """The same tiny experiment on the card and on the CPU (one seed, so
     the same draws), on GN-LeNet and on ResNet8: bytes and cluster ids
@@ -2625,6 +2852,7 @@ def serve_phase(rec, arch: str, kernel) -> int:
         torch.cuda.synchronize()
     if any(decode_counts.values()):
         raise AssertionError(f"{arch}: decode launched {decode_counts}")
+    traced = traced_serve(arch, cfg, params, queue, res, want)
 
     # where the time goes: one batch's prefill, then 8 decode steps
     batch = np.zeros((SERVE["batch"], SERVE["prompt_len"]), np.int32)
@@ -2658,7 +2886,7 @@ def serve_phase(rec, arch: str, kernel) -> int:
            "decode_tok_s": res.decode_tok_s,
            "peak_mem_bytes": torch.cuda.max_memory_allocated(),
            "first_tokens": res.tokens[:, :8].tolist(), **SERVE,
-           "requests": N_REQUESTS, "profile": profiles}
+           "requests": N_REQUESTS, "profile": profiles, "traced": traced}
     rec.setdefault("serve", {})[arch] = out
     log(f"serve {arch}: {out['params']} params, {batches} batches, "
         f"{counts[kernel.__name__]} {kernel.__name__} launches; prefill "
@@ -2668,6 +2896,47 @@ def serve_phase(rec, arch: str, kernel) -> int:
     del params
     torch.cuda.empty_cache()
     return counts[kernel.__name__]
+
+
+def traced_serve(arch, cfg, params, queue, plain, want) -> dict:
+    """The serve of ``serve_phase`` again with both of the CLI's overlays:
+    ``net=edge-v2`` (the wire model's simulated seconds) and a tracer into
+    ``build/obs/serve-<arch>.jsonl``. The same tokens as the untraced run
+    (``plain``), the same kernel launches (``want``), and the trace's
+    records counted: a ``prefill`` and a ``decode`` span and a
+    ``queue.wait`` event a batch, one ``slo`` event; its prefill tokens
+    per second beside the untraced run's."""
+    path = ROOT / "build" / "obs" / f"serve-{arch}.jsonl"
+    net = NetworkConfig.preset("edge-v2")
+    tracer = Tracer(sink=JsonlSink(path))
+    with counted() as counts:
+        res = serve(cfg, params, queue, device="cuda", net=net,
+                    tracer=tracer, **SERVE)
+    tracer.sink.close()
+    recs = read_jsonl(path)
+    batches = len(res.batch_sizes)
+    names = [r["name"] for r in recs]
+    got = {"launches": counts, "records": len(recs),
+           "prefill_spans": names.count("prefill"),
+           "decode_spans": names.count("decode"),
+           "queue_wait_events": names.count("queue.wait"),
+           "slo_events": names.count("slo"),
+           "sim_net_s": res.comm.seconds[-1], "net_gb": res.comm.total_gb,
+           "prefill_tok_s": res.prefill_tok_s,
+           "untraced_prefill_tok_s": plain.prefill_tok_s,
+           "prefill_tok_s_vs_untraced": (res.prefill_tok_s
+                                         / plain.prefill_tok_s),
+           "decode_tok_s": res.decode_tok_s,
+           "untraced_decode_tok_s": plain.decode_tok_s,
+           "tokens_equal": bool(np.array_equal(res.tokens, plain.tokens))}
+    log(f"serve {arch} traced --net edge-v2: {json.dumps(got)}")
+    if not (counts == want and got["tokens_equal"] and res.finite
+            and got["prefill_spans"] == got["decode_spans"] == batches
+            and got["queue_wait_events"] == batches
+            and got["slo_events"] == 1 and names[-1] == "slo"
+            and got["sim_net_s"] > 0):
+        raise AssertionError(f"{arch} traced serve: {json.dumps(got)}")
+    return got
 
 
 def smoke_serve_phase(rec):
@@ -2725,7 +2994,8 @@ def main() -> int:
                              "sweep": sweep_phase(rec, ds),
                              "netsim": netsim_phase(rec, ds),
                              "faults": faults_phase(rec, ds),
-                             "topo": topo_phase(rec, ds)}
+                             "topo": topo_phase(rec, ds),
+                             "obs": obs_phase(rec, ds)}
     resnet8_launches = resnet8_paper_phase(rec)
     hs["resnet8"] = dict(resnet8_select_phase(rec),
                          launches=resnet8_launches)
@@ -2739,6 +3009,12 @@ def main() -> int:
         "launches"]["wkv"]
     fa["launches"] = serve_phase(rec, "llama3.2-1b", flash_attention)
     rw["launches"] = serve_phase(rec, "rwkv6-1.6b", wkv)
+    # K2's and K3's launches in the traced serves (--net edge-v2 and a
+    # JSONL tracer)
+    fa["traced_serve_launches"] = rec["serve"]["llama3.2-1b"]["traced"][
+        "launches"]["flash_attention"]
+    rw["traced_serve_launches"] = rec["serve"]["rwkv6-1.6b"]["traced"][
+        "launches"]["wkv"]
     # K3's launches on its second path: the RWKV FACADE rounds
     rw["train"]["launches"] = rwkv_launches["wkv"]
     rw["train"]["launches_per_round"] = rwkv_launches["wkv"] // LM_ROUNDS

@@ -18,7 +18,9 @@ identical captures. :class:`EngineCache` memoizes on a static
   of the eval split, device)``, whatever the algorithm.
 
 Cache-key contract: every knob that changes a captured round or the
-round and eval arithmetic is a field of :class:`EngineSpec`; only the seed
+round and eval arithmetic is a field of :class:`EngineSpec` (the
+device-side telemetry frame, ``obs``, among them; the host-side settings
+of an ``obs.Obs`` never are); only the seed
 (the draws) and the data vary within an entry. The device is a field: a
 graph captured on one device cannot serve another. ``rounds`` and
 ``eval_every`` are not: the engine captures one round, whatever the
@@ -76,6 +78,12 @@ class EngineSpec:
     topo: Any = None             # topo.TopoConfig | None (frozen): the
     #                              adaptive policy the captured round
     #                              samples with (every field forks the key)
+    obs: Any = None              # obs.ObsConfig | None (frozen): the
+    #                              device-side telemetry frame the captured
+    #                              round computes and writes (every field
+    #                              forks the key); the host settings on
+    #                              obs.Obs (sink, health, out_dir,
+    #                              profile_dir) never appear here
 
 
 _FP_MEMO: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
@@ -136,7 +144,7 @@ class CacheEntry:
             track_cluster=self.program.track_cluster,
             topology_draw=self.program.topology_draw, degree=spec.degree,
             net=spec.net, mixable_of=self.program.mixable_of,
-            topo=spec.topo)
+            topo=spec.topo, obs=spec.obs)
 
     def setup(self, draws):
         return self.program.setup(draws, self.spec.device)
@@ -175,7 +183,10 @@ class EngineCache:
         self.max_entries = max_entries
         self._evicted_compiles = 0   # keeps compile_count monotone
 
-    def entry(self, spec: EngineSpec) -> CacheEntry:
+    def entry(self, spec: EngineSpec, tracer=None) -> CacheEntry:
+        """``spec``'s entry, built on first use; ``tracer`` (an
+        ``obs.Tracer``) records a ``cache.evict`` event for every entry the
+        LRU bound drops."""
         e = self._entries.get(spec)
         if e is None:
             self.misses += 1
@@ -183,10 +194,10 @@ class EngineCache:
         else:
             self.hits += 1
             self._entries[spec] = self._entries.pop(spec)  # -> MRU slot
-        self._evict(keep=spec)
+        self._evict(keep=spec, tracer=tracer)
         return e
 
-    def _evict(self, keep: EngineSpec):
+    def _evict(self, keep: EngineSpec, tracer=None):
         if self.max_entries is None:
             return
         while len(self._entries) > self.max_entries:
@@ -199,6 +210,9 @@ class EngineCache:
             dead = self._entries.pop(victim)
             self._evicted_compiles += dead.compile_count
             self.evictions += 1
+            if tracer is not None:
+                tracer.event("cache.evict", algo=victim.algo,
+                             entries=len(self._entries))
 
     @contextlib.contextmanager
     def pin(self, spec: EngineSpec):

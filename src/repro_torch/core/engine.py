@@ -55,7 +55,15 @@ This module runs the same round closures (FACADE's or a baseline's,
   :meth:`SegmentEngine.drain` waits on the copy's event alone, never on
   the stream or the device. So a pipelined driver (``run_experiment(
   pipeline=True)``) can dispatch segment t+1 and then drain segment t
-  while t+1's replays run.
+  while t+1's replays run;
+* **telemetry** (``obs``, a ``repro_torch.obs.ObsConfig``): the captured
+  round also computes the round's ``MetricsFrame`` (``obs.frame_hook``)
+  from the static state tensors, which are still the round's starting
+  state, and the new ones, and writes its ``[F]`` row into a static row
+  before the carry is overwritten; the row is copied into an ``[L, F]``
+  buffer after each replay and rides the segment's one copy to the host.
+  The frame only reads, so the round's arithmetic is unchanged, and
+  without ``obs`` nothing of it is captured.
 
 **Capture.** The first segment of a warmup flag (and of a train-array
 shape) runs ``WARMUP_ROUNDS`` eager rounds on the device's capture stream,
@@ -98,6 +106,8 @@ from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.head_select import head_losses
 from repro_torch.kernels.rwkv6 import wkv
 from repro_torch.netsim import ChannelState, GossipState, NetDraws
+from repro_torch.obs.frame import frame_hook, frame_width, frames_of_rows
+from repro_torch.obs.trace import span
 from repro_torch.resil import FaultState
 from repro_torch.topo import TopoDraw, TopoState, adaptive, static_draw
 from repro_torch.tree import tree_map
@@ -190,7 +200,9 @@ class SegmentEngine:
     ``netsim.NetworkConfig`` or ``None``; ``mixable_of`` (state -> what
     gossip exchanges) is needed for async gossip. ``topo``: the run's
     ``topo.TopoConfig`` or ``None``; under an adaptive one the round
-    closures get its state as ``topo=``.
+    closures get its state as ``topo=``. ``obs``: the run's
+    ``obs.ObsConfig`` or ``None``; with one, each round's frame row is
+    drained as ``frame`` (``mixable_of`` is needed for its norms).
 
     The engine owns the static buffers its graphs read and write: the
     carry (the state and, under ``net``, the channel and the gossip
@@ -205,7 +217,8 @@ class SegmentEngine:
                  batch_size: int, device, warmup_fn: Callable | None = None,
                  track_cluster: bool = False,
                  topology_draw: str | None = None, degree: int = 4,
-                 net=None, mixable_of: Callable | None = None, topo=None):
+                 net=None, mixable_of: Callable | None = None, topo=None,
+                 obs=None):
         if topology_draw not in (None,) + TOPOLOGY_DRAWS:
             raise ValueError(f"unknown topology draw {topology_draw!r}")
         if adaptive(topo) != (topology_draw in POLICY_DRAWS):
@@ -230,6 +243,11 @@ class SegmentEngine:
             raise ValueError("async_gossip needs mixable_of (state -> the "
                              "tree gossip exchanges); "
                              "runner.algo_program provides it")
+        if obs is not None and mixable_of is None:
+            raise ValueError("an ObsConfig needs mixable_of (its norms are "
+                             "over the mixable state); runner.algo_program "
+                             "provides it")
+        self._obs = obs
         self._state = None       # static state tensors, {field: tree}
         self._chan = None        # net: static ChannelState.bad [n, n]
         self._gossip = None      # net: static {"published", "age"}
@@ -238,6 +256,9 @@ class SegmentEngine:
         self._topo = None        # adaptive topo: static EWMAs, {field: [n, n]}
         self._scalars = None     # net or adaptive topo: static (bytes,
         #                          seconds) of a round
+        self._tiers = None       # obs: static tier vector [n] float32
+        self._frame = None       # obs: static frame row [F] of a round
+        self._hook = None        # obs: the round's frame hook
         self._inputs = None      # static per-round inputs, {name: tensor}
         self._data = {}          # CUDA: static train arrays per shape/dtype
         self._graphs = {}        # key -> (graph, round_bytes or None,
@@ -275,13 +296,16 @@ class SegmentEngine:
         return self._data[key]
 
     def init_carry(self, state, chan=None, gossip=None, fault=None,
-                   topo=None) -> EngineCarry:
+                   topo=None, *, tiers=None) -> EngineCarry:
         """The run's carry: ``state``'s tensors and, under ``net``, the
         channel (bursty presets), the gossip buffer (async gossip) and the
         crash chain (``net.faults`` with a crash rate; under ``reset`` its
         round-0 copy of the state), and under an adaptive topology policy
         its ``TopoState``, copied into the engine's static buffers
-        (allocated at the first run); the round counter as given."""
+        (allocated at the first run); the round counter as given. Under an
+        ``ObsConfig``, ``tiers`` (the run's node tiers ``[n]`` float32 on
+        the device, ``None``: all core) fills the frame's static tier
+        vector."""
         net = self._net
         faults = None if net is None else net.faults
         chain = faults is not None and faults.crash_rate > 0
@@ -325,6 +349,19 @@ class SegmentEngine:
             if self._drains:
                 self._scalars = torch.zeros((2,), dtype=torch.float32,
                                             device=self._dev)
+            if self._obs is not None:
+                self._tiers = torch.zeros((self._n,), dtype=torch.float32,
+                                          device=self._dev)
+                self._frame = torch.zeros((frame_width(self._obs),),
+                                          dtype=torch.float32,
+                                          device=self._dev)
+                self._hook = frame_hook(self._obs, self._n, self._tiers,
+                                        self._mixable_of)
+        if self._tiers is not None:
+            if tiers is None:
+                self._tiers.zero_()
+            else:
+                self._tiers.copy_(tiers)
         carry = EngineCarry(state, chan, gossip, fault, topo)
         self._load(carry)
         return self._static_carry(state)
@@ -370,8 +407,10 @@ class SegmentEngine:
         """End of a round: the new carry's tensors into the static ones,
         leaf by key (the crash chain's ``down``; its round-0 copy is never
         written a round; the policy's EWMAs, which only ``net`` advances),
-        and under ``net`` or an adaptive policy the round's bytes and
-        seconds (0 off ``net``) into the static pair."""
+        under ``net`` or an adaptive policy the round's bytes and seconds
+        (0 off ``net``) into the static pair, and under an ``ObsConfig``
+        the round's frame row, computed before this overwrote the state it
+        read, into the static row."""
         def put(s, l):
             if l is not s:
                 s.copy_(l)
@@ -390,6 +429,8 @@ class SegmentEngine:
             self._scalars[0].copy_(info["round_bytes"])
             if round_s is not None:
                 self._scalars[1].copy_(round_s)
+        if self._frame is not None:
+            self._frame.copy_(info["frame"])
 
     # -- draws --------------------------------------------------------------
     def _draw_segment(self, source, start: int, length: int, per_node: int,
@@ -454,13 +495,18 @@ class SegmentEngine:
         """One round of ``fn`` from ``carry`` on ``inputs`` (one round's
         draws, on the device): ``(state, chan, gossip, fault, topo, info,
         round_s)``, under ``net`` through ``netwire.net_round``, the loop's
-        path."""
+        path; under an ``ObsConfig`` ``info["frame"]`` holds the round's
+        frame row, from the carry's state before the round (the static
+        buffers, which only :meth:`_store` overwrites)."""
         batches = pipeline.sample_round_batches(inputs["idx"], train_x,
                                                 train_y)
         drawn = self._topology_args(inputs)
         if self._net is None:
             state, info = fn(carry.state, batches, *drawn,
                              **netwire.topo_kw(carry.topo))
+            if self._hook is not None:
+                info["frame"] = self._hook(carry.state, state, info, None,
+                                           None)
             return state, None, None, None, carry.topo, info, None
         fields = {f: inputs.get("net." + f) for f in NetDraws._fields}
         noise = []             # the payload noise, one input a leaf
@@ -471,12 +517,13 @@ class SegmentEngine:
                                  carry.chan, carry.gossip, carry.fault,
                                  batches, drawn, self._net,
                                  NetDraws(**fields), self._h,
-                                 topo_cfg=self._topo_cfg, topo=carry.topo)
+                                 topo_cfg=self._topo_cfg, topo=carry.topo,
+                                 frame=self._hook)
 
     # -- one segment --------------------------------------------------------
     def dispatch_segment(self, carry: EngineCarry, start: int, length: int,
                          train_x, train_y, source, warmup: bool = False,
-                         net=None):
+                         net=None, tracer=None):
         """Draw ``length`` rounds from ``source`` (under ``net``, the run's
         ``netsim.NetSchedule``, also its network draws) and run them from
         ``carry``; returns ``(new_carry, outs)`` with the per-round outs
@@ -488,7 +535,9 @@ class SegmentEngine:
         ``start`` is the segment's first round, 0-based; the state's round
         counter follows it. On CUDA, apart from a round's first capture
         (which synchronises the device), nothing here waits for the
-        card."""
+        card. ``tracer`` (an ``obs.Tracer``) wraps the call in a
+        ``compile`` span where the segment's round is captured (on the
+        CPU: prepared) first, else in a ``dispatch`` span."""
         if carry.state.round != start:
             raise ValueError(f"carry is at round {carry.state.round}, the "
                              f"segment starts at {start}")
@@ -497,18 +546,22 @@ class SegmentEngine:
             raise ValueError(f"the engine runs network {self._net!r}; "
                              f"dispatch_segment got the schedule of "
                              f"{None if net is None else net.cfg!r}")
-        draws = self._draw_segment(source, start, length, train_x.shape[1],
-                                   net)
-        self._load(carry)
-        carry = self._static_carry(carry.state)
-        fn = self._warm if warmup else self._round
         key = (warmup,) + _data_key(train_x, train_y)
-        if self._dev.type == "cuda":
-            outs = self._replay(key, fn, draws, length, train_x, train_y,
-                                carry)
-        else:
-            outs = self._eager(key, fn, draws, length, train_x, train_y,
-                               carry)
+        fresh = key not in (self._graphs if self._dev.type == "cuda"
+                            else self._prepared)
+        with span(tracer, "compile" if fresh else "dispatch",
+                  length=length, warmup=warmup):
+            draws = self._draw_segment(source, start, length,
+                                       train_x.shape[1], net)
+            self._load(carry)
+            carry = self._static_carry(carry.state)
+            fn = self._warm if warmup else self._round
+            if self._dev.type == "cuda":
+                outs = self._replay(key, fn, draws, length, train_x,
+                                    train_y, carry)
+            else:
+                outs = self._eager(key, fn, draws, length, train_x,
+                                   train_y, carry)
         device_outs = outs.pop("device")
         outs["copy"] = HostCopy(device_outs) if device_outs else None
         outs["end"] = None
@@ -518,36 +571,45 @@ class SegmentEngine:
         return carry._replace(
             state=carry.state._replace(round=start + length)), outs
 
-    def drain(self, outs) -> dict:
+    def drain(self, outs, tracer=None, length: int | None = None) -> dict:
         """A dispatched segment's outs on the host: ``round_bytes`` ``[L]``
         float64, under ``net`` (or an adaptive policy, where they are 0)
         ``round_s`` ``[L]`` float64 (the float32 values each round
-        computed) and, for FACADE, ``cluster_id`` ``[L,
-        n]``, waiting on the event behind their copy and on nothing
-        enqueued after it."""
-        host = {"round_bytes": outs["round_bytes"]}
-        if outs["copy"] is not None:
-            got = outs["copy"].wait()
-            if "cluster_id" in got:
-                host["cluster_id"] = got["cluster_id"]
-            if "scalars" in got:
-                pair = got["scalars"].numpy().astype(np.float64)
-                host["round_bytes"], host["round_s"] = pair[:, 0], pair[:, 1]
+        computed), for FACADE ``cluster_id`` ``[L, n]`` and under an
+        ``ObsConfig`` ``frame``, the rounds' ``obs.MetricsFrame`` (numpy,
+        leading axis L), waiting on the event behind their copy and on
+        nothing enqueued after it. ``tracer`` wraps the wait in a
+        ``drain`` span."""
+        with span(tracer, "drain",
+                  **({} if length is None else {"length": length})):
+            host = {"round_bytes": outs["round_bytes"]}
+            if outs["copy"] is not None:
+                got = outs["copy"].wait()
+                if "cluster_id" in got:
+                    host["cluster_id"] = got["cluster_id"]
+                if "scalars" in got:
+                    pair = got["scalars"].numpy().astype(np.float64)
+                    host["round_bytes"], host["round_s"] = (pair[:, 0],
+                                                            pair[:, 1])
+                if "frame" in got:
+                    host["frame"] = frames_of_rows(got["frame"].numpy(),
+                                                   self._obs)
         return host
 
     def run_segment(self, carry: EngineCarry, start: int, length: int,
                     train_x, train_y, source, warmup: bool = False,
-                    net=None):
+                    net=None, tracer=None):
         """:meth:`dispatch_segment`, then :meth:`drain`."""
         carry, outs = self.dispatch_segment(carry, start, length, train_x,
                                             train_y, source, warmup=warmup,
-                                            net=net)
-        return carry, self.drain(outs)
+                                            net=net, tracer=tracer)
+        return carry, self.drain(outs, tracer=tracer, length=length)
 
     def _out_buffers(self, length: int) -> dict:
         """The segment's device outputs, filled row by row after each
-        round: FACADE's cluster ids ``[L, n]`` and, under ``net`` or an
-        adaptive policy, the rounds' (bytes, seconds) ``[L, 2]``."""
+        round: FACADE's cluster ids ``[L, n]``, under ``net`` or an
+        adaptive policy the rounds' (bytes, seconds) ``[L, 2]``, and under
+        an ``ObsConfig`` their frame rows ``[L, F]``."""
         out = {}
         if self._track:
             out["cluster_id"] = torch.empty((length, self._n),
@@ -556,6 +618,9 @@ class SegmentEngine:
         if self._drains:
             out["scalars"] = torch.empty((length, 2), dtype=torch.float32,
                                          device=self._dev)
+        if self._frame is not None:
+            out["frame"] = torch.empty((length, self._frame.shape[0]),
+                                       dtype=torch.float32, device=self._dev)
         return out
 
     def _fill_row(self, bufs: dict, i: int):
@@ -563,6 +628,8 @@ class SegmentEngine:
             bufs["cluster_id"][i].copy_(self._state["cluster_id"])
         if "scalars" in bufs:
             bufs["scalars"][i].copy_(self._scalars)
+        if "frame" in bufs:
+            bufs["frame"][i].copy_(self._frame)
 
     def _eager(self, key, fn, draws, length, train_x, train_y, carry):
         if key not in self._prepared:

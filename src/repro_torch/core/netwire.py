@@ -134,7 +134,7 @@ def topo_kw(topo) -> dict:
 
 def net_round(fn, mixable_of, state, chan, gossip, fault, batches,
               topology_args: tuple, net, draws, local_steps: int,
-              topo_cfg=None, topo=None):
+              topo_cfg=None, topo=None, frame=None):
     """One round of ``fn`` (a round function) under network simulation,
     in the reference drivers' order: advance the channel and make the
     masks from the round's ``draws`` (a ``netsim.NetDraws`` on the
@@ -145,21 +145,29 @@ def net_round(fn, mixable_of, state, chan, gossip, fault, batches,
     into the topology policy's EWMAs (``topo.advance``; ``topo`` is its
     ``TopoState`` under the static ``topo_cfg``, ``None`` without an
     adaptive policy), and time the round. ``fault`` is the crash chain's
-    ``resil.FaultState`` (``None`` without one). Returns ``(state, chan,
-    gossip, fault, topo, info, round_s)``, ``round_s`` a float32 0-d
-    tensor. Both drivers (the loop and the engine's captured round) run
-    every netsim round through this."""
+    ``resil.FaultState`` (``None`` without one). ``frame``: the run's
+    telemetry hook (``obs.frame_hook``) or ``None``; it is called after
+    the topology advance with the state the round started from (after any
+    ``reset`` restart), the new state, the round's info and conditions
+    and the folded gossip buffer, and its ``[F]`` row lands in
+    ``info["frame"]``. Returns ``(state, chan, gossip, fault, topo, info,
+    round_s)``, ``round_s`` a float32 0-d tensor. Both drivers (the loop
+    and the engine's captured round) run every netsim round through
+    this."""
     n = draws.straggle.shape[0]
     conds, chan = netsim.advance_conditions(net, draws, chan)
     conds, fault, restarted = resil.advance(net, n, conds, fault, draws)
     if restarted is not None:
         state = resil.reset_nodes(n, restarted, fault.init, state)
     conds, published = netsim.apply_async(net, conds, gossip)
-    state, info = fn(state, batches, *topology_args, net=conds,
+    prev = state
+    state, info = fn(prev, batches, *topology_args, net=conds,
                      gossip=published, **topo_kw(topo))
     if published is not None:
         gossip = netsim.fold_gossip(net, gossip, conds, mixable_of(state))
     # after the round: round t samples from what was observed up to t - 1
     topo = topo_mod.advance(topo_cfg, net, topo, conds, tiers=draws.tiers)
+    if frame is not None:
+        info["frame"] = frame(prev, state, info, conds, gossip)
     round_s = round_seconds(net, info, conds, local_steps, tiers=draws.tiers)
     return state, chan, gossip, fault, topo, info, round_s

@@ -22,9 +22,14 @@ robust guard): each round's masks, the bursty channel, the async-gossip
 buffer and the crash chain are threaded through the loop, and carried in
 the engine's static buffers. Both also run the five under an adaptive
 topology policy (``topo=``, a ``topo.TopoConfig``), with or without
-``net``: its per-link EWMAs are threaded and carried the same way. The
-reference's mesh and telemetry (``mesh=``, ``obs=``) are not ported yet;
-``run_experiment`` has no parameter for them.
+``net``: its per-link EWMAs are threaded and carried the same way. Both
+record run telemetry under ``obs=`` (a ``repro_torch.obs.Obs``): a
+per-round ``MetricsFrame`` computed on the device at the same point of
+the round (inside the captured graph on the engine, drained with the
+segment's other outputs), tracer spans around capture, dispatch, drain,
+eval and checkpoint, a health verdict and a run manifest at the end. The
+reference's mesh (``mesh=``) is not ported; ``run_experiment`` has no
+parameter for it.
 
 Randomness comes from a *draws* source (:class:`TorchDraws` by default):
 it supplies the initial parameters, each round's ``[n, H, B]`` batch
@@ -46,6 +51,7 @@ checkpoint holds the source's state (``state()`` / ``set_state``).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import os
@@ -62,8 +68,11 @@ from repro_torch.comm import CommLog
 from repro_torch.data import pipeline as pipeline_mod
 from repro_torch.data.tokens import TokenSpec, make_clustered_tokens
 from repro_torch.device import HostCopy
-from repro_torch.obs import (EvalFrame, compute_eval_frame, fingerprint,
-                             tiers_of)
+from repro_torch.obs import (EvalFrame, HealthContext, MetricsFrame,
+                             RunManifest, compute_eval_frame,
+                             evaluate_health, fingerprint, frame_hook,
+                             frames_of_rows, tiers_of)
+from repro_torch.obs.trace import span
 from repro_torch.tree import tree_map
 
 from . import facade as facade_mod
@@ -368,7 +377,7 @@ class _History:
 
     def __init__(self, node_cluster, n: int, evaluator, models_of,
                  target_acc, verbose: bool, algo: str, n_classes: int,
-                 tiers=None):
+                 tiers=None, obs=None):
         self.comm = CommLog()
         self.acc_hist, self.fair_hist, self.cluster_hist = [], [], []
         self.dp = self.eo = 0.0
@@ -385,6 +394,7 @@ class _History:
         self._algo = algo
         self._n_classes = n_classes
         self._tiers = tiers
+        self._obs = obs
 
     def eval_begin(self, state):
         """Enqueue the eval of ``state``: every cluster's prediction and,
@@ -422,6 +432,8 @@ class _History:
             prev_cid=self._prev_eval_cid, cid=eval_cid)
         self._prev_eval_cid = eval_cid
         self.eval_frames.append(frame)
+        if self._obs is not None:
+            self._obs.record_eval(frame)
         self.fair_hist.append((rnd, frame.fair_acc))
         self.dp = frame.dp
         self.eo = frame.eo
@@ -453,7 +465,8 @@ def run_experiment(algo: str, cfg, dataset, *, rounds: int,
                    cache: EngineCache | None = None,
                    ckpt: str | None = None,
                    net: "netsim.NetworkConfig | None" = None,
-                   topo: "topo_mod.TopoConfig | None" = None) -> RunResult:
+                   topo: "topo_mod.TopoConfig | None" = None,
+                   obs=None) -> RunResult:
     """Run one (algorithm, dataset) experiment end to end on ``device``.
 
     ``algo`` is one of :data:`ALGOS`. ``draws`` supplies the initial
@@ -484,6 +497,25 @@ def run_experiment(algo: str, cfg, dataset, *, rounds: int,
     stay neutral, and the bytes count the drawn graph's edges).
     ``None`` and ``TopoConfig()`` (``policy="uniform"``) are the run
     without a policy bit for bit.
+
+    ``obs``: a :class:`repro_torch.obs.Obs`. Its ``config`` (an
+    ``ObsConfig``, an ``EngineSpec`` key component) adds a per-round
+    ``MetricsFrame``, computed on the run's device after the round (after
+    the gossip fold and the policy's advance, before ``finalize``): inside
+    the captured round on the engine, its ``[L, F]`` rows drained with the
+    segment's other outputs, and the same function a round on the loop,
+    so the two drivers' frames are equal bit for bit. Its tracer wraps the
+    run in spans (``run``, ``cache.entry``, ``compile``, ``dispatch``,
+    ``drain``, ``eval``, ``ckpt.save``) and events (``run.begin``,
+    ``cache.hit``/``cache.miss``, ``ckpt.resume``, ``health.<rule>``,
+    ``run.end``); every eval's ``EvalFrame`` is recorded; at the end the
+    run is judged by ``obs.health_config`` and a ``RunManifest`` (health,
+    timing rollup, cache stats) is appended to ``obs.manifests`` and
+    written under ``obs.out_dir``. Under ``ckpt`` each segment's frames go
+    to a sidecar file (``<ckpt>.frames-<i>.npz``) written before the
+    checkpoint, and a resumed run replays them into ``obs``. ``None`` is
+    the run without telemetry, and an enabled ``Obs`` observes that same
+    run bit for bit: the frame only reads.
 
     ``pipeline`` (engine only): dispatch segment t+1 before segment t is
     drained, so the host's work on segment t (the drain, the eval's
@@ -527,14 +559,14 @@ def run_experiment(algo: str, cfg, dataset, *, rounds: int,
                     target_acc=target_acc, eval_batch=eval_batch,
                     verbose=verbose, device=device, draws=draws,
                     engine=engine, pipeline=pipeline, cache=cache,
-                    ckpt=ckpt, net=net, topo=topo)
+                    ckpt=ckpt, net=net, topo=topo, obs=obs)
 
 
 def _run(algo: str, cfg, dataset, *, rounds: int, k, degree: int,
          local_steps: int, batch_size: int, lr: float, eval_every: int,
          seed: int, warmup_rounds: int, head_jitter: float, target_acc,
          eval_batch: int, verbose: bool, device, draws, engine: bool,
-         pipeline: bool, cache, ckpt, net, topo) -> RunResult:
+         pipeline: bool, cache, ckpt, net, topo, obs) -> RunResult:
     if ckpt is not None and not engine:
         raise ValueError(
             "ckpt= needs the segment engine (engine=True): the legacy "
@@ -583,11 +615,13 @@ def _run(algo: str, cfg, dataset, *, rounds: int, k, degree: int,
             "cannot be saved, so a resume could not draw what the "
             "uninterrupted run draws")
     cache = cache if cache is not None else EngineCache()
+    tracer = obs.tracer if obs is not None else None
+    ocfg = obs.config if obs is not None else None
     spec = EngineSpec(algo=algo, cfg=cfg, n=n, k=k, degree=degree,
                       local_steps=local_steps, batch_size=batch_size, lr=lr,
                       warmup_rounds=warmup_rounds, head_jitter=head_jitter,
                       eval_batch=eval_batch, device=dev, net=net,
-                      topo=topo)
+                      topo=topo, obs=ocfg)
     ckpt_fp = None
     if ckpt is not None:
         # everything that shapes the trajectory or the resume schedule; a
@@ -597,22 +631,36 @@ def _run(algo: str, cfg, dataset, *, rounds: int, k, degree: int,
             "eval_every": eval_every, "warmup_rounds": warmup_rounds,
             "target": repr(target_acc), "draws": type(draws).__name__,
             "net": repr(net)})
-    entry = cache.entry(spec)
+    if obs is not None:
+        obs.begin_run(algo=algo, seed=seed, rounds=rounds, engine=engine)
+    misses0 = cache.misses
+    with span(tracer, "cache.entry", algo=algo):
+        entry = cache.entry(spec, tracer=tracer)
+    if tracer is not None:
+        tracer.event("cache.miss" if cache.misses > misses0
+                     else "cache.hit", algo=algo, seed=seed)
     # pinned while the run is live: an LRU-bounded cache must never evict
     # the engine whose static buffers the run is using
-    with cache.pin(spec):
+    with obs.profile() if obs is not None else contextlib.nullcontext(), \
+            cache.pin(spec), \
+            span(tracer, "run", algo=algo, seed=seed, engine=engine):
         setup = entry.setup(draws)
+        builds0 = cache.evaluator_builds
         evaluator = cache.evaluator(entry.binding, dataset,
                                     batch=eval_batch, device=dev)
+        if tracer is not None and cache.evaluator_builds > builds0:
+            tracer.event("evaluator.build", batch=eval_batch)
         sched = None if net is None else netsim.NetSchedule(
             net, n, draws, noise=resil.noise_spec(
                 net, setup.program.sent_of(setup.state),
                 setup.program.sent_lead))
+        tiers = None if net is None else tiers_of(net, n, draws)
         hist = _History(dataset.node_cluster, n, evaluator,
                         setup.program.models_of, target_acc, verbose, algo,
-                        cfg.n_classes,
-                        tiers=None if net is None else tiers_of(net, n,
-                                                                draws))
+                        cfg.n_classes, tiers=tiers, obs=obs)
+        # the frame's tier vector, moved to the device once a run
+        frame_tiers = (torch.from_numpy(tiers).to(dev)
+                       if ocfg is not None and tiers is not None else None)
         carry = _initial_carry(setup, sched, n, dev, topo)
         if engine:
             train_x, train_y = entry.engine.place_data(dataset)
@@ -620,7 +668,8 @@ def _run(algo: str, cfg, dataset, *, rounds: int, k, degree: int,
                 entry.engine, setup.program, carry, hist, draws, train_x,
                 train_y, rounds=rounds, eval_every=eval_every,
                 warmup_rounds=warmup_rounds, target_acc=target_acc,
-                ckpt=ckpt, ckpt_fp=ckpt_fp, pipeline=pipeline, sched=sched)
+                ckpt=ckpt, ckpt_fp=ckpt_fp, pipeline=pipeline, sched=sched,
+                obs=obs, tiers=frame_tiers)
         else:
             train_x, train_y = pipeline_mod.place(dataset, dev)
             state = _drive_loop(setup.program, carry, hist, draws, train_x,
@@ -629,9 +678,42 @@ def _run(algo: str, cfg, dataset, *, rounds: int, k, degree: int,
                                 warmup_rounds=warmup_rounds,
                                 local_steps=local_steps,
                                 batch_size=batch_size, n=n, degree=degree,
-                                sched=sched, topo=topo)
+                                sched=sched, topo=topo, obs=obs,
+                                tiers=frame_tiers)
             models = setup.program.models_of(state)
+    if obs is not None:
+        _end_run(obs, spec, cache, algo=algo, seed=seed, n=n, rounds=rounds,
+                 eval_every=eval_every, engine=engine, pipeline=pipeline,
+                 warmup_rounds=warmup_rounds, net=net, topo=topo)
     return hist.result(algo, models)
+
+
+def _end_run(obs, spec: EngineSpec, cache: EngineCache, *, algo: str,
+             seed: int, n: int, rounds: int, eval_every: int, engine: bool,
+             pipeline: bool, warmup_rounds: int, net, topo):
+    """A run's end under ``obs``: judge its frames and evals against
+    ``obs.health_config`` (firing ``health.<rule>`` events) and append its
+    :class:`~repro_torch.obs.RunManifest` (health, the tracer's timing
+    rollup, the cache's stats) to ``obs``, as the reference's run does."""
+    health = None
+    if obs.health_config is not None:
+        ctx = HealthContext(
+            n=n, warmup_rounds=warmup_rounds,
+            inclusion_floor=(topo.min_inclusion
+                             if topo_mod.adaptive(topo) else None),
+            faults=net is not None and net.faults is not None)
+        health = evaluate_health(
+            obs.health_config, ctx, obs.run_frames_table(),
+            obs.run_eval_table(), tracer=obs.tracer).to_json()
+    sink_path = getattr(obs.sink, "path", None)
+    obs.end_run(RunManifest.build(
+        kind="run", name=f"{algo}-seed{seed}", spec=spec,
+        settings={"rounds": rounds, "eval_every": eval_every,
+                  "engine": engine, "pipeline": pipeline, "seed": seed,
+                  "net": repr(net), "topo": repr(topo),
+                  "obs": repr(obs.config),
+                  "jsonl": None if sink_path is None else str(sink_path)},
+        timing=obs.tracer.rollup(), cache=cache.stats(), health=health))
 
 
 def _initial_carry(setup: AlgoSetup, sched, n: int, dev,
@@ -655,15 +737,25 @@ def _initial_carry(setup: AlgoSetup, sched, n: int, dev,
 def _drive_loop(program: AlgoProgram, carry: EngineCarry, hist: _History,
                 draws, train_x, train_y, *, rounds, eval_every,
                 warmup_rounds, local_steps, batch_size, n, degree,
-                sched=None, topo=None):
+                sched=None, topo=None, obs=None, tiers=None):
     """The per-round loop: every round drawn, run and recorded on its own;
     under ``net`` the channel, the gossip buffer and the crash chain, and
     under an adaptive ``topo`` (the run's ``TopoConfig``) the policy's
-    EWMAs, are threaded through as the engine carries them. Returns the
-    final state."""
+    EWMAs, are threaded through as the engine carries them. Under
+    ``obs.config`` each round's frame comes from the engine's hook
+    (``obs.frame_hook``, with ``tiers`` the run's tier vector on the
+    device or ``None``) at the engine's point of the round, and is
+    recorded before the eval. Returns the final state."""
     state, chan, gossip, fault, tstate = carry
     dev = train_x.device
     per_node = train_x.shape[1]
+    tracer = obs.tracer if obs is not None else None
+    ocfg = obs.config if obs is not None else None
+    hook = None
+    if ocfg is not None:
+        hook = frame_hook(ocfg, n, tiers if tiers is not None else
+                          torch.zeros((n,), dtype=torch.float32, device=dev),
+                          program.mixable_of)
 
     def draw_topology(rnd: int) -> tuple:
         """The round's topology draw, which follows the algorithm (the
@@ -685,21 +777,29 @@ def _drive_loop(program: AlgoProgram, carry: EngineCarry, hist: _History,
         fn = program.warmup_fn if rnd < warmup_rounds else program.round_fn
         round_s = 0.0
         if sched is None:
-            state, info = fn(state, batches, *draw_topology(rnd),
+            prev = state
+            state, info = fn(prev, batches, *draw_topology(rnd),
                              **netwire.topo_kw(tstate))
+            if hook is not None:
+                info["frame"] = hook(prev, state, info, None, None)
         else:
             (state, chan, gossip, fault, tstate, info,
              round_s) = netwire.net_round(
                 fn, program.mixable_of, state, chan, gossip, fault, batches,
                 draw_topology(rnd), sched.cfg, sched.round(rnd).to(dev),
-                local_steps, topo_cfg=topo, topo=tstate)
+                local_steps, topo_cfg=topo, topo=tstate, frame=hook)
             round_s = float(round_s)
+        if hook is not None:
+            obs.record_frames([rnd + 1], frames_of_rows(
+                info["frame"][None].cpu().numpy(), ocfg))
         round_bytes = float(info["round_bytes"])
         last_round = rnd == rounds - 1
         if last_round:
             state = program.finalize(state)
         if (rnd + 1) % eval_every == 0 or last_round:
-            if hist.eval_round(state, rnd + 1, round_bytes, round_s):
+            with span(tracer, "eval", round=rnd + 1):
+                hit = hist.eval_round(state, rnd + 1, round_bytes, round_s)
+            if hit:
                 break
         else:
             hist.comm.record(rnd + 1, round_bytes, round_s=round_s)
@@ -714,13 +814,17 @@ def _final_models(program: AlgoProgram, state):
     return tree_map(torch.clone, program.models_of(state))
 
 
-def _settle(hist: _History, program: AlgoProgram, seg, outs, ev) -> bool:
+def _settle(hist: _History, program: AlgoProgram, seg, outs, ev,
+            obs=None) -> bool:
     """The host's work on a drained segment, in the loop's order: its
+    frames (under ``obs.config``, the whole segment's, also on a hit), its
     bytes and simulated seconds, the eval at its end (``ev``, from
     ``hist.eval_begin``) and FACADE's cluster ids. Returns whether
     ``target_acc`` was reached; the cluster history then ends a round
     earlier, as the loop breaks before appending the eval round's ids."""
     rnds = np.arange(seg.start + 1, seg.start + seg.length + 1)
+    if obs is not None and "frame" in outs:
+        obs.record_frames(rnds, outs["frame"])
     rb = outs["round_bytes"]
     rs = outs.get("round_s")
     if rs is None:
@@ -728,8 +832,10 @@ def _settle(hist: _History, program: AlgoProgram, seg, outs, ev) -> bool:
     hit = False
     if seg.eval_at_end:
         hist.comm.record_bulk(rnds[:-1], rb[:-1], rs[:-1])
-        hit = hist.eval_finish(ev, int(rnds[-1]), float(rb[-1]),
-                               float(rs[-1]))
+        with span(None if obs is None else obs.tracer, "eval",
+                  round=int(rnds[-1])):
+            hit = hist.eval_finish(ev, int(rnds[-1]), float(rb[-1]),
+                                   float(rs[-1]))
     else:
         hist.comm.record_bulk(rnds, rb, rs)
     if program.track_cluster:
@@ -754,7 +860,7 @@ def _drive_engine(eng: SegmentEngine, program: AlgoProgram,
                   carry: EngineCarry, hist: _History, draws, train_x,
                   train_y, *, rounds, eval_every, warmup_rounds,
                   target_acc=None, ckpt=None, ckpt_fp=None, pipeline=False,
-                  sched=None):
+                  sched=None, obs=None, tiers=None):
     """Segment-engine driver: one dispatch and one host transfer per span
     (the reference's ``_drive_engine``). ``pipeline`` hands the segments
     to :func:`_drive_pipelined`; otherwise each is dispatched, drained and
@@ -766,42 +872,59 @@ def _drive_engine(eng: SegmentEngine, program: AlgoProgram,
     and the histories are saved (:func:`_ckpt_save`); on entry a
     checkpoint at that path with a matching fingerprint fast-forwards the
     run to the segment after the last one saved, its carry loaded into
-    the engine's static buffers through ``init_carry``. ``sched``: the
-    run's :class:`~repro_torch.netsim.NetSchedule` under ``net``. Returns
-    the final models (copies)."""
+    the engine's static buffers through ``init_carry``, and its frame
+    sidecars replayed into ``obs``. ``sched``: the run's
+    :class:`~repro_torch.netsim.NetSchedule` under ``net``. ``obs``: the
+    run's ``Obs`` (its tracer's spans, each segment's frames) and
+    ``tiers`` the frame's tier vector on the device (``None``: all core).
+    Returns the final models (copies)."""
+    tracer = obs.tracer if obs is not None else None
     plan = segment_plan(rounds, eval_every, warmup_rounds)
-    start_idx, finished = 0, False
+    start_idx, finished, n_frames = 0, False, 0
     if ckpt is not None and os.path.exists(ckpt):
-        carry, start_idx, finished = _ckpt_resume(ckpt, ckpt_fp, carry,
-                                                  draws, hist)
-    carry = eng.init_carry(*carry)
+        carry, start_idx, finished, n_frames = _ckpt_resume(
+            ckpt, ckpt_fp, carry, draws, hist, obs)
+    carry = eng.init_carry(*carry, tiers=tiers)
     if finished:
         return _final_models(program, carry.state)
     if pipeline:
         return _drive_pipelined(eng, program, hist, draws, carry, plan,
                                 start_idx, train_x, train_y, rounds=rounds,
                                 target_acc=target_acc, ckpt=ckpt,
-                                ckpt_fp=ckpt_fp, sched=sched)
+                                ckpt_fp=ckpt_fp, sched=sched, obs=obs,
+                                n_frames=n_frames)
     for idx in range(start_idx, len(plan)):
         seg = plan[idx]
         carry, outs = eng.run_segment(carry, seg.start, seg.length,
                                       train_x, train_y, draws,
-                                      warmup=seg.warmup, net=sched)
+                                      warmup=seg.warmup, net=sched,
+                                      tracer=tracer)
         carry, ev = _eval_state(program, seg, carry, rounds, hist)
-        hit = _settle(hist, program, seg, outs, ev)
+        hit = _settle(hist, program, seg, outs, ev, obs)
         if ckpt is not None:
-            _ckpt_save(ckpt, ckpt_fp, _carry_snapshot(carry),
-                       draws.state(), hist, idx + 1,
-                       hit or idx + 1 == len(plan))
+            finished = hit or idx + 1 == len(plan)
+            with span(tracer, "ckpt.save", segment=idx, finished=finished):
+                n_frames = _ckpt_save(ckpt, ckpt_fp, _carry_snapshot(carry),
+                                      draws.state(), hist, idx + 1,
+                                      finished, _seg_frames(seg, outs),
+                                      n_frames)
         if hit:
             break
     return _final_models(program, carry.state)
 
 
+def _seg_frames(seg, outs):
+    """``(rounds, MetricsFrame)`` of a drained segment, or ``None``
+    without frames: what its checkpoint's sidecar holds."""
+    if "frame" not in outs:
+        return None
+    return np.arange(seg.start + 1, seg.start + seg.length + 1), outs["frame"]
+
+
 def _drive_pipelined(eng: SegmentEngine, program: AlgoProgram,
                      hist: _History, draws, carry, plan, start_idx: int,
                      train_x, train_y, *, rounds, target_acc, ckpt,
-                     ckpt_fp, sched=None):
+                     ckpt_fp, sched=None, obs=None, n_frames: int = 0):
     """Double-buffered segment loop (the reference's ``_drive_pipelined``):
     while the host drains and settles segment t, the card runs segment
     t+1. Per segment, in this order:
@@ -819,13 +942,16 @@ def _drive_pipelined(eng: SegmentEngine, program: AlgoProgram,
     The draws source's state goes into segment t's checkpoint as it was
     right after t was dispatched: t+1's dispatch draws before t's
     checkpoint is written. ``eng.overlapped`` counts the segments whose
-    successor was still on the card when step 3 ended. Returns the final
-    models (copies)."""
+    successor was still on the card when step 3 ended. ``obs`` and
+    ``n_frames`` (the frame sidecars already written) as in
+    :func:`_drive_engine`. Returns the final models (copies)."""
+    tracer = obs.tracer if obs is not None else None
+
     def dispatch(i, c):
         s = plan[i]
         c, outs = eng.dispatch_segment(c, s.start, s.length, train_x,
                                        train_y, draws, warmup=s.warmup,
-                                       net=sched)
+                                       net=sched, tracer=tracer)
         return c, outs, draws.state() if ckpt is not None else None
 
     next_carry, pending, drawn = dispatch(start_idx, carry)
@@ -841,11 +967,14 @@ def _drive_pipelined(eng: SegmentEngine, program: AlgoProgram,
         nxt = None
         if not last:
             next_carry, nxt, next_drawn = dispatch(idx + 1, carry)
-        outs = eng.drain(pending)
-        hit = _settle(hist, program, seg, outs, ev)
+        outs = eng.drain(pending, tracer=tracer, length=seg.length)
+        hit = _settle(hist, program, seg, outs, ev, obs)
         if ckpt is not None:
-            _ckpt_save(ckpt, ckpt_fp, snap, drawn, hist, idx + 1,
-                       hit or last)
+            with span(tracer, "ckpt.save", segment=idx,
+                      finished=hit or last):
+                n_frames = _ckpt_save(ckpt, ckpt_fp, snap, drawn, hist,
+                                      idx + 1, hit or last,
+                                      _seg_frames(seg, outs), n_frames)
         if nxt is not None and nxt["end"] is not None \
                 and not nxt["end"].query():
             eng.overlapped += 1
@@ -947,13 +1076,13 @@ def _carry_snapshot(carry: EngineCarry) -> tuple:
 
 
 def _frame_path(ckpt: str, index: int) -> str:
-    """The reference's per-segment frame sidecar. The port has no frames
-    yet (``obs=`` is not ported), so its checkpoints list none."""
+    """The path of a checkpoint's ``index``-th frame sidecar."""
     return f"{ckpt}.frames-{index}.npz"
 
 
 def _ckpt_save(path: str, fp: str, snapshot: tuple, draws_state,
-               hist: _History, next_segment: int, finished: bool):
+               hist: _History, next_segment: int, finished: bool,
+               new_frames=None, n_frame_files: int = 0) -> int:
     """Write the whole resumable run at a segment boundary, atomically
     (:func:`repro_torch.checkpoint.save`): the carry (from
     :func:`_carry_snapshot`: the state under ``carry``, the network's
@@ -961,7 +1090,23 @@ def _ckpt_save(path: str, fp: str, snapshot: tuple, draws_state,
     policy's EWMAs under ``topo``), the draws source's state
     after the saved segment's draws and the histories; the meta holds the
     fingerprint, the next segment, whether the run has finished, and
-    ``frame_files`` (0: no frames yet)."""
+    ``frame_files``, how many frame sidecars are valid.
+
+    ``new_frames``: this segment's ``(rounds, MetricsFrame)`` (under an
+    ``ObsConfig``) or ``None``. Frames go to append-only sidecars
+    (:func:`_frame_path`), one a segment, each written before the main
+    archive that counts it, so a write costs the same at every segment
+    and a crash between the two leaves an orphan the next run overwrites.
+    Returns the updated sidecar count."""
+    if new_frames is not None:
+        rnds, fr = new_frames
+        checkpoint.save(
+            _frame_path(path, n_frame_files),
+            {"rounds": np.asarray(rnds, np.int64),
+             "frame": {name: np.asarray(leaf)
+                       for name, leaf in zip(MetricsFrame._fields, fr)}},
+            meta={"fingerprint": fp, "index": int(n_frame_files)})
+        n_frame_files += 1
     rnd, tensors = snapshot
     tensors = tensors.wait()
     checkpoint.save(path, {"carry": {"round": rnd, **tensors["state"]},
@@ -971,31 +1116,48 @@ def _ckpt_save(path: str, fp: str, snapshot: tuple, draws_state,
                            "hist": _hist_snapshot(hist)},
                     meta={"fingerprint": fp,
                           "next_segment": int(next_segment),
-                          "finished": bool(finished), "frame_files": 0})
+                          "finished": bool(finished),
+                          "frame_files": int(n_frame_files)})
+    return n_frame_files
 
 
 def _ckpt_resume(ckpt: str, fp: str, carry: EngineCarry, draws,
-                 hist: _History):
+                 hist: _History, obs=None):
     """Fast-forward a checkpointed run: refuse a fingerprint mismatch,
     rebuild the carry on the freshly minted one (the state's type and its
-    ``None`` fields), restore the draws source and the histories. Returns
-    ``(carry, next_segment, finished)``."""
+    ``None`` fields), restore the draws source and the histories (each
+    restored eval frame recorded into ``obs``), and replay every frame
+    sidecar into ``obs``. Returns ``(carry, next_segment, finished,
+    frame_files)``."""
     payload, meta = checkpoint.load(ckpt)
     if meta.get("fingerprint") != fp:
         raise ValueError(
             f"checkpoint {ckpt!r} was written by a different run "
             "configuration (fingerprint mismatch) — refusing to "
             "resume from it; delete the file or pick a fresh path")
-    for j in range(int(meta.get("frame_files", 0))):
-        if checkpoint.load(_frame_path(ckpt, j))[1].get("fingerprint") != fp:
+    n_frame_files = int(meta.get("frame_files", 0))
+    sidecars = []
+    for j in range(n_frame_files):
+        rec, fmeta = checkpoint.load(_frame_path(ckpt, j))
+        if fmeta.get("fingerprint") != fp:
             raise ValueError(
                 f"frame sidecar {_frame_path(ckpt, j)!r} does not match "
                 f"checkpoint {ckpt!r} (fingerprint mismatch) — refusing "
                 "to resume; delete the checkpoint files to restart")
+        sidecars.append(rec)
     fields = dict(payload["carry"])
     fields["round"] = int(fields["round"])
     draws.set_state(payload["draws"])
     _hist_restore(hist, payload["hist"])
+    if obs is not None:
+        for frame in hist.eval_frames:
+            obs.record_eval(frame)
+        for rec in sidecars:
+            obs.record_frames(rec["rounds"].numpy(), MetricsFrame(
+                *(rec["frame"][name].numpy()
+                  for name in MetricsFrame._fields)))
+        obs.tracer.event("ckpt.resume", segment=int(meta["next_segment"]),
+                         finished=bool(meta.get("finished")))
     net = payload.get("net") or {}
     fault = None
     if "fault" in net:
@@ -1009,7 +1171,8 @@ def _ckpt_resume(ckpt: str, fp: str, carry: EngineCarry, draws,
         netsim.ChannelState(net["chan"]) if "chan" in net else None,
         netsim.GossipState(**net["gossip"]) if "gossip" in net else None,
         fault, topo_mod.TopoState(**topo) if topo else None)
-    return carry, int(meta["next_segment"]), bool(meta.get("finished"))
+    return (carry, int(meta["next_segment"]), bool(meta.get("finished")),
+            n_frame_files)
 
 # --------------------------------------------------------------------------
 class LMFacade:

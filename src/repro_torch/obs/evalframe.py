@@ -11,6 +11,10 @@ Under network simulation with link classes (``net.classes``, the
 ``core-edge`` and ``edge-v2`` presets) the per-node accuracy splits by
 tier (:func:`tiers_of`): ``acc_core``, ``acc_edge`` and their gap. Without
 tiers every node counts as a core-tier node.
+
+:func:`eval_table` stacks a run's frames into columns and
+:func:`frame_record` is a frame's ``type: "eval"`` JSONL record, as the
+reference's.
 """
 from __future__ import annotations
 
@@ -39,6 +43,14 @@ class EvalFrame(NamedTuple):
     cluster_churn: float        # nodes whose cluster assignment changed
     #                             since the previous eval (0 at the first
     #                             eval and off-FACADE)
+
+
+EVAL_FIELDS = EvalFrame._fields
+
+# the scalar fields (all but the ragged per-cluster vectors): what
+# eval_table stacks into aligned numpy columns
+EVAL_SCALAR_FIELDS = tuple(f for f in EVAL_FIELDS
+                           if f not in ("acc", "cluster_ids"))
 
 
 def tiers_of(net, n: int, source) -> np.ndarray:
@@ -88,3 +100,25 @@ def compute_eval_frame(rnd: int, accs, cluster_ids, preds_c, labels_c,
         cluster_ids=tuple(int(c) for c in cluster_ids),
         acc_core=acc_core, acc_edge=acc_edge, tier_gap=tier_gap,
         cluster_churn=churn)
+
+
+def eval_table(frames) -> dict:
+    """Stack a list of :class:`EvalFrame` into aligned columns: numpy
+    arrays for every scalar field (``round`` int64, the rest float64) and
+    ``acc``/``cluster_ids`` as lists of tuples (ragged across runs with
+    different cluster counts)."""
+    out = {}
+    for name in EVAL_SCALAR_FIELDS:
+        dtype = np.int64 if name == "round" else np.float64
+        out[name] = np.asarray([getattr(f, name) for f in frames], dtype)
+    out["acc"] = [f.acc for f in frames]
+    out["cluster_ids"] = [f.cluster_ids for f in frames]
+    return out
+
+
+def frame_record(frame: EvalFrame) -> dict:
+    """The ``type: "eval"`` JSONL record of one frame."""
+    rec = {"type": "eval"}
+    for name, v in zip(EVAL_FIELDS, frame):
+        rec[name] = list(v) if isinstance(v, tuple) else v
+    return rec

@@ -104,7 +104,7 @@ class RunManifest:
     settings: dict = dataclasses.field(default_factory=dict)
     timing: dict = dataclasses.field(default_factory=dict)
     cache: "dict | None" = None   # EngineCache.stats() snapshot
-    health: "dict | None" = None  # run-health verdict (none in the port)
+    health: "dict | None" = None  # HealthReport.to_json() verdict
     created_unix: float = 0.0
     torch_version: str = ""
 

@@ -18,15 +18,20 @@ preset, dataset content, seeds, targets). A cell that raises is recorded on its
 :class:`CellResult` and the remaining cells run; only a sweep where every
 cell failed raises.
 
-Differences from the reference: there is no ``obs`` (telemetry is not
-ported, so ``CellResult.health`` stays ``None``) and no
-``persist_dir`` (a CUDA graph cannot be serialised; see
-:mod:`repro_torch.core.cache`); and ``run_sweep`` owns ``draws`` besides
-``seed`` and ``ckpt``, since one draws source in a cell's kwargs would
-give every seed one stream.
+``obs=`` (a :class:`repro_torch.obs.Obs`) is shared by every run: a
+``sweep.cell`` span wraps each cell's runs, ``sweep.cell_skipped`` and
+``sweep.cell_failed`` events mark the others, and a cell's
+``CellResult.health`` is the worst health verdict of its runs'
+manifests.
+
+Differences from the reference: there is no ``persist_dir`` (a CUDA
+graph cannot be serialised; see :mod:`repro_torch.core.cache`); and
+``run_sweep`` owns ``draws`` besides ``seed`` and ``ckpt``, since one
+draws source in a cell's kwargs would give every seed one stream.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import pathlib
@@ -36,11 +41,11 @@ from typing import Any, Sequence
 from repro_torch.core.cache import EngineCache, data_fingerprint
 from repro_torch.core.runner import run_experiment
 from repro_torch.netsim import NetworkConfig
-from repro_torch.obs import RunManifest, fingerprint
+from repro_torch.obs import RunManifest, fingerprint, worst_verdict
 
 from .aggregate import aggregate_cell
 
-OWNED = ("seed", "ckpt", "draws")     # run_sweep sets these per run
+OWNED = ("seed", "ckpt", "draws", "obs")     # run_sweep sets these
 
 
 @dataclasses.dataclass
@@ -78,8 +83,9 @@ class CellResult:
     skipped: bool = False  # completed in an earlier sweep run and skipped
     #                      here (summary reloaded from ckpt_dir; no
     #                      per-seed RunResults)
-    health: "dict | None" = None  # the reference's per-cell health
-    #                      rollup; None in the port (no telemetry)
+    health: "dict | None" = None  # under obs with a HealthConfig: the
+    #                      worst verdict over the cell's runs and each
+    #                      run's, {"verdict": ..., "runs": {name: ...}}
 
 
 @dataclasses.dataclass
@@ -140,7 +146,8 @@ def _cell_fingerprint(cell: SweepCell, net, seeds, targets) -> str:
 
 def run_sweep(cells: Sequence[SweepCell], seeds: Sequence[int], *,
               cache: EngineCache | None = None, targets: Sequence[float] = (),
-              json_path=None, ckpt_dir=None, max_entries: int | None = None,
+              json_path=None, obs=None, ckpt_dir=None,
+              max_entries: int | None = None,
               verbose: bool = False) -> SweepResult:
     """Run every cell over every seed, reusing captured rounds.
 
@@ -152,7 +159,12 @@ def run_sweep(cells: Sequence[SweepCell], seeds: Sequence[int], *,
     ``targets``: accuracies for the per-cell bytes/seconds-to-target table.
     ``json_path``: if set, the aggregated sweep is written there as JSON,
     with a :class:`~repro_torch.obs.RunManifest` next to it
-    (``<json_path>.manifest.json``).
+    (``<json_path>.manifest.json``; under ``obs`` its timing is the
+    tracer's rollup and its health the cells' verdicts).
+    ``obs``: a :class:`repro_torch.obs.Obs` shared by every run of the
+    sweep: a ``sweep.cell`` span around each cell's runs, which record
+    their own telemetry into it; each cell's ``CellResult.health`` rolls
+    up its runs' verdicts.
     ``ckpt_dir``: if set, engine runs checkpoint per segment under
     ``<ckpt_dir>/<cell>-s<seed>.npz``, and a completed cell writes
     ``<cell>.summary.json`` and ``<cell>.manifest.json`` there; rerunning
@@ -173,6 +185,7 @@ def run_sweep(cells: Sequence[SweepCell], seeds: Sequence[int], *,
             "EngineCache(max_entries=...))")
     cache = cache if cache is not None else EngineCache(
         max_entries=max_entries)
+    tracer = obs.tracer if obs is not None else None
     seeds = tuple(int(s) for s in seeds)
     cells = list(cells)
     if not cells:
@@ -210,32 +223,49 @@ def run_sweep(cells: Sequence[SweepCell], seeds: Sequence[int], *,
                     out.append(CellResult(cell, seeds, [], summary,
                                           cache_stats=cache.stats(),
                                           skipped=True))
+                    if tracer is not None:
+                        tracer.event("sweep.cell_skipped", cell=cell.name)
                     if verbose:
                         print(f"  [sweep] {cell.name}: skipped "
                               "(completed in an earlier run)")
                     continue
         results = []
+        m0 = len(obs.manifests) if obs is not None else 0
         try:
-            for seed in seeds:
-                ckpt = None
-                if ckpt_dir is not None and cell.kwargs.get("engine", True):
-                    ckpt = str(ckpt_dir / f"{cell.name}-s{seed}.npz")
-                results.append(run_experiment(
-                    cell.algo, cell.cfg, cell.dataset, rounds=cell.rounds,
-                    seed=seed, cache=cache, ckpt=ckpt, net=net,
-                    **cell.kwargs))
+            with (tracer.span("sweep.cell", cell=cell.name)
+                  if tracer is not None else contextlib.nullcontext()):
+                for seed in seeds:
+                    ckpt = None
+                    if (ckpt_dir is not None
+                            and cell.kwargs.get("engine", True)):
+                        ckpt = str(ckpt_dir / f"{cell.name}-s{seed}.npz")
+                    results.append(run_experiment(
+                        cell.algo, cell.cfg, cell.dataset,
+                        rounds=cell.rounds, seed=seed, cache=cache,
+                        ckpt=ckpt, net=net, obs=obs, **cell.kwargs))
             summary = aggregate_cell(results, targets=targets)
         except Exception as e:  # noqa: BLE001 — one bad cell, whole grid
             out.append(CellResult(cell, seeds, results,
                                   {"error": repr(e)},
                                   cache_stats=cache.stats(),
                                   error=repr(e)))
+            if tracer is not None:
+                tracer.event("sweep.cell_failed", cell=cell.name,
+                             error=repr(e))
             if verbose:
                 print(f"  [sweep] {cell.name}: FAILED ({e!r}); "
                       "continuing with the remaining cells")
             continue
+        health = None
+        if obs is not None and obs.health_config is not None:
+            # one manifest per run of this cell: the cell's verdict is the
+            # worst over its seeds
+            runs = {m.name: (m.health or {}).get("verdict", "ok")
+                    for m in obs.manifests[m0:]}
+            health = {"verdict": worst_verdict(runs.values()),
+                      "runs": runs}
         out.append(CellResult(cell, seeds, results, summary,
-                              cache_stats=cache.stats()))
+                              cache_stats=cache.stats(), health=health))
         if ckpt_dir is not None:
             sum_path.write_text(json.dumps(summary, indent=2,
                                            default=float))
@@ -257,12 +287,17 @@ def run_sweep(cells: Sequence[SweepCell], seeds: Sequence[int], *,
     sweep = SweepResult(out, seeds, cache, time.perf_counter() - t0)
     if json_path is not None:
         path = sweep.save(json_path)
+        cell_verdicts = {c.cell.name: c.health["verdict"]
+                         for c in out if c.health is not None}
         RunManifest.build(
             kind="sweep", name=path.stem,
             spec=[repr(c.cell) for c in out],
             settings={"seeds": list(seeds), "cells": names,
                       "targets": list(targets)},
-            timing={"wall_s": sweep.wall_s},
-            cache=cache.stats()).save(
-                path.with_suffix(path.suffix + ".manifest.json"))
+            timing=(tracer.rollup() if tracer is not None
+                    else {"wall_s": sweep.wall_s}),
+            cache=cache.stats(),
+            health=({"verdict": worst_verdict(cell_verdicts.values()),
+                     "cells": cell_verdicts} if cell_verdicts else None)
+        ).save(path.with_suffix(path.suffix + ".manifest.json"))
     return sweep

@@ -19,6 +19,7 @@ from repro_torch.core.cache import (EngineCache, EngineSpec,
                                     data_fingerprint)
 from repro_torch.data import synthetic
 from repro_torch.netsim import NetworkConfig
+from repro_torch.obs import ObsConfig
 from repro_torch.topo import TopoConfig
 from repro_torch.tree import tree_leaves
 
@@ -35,7 +36,7 @@ PERTURB = {"algo": "el", "cfg": CFG.replace(width=CFG.width + 1), "n": 5,
            "lr": 0.01, "warmup_rounds": 2, "head_jitter": 0.1,
            "eval_batch": 128, "device": torch.device("cuda"),
            "net": NetworkConfig.preset("edge-churn"),
-           "topo": TopoConfig(policy="reliability")}
+           "topo": TopoConfig(policy="reliability"), "obs": ObsConfig()}
 
 
 def _data(seed=3, test_per_class=8):

@@ -73,3 +73,23 @@ def test_the_walk_covers_the_network_simulation():
     names = {m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                                    "repro_torch.")}
     assert set(NETSIM_MODULES) <= names
+
+
+OBS_MODULES = ("repro_torch.obs", "repro_torch.obs.frame",
+               "repro_torch.obs.trace", "repro_torch.obs.health",
+               "repro_torch.obs.report", "repro_torch.obs.evalframe",
+               "repro_torch.obs.sink")
+
+
+def test_the_walk_covers_the_telemetry():
+    """The blocked-import walk above reaches the obs modules, and each of
+    them is a source the per-file check reads."""
+    import pkgutil
+
+    import repro_torch
+    names = {m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                                   "repro_torch.")}
+    assert set(OBS_MODULES) <= names
+    files = {str(p.relative_to(PORT)) for p in SOURCES if PORT in p.parents}
+    assert {"obs/frame.py", "obs/trace.py", "obs/health.py",
+            "obs/report.py", "obs/__init__.py"} <= files

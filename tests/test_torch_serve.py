@@ -3,7 +3,9 @@ request queue (numpy's generator, one seed) through ``serve`` and through
 a loop over the reference's ``transformer.prefill`` and ``decode_step``
 that pads, samples and advances positions as ``repro.launch.serve`` does.
 Greedy tokens must be equal; prefill logits agree within 1e-4 (fp32, other
-summation order)."""
+summation order). The ``--net`` and ``--trace-jsonl`` overlays against the
+reference server's: the same SLO line and simulated seconds, and traces
+with the same records."""
 from __future__ import annotations
 
 import jax
@@ -95,3 +97,80 @@ def test_main_serves_a_smoke_config_on_the_cpu(capsys):
                      "--device", "cpu"])
     out = capsys.readouterr().out
     assert out.count("batch of") == 2 and "served 3 requests" in out
+
+
+# ------------------------------------------- the --net and --trace overlays --
+OVERLAY_ARGS = ["--arch", "llama3.2-1b", "--requests", "3", "--batch", "2",
+                "--prompt-len", "8", "--gen-len", "3", "--net", "edge-v2"]
+
+
+def _slo_line(out: str) -> str:
+    (line,) = [ln for ln in out.splitlines() if ln.startswith("SLO [")]
+    return line
+
+
+def test_net_and_trace_overlays_match_the_reference_server(tmp_path,
+                                                           capsys):
+    """``--net edge-v2 --trace-jsonl`` on the port's server and on the
+    reference's, same queue: the same SLO line (simulated seconds, bytes,
+    drain times), and traces with the same records in the same order
+    (types, names and keys), one ``queue.wait`` event, ``prefill`` and
+    ``decode`` span a batch and a final ``slo`` event."""
+    from repro.launch import serve as ref_serve
+    from repro_torch.obs import read_jsonl
+    ref_serve.main(OVERLAY_ARGS + ["--trace-jsonl",
+                                   str(tmp_path / "ref.jsonl")])
+    want_slo = _slo_line(capsys.readouterr().out)
+    port_serve.main(OVERLAY_ARGS + ["--trace-jsonl",
+                                    str(tmp_path / "port.jsonl"),
+                                    "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert _slo_line(out) == want_slo
+    assert f"trace: 7 records -> {tmp_path / 'port.jsonl'}" in out
+    got, want = (read_jsonl(tmp_path / f"{p}.jsonl") for p in ("port",
+                                                                "ref"))
+    assert [(r["type"], r["name"], sorted(r)) for r in got] == [
+        (r["type"], r["name"], sorted(r)) for r in want]
+    assert [r["name"] for r in got if r["type"] == "span"] == [
+        "prefill", "decode", "prefill", "decode"]
+    assert [(r["batch"], r["queued"]) for r in got
+            if r["name"] == "queue.wait"] == [(0, 3), (1, 1)]
+    slo = got[-1]
+    assert slo["name"] == "slo" and slo["net"] == "edge-v2"
+    assert slo["requests"] == 3 and slo["tokens"] == 9
+    assert slo["sim_net_s"] == pytest.approx(want[-1]["sim_net_s"],
+                                             rel=1e-12)
+    assert set(slo["rollup"]) == {"prefill", "decode"}
+
+
+@pytest.mark.parametrize("preset", sorted(port_serve.netsim.PRESETS))
+def test_the_wire_model_is_the_references(preset):
+    from repro import netsim as ref_netsim
+    from repro.launch import serve as ref_serve
+    net = port_serve.netsim.NetworkConfig.preset(preset)
+    ref = ref_netsim.NetworkConfig.preset(preset)
+    assert port_serve.wire_params(net) == ref_serve.wire_params(ref)
+    for args in ((64.0, 32, 512.0), (4096.0, 1, 16.0)):
+        assert port_serve.batch_net_seconds(net, *args) == \
+            ref_serve.batch_net_seconds(ref, *args)
+
+
+def test_serve_records_each_batch_on_the_wire():
+    cfg = get_config("llama3.2-1b", smoke=True)
+    params = port_serve.api.init_params(cfg, torch.Generator().manual_seed(2))
+    queue = port_serve.make_requests(np.random.default_rng(2), 5, 8,
+                                     cfg.vocab_size)
+    net = port_serve.netsim.NetworkConfig.preset("hostile")
+    res = port_serve.serve(cfg, params, queue, batch=2, prompt_len=8,
+                           gen_len=3, net=net, device="cpu")
+    plain = port_serve.serve(cfg, params, queue, batch=2, prompt_len=8,
+                             gen_len=3, device="cpu")
+    np.testing.assert_array_equal(res.tokens, plain.tokens)
+    assert plain.comm is None and res.comm.rounds == [1, 2, 3]
+    assert res.comm.acc == [0.4, 0.8, 1.0]
+    want, row = 0.0, 0
+    for b in res.batch_sizes:
+        prompt = float(sum(len(q) for q in queue[row:row + b])) * 4
+        want += port_serve.batch_net_seconds(net, prompt, 3, b * 3 * 4.0)
+        row += b
+    assert res.comm.seconds[-1] == pytest.approx(want, rel=1e-12)
