@@ -43,14 +43,23 @@ failure raises and exits non-zero, before the last line is printed):
      ``LM_FACADE``), windows 32 and
      128 in both, and the bf16 tensor-core kernel's own paths
      (``FA_BF16_CASES``: D 32 and 128, ``causal=False``, ragged S against
-     its 64-row tiles, large scores). fp32 output is held against the
+     its 64-row tiles, large scores); stablelm-12b's serving shape
+     (``FA_D160``: D 160) in both dtypes, and D 160 non-causal at a ragged
+     S in bf16; MLA at minicpm3-4b's width
+     (``FA_MLA``: B 4, H 40, S 512, q.k 96 and v 64) through
+     ``attention.mla_attention`` (zero-padded to D 128, the output sliced
+     back), in both dtypes against the plain ``sdpa`` on the unpadded
+     tensors in fp32, with the same gates. fp32 output is held against the
      plain version at 2e-6 (absolute plus relative); bf16 output against
      the plain version run in fp32 on the same bf16 values, within one
      bf16 ulp of the answer (relative 2^-8, plus 1e-6), since the kernel
      keeps fp32 scores and statistics, carries P V as three bf16 terms of P
-     and rounds once; timed at the serving shape and the long one, and
-     after the last phase at the LM feature pass's; yardstick:
-     ``scaled_dot_product_attention`` (causal, GQA);
+     and rounds once; timed at the serving shape, the long one and
+     stablelm-12b's, and after the last phase at the LM feature pass's;
+     MLA's call timed with its pads, the kernel alone on padded tensors,
+     the plain ``sdpa`` and SDPA on the unpadded tensors, its bound from the
+     unpadded work; yardstick: ``scaled_dot_product_attention`` (causal,
+     GQA; for MLA with its v head dim of 64);
    - wkv at the reference tests' ``RW_SHAPES``, a ragged S = 100, the
      kernel's own paths (``RW_CASES``: S 1, 31 and 33 around its 16-step
      chunks, strong and weak decay, B * H = 264 blocks), the RWKV FACADE
@@ -200,9 +209,11 @@ failure raises and exits non-zero, before the last line is printed):
    selection losses in [10.5, 12.5], the bytes per round from the config
    (RWKV's fp32 leaves at 4 bytes); the profiled round also gives the
    host time under ``wkv_train``'s backward;
-4b. the smoke LM FACADE rounds (fp32) of both families on the card and on
-   the CPU from the same draws: selection losses and parameters within
-   1e-4, cluster ids and bytes equal;
+4b. the smoke LM FACADE rounds (fp32) of ``SMOKE_LM_ARCHS`` (llama3.2-1b,
+   rwkv6-1.6b, minicpm3-4b's MLA and deepseek-moe-16b's MoE, K1 on their
+   feature passes) on the card and on the CPU from the same draws:
+   selection losses and parameters within 1e-4, cluster ids and bytes
+   equal;
 4c. the launcher's lm mode (``launch.train.main``) on both LM smoke configs
    (``LM_MODE``: 20 AdamW steps) with ``--ckpt`` in a temporary directory
    under ``build/``: finite losses, the checkpoint loads back bit-equal to
@@ -219,11 +230,21 @@ failure raises and exits non-zero, before the last line is printed):
    CLI's overlays (``net=edge-v2`` and a JSONL tracer, ``traced_serve``):
    the same tokens and launches, a ``prefill`` and a ``decode`` span and
    a ``queue.wait`` event a batch and one ``slo`` event, its prefill
-   rate beside the untraced one;
-5a. both smoke configs (fp32) served on the card and on the CPU with the
-   same parameters: greedy tokens equal, prefill logits within 1e-4;
+   rate beside the untraced one; then ``SERVE_MORE`` the same way,
+   untraced, with K2 in every prefill layer: qwen3-8b, stablelm-12b (D
+   160), minicpm3-4b (MLA's padded call), deepseek-moe-16b and
+   grok-1-314b (MoE) cut to 2 of its 64 layers at every published width
+   (the whole model does not fit on one card; the cut is in its record),
+   each with its parameters' bytes, the init's peak memory (the layers
+   filled in place) and the phase's seconds, freed before the next;
+5a. the smoke configs of ``SMOKE_SERVE_ARCHS`` (the seven archs, fp32)
+   served on the card and on the CPU with the same parameters: greedy
+   tokens equal, prefill logits within 1e-4;
 6. a ``kernels`` JSON line (each kernel's launches on its path, error,
-   times and bound; head select's ResNet8 step 2c under ``"resnet8"``,
+   times and bound; K2's launches in each full-width serve under
+   ``"launches_by_arch"`` and its D 160 and MLA shapes' errors, times,
+   bounds and SDPA times under ``"shapes"``; head select's ResNet8 step
+   2c under ``"resnet8"``,
    its launches on the driver phases under ``"driver_launches"``, the
    telemetry phase's under ``"obs"``; K2's and K3's in the traced serves
    under ``"traced_serve_launches"``),
@@ -279,7 +300,7 @@ from repro_torch.kernels.head_select import head_losses, head_losses_ref  # noqa
 from repro_torch.kernels.rwkv6 import wkv, wkv_scan, wkv_train  # noqa: E402
 from repro_torch.launch import train  # noqa: E402
 from repro_torch.launch.serve import make_requests, serve  # noqa: E402
-from repro_torch.models import api, transformer  # noqa: E402
+from repro_torch.models import api, attention, transformer  # noqa: E402
 from repro_torch.models.base import get_config  # noqa: E402
 from repro_torch.netsim import (PRESETS, NetSchedule,  # noqa: E402
                                 NetworkConfig)
@@ -402,6 +423,13 @@ FA_BF16_CASES = [((2, 8, 2, 77, 32), True, 0, 0.3),
 # reference kernel tests hold it; bf16 output is one rounding of an fp32
 # computation, so within one bf16 ulp (2^-8 of its value)
 FA_TOL = {torch.float32: (2e-6, 2e-6), torch.bfloat16: (1e-6, 2.0 ** -8)}
+# stablelm-12b's serving shape, (B, Hq, Hkv, S, D): its head dim is
+# 5120 / 32 = 160, the kernel's D 160 instance
+FA_D160 = (4, 32, 8, 512, 160)
+# minicpm3-4b's MLA attention at the serving batch, (B, H, S, q.k dim, v
+# dim) = (4, 40, 512, 64 + 32, 64): attention.mla_attention pads q, k and
+# v to the kernel's D 128 and slices the output back to 64
+FA_MLA = (4, 40, 512, 96, 64)
 # (B, S, H, hd): the reference kernel tests' RW_SHAPES, then a ragged S and
 # rwkv6-1.6b's serving shape
 RW_SHAPES = [(1, 64, 1, 32), (2, 128, 2, 32), (1, 256, 4, 64)]
@@ -446,6 +474,18 @@ SMOKE_LM_ROUNDS = 2
 SMOKE_LM_TOL = 1e-4
 SERVE = dict(batch=4, prompt_len=512, gen_len=32, temperature=0.0, seed=0)
 N_REQUESTS = 8
+# the archs served at full width after llama3.2-1b and rwkv6-1.6b (whose
+# serves are also traced), each with K2 in every prefill layer, and the
+# layers kept: grok-1-314b's 64 layers at every published width are about
+# 630 GB in bf16, so its serve keeps 2 of them (about 22.9 GB with the
+# embedding and head)
+SERVE_MORE = {"qwen3-8b": None, "stablelm-12b": None, "minicpm3-4b": None,
+              "deepseek-moe-16b": None, "grok-1-314b": 2}
+# the smoke configs served on the card and on the CPU (5a) and the smoke
+# LM FACADE rounds (4b): MLA and MoE beside GQA and RWKV
+SMOKE_SERVE_ARCHS = ("llama3.2-1b", "rwkv6-1.6b") + tuple(SERVE_MORE)
+SMOKE_LM_ARCHS = ("llama3.2-1b", "rwkv6-1.6b", "minicpm3-4b",
+                  "deepseek-moe-16b")
 SMOKE_SERVE = dict(batch=2, prompt_len=32, gen_len=8, temperature=0.0,
                    seed=0)
 SMOKE_LOGIT_TOL = 1e-4  # fp32 on both devices, other summation order
@@ -2506,10 +2546,12 @@ def lm_facade_phase(rec, arch: str) -> dict:
 
 
 def smoke_lm_facade_phase(rec):
-    """The smoke LM FACADE rounds (fp32) of both families on the card and
-    on the CPU from the same draws: selection losses and parameters within
-    SMOKE_LM_TOL, cluster ids and bytes equal."""
-    for arch in LM_SELECT_RANGE:
+    """The smoke LM FACADE rounds (fp32) of ``SMOKE_LM_ARCHS`` (GQA, RWKV,
+    MLA and MoE) on the card and on the CPU from the same draws: selection
+    losses and parameters within SMOKE_LM_TOL, cluster ids and bytes
+    equal."""
+    t0 = time.perf_counter()
+    for arch in SMOKE_LM_ARCHS:
         cfg = get_config(arch, smoke=True)
         runs = {}
         for device in ("cuda", "cpu"):
@@ -2540,6 +2582,8 @@ def smoke_lm_facade_phase(rec):
             raise AssertionError(f"smoke LM FACADE {arch}: card and CPU "
                                  f"disagree {out}")
         rec.setdefault("smoke_lm_facade", {})[arch] = out
+    rec["smoke_lm_facade_s"] = time.perf_counter() - t0
+    log(f"smoke LM FACADE: {rec['smoke_lm_facade_s']:.1f} s")
 
 
 def check(name, got, want, tol, rtol=None, **info):
@@ -2580,13 +2624,17 @@ def fa_library(q, k, v):
 
 
 def fa_bound(q, k, v, window=0):
-    b, s, hq, d = q.shape
-    nbytes = 2 * q.numel() * q.element_size() + 2 * k.numel() * \
-        k.element_size()
+    """The least time for causal attention of these (unpadded) tensors:
+    q, k and v read once and the output ([B, S, Hq, Dv]) written once, and
+    2 Dqk + 2 Dv operations a visible (query, key) pair and query head."""
+    b, s, hq, dq = q.shape
+    dv = v.shape[-1]
+    nbytes = (q.numel() + k.numel() + v.numel() + b * s * hq * dv) * \
+        q.element_size()
     i = np.arange(s)[:, None]
     j = np.arange(s)[None, :]
     seen = (j <= i) & ((i - j < window) if window else True)
-    flops = 4 * d * int(seen.sum()) * b * hq      # QK^T and PV, causal
+    flops = 2 * (dq + dv) * int(seen.sum()) * b * hq  # QK^T, PV, causal
     peak = BF16_FLOPS if q.dtype == torch.bfloat16 else FP32_FLOPS
     by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     by_ops = flops / peak * 1e3
@@ -2604,6 +2652,11 @@ def flash_attention_phase(rec):
               for shape, causal, w, std in FA_BF16_CASES]
     # the LM FACADE path's step-2c feature pass (bf16, causal, its window)
     cases.append((FA_LM, torch.bfloat16, True, LM_CFG.sliding_window, 0.3))
+    # stablelm-12b's serving shape (D 160), and D 160 non-causal at a
+    # ragged S (its one-ulp misses at large scores are counted by
+    # tools/fa_accuracy.py)
+    cases += [(FA_D160, dt, True, 0, 0.3) for dt in both]
+    cases.append(((1, 4, 2, 130, 160), torch.bfloat16, False, 0, 0.3))
     # last: the serving shape in bf16, whose error the kernels line reports
     cases += [(shape, dt, True, 0, 0.3) for dt in both
               for shape in ((1, 4, 2, 200, 64), FA_LONG, FA_SERVE)]
@@ -2616,10 +2669,27 @@ def flash_attention_phase(rec):
                             shape=list(shape), dtype=str(dtype),
                             causal=causal, window=window, qk_std=qk_std))
         del got, want
+    # MLA at minicpm3-4b's width through models.attention's padded call,
+    # against the plain sdpa on the unpadded tensors
+    mla_checks = []
+    for i, dtype in enumerate(both):
+        q, k, v = mla_inputs(*FA_MLA, dtype, seed=100 + i)
+        got = attention.mla_attention(q, k, v)
+        torch.cuda.synchronize()
+        want = mla_plain(q.float(), k.float(), v.float())
+        mla_checks.append(check("flash_attention mla", got, want,
+                                *FA_TOL[dtype], shape=list(FA_MLA),
+                                dtype=str(dtype), padded_d=min(
+                                    d for d in attention.HEAD_DIMS
+                                    if d >= max(FA_MLA[3:]))))
+        del got, want
     rec["flash_attention_checks"] = checks
+    rec["flash_attention_mla_checks"] = mla_checks
 
     timing = {label: fa_timing(label, shape, calls) for label, shape, calls
-              in (("serve", FA_SERVE, 50), ("long", FA_LONG, 5))}
+              in (("serve", FA_SERVE, 50), ("long", FA_LONG, 5),
+                  ("d160", FA_D160, 50))}
+    timing["mla"] = mla_timing(FA_MLA, 50)
     rec["flash_attention_timing"] = timing
     t = timing["serve"]
     return {"name": "flash_attention", "route": "cuda",
@@ -2628,7 +2698,59 @@ def flash_attention_phase(rec):
             "launches": None, "max_abs_err": checks[-1]["max_abs_err"],
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-            "library_ms": t["library_ms"]}
+            "library_ms": t["library_ms"],
+            "shapes": {"d160": dict(timing["d160"], max_abs_err=[
+                c["max_abs_err"] for c in checks
+                if c["shape"] == list(FA_D160)]),
+                "mla": dict(timing["mla"], max_abs_err=[
+                    c["max_abs_err"] for c in mla_checks])}}
+
+
+def mla_inputs(b, h, s, dq, dv, dtype, seed):
+    g = torch.Generator().manual_seed(seed)
+    return [(0.3 * torch.randn((b, s, h, d), generator=g)).to(dtype).cuda()
+            for d in (dq, dq, dv)]
+
+
+def mla_plain(q, k, v):
+    """The plain ``sdpa`` of ``models.attention`` on the unpadded MLA
+    tensors (the differentiable attention the model trains through)."""
+    pos = torch.arange(q.shape[1], device=q.device)[None].expand(
+        q.shape[0], -1)
+    return attention.sdpa(q, k, v, pos, pos)
+
+
+def mla_library(q, k, v):
+    """One PyTorch call for the same function on the unpadded tensors (it
+    takes a v head dim other than q's and k's)."""
+    return F.scaled_dot_product_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        is_causal=True).transpose(1, 2)
+
+
+def mla_timing(shape, calls) -> dict:
+    """MLA's kernel call as the model makes it (``attention.mla_attention``:
+    the pads, the launch at D 128 and the slice), the kernel alone on
+    tensors padded beforehand, the plain ``sdpa`` and SDPA on the unpadded
+    tensors, in bf16; the bound from the unpadded work."""
+    q, k, v = mla_inputs(*shape, torch.bfloat16, seed=99)
+    d = min(x for x in attention.HEAD_DIMS if x >= max(shape[3:]))
+    qp, kp, vp = (F.pad(x, (0, d - x.shape[-1])) for x in (q, k, v))
+    scale = 1.0 / shape[3] ** 0.5
+    bound_ms, bound_by, nbytes, flops = fa_bound(q, k, v)
+    t = {"shape": list(shape), "padded_d": d, "dtype": "bf16",
+         "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
+         "flops": flops}
+    for key, fn in (("ms", lambda: attention.mla_attention(q, k, v)),
+                    ("kernel_ms", lambda: flash_attention(qp, kp, vp,
+                                                          scale=scale)),
+                    ("plain_ms", lambda: mla_plain(q, k, v)),
+                    ("library_ms", lambda: mla_library(q, k, v)),
+                    ("ms_again", lambda: attention.mla_attention(q, k, v)),
+                    ("plain_ms_again", lambda: mla_plain(q, k, v))):
+        t[key] = graph_ms(fn, calls=calls)
+    log("flash_attention timing mla", json.dumps(t))
+    return t
 
 
 def fa_timing(label, shape, calls) -> dict:
@@ -2815,14 +2937,25 @@ def device_profile(fn, host_spans=(), kernels=()) -> dict:
     return out
 
 
-def serve_phase(rec, arch: str, kernel) -> int:
-    """Serve ``arch`` at full width on the card; returns ``kernel``'s
-    launches in the measured run."""
+def serve_phase(rec, arch: str, kernel, traced: bool = True,
+                n_layers: int | None = None) -> int:
+    """Serve ``arch`` at full width on the card (``n_layers``: keep only
+    that many of its layers, every width as published); returns
+    ``kernel``'s launches in the measured run. ``traced``: serve once more
+    under both of the CLI's overlays (``traced_serve``)."""
+    t_phase = time.perf_counter()
     cfg = get_config(arch)
+    cut = None
+    if n_layers is not None:
+        cut = f"{n_layers} of {cfg.n_layers} layers, every width as published"
+        cfg = cfg.replace(n_layers=n_layers)
+    settled_allocated()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = api.init_params(cfg, torch.Generator("cuda").manual_seed(0))
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated()
     queue = make_requests(np.random.default_rng(0), N_REQUESTS,
                           SERVE["prompt_len"], cfg.vocab_size)
     serve(cfg, params, queue[:1], device="cuda",
@@ -2852,7 +2985,9 @@ def serve_phase(rec, arch: str, kernel) -> int:
         torch.cuda.synchronize()
     if any(decode_counts.values()):
         raise AssertionError(f"{arch}: decode launched {decode_counts}")
-    traced = traced_serve(arch, cfg, params, queue, res, want)
+    del logits, cache
+    traced = (traced_serve(arch, cfg, params, queue, res, want) if traced
+              else None)
 
     # where the time goes: one batch's prefill, then 8 decode steps
     batch = np.zeros((SERVE["batch"], SERVE["prompt_len"]), np.int32)
@@ -2878,23 +3013,28 @@ def serve_phase(rec, arch: str, kernel) -> int:
                 "decode_8_steps": device_profile(run_decode)}
     log(f"serve {arch} profile", json.dumps(profiles))
 
-    out = {"launches": counts, "batches": batches,
-           "params": api.param_count(params),
+    out = {"launches": counts, "batches": batches, "n_layers": cfg.n_layers,
+           "cut": cut, "params": api.param_count(params),
            "param_bytes": api.param_bytes(params), "init_s": init_s,
+           "init_peak_bytes": init_peak,
            "prefill_s": res.prefill_s, "decode_s": res.decode_s,
            "prefill_tok_s": res.prefill_tok_s,
            "decode_tok_s": res.decode_tok_s,
            "peak_mem_bytes": torch.cuda.max_memory_allocated(),
            "first_tokens": res.tokens[:, :8].tolist(), **SERVE,
            "requests": N_REQUESTS, "profile": profiles, "traced": traced}
+    del params, state
+    settled_allocated()
+    out["phase_s"] = time.perf_counter() - t_phase
     rec.setdefault("serve", {})[arch] = out
-    log(f"serve {arch}: {out['params']} params, {batches} batches, "
-        f"{counts[kernel.__name__]} {kernel.__name__} launches; prefill "
-        f"{res.prefill_tok_s:.1f} tok/s, decode {res.decode_tok_s:.1f} "
-        f"tok/s (per batch prefill {res.prefill_s} s, decode "
-        f"{res.decode_s} s)")
-    del params
-    torch.cuda.empty_cache()
+    log(f"serve {arch}{f' ({cut})' if cut else ''}: {out['params']} "
+        f"params, {out['param_bytes'] / 1e9:.2f} GB, init peak "
+        f"{init_peak / 1e9:.2f} GB, peak {out['peak_mem_bytes'] / 1e9:.2f} "
+        f"GB; {batches} batches, {counts[kernel.__name__]} "
+        f"{kernel.__name__} launches; prefill {res.prefill_tok_s:.1f} "
+        f"tok/s, decode {res.decode_tok_s:.1f} tok/s (per batch prefill "
+        f"{res.prefill_s} s, decode {res.decode_s} s); phase "
+        f"{out['phase_s']:.1f} s")
     return counts[kernel.__name__]
 
 
@@ -2940,10 +3080,12 @@ def traced_serve(arch, cfg, params, queue, plain, want) -> dict:
 
 
 def smoke_serve_phase(rec):
-    """Both smoke configs (fp32) served on the card and on the CPU with the
-    same parameters: equal greedy tokens, prefill logits within 1e-4."""
+    """The smoke configs of ``SMOKE_SERVE_ARCHS`` (fp32) served on the card
+    and on the CPU with the same parameters: equal greedy tokens, prefill
+    logits within 1e-4."""
+    t0 = time.perf_counter()
     out = {}
-    for arch in ("llama3.2-1b", "rwkv6-1.6b"):
+    for arch in SMOKE_SERVE_ARCHS:
         cfg = get_config(arch, smoke=True)
         params = api.init_params(cfg, torch.Generator().manual_seed(0))
         queue = make_requests(np.random.default_rng(0), 4,
@@ -2959,6 +3101,8 @@ def smoke_serve_phase(rec):
         if not (same and diff <= SMOKE_LOGIT_TOL and gpu.finite):
             raise AssertionError(f"{arch}: card and CPU disagree {out}")
     rec["smoke_serve"] = out
+    rec["smoke_serve_s"] = time.perf_counter() - t0
+    log(f"smoke serve: {rec['smoke_serve_s']:.1f} s")
 
 
 def main() -> int:
@@ -3009,6 +3153,11 @@ def main() -> int:
         "launches"]["wkv"]
     fa["launches"] = serve_phase(rec, "llama3.2-1b", flash_attention)
     rw["launches"] = serve_phase(rec, "rwkv6-1.6b", wkv)
+    # K2 in every prefill layer of SERVE_MORE's configs
+    fa["launches_by_arch"] = {"llama3.2-1b": fa["launches"]}
+    for arch, n_layers in SERVE_MORE.items():
+        fa["launches_by_arch"][arch] = serve_phase(
+            rec, arch, flash_attention, traced=False, n_layers=n_layers)
     # K2's and K3's launches in the traced serves (--net edge-v2 and a
     # JSONL tracer)
     fa["traced_serve_launches"] = rec["serve"]["llama3.2-1b"]["traced"][

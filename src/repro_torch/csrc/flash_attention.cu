@@ -7,7 +7,9 @@
 //   kernel takes [B, H, S, D]), positions arange(S)
 //   -> o [B, S, Hq, D] in q's dtype; query head h reads kv head
 //      h / (Hq / Hkv), with no repeated k/v.
-// D in {32, 64, 128} (a template parameter). Scores, the running max and
+// D in {32, 64, 128, 160} (a template parameter; 160 is stablelm-12b's
+// head, and MLA's q.k 96 and v 64 reach the kernel zero-padded to 128 by
+// the caller). Scores, the running max and
 // sum and the accumulator are fp32; masked scores drop out of the softmax
 // as the reference's -1e30 does, and the row sum is clamped at 1e-30. Both
 // kernels mask the ragged tail (rows and keys at or past S) themselves, so
@@ -23,7 +25,8 @@
 //   bf16, by 16-byte cp.async copies into a ring of two stages: tile j + 1
 //   loads while tile j is computed. Rows at or past S are zero-filled. The
 //   shared layout XORs each 16-byte chunk's place in its 128-byte line with
-//   the row, so that every ldmatrix below is free of bank conflicts.
+//   the row, so that every ldmatrix below is free of bank conflicts (at D
+//   160 too, whose 320-byte rows are not whole lines: see swz).
 // - Q's A fragments are loaded once, by ldmatrix, into registers.
 // - S = Q K^T runs as mma.sync m16n8k16 bf16 x bf16 -> fp32, K's B
 //   fragments by ldmatrix. The products of bf16 are exact, but the tensor
@@ -310,12 +313,23 @@ __device__ __forceinline__ void split3(float p0, float p1,
 // tile: the chunk's place in its 128-byte line is XORed with the row (with
 // the row pair at D = 32, where a line holds two rows), so that the 8 rows
 // an ldmatrix reads at one chunk fall on 8 distinct places of a line.
+// D = 160 has 20 chunks a row: two whole groups of 8, swizzled as at D 64,
+// and a tail of 4 (chunks 16-19), swizzled within itself by the row pair
+// as at D 32, so that no chunk leaves its row. A 320-byte row starts half
+// a line (4 places) on from the row before, so the place of chunk c of row
+// r is (c ^ f(r)) ^ 4 (r & 1) with f(r) = r & 7 in a whole group and
+// (r >> 1) & 3 in the tail: 8 distinct places for rows 0-7 either way.
 template <int D>
 __device__ __forceinline__ int swz(int row, int chunk) {
-  if constexpr (D >= 64) {
+  if constexpr (D % 64 == 0) {
     return row * D + ((chunk ^ (row & 7)) << 3);
-  } else {
+  } else if constexpr (D == 32) {
     return row * D + ((chunk ^ ((row >> 1) & 3)) << 3);
+  } else {
+    static_assert(D == 160, "swz: D must be 32, a multiple of 64 or 160");
+    const int c = chunk < 16 ? chunk ^ (row & 7)
+                             : 16 + ((chunk - 16) ^ ((row >> 1) & 3));
+    return row * D + (c << 3);
   }
 }
 
@@ -326,10 +340,12 @@ __device__ __forceinline__ void load_tile(uint32_t tile,
                                           const __nv_bfloat16* src, int row0,
                                           int s, size_t step, int tid) {
   constexpr int kChunks = D / 8;                 // 16-byte chunks per row
-  constexpr int kRowsPerPass = kTcThreads / kChunks;
-  const int c = tid % kChunks;
+  static_assert(kBK * kChunks % kTcThreads == 0, "load_tile: ragged pass");
+  // chunk i of the tile is row i / kChunks, chunk i % kChunks (at D 160 a
+  // pass of 128 threads covers 6.4 rows, so threads walk chunks, not rows)
 #pragma unroll
-  for (int r = tid / kChunks; r < kBK; r += kRowsPerPass) {
+  for (int i = tid; i < kBK * kChunks; i += kTcThreads) {
+    const int r = i / kChunks, c = i % kChunks;
     const int row = row0 + r;
     const bool in = row < s;
     cp_async16(tile + 2 * swz<D>(r, c),
@@ -601,6 +617,12 @@ extern "C" int fa_forward(const void* q, const void* k, const void* v,
           bf16 ? launch_bf16<128>(q, k, v, o, b, s, hq, hkv, causal, window,
                                   scale, st)
                : launch<128>(q, k, v, o, b, s, hq, hkv, causal, window,
+                             scale, st));
+    case 160:
+      return static_cast<int>(
+          bf16 ? launch_bf16<160>(q, k, v, o, b, s, hq, hkv, causal, window,
+                                  scale, st)
+               : launch<160>(q, k, v, o, b, s, hq, hkv, causal, window,
                              scale, st));
     default:
       return static_cast<int>(cudaErrorInvalidValue);

@@ -1,2 +1,2 @@
-from .ops import flash_attention  # noqa: F401
+from .ops import HEAD_DIMS, flash_attention  # noqa: F401
 from .ref import attention_ref  # noqa: F401

@@ -26,7 +26,7 @@ from repro_torch.kernels import build
 from .ref import attention_ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 128, 160)
 
 
 @functools.cache

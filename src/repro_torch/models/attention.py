@@ -1,7 +1,8 @@
-"""Grouped-query attention (opt. qk-norm, sliding window) and its KV cache
-(mirrors the GQA part of ``repro.models.attention``).
+"""Grouped-query attention (opt. qk-norm, sliding window), multi-head
+latent attention (MLA) and their KV caches (mirrors
+``repro.models.attention``).
 
-Two execution paths:
+Two execution paths per variant:
   * ``gqa_forward`` — train / prefill over a full sequence (causal), at
     positions ``arange(S)``. Where a gradient is needed (grad mode on and
     q, k or v requiring grad), on any device, the plain differentiable
@@ -13,16 +14,22 @@ Two execution paths:
   * ``gqa_decode`` — one new token against a KV cache (full or ring
     buffer), through the plain ``sdpa`` on every device, as in the
     reference.
+  * ``mla_forward`` follows ``gqa_forward``'s rule; its kernel call
+    (``mla_attention``) zero-pads q, k (``qk_nope + qk_rope``) and v
+    (``v_head_dim``) to one head dim the kernel takes and slices the
+    output back. ``mla_decode`` is the reference's absorbed form (the
+    cache holds the compressed ``c_kv`` and the shared ``k_rope``), in
+    plain PyTorch on every device.
 
 Masking is position-based everywhere: a kv slot participates iff
 ``kv_pos >= 0  and  kv_pos <= q_pos  and (window == 0 or q_pos - kv_pos < window)``.
-MLA is not ported yet (``ROADMAP.md``).
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
-from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention import HEAD_DIMS, flash_attention
 
 from . import layers
 from .base import ModelConfig
@@ -90,13 +97,16 @@ def _gqa_qkv(cfg: ModelConfig, p, x, positions):
     return layers.apply_rope(q, cos, sin), layers.apply_rope(k, cos, sin), v
 
 
+def _needs_grad(*xs) -> bool:
+    return torch.is_grad_enabled() and any(x.requires_grad for x in xs)
+
+
 def gqa_forward(cfg: ModelConfig, p, x, positions, window: int = 0):
     """Causal self-attention over a full sequence. positions [B,S], each
     row ``arange(S)`` (what ``embed_inputs`` gives). Training goes through
     the differentiable ``sdpa``, everything else through the kernel."""
     q, k, v = _gqa_qkv(cfg, p, x, positions)
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
-                                    or v.requires_grad):
+    if _needs_grad(q, k, v):
         out = sdpa(q, k, v, positions, positions, window=window)
     else:
         out = flash_attention(q, k, v, causal=True, window=window)
@@ -136,3 +146,137 @@ def gqa_decode(cfg: ModelConfig, p, x, pos, cache, window: int = 0):
     out = sdpa(q, ck, cv, pos[:, None], sp, window=window)
     y = out.reshape(b, 1, -1).to(x.dtype) @ p["wo"]
     return y, {"k": ck, "v": cv, "slot_pos": sp}
+
+
+# ==========================================================================
+# MLA — multi-head latent attention (MiniCPM3 / DeepSeek-V2 family)
+def init_mla(generator: torch.Generator, cfg: ModelConfig) -> dict:
+    h = cfg.n_heads
+    qd = cfg.qk_nope_dim + cfg.qk_rope_dim
+    dev = generator.device
+    return {
+        "w_dq": layers.dense_init(generator, cfg.d_model, cfg.q_lora_rank,
+                                  cfg.dt),
+        "q_norm": torch.ones((cfg.q_lora_rank,), dtype=cfg.dt, device=dev),
+        "w_uq": layers.dense_init(generator, cfg.q_lora_rank, h * qd,
+                                  cfg.dt),
+        # joint compression: [kv_rank | rope_dim]
+        "w_dkv": layers.dense_init(generator, cfg.d_model,
+                                   cfg.kv_lora_rank + cfg.qk_rope_dim,
+                                   cfg.dt),
+        "kv_norm": torch.ones((cfg.kv_lora_rank,), dtype=cfg.dt,
+                              device=dev),
+        "w_uk": layers.dense_init(generator, cfg.kv_lora_rank,
+                                  h * cfg.qk_nope_dim, cfg.dt),
+        "w_uv": layers.dense_init(generator, cfg.kv_lora_rank,
+                                  h * cfg.v_head_dim, cfg.dt),
+        "wo": layers.dense_init(generator, h * cfg.v_head_dim, cfg.d_model,
+                                cfg.dt),
+    }
+
+
+def _mla_q(cfg: ModelConfig, p, x, positions):
+    b, s, _ = x.shape
+    cq = layers.rms_norm(x @ p["w_dq"], p["q_norm"], cfg.norm_eps)
+    q = (cq @ p["w_uq"]).reshape(b, s, cfg.n_heads,
+                                 cfg.qk_nope_dim + cfg.qk_rope_dim)
+    q_nope, q_rope = q.split([cfg.qk_nope_dim, cfg.qk_rope_dim], dim=-1)
+    cos, sin = layers.rope_freqs(positions, cfg.qk_rope_dim, cfg.rope_theta)
+    return q_nope, layers.apply_rope(q_rope, cos, sin)
+
+
+def _mla_ckv(cfg: ModelConfig, p, x, positions):
+    """-> (c_kv [B,S,kv_rank] normed, k_rope [B,S,rope_dim] rotated): what
+    the decode cache holds."""
+    c_kv, k_rope = (x @ p["w_dkv"]).split(
+        [cfg.kv_lora_rank, cfg.qk_rope_dim], dim=-1)
+    c_kv = layers.rms_norm(c_kv, p["kv_norm"], cfg.norm_eps)
+    cos, sin = layers.rope_freqs(positions, cfg.qk_rope_dim, cfg.rope_theta)
+    k_rope = layers.apply_rope(k_rope[:, :, None, :], cos, sin)[:, :, 0, :]
+    return c_kv, k_rope
+
+
+def mla_attention(q, k, v, window: int = 0):
+    """Causal attention of q, k [B,S,H,Dqk] and v [B,S,H,Dv] (Dqk != Dv)
+    through the kernel, which takes one head dim: all three zero-padded to
+    the smallest of ``HEAD_DIMS`` that holds both (the padded columns add
+    exact zeros to the scores, and the padded output columns are sliced
+    off), scaled by ``1/sqrt(Dqk)``. -> [B,S,H,Dv]."""
+    dq, dv = q.shape[-1], v.shape[-1]
+    d = min(x for x in HEAD_DIMS if x >= max(dq, dv))
+    q, k, v = (F.pad(t, (0, d - t.shape[-1])) for t in (q, k, v))
+    out = flash_attention(q, k, v, causal=True, window=window,
+                          scale=1.0 / dq ** 0.5)
+    return out[..., :dv]
+
+
+def mla_forward(cfg: ModelConfig, p, x, positions, window: int = 0,
+                ckv=None):
+    """Train/prefill MLA: decompress k and v, then attention as
+    ``gqa_forward`` takes it (the differentiable ``sdpa`` under a
+    gradient, else the kernel through ``mla_attention``). ``ckv``: the
+    ``_mla_ckv`` of ``x`` where the caller has it already (prefill)."""
+    b, s, _ = x.shape
+    h = cfg.n_heads
+    q_nope, q_rope = _mla_q(cfg, p, x, positions)
+    c_kv, k_rope = ckv if ckv is not None else _mla_ckv(cfg, p, x,
+                                                        positions)
+    k_nope = (c_kv @ p["w_uk"]).reshape(b, s, h, cfg.qk_nope_dim)
+    v = (c_kv @ p["w_uv"]).reshape(b, s, h, cfg.v_head_dim)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([k_nope, k_rope[:, :, None, :].expand(
+        b, s, h, cfg.qk_rope_dim)], dim=-1)
+    if _needs_grad(q, k, v):
+        out = sdpa(q, k, v, positions, positions, window=window)
+    else:
+        out = mla_attention(q, k, v, window=window)
+    return out.reshape(b, s, -1).to(x.dtype) @ p["wo"]
+
+
+def mla_init_cache(cfg: ModelConfig, batch: int, cache_len: int,
+                   device) -> dict:
+    return {
+        "c_kv": torch.zeros((batch, cache_len, cfg.kv_lora_rank),
+                            dtype=cfg.dt, device=device),
+        "k_rope": torch.zeros((batch, cache_len, cfg.qk_rope_dim),
+                              dtype=cfg.dt, device=device),
+        "slot_pos": torch.full((batch, cache_len), -1, dtype=torch.int32,
+                               device=device),
+    }
+
+
+def mla_decode(cfg: ModelConfig, p, x, pos, cache, window: int = 0):
+    """Absorbed one-token MLA decode: attention runs in the compressed
+    space, ``score_h = q_nope_h Wuk_h^T c_kv^T + q_rope . k_rope`` and
+    ``out_h = (alpha_h c_kv) Wuv_h``; the cache never holds per-head k or
+    v. Scores in fp32, as ``sdpa``. Returns a new cache."""
+    b = x.shape[0]
+    h = cfg.n_heads
+    q_nope, q_rope = _mla_q(cfg, p, x, pos[:, None])      # [B,1,H,*]
+    c_new, r_new = _mla_ckv(cfg, p, x, pos[:, None])      # [B,1,rank|rd]
+
+    cache_len = cache["c_kv"].shape[1]
+    slot = pos.long() % cache_len
+    hit = torch.arange(cache_len, device=x.device)[None, :] == slot[:, None]
+    c_kv = torch.where(hit[:, :, None], c_new, cache["c_kv"])
+    k_rope = torch.where(hit[:, :, None], r_new, cache["k_rope"])
+    sp = torch.where(hit, pos[:, None].to(torch.int32), cache["slot_pos"])
+
+    wuk = p["w_uk"].reshape(cfg.kv_lora_rank, h, cfg.qk_nope_dim)
+    q_abs = torch.einsum("bhd,rhd->bhr", q_nope[:, 0], wuk)   # absorbed
+    scores = torch.einsum("bhr,bsr->bhs", q_abs.float(), c_kv.float())
+    scores = scores + torch.einsum("bhd,bsd->bhs", q_rope[:, 0].float(),
+                                   k_rope.float())
+    scores = scores / (cfg.qk_nope_dim + cfg.qk_rope_dim) ** 0.5
+
+    valid = (sp >= 0) & (sp <= pos[:, None])
+    if window > 0:
+        valid &= (pos[:, None] - sp) < window
+    scores = torch.where(valid[:, None, :], scores, NEG_INF)
+    alpha = torch.softmax(scores, dim=-1).to(cfg.dt)
+
+    out_c = torch.einsum("bhs,bsr->bhr", alpha, c_kv)
+    wuv = p["w_uv"].reshape(cfg.kv_lora_rank, h, cfg.v_head_dim)
+    out = torch.einsum("bhr,rhd->bhd", out_c, wuv).reshape(b, 1, -1)
+    y = out.to(x.dtype) @ p["wo"]
+    return y, {"c_kv": c_kv, "k_rope": k_rope, "slot_pos": sp}

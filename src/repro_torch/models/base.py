@@ -16,7 +16,8 @@ import torch
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     """The reference's ``ModelConfig`` fields that the ported families
-    (dense GQA, RWKV6) read; a later slice adds its family's fields."""
+    (dense GQA, MLA, MoE, RWKV6) read; a later slice adds its family's
+    fields."""
 
     name: str
     arch_type: str  # dense | moe | hybrid | ssm | vlm | audio | cnn
@@ -34,6 +35,21 @@ class ModelConfig:
     rope_theta: float = 10000.0
     sliding_window: int = 0  # 0 = full attention; >0 enables SWA variant
 
+    # --- MLA (multi-head latent attention, MiniCPM3/DeepSeek-V2 style) ----
+    q_lora_rank: int = 0
+    kv_lora_rank: int = 0
+    qk_rope_dim: int = 0
+    qk_nope_dim: int = 0
+    v_head_dim: int = 0
+
+    # --- MoE ----------------------------------------------------------------
+    n_experts: int = 0
+    n_shared_experts: int = 0
+    experts_per_token: int = 0
+    moe_d_ff: int = 0  # per-expert ffn width (fine-grained MoE)
+    router_aux_coef: float = 0.01
+    capacity_factor: float = 1.25
+
     # --- rwkv6 ---------------------------------------------------------------
     rwkv: bool = False
 
@@ -47,6 +63,10 @@ class ModelConfig:
         if self.head_dim:
             return self.head_dim
         return self.d_model // self.n_heads
+
+    @property
+    def is_moe(self) -> bool:
+        return self.n_experts > 0
 
     @property
     def dt(self) -> torch.dtype:

@@ -1,6 +1,6 @@
-"""The decoder backbone for the dense (GQA) and RWKV families, driven by
-``ModelConfig`` (mirrors the dense and RWKV branches of
-``repro.models.transformer``).
+"""The decoder backbone for the dense (GQA or MLA attention), MoE and RWKV
+families, driven by ``ModelConfig`` (mirrors the dense, MoE, MLA and RWKV
+branches of ``repro.models.transformer``).
 
 API (plain functions on nested dicts of tensors):
     init_params(cfg, generator)                  -> params
@@ -12,7 +12,9 @@ API (plain functions on nested dicts of tensors):
 
 Layers are stacked (a leading L axis on every leaf of ``params["layers"]``
 and of the cache), as in the reference; a Python loop over L takes the
-place of its ``lax.scan``. MoE, hybrid, MLA and VLM models are not ported
+place of its ``lax.scan``. ``aux`` is MoE's router load-balance loss
+(summed over the layers; 0 for the other families), which ``loss_fn``
+adds at ``router_aux_coef``. Hybrid, VLM and audio models are not ported
 yet and raise ``NotImplementedError`` (``ROADMAP.md``).
 """
 from __future__ import annotations
@@ -23,12 +25,13 @@ from repro_torch.device import resolve
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.tree import tree_map, tree_unstack
 
-from . import attention, layers, rwkv
+from . import attention, layers, moe, rwkv
 from .base import ModelConfig
 
 
 # (arch_type, attention, rwkv) of the families the port runs
-PORTED = {("dense", "gqa", False), ("ssm", "none", True)}
+PORTED = {("dense", "gqa", False), ("dense", "mla", False),
+          ("moe", "gqa", False), ("ssm", "none", True)}
 
 
 def _check_ported(cfg: ModelConfig) -> None:
@@ -57,9 +60,32 @@ def init_layer(generator: torch.Generator, cfg: ModelConfig) -> dict:
         p["time_mix"] = rwkv.init_time_mix(generator, cfg)
         p["channel_mix"] = rwkv.init_channel_mix(generator, cfg)
         return p
-    p["attn"] = attention.init_gqa(generator, cfg)
-    p["mlp"] = layers.init_swiglu(generator, cfg.d_model, cfg.d_ff, cfg.dt)
+    if cfg.attention == "mla":
+        p["attn"] = attention.init_mla(generator, cfg)
+    else:
+        p["attn"] = attention.init_gqa(generator, cfg)
+    if cfg.is_moe:
+        p["moe"] = moe.init_moe(generator, cfg)
+    else:
+        p["mlp"] = layers.init_swiglu(generator, cfg.d_model, cfg.d_ff,
+                                      cfg.dt)
     return p
+
+
+def _init_layers(generator: torch.Generator, cfg: ModelConfig) -> dict:
+    """The ``n_layers`` layers of ``init_layer``, drawn in order, each
+    copied into preallocated ``[L, ...]`` leaves as it is drawn: the
+    values of stacking them, with one layer above the stack in memory
+    where stacking holds all the layers twice."""
+    stacked = None
+    for i in range(cfg.n_layers):
+        lp = init_layer(generator, cfg)
+        if stacked is None:
+            stacked = tree_map(
+                lambda a: a.new_empty((cfg.n_layers,) + a.shape), lp)
+        tree_map(lambda dst, src: dst[i].copy_(src), stacked, lp)
+        del lp                  # freed before the next layer is drawn
+    return stacked
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator) -> dict:
@@ -72,8 +98,7 @@ def init_params(cfg: ModelConfig, generator: torch.Generator) -> dict:
     params = {
         "embed": layers.embed_init(generator, cfg.vocab_size, cfg.d_model,
                                    cfg.dt),
-        "layers": _stack([init_layer(generator, cfg)
-                          for _ in range(cfg.n_layers)]),
+        "layers": _init_layers(generator, cfg),
         "final_norm": torch.ones((cfg.d_model,), dtype=cfg.dt,
                                  device=generator.device),
     }
@@ -91,20 +116,32 @@ def lm_head_weight(cfg: ModelConfig, params):
 
 # ==========================================================================
 # blocks
+def _ffn(cfg: ModelConfig, lp, m):
+    """The layer's feed-forward: -> (out, MoE's router loss or None)."""
+    if cfg.is_moe:
+        return moe.moe_forward(cfg, lp["moe"], m)
+    return layers.swiglu(lp["mlp"], m), None
+
+
 def block_forward(cfg: ModelConfig, lp, h, positions):
-    """One layer, full sequence. Returns h (the reference also returns
-    MoE's router loss, which no ported family has)."""
+    """One layer, full sequence. Returns (h, aux): MoE's router loss, None
+    for the other families."""
     a = layers.rms_norm(h, lp["norm1"], cfg.norm_eps)
     if cfg.rwkv:
         tm, _, _ = rwkv.time_mix(cfg, lp["time_mix"], a)
         h = h + tm
         m = layers.rms_norm(h, lp["norm2"], cfg.norm_eps)
         cm, _ = rwkv.channel_mix(cfg, lp["channel_mix"], m)
-        return h + cm
-    h = h + attention.gqa_forward(cfg, lp["attn"], a, positions,
-                                  window=cfg.sliding_window)
+        return h + cm, None
+    if cfg.attention == "mla":
+        h = h + attention.mla_forward(cfg, lp["attn"], a, positions,
+                                      window=cfg.sliding_window)
+    else:
+        h = h + attention.gqa_forward(cfg, lp["attn"], a, positions,
+                                      window=cfg.sliding_window)
     m = layers.rms_norm(h, lp["norm2"], cfg.norm_eps)
-    return h + layers.swiglu(lp["mlp"], m)
+    mo, aux = _ffn(cfg, lp, m)
+    return h + mo, aux
 
 
 # ==========================================================================
@@ -122,15 +159,18 @@ def embed_inputs(cfg: ModelConfig, params, tokens, img_embeds=None):
 def forward(cfg: ModelConfig, params, tokens,
             apply_final_norm: bool = True):
     """-> (features [B,S,D], aux). ``apply_final_norm=False`` returns
-    pre-norm features (the FACADE core output). ``aux`` (MoE's router
-    loss in the reference) is 0 for every ported family."""
+    pre-norm features (the FACADE core output). ``aux`` is the layers'
+    MoE router losses summed in order (0 without MoE)."""
     _check_ported(cfg)
     h, positions = embed_inputs(cfg, params, tokens)
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
     for lp in tree_unstack(params["layers"]):      # one backward stack
-        h = block_forward(cfg, lp, h, positions)
+        h, a = block_forward(cfg, lp, h, positions)
+        if a is not None:
+            aux = aux + a
     if apply_final_norm:
         h = layers.rms_norm(h, params["final_norm"], cfg.norm_eps)
-    return h, torch.zeros((), dtype=torch.float32, device=h.device)
+    return h, aux
 
 
 # ==========================================================================
@@ -169,12 +209,14 @@ def chunked_ce(features, w_head, labels, mask, chunk: int = 512):
 
 def loss_fn(cfg: ModelConfig, params, batch):
     """batch: {tokens [B,S], labels [B,S], mask [B,S]} -> (loss, metrics).
-    The loss is the masked mean NLL (no ported family has MoE's router
-    loss, so ``aux`` is 0)."""
+    The loss is the masked mean NLL plus ``router_aux_coef`` times MoE's
+    router loss ``aux`` (0 without MoE); the metrics hold ``ce`` (the NLL),
+    ``aux`` and ``acc``."""
     feats, aux = forward(cfg, params, batch["tokens"])
     loss, acc = chunked_ce(feats, lm_head_weight(cfg, params),
                            batch["labels"], batch["mask"])
-    return loss, {"ce": loss, "aux": aux, "acc": acc}
+    total = loss + cfg.router_aux_coef * aux
+    return total, {"ce": loss, "aux": aux, "acc": acc}
 
 
 # ==========================================================================
@@ -183,6 +225,8 @@ def _layer_cache(cfg: ModelConfig, batch: int, cache_len: int, device):
     _check_ported(cfg)
     if cfg.rwkv:
         return rwkv.rwkv_init_cache(cfg, batch, device)
+    if cfg.attention == "mla":
+        return attention.mla_init_cache(cfg, batch, cache_len, device)
     return attention.gqa_init_cache(cfg, batch, cache_len, device)
 
 
@@ -238,11 +282,13 @@ def block_decode(cfg: ModelConfig, lp, h, pos, cache):
         cm, cmx = rwkv.channel_mix(cfg, lp["channel_mix"], m,
                                    last_x=cache["cm_x"])
         return h + cm, {"s": s_new, "tm_x": tmx, "cm_x": cmx}
-    attn_out, new_cache = attention.gqa_decode(
-        cfg, lp["attn"], a, pos, cache, window=cfg.sliding_window)
+    decode = (attention.mla_decode if cfg.attention == "mla"
+              else attention.gqa_decode)
+    attn_out, new_cache = decode(cfg, lp["attn"], a, pos, cache,
+                                 window=cfg.sliding_window)
     h = h + attn_out
     m = layers.rms_norm(h, lp["norm2"], cfg.norm_eps)
-    return h + layers.swiglu(lp["mlp"], m), new_cache
+    return h + _ffn(cfg, lp, m)[0], new_cache
 
 
 def decode_step(cfg: ModelConfig, params, cache, tokens, pos):
@@ -264,8 +310,9 @@ def decode_step(cfg: ModelConfig, params, cache, tokens, pos):
 def prefill(cfg: ModelConfig, params, tokens, cache_extra: int = 0):
     """-> (last-position logits [B,V] fp32, cache ready for decode at
     pos=S). ``cache_extra`` reserves empty slots for tokens generated
-    afterwards. Attention and the wkv recurrence run through the
-    hand-written kernels on the card (one launch per layer)."""
+    afterwards. Attention (MLA's through ``attention.mla_attention``) and
+    the wkv recurrence run through the hand-written kernels on the card
+    (one launch per layer)."""
     _check_ported(cfg)
     h, positions = embed_inputs(cfg, params, tokens)
     b, s = h.shape[:2]
@@ -283,21 +330,30 @@ def prefill(cfg: ModelConfig, params, tokens, cache_extra: int = 0):
             caches.append({"s": s_new, "tm_x": tmx, "cm_x": cmx})
             continue
 
-        q, k, v = attention._gqa_qkv(cfg, lp["attn"], a, positions)
-        attn_out = flash_attention(q, k, v, causal=True,
-                                   window=cfg.sliding_window)
-        h = h + attn_out.reshape(b, s, -1).to(h.dtype) @ lp["attn"]["wo"]
+        if cfg.attention == "mla":
+            c_kv, k_rope = attention._mla_ckv(cfg, lp["attn"], a, positions)
+            h = h + attention.mla_forward(cfg, lp["attn"], a, positions,
+                                          window=cfg.sliding_window,
+                                          ckv=(c_kv, k_rope))
+            kv = {"c_kv": c_kv, "k_rope": k_rope}
+        else:
+            q, k, v = attention._gqa_qkv(cfg, lp["attn"], a, positions)
+            attn_out = flash_attention(q, k, v, causal=True,
+                                       window=cfg.sliding_window)
+            h = h + (attn_out.reshape(b, s, -1).to(h.dtype)
+                     @ lp["attn"]["wo"])
+            kv = {"k": k, "v": v}
 
         # ring-buffer placement: slot j holds position start + ((j-start)%W)
         start = s - cache_len
         slots = torch.arange(cache_len, device=h.device)
         src = start + (slots - start) % cache_len
-        caches.append({"k": k[:, src], "v": v[:, src],
-                       "slot_pos": src.to(torch.int32)[None].expand(
-                           b, cache_len)})
+        cache_l = {name: leaf[:, src] for name, leaf in kv.items()}
+        cache_l["slot_pos"] = src.to(torch.int32)[None].expand(b, cache_len)
+        caches.append(cache_l)
 
         m = layers.rms_norm(h, lp["norm2"], cfg.norm_eps)
-        h = h + layers.swiglu(lp["mlp"], m)
+        h = h + _ffn(cfg, lp, m)[0]
 
     cache = extend_cache(cfg, _stack(caches), cache_extra)
     feats = layers.rms_norm(h, params["final_norm"], cfg.norm_eps)

@@ -70,7 +70,8 @@ def test_loss_fn_value_and_gradients_match_the_reference(untied):
 
 def check_loss_fn(arch, untied):
     """``transformer.loss_fn`` of ``arch``'s smoke config against the
-    reference's on one batch: value 1e-5, every gradient 1e-4."""
+    reference's on one batch: value (MoE's router loss included) and its
+    ``ce``, ``aux`` and ``acc`` metrics 1e-5, every gradient 1e-4."""
     rcfg, cfg = _cfgs(arch)
     key = jax.random.PRNGKey(4)
     ref_params = (ref_make_binding(rcfg).init(key) if untied else
@@ -88,7 +89,8 @@ def check_loss_fn(arch, untied):
         cfg, params, {k: torch.from_numpy(v) for k, v in batch.items()})
     got.backward()
     _close(got.item(), want, VALUE_TOL)
-    _close(got_m["acc"].item(), want_m["acc"], VALUE_TOL)
+    for name in ("ce", "aux", "acc"):
+        _close(got_m[name].item(), want_m[name], VALUE_TOL, name)
     got_g = lm_params_to_jax(tree_map(lambda t: t.grad, params))
     for g, w in zip(jax.tree.leaves(got_g), jax.tree.leaves(want_g),
                     strict=True):

@@ -17,12 +17,14 @@ from repro_torch.kernels.flash_attention import attention_ref, flash_attention
 from torch_caps import cuda_device, requires_cuda  # noqa: F401
 
 # (B, Hq, Hkv, S, D): the reference kernel tests' FA_SHAPES, a ragged S, a
-# narrow head (the smoke config's) and a wide one with a window
+# narrow head (the smoke config's), a wide one with a window and
+# stablelm-12b's head dim 160 at a ragged S
 SHAPES = [(1, 4, 4, 128, 64), (2, 8, 2, 256, 64), (1, 4, 1, 128, 128),
           (2, 2, 2, 512, 64), (1, 4, 2, 200, 64), (2, 8, 2, 77, 32),
-          (1, 4, 2, 300, 128)]
-# llama3.2-1b's serving shape and a long one
-SERVING_SHAPES = [(4, 32, 8, 512, 64), (1, 32, 8, 4096, 64)]
+          (1, 4, 2, 300, 128), (2, 8, 2, 130, 160)]
+# llama3.2-1b's serving shape, a long one and stablelm-12b's serving shape
+SERVING_SHAPES = [(4, 32, 8, 512, 64), (1, 32, 8, 4096, 64),
+                  (4, 32, 8, 512, 160)]
 TOLS = {torch.float32: dict(atol=2e-6, rtol=2e-6),
         torch.bfloat16: dict(atol=1e-6, rtol=2.0 ** -8)}
 
@@ -47,7 +49,10 @@ BF16_CASES = [((1, 4, 2, 130, 32), False, 0, 0.3),
               ((2, 4, 2, 65, 64), True, 0, 0.3),
               ((1, 4, 4, 127, 128), True, 32, 0.3),
               ((2, 8, 2, 256, 64), True, 0, 3.0),
-              ((1, 4, 2, 200, 128), True, 128, 3.0)]
+              ((1, 4, 2, 200, 128), True, 128, 3.0),
+              ((1, 4, 2, 130, 160), False, 0, 0.3),
+              ((1, 2, 1, 1, 160), True, 0, 0.3),
+              ((2, 8, 2, 256, 160), True, 0, 3.0)]
 
 
 def _case(b, hq, hkv, s, d, dtype, device, seed=0, qk_std=0.3):
@@ -96,6 +101,31 @@ def _check(shape, dtype, window, device, causal=True, qk_std=0.3):
     want = _plain(q.float(), k.float(), v.float(), causal=causal,
                   window=window)
     assert got.dtype == dtype and got.shape == q.shape
+    torch.testing.assert_close(got.float(), want, **TOLS[dtype])
+
+
+@requires_cuda
+@pytest.mark.parametrize("dims", [(48, 32), (96, 64)], ids=["smoke", "full"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_mla_padded_call_matches_sdpa(cuda_device, dims, dtype):
+    """MLA's q.k and v head dims (minicpm3-4b's smoke and full config)
+    through ``attention.mla_attention``: one launch at the padded head
+    dim, against the plain ``sdpa`` on the unpadded tensors in fp32."""
+    from repro_torch.models import attention
+    dq, dv = dims
+    b, s, h = 2, 200, 5
+    g = torch.Generator().manual_seed(dq)
+    q, k = (0.3 * torch.randn((b, s, h, dq), generator=g) for _ in "qk")
+    v = 0.3 * torch.randn((b, s, h, dv), generator=g)
+    q, k, v = (x.to(dtype).to(cuda_device) for x in (q, k, v))
+    before = flash_attention.launches
+    got = attention.mla_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    pos = torch.arange(s, device=cuda_device)[None].expand(b, s)
+    want = attention.sdpa(q.float(), k.float(), v.float(), pos, pos)
+    assert got.dtype == dtype and got.shape == (b, s, h, dv)
     torch.testing.assert_close(got.float(), want, **TOLS[dtype])
 
 

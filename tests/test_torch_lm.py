@@ -1,9 +1,12 @@
 """The port's language models against the JAX reference on the CPU:
 ``forward``, ``prefill`` and 8 ``decode_step``s for the dense GQA, RWKV6
-and sliding-window smoke configs, with the reference's parameters carried
-across by ``interop.lm_params_from_jax`` (mirrors
+and sliding-window smoke configs and for qwen3-8b (qk-norm), stablelm-12b,
+minicpm3-4b (MLA, its absorbed decode), deepseek-moe-16b and grok-1-314b
+(MoE, their router loss), with the reference's parameters carried across
+by ``interop.lm_params_from_jax`` (mirrors
 ``tests/test_decode_parity.py``). Also the configs field for field, the
-bf16 parameter round trip, and RWKV's biased per-head variance.
+input-shape table and arch sets, the bf16 parameter round trip, and
+RWKV's biased per-head variance.
 
 Tolerance 1e-4 absolute and relative in fp32: both sides compute the same
 arithmetic in fp32 and differ only in summation order."""
@@ -17,7 +20,7 @@ import numpy as np
 import pytest
 import torch
 
-import repro.configs  # noqa: F401  (registry)
+import repro.configs as ref_configs
 from repro.models import api as ref_api
 from repro.models import rwkv as ref_rwkv
 from repro.models import transformer as ref_tf
@@ -34,7 +37,14 @@ CASES = [
     ("llama3.2-1b", {}),                       # GQA
     ("rwkv6-1.6b", {}),                        # state cache
     ("llama3.2-1b", {"sliding_window": 16}),   # SWA ring buffer
+    ("qwen3-8b", {}),                          # qk-norm
+    ("stablelm-12b", {}),
+    ("minicpm3-4b", {}),                       # MLA, absorbed decode
+    ("deepseek-moe-16b", {}),                  # MoE, shared experts
+    ("grok-1-314b", {}),                       # MoE, GQA
 ]
+NEW_ARCHS = ["qwen3-8b", "stablelm-12b", "minicpm3-4b", "deepseek-moe-16b",
+             "grok-1-314b"]
 IDS = [f"{a}{'-swa' if o else ''}" for a, o in CASES]
 
 
@@ -56,7 +66,7 @@ def _close(got, want, msg=""):
                                rtol=TOL, atol=TOL, err_msg=msg)
 
 
-@pytest.mark.parametrize("arch", ["llama3.2-1b", "rwkv6-1.6b"])
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "rwkv6-1.6b"] + NEW_ARCHS)
 @pytest.mark.parametrize("smoke", [True, False], ids=["smoke", "full"])
 def test_configs_match_the_reference_field_for_field(arch, smoke):
     """Each field of the port's config equals the reference's; each field
@@ -72,14 +82,30 @@ def test_configs_match_the_reference_field_for_field(arch, smoke):
         torch.float32 if smoke else torch.bfloat16)
 
 
+def test_input_shapes_and_arch_sets_match_the_reference():
+    """``configs/base.py``'s table and window equal the reference's, and
+    the two long-context arch sets are the reference's cut to the ported
+    archs."""
+    assert port_configs.INPUT_SHAPES == {
+        name: port_configs.InputShape(**dataclasses.asdict(shape))
+        for name, shape in ref_configs.INPUT_SHAPES.items()}
+    assert port_configs.LONG_CTX_SWA_WINDOW == \
+        ref_configs.LONG_CTX_SWA_WINDOW
+    ported = set(port_configs.ARCH_MODULES)
+    assert port_configs.LONG_CTX_SWA_ARCHS == \
+        ref_configs.LONG_CTX_SWA_ARCHS & ported
+    assert port_configs.LONG_CTX_SKIP == ref_configs.LONG_CTX_SKIP & ported
+    assert ported <= set(ref_configs.ARCH_MODULES)
+
+
 def test_unported_arch_names_the_roadmap():
     assert list_archs() == sorted(port_configs.ARCH_MODULES)
-    with pytest.raises(KeyError, match="ROADMAP.md"):
-        get_config("qwen3-8b")
-    for change in ({"arch_type": "moe"}, {"attention": "mla"}):
-        cfg = get_config("llama3.2-1b", smoke=True).replace(**change)
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            transformer.init_params(cfg, torch.Generator().manual_seed(0))
+    for arch in ("hymba-1.5b", "whisper-tiny", "llava-next-34b"):
+        with pytest.raises(KeyError, match="ROADMAP.md"):
+            get_config(arch)
+    cfg = get_config("llama3.2-1b", smoke=True).replace(arch_type="hybrid")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        transformer.init_params(cfg, torch.Generator().manual_seed(0))
 
 
 @pytest.mark.parametrize("arch", ref_list_archs())
@@ -107,11 +133,16 @@ def test_port_refuses_what_its_config_cannot_express(arch):
 def test_forward_matches_reference(arch, overrides):
     ref_cfg, ref_params, cfg, params = _models(arch, overrides)
     toks = _tokens(cfg, 2, 32)
-    want, _ = ref_tf.forward(ref_cfg, ref_params, jnp.asarray(toks))
+    want, want_aux = ref_tf.forward(ref_cfg, ref_params, jnp.asarray(toks))
     got, aux = transformer.forward(cfg, params, torch.from_numpy(toks))
     assert got.shape == want.shape and got.dtype == torch.float32
     _close(got.numpy(), want)
-    assert float(aux) == 0.0
+    if cfg.is_moe:     # the layers' router losses, summed
+        np.testing.assert_allclose(float(aux), float(want_aux), rtol=1e-5,
+                                   atol=1e-5)
+        assert float(aux) > 0.5
+    else:
+        assert float(aux) == 0.0 == float(want_aux)
 
 
 @pytest.mark.parametrize("arch,overrides", CASES, ids=IDS)
@@ -170,6 +201,28 @@ def test_init_follows_the_reference_scales():
     assert api.param_bytes(params) == 4 * api.param_count(params)
 
 
+@pytest.mark.parametrize("arch", ["minicpm3-4b", "deepseek-moe-16b",
+                                  "grok-1-314b"])
+def test_mla_and_moe_init_follow_the_reference(arch):
+    """The same tree, shapes and dtypes as the reference's init, in bf16
+    (the router leaf stays fp32), and the same scales in fp32."""
+    for dtype in ("bfloat16", "float32"):
+        cfg = get_config(arch, smoke=True).replace(dtype=dtype)
+        params = api.init_params(cfg, torch.Generator().manual_seed(0))
+        ref = ref_api.init_params(
+            ref_get_config(arch, smoke=True).replace(dtype=dtype),
+            jax.random.PRNGKey(0))
+        assert jax.tree.structure(ref) == jax.tree.structure(params)
+        for x, y in zip(jax.tree.leaves(params), jax.tree.leaves(ref)):
+            assert tuple(x.shape) == y.shape
+            assert str(x.dtype).split(".")[-1] == str(y.dtype)
+            if dtype == "float32":
+                sx, sy = float(x.std()), float(np.asarray(y).std())
+                assert (sx == sy == 0.0) or abs(sx / sy - 1) < 0.25
+        if cfg.is_moe:
+            assert params["layers"]["moe"]["router"].dtype == torch.float32
+
+
 def test_bf16_parameters_round_trip_bit_exactly():
     cfg = ref_get_config("llama3.2-1b", smoke=True).replace(dtype="bfloat16")
     ref = ref_api.init_params(cfg, jax.random.PRNGKey(0))
@@ -183,6 +236,26 @@ def test_bf16_parameters_round_trip_bit_exactly():
         y = np.asarray(y)
         assert x.dtype == y.dtype and x.shape == y.shape
         np.testing.assert_array_equal(x.view(np.uint16), y.view(np.uint16))
+
+
+@pytest.mark.parametrize("arch", ["minicpm3-4b", "deepseek-moe-16b"])
+def test_mla_and_moe_bf16_parameters_cross_as_they_are(arch):
+    """``lm_params_from_jax`` carries the MLA and MoE leaves as they are
+    (the fp32 router of a bf16 model included), bit for bit both ways."""
+    cfg = ref_get_config(arch, smoke=True).replace(dtype="bfloat16")
+    ref = ref_api.init_params(cfg, jax.random.PRNGKey(1))
+    port = lm_params_from_jax(ref)
+    for x, y in zip(jax.tree.leaves(port), jax.tree.leaves(ref)):
+        assert tuple(x.shape) == y.shape
+        assert str(x.dtype).split(".")[-1] == str(y.dtype)
+    if cfg.n_experts:
+        assert port["layers"]["moe"]["router"].dtype == torch.float32
+    back = lm_params_to_jax(port)
+    assert jax.tree.structure(back) == jax.tree.structure(ref)
+    for x, y in zip(jax.tree.leaves(back), jax.tree.leaves(ref)):
+        y = np.asarray(y)
+        assert x.dtype == y.dtype
+        np.testing.assert_array_equal(x.view(np.uint8), y.view(np.uint8))
 
 
 def test_rwkv_group_norm_uses_the_biased_variance():

@@ -53,7 +53,9 @@ def _reference_serve(cfg, params, queue):
     return np.concatenate(out), first_logits
 
 
-@pytest.mark.parametrize("arch", ["llama3.2-1b", "rwkv6-1.6b"])
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "rwkv6-1.6b", "qwen3-8b",
+                                  "stablelm-12b", "minicpm3-4b",
+                                  "deepseek-moe-16b", "grok-1-314b"])
 def test_serve_matches_the_reference_loop(arch):
     ref_cfg = ref_get_config(arch, smoke=True)
     cfg = get_config(arch, smoke=True)
@@ -95,6 +97,15 @@ def test_main_serves_a_smoke_config_on_the_cpu(capsys):
     port_serve.main(["--arch", "rwkv6-1.6b", "--requests", "3", "--batch",
                      "2", "--prompt-len", "8", "--gen-len", "3",
                      "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert out.count("batch of") == 2 and "served 3 requests" in out
+
+
+@pytest.mark.parametrize("arch", ["minicpm3-4b", "deepseek-moe-16b"])
+def test_main_serves_the_mla_and_moe_smoke_configs(arch, capsys):
+    port_serve.main(["--arch", arch, "--requests", "3", "--batch", "2",
+                     "--prompt-len", "8", "--gen-len", "3", "--device",
+                     "cpu"])
     out = capsys.readouterr().out
     assert out.count("batch of") == 2 and "served 3 requests" in out
 

@@ -69,15 +69,28 @@ def test_lm_step_from_the_reference_init_gives_its_losses(capsys):
     """The reference's ``lm_main`` (seed 0) prints its first 3 losses; the
     port's step function from the same initial params (the reference's
     ``k_init``) and AdamW on the same token batches gives them again."""
-    ref_train.main(LM)
+    check_lm_steps("llama3.2-1b", capsys)
+
+
+@pytest.mark.parametrize("arch", ["minicpm3-4b", "deepseek-moe-16b"])
+def test_lm_steps_of_the_mla_and_moe_smoke_configs(arch, capsys):
+    """The same on the MLA and MoE smoke configs (the loss with MoE's
+    router term), and the port's own lm mode runs them."""
+    check_lm_steps(arch, capsys)
+    out = train.main(LM + ["--arch", arch, "--device", "cpu"])
+    assert len(out["losses"]) == 3 and np.isfinite(out["losses"]).all()
+
+
+def check_lm_steps(arch, capsys):
+    ref_train.main(LM + ["--arch", arch])
     printed = [float(line.split()[3]) for line in
                capsys.readouterr().out.splitlines()
                if line.startswith("step")]
     assert len(printed) == 3
-    cfg = get_config("llama3.2-1b", smoke=True)
+    cfg = get_config(arch, smoke=True)
     k_init = jax.random.split(jax.random.PRNGKey(0))[0]
     params = lm_params_from_jax(jax.tree.map(np.asarray, ref_api.init_params(
-        ref_get_config("llama3.2-1b", smoke=True), k_init)))
+        ref_get_config(arch, smoke=True), k_init)))
     opt = optim.adamw(0.01)
     opt_state = opt.init(params)
     step = train.make_train_step(cfg, opt)
@@ -93,7 +106,8 @@ def test_lm_step_from_the_reference_init_gives_its_losses(capsys):
         assert not loss.requires_grad and 0.0 <= metrics["acc"].item() <= 1
     np.testing.assert_allclose(losses, printed, rtol=0, atol=LOSS_TOL)
     assert opt_state["count"] == 3
-    assert losses[2] < losses[0]
+    if arch == "llama3.2-1b":
+        assert losses[2] < losses[0]
 
 
 def test_lm_mode_checkpoint_loads_in_both_packages(tmp_path, capsys):

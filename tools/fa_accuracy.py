@@ -5,7 +5,8 @@
 
 On one card, for q and k at std 0.3, 1 and 3 (scaled scores of about
 0.1, 1 and 9 std) and v at std 0.3, at llama3.2-1b's serving shape (B 4,
-S 512, Hq 32, Hkv 8, D 64; N seeds) and at S = 4096 (B 1; 2 seeds),
+S 512, Hq 32, Hkv 8, D 64; N seeds), at S = 4096 (B 1; 2 seeds) and at
+stablelm-12b's serving shape (D 160; N seeds),
 counts the outputs that ``chip_smoke.py``'s bf16 check would refuse: more
 than 1e-6 + 2^-8 |answer| from the plain version run in fp32, and from
 the plain version run in fp64. The same counts for the fp32 kernel's
@@ -54,7 +55,8 @@ def main() -> int:
     print(smi, flush=True)
     rec = {"nvidia_smi": smi, "device": torch.cuda.get_device_name(0),
            "cases": []}
-    for shape, seeds in ((cs.FA_SERVE, args.seeds), (cs.FA_LONG, 2)):
+    for shape, seeds in ((cs.FA_SERVE, args.seeds), (cs.FA_LONG, 2),
+                         (cs.FA_D160, args.seeds)):
         for std in QK_STDS:
             c = {"shape": list(shape), "qk_std": std, "seeds": seeds,
                  "outputs": seeds * shape[0] * shape[1] * shape[3]
