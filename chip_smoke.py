@@ -56,6 +56,13 @@ failure raises and exits non-zero, before the last line is printed):
      keeps fp32 scores and statistics, carries P V as three bf16 terms of P
      and rounds once; timed at the serving shape, the long one and
      stablelm-12b's, and after the last phase at the LM feature pass's;
+     the hybrid, audio and VLM families' full-width shapes
+     (``FA_FAMILIES``: hymba-1.5b at B 4, S 2048, Hq 25, Hkv 5, D 64 with
+     its window of 1024; whisper-tiny's encoder at S 1500, Hq = Hkv 6, D
+     64, non-causal; llava-next-34b's image prefix and prompt at S 3392,
+     Hq 56, Hkv 8, D 128), each in both dtypes with the same gates and
+     timed beside its bound and SDPA (with a boolean window mask at
+     hymba's shape);
      MLA's call timed with its pads, the kernel alone on padded tensors,
      the plain ``sdpa`` and SDPA on the unpadded tensors, its bound from the
      unpadded work; yardstick: ``scaled_dot_product_attention`` (causal,
@@ -210,8 +217,8 @@ failure raises and exits non-zero, before the last line is printed):
    (RWKV's fp32 leaves at 4 bytes); the profiled round also gives the
    host time under ``wkv_train``'s backward;
 4b. the smoke LM FACADE rounds (fp32) of ``SMOKE_LM_ARCHS`` (llama3.2-1b,
-   rwkv6-1.6b, minicpm3-4b's MLA and deepseek-moe-16b's MoE, K1 on their
-   feature passes) on the card and on the CPU from the same draws:
+   rwkv6-1.6b, minicpm3-4b's MLA, deepseek-moe-16b's MoE and hymba-1.5b's
+   hybrid, K1 on their feature passes) on the card and on the CPU from the same draws:
    selection losses and parameters within 1e-4, cluster ids and bytes
    equal;
 4c. the launcher's lm mode (``launch.train.main``) on both LM smoke configs
@@ -235,15 +242,37 @@ failure raises and exits non-zero, before the last line is printed):
    160), minicpm3-4b (MLA's padded call), deepseek-moe-16b and
    grok-1-314b (MoE) cut to 2 of its 64 layers at every published width
    (the whole model does not fit on one card; the cut is in its record),
-   each with its parameters' bytes, the init's peak memory (the layers
-   filled in place) and the phase's seconds, freed before the next;
-5a. the smoke configs of ``SMOKE_SERVE_ARCHS`` (the seven archs, fp32)
-   served on the card and on the CPU with the same parameters: greedy
-   tokens equal, prefill logits within 1e-4;
+   hymba-1.5b (attention and the plain mamba scan in parallel, its window
+   of 1024) and llava-next-34b (text only, as ``serve`` takes it) cut to
+   16 of its 60 layers, each with its parameters' bytes, the init's peak
+   memory (the layers filled in place) and the phase's seconds, freed
+   before the next;
+5a. llava-next-34b's image-prefix prefill on its served slice
+   (``vlm_prefill``, ``VLM_PREFILL``): 4 requests of 2880 seeded patch
+   embeddings and a 512-token prompt in one prefill (K2 once a layer at S
+   3392), 32 greedy decode steps after the prefix (no kernel), finite
+   logits; prefill tokens per second over image and text positions,
+   decode tokens per second, its profile and peak;
+5b. whisper-tiny at full width (``whisper_phase``, ``WHISPER``, bf16):
+   frames [4, 1500, 384] from a seed, ``encode`` (K2 once an encoder
+   layer), the teacher-forced ``forward`` of a 64-token prompt (8 K2
+   launches), ``init_cache`` (4), the prompt decoded step by step and 32
+   greedy steps (none), finite; encode seconds, decode tokens per second,
+   peak;
+5c. the smoke configs of ``SMOKE_SERVE_ARCHS`` (the nine decoder archs,
+   fp32; the VLM text only) served on the card and on the CPU with the
+   same parameters, and hymba-smoke once more at a 96-token prompt past
+   its window of 64 (``SMOKE_SERVE_LONG``: K2's window and the ring-buffer
+   decode): greedy tokens equal, prefill logits within 1e-4; then
+   whisper-smoke (``smoke_whisper``): ``encode`` and the forward's logits
+   within 1e-4, the prompt decoded step by step and 8 greedy steps, tokens
+   equal, and on the card the decode logits at the prompt's positions
+   within 1e-4 of the teacher-forced forward's;
 6. a ``kernels`` JSON line (each kernel's launches on its path, error,
-   times and bound; K2's launches in each full-width serve under
-   ``"launches_by_arch"`` and its D 160 and MLA shapes' errors, times,
-   bounds and SDPA times under ``"shapes"``; head select's ResNet8 step
+   times and bound; K2's launches in each full-width serve, in llava's
+   image-prefix prefill and in a whisper forward under
+   ``"launches_by_arch"`` and its D 160, MLA and ``FA_FAMILIES`` shapes'
+   errors, times, bounds and SDPA times under ``"shapes"``; head select's ResNet8 step
    2c under ``"resnet8"``,
    its launches on the driver phases under ``"driver_launches"``, the
    telemetry phase's under ``"obs"``; K2's and K3's in the traced serves
@@ -300,7 +329,7 @@ from repro_torch.kernels.head_select import head_losses, head_losses_ref  # noqa
 from repro_torch.kernels.rwkv6 import wkv, wkv_scan, wkv_train  # noqa: E402
 from repro_torch.launch import train  # noqa: E402
 from repro_torch.launch.serve import make_requests, serve  # noqa: E402
-from repro_torch.models import api, attention, transformer  # noqa: E402
+from repro_torch.models import api, attention, transformer, whisper  # noqa: E402
 from repro_torch.models.base import get_config  # noqa: E402
 from repro_torch.netsim import (PRESETS, NetSchedule,  # noqa: E402
                                 NetworkConfig)
@@ -478,16 +507,55 @@ N_REQUESTS = 8
 # serves are also traced), each with K2 in every prefill layer, and the
 # layers kept: grok-1-314b's 64 layers at every published width are about
 # 630 GB in bf16, so its serve keeps 2 of them (about 22.9 GB with the
-# embedding and head)
+# embedding and head); llava-next-34b's 60 are 68.8 GB, which with its
+# image-prefix prefill leaves no margin on an 80 GB card, so it keeps 16
+# (about 19.7 GB)
 SERVE_MORE = {"qwen3-8b": None, "stablelm-12b": None, "minicpm3-4b": None,
-              "deepseek-moe-16b": None, "grok-1-314b": 2}
-# the smoke configs served on the card and on the CPU (5a) and the smoke
-# LM FACADE rounds (4b): MLA and MoE beside GQA and RWKV
+              "deepseek-moe-16b": None, "grok-1-314b": 2,
+              "hymba-1.5b": None, "llava-next-34b": 16}
+# the VLM's image-prefix prefill (5a), on llava-next-34b's served slice:
+# SERVE's batch of requests, each its config's 2880 patch embeddings (the
+# vision tower is a stub, as in the reference: drawn from a seeded
+# generator at the token embeddings' scale, 0.02) in front of a prompt of
+# SERVE's 512 tokens, then SERVE's 32 greedy decode steps
+VLM_PREFILL = dict(batch=SERVE["batch"], prompt_len=SERVE["prompt_len"],
+                   gen_len=SERVE["gen_len"], img_std=0.02)
+# whisper-tiny at full width (5b): SERVE's batch of requests, each the
+# config's 1500 frames (the audio frontend is a stub: unit normal draws),
+# a 64-token decoder prompt and 32 greedy decode steps; and at smoke
+# size on the card and on the CPU (5c)
+WHISPER = dict(batch=SERVE["batch"], prompt_len=64, gen_len=32)
+WHISPER_SMOKE = dict(batch=2, prompt_len=16, gen_len=8)
+# the smoke configs served on the card and on the CPU (5c) and the smoke
+# LM FACADE rounds (4b): MLA, MoE and the hybrid beside GQA and RWKV
 SMOKE_SERVE_ARCHS = ("llama3.2-1b", "rwkv6-1.6b") + tuple(SERVE_MORE)
 SMOKE_LM_ARCHS = ("llama3.2-1b", "rwkv6-1.6b", "minicpm3-4b",
-                  "deepseek-moe-16b")
+                  "deepseek-moe-16b", "hymba-1.5b")
 SMOKE_SERVE = dict(batch=2, prompt_len=32, gen_len=8, temperature=0.0,
                    seed=0)
+# hymba-smoke served once more with prompts past its window of 64: K2's
+# window masks, and decode writes around the 64-slot ring buffer
+SMOKE_SERVE_LONG = {"hymba-1.5b": dict(SMOKE_SERVE, prompt_len=96)}
+# K2 at the hybrid, audio and VLM families' full-width prefill shapes,
+# (B, Hq, Hkv, S, D), causal, window, calls a timed graph: hymba-1.5b at twice its window of
+# 1024 (GQA group 5; its serving prompt of 512 sits inside the window, so
+# this is the shape where the window masks); whisper-tiny's encoder over
+# its 1500 frames (non-causal, ragged against the kernel's 64-row tiles);
+# llava-next-34b's 2880 image positions and 512-token prompt (GQA group 7)
+HYMBA_CFG = get_config("hymba-1.5b")
+WHISPER_CFG = get_config("whisper-tiny")
+LLAVA_CFG = get_config("llava-next-34b")
+FA_FAMILIES = {
+    "hymba": ((SERVE["batch"], HYMBA_CFG.n_heads, HYMBA_CFG.n_kv_heads,
+               2 * HYMBA_CFG.sliding_window, HYMBA_CFG.hd), True,
+              HYMBA_CFG.sliding_window, 20),
+    "whisper_enc": ((WHISPER["batch"], WHISPER_CFG.n_heads,
+                     WHISPER_CFG.n_kv_heads, WHISPER_CFG.encoder_seq,
+                     WHISPER_CFG.hd), False, 0, 50),
+    "llava": ((VLM_PREFILL["batch"], LLAVA_CFG.n_heads,
+               LLAVA_CFG.n_kv_heads,
+               LLAVA_CFG.n_image_tokens + VLM_PREFILL["prompt_len"],
+               LLAVA_CFG.hd), True, 0, 3)}
 SMOKE_LOGIT_TOL = 1e-4  # fp32 on both devices, other summation order
 
 
@@ -2615,26 +2683,35 @@ def fa_plain(q, k, v, window=0, causal=True):
     return out.transpose(1, 2)
 
 
-def fa_library(q, k, v):
+def fa_library(q, k, v, causal=True, window=0):
     """One PyTorch call for the same function (the yardstick; the port
-    never calls it)."""
+    never calls it): SDPA with GQA, causal or not, and with a window as a
+    boolean mask of the visible (query, key) pairs."""
+    mask = None
+    if window:
+        i = torch.arange(q.shape[1], device=q.device)[:, None]
+        j = torch.arange(q.shape[1], device=q.device)[None, :]
+        mask = (i - j < window) & ((j <= i) if causal else True)
     return F.scaled_dot_product_attention(
         q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-        is_causal=True, enable_gqa=True).transpose(1, 2)
+        attn_mask=mask, is_causal=causal and mask is None,
+        enable_gqa=True).transpose(1, 2)
 
 
-def fa_bound(q, k, v, window=0):
-    """The least time for causal attention of these (unpadded) tensors:
-    q, k and v read once and the output ([B, S, Hq, Dv]) written once, and
-    2 Dqk + 2 Dv operations a visible (query, key) pair and query head."""
+def fa_bound(q, k, v, window=0, causal=True):
+    """The least time for attention of these (unpadded) tensors: q, k and
+    v read once and the output ([B, S, Hq, Dv]) written once, and 2 Dqk +
+    2 Dv operations a visible (query, key) pair and query head."""
     b, s, hq, dq = q.shape
     dv = v.shape[-1]
     nbytes = (q.numel() + k.numel() + v.numel() + b * s * hq * dv) * \
         q.element_size()
     i = np.arange(s)[:, None]
     j = np.arange(s)[None, :]
-    seen = (j <= i) & ((i - j < window) if window else True)
-    flops = 2 * (dq + dv) * int(seen.sum()) * b * hq  # QK^T, PV, causal
+    seen = ((j <= i) if causal else True) & \
+        ((i - j < window) if window else True)
+    seen = np.broadcast_to(seen, (s, s))
+    flops = 2 * (dq + dv) * int(seen.sum()) * b * hq  # QK^T, PV
     peak = BF16_FLOPS if q.dtype == torch.bfloat16 else FP32_FLOPS
     by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     by_ops = flops / peak * 1e3
@@ -2657,6 +2734,10 @@ def flash_attention_phase(rec):
     # tools/fa_accuracy.py)
     cases += [(FA_D160, dt, True, 0, 0.3) for dt in both]
     cases.append(((1, 4, 2, 130, 160), torch.bfloat16, False, 0, 0.3))
+    # the hybrid, audio and VLM families' shapes (hymba past its window,
+    # whisper's non-causal encoder at S 1500, llava's image prefix)
+    cases += [(shape, dt, causal, w, 0.3)
+              for shape, causal, w, _ in FA_FAMILIES.values() for dt in both]
     # last: the serving shape in bf16, whose error the kernels line reports
     cases += [(shape, dt, True, 0, 0.3) for dt in both
               for shape in ((1, 4, 2, 200, 64), FA_LONG, FA_SERVE)]
@@ -2690,7 +2771,17 @@ def flash_attention_phase(rec):
               in (("serve", FA_SERVE, 50), ("long", FA_LONG, 5),
                   ("d160", FA_D160, 50))}
     timing["mla"] = mla_timing(FA_MLA, 50)
+    for label, (shape, causal, w, calls) in FA_FAMILIES.items():
+        timing[label] = fa_timing(label, shape, calls, causal=causal,
+                                  window=w)
     rec["flash_attention_timing"] = timing
+    shapes = {"d160": dict(timing["d160"], max_abs_err=[
+        c["max_abs_err"] for c in checks if c["shape"] == list(FA_D160)]),
+        "mla": dict(timing["mla"], max_abs_err=[
+            c["max_abs_err"] for c in mla_checks])}
+    for label, (shape, _, _, _) in FA_FAMILIES.items():
+        shapes[label] = dict(timing[label], max_abs_err=[
+            c["max_abs_err"] for c in checks if c["shape"] == list(shape)])
     t = timing["serve"]
     return {"name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/csrc/flash_attention.cu",
@@ -2698,12 +2789,7 @@ def flash_attention_phase(rec):
             "launches": None, "max_abs_err": checks[-1]["max_abs_err"],
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-            "library_ms": t["library_ms"],
-            "shapes": {"d160": dict(timing["d160"], max_abs_err=[
-                c["max_abs_err"] for c in checks
-                if c["shape"] == list(FA_D160)]),
-                "mla": dict(timing["mla"], max_abs_err=[
-                    c["max_abs_err"] for c in mla_checks])}}
+            "library_ms": t["library_ms"], "shapes": shapes}
 
 
 def mla_inputs(b, h, s, dq, dv, dtype, seed):
@@ -2753,19 +2839,31 @@ def mla_timing(shape, calls) -> dict:
     return t
 
 
-def fa_timing(label, shape, calls) -> dict:
+def fa_timing(label, shape, calls, causal=True, window=0) -> dict:
     """K2, its plain version and SDPA timed in bf16 at ``shape``, beside
-    the bound. ``graph_ms`` leaves its capture's memory allocated for the
-    rest of the process and later phases count it in their peak memory,
-    so a timing added before them changes their peaks."""
+    the bound (each graph and its memory released after its timing)."""
     q, k, v = fa_inputs(*shape, torch.bfloat16, seed=99)
-    bound_ms, bound_by, nbytes, flops = fa_bound(q, k, v)
-    t = {"shape": list(shape), "dtype": "bf16", "bound_ms": bound_ms,
-         "bound_by": bound_by, "bytes": nbytes, "flops": flops}
-    for key, fn in (("ms", flash_attention), ("plain_ms", fa_plain),
-                    ("library_ms", fa_library), ("ms_again", flash_attention),
-                    ("plain_ms_again", fa_plain)):
-        t[key] = graph_ms(lambda: fn(q, k, v), calls=calls)
+    bound_ms, bound_by, nbytes, flops = fa_bound(q, k, v, window, causal)
+    t = {"shape": list(shape), "dtype": "bf16", "causal": causal,
+         "window": window, "bound_ms": bound_ms, "bound_by": bound_by,
+         "bytes": nbytes, "flops": flops,
+         "library": ("scaled_dot_product_attention, GQA, "
+                     + ("boolean window mask" if window else
+                        "is_causal" if causal else "no mask"))}
+
+    def kernel():
+        return flash_attention(q, k, v, causal=causal, window=window)
+
+    def plain():
+        return fa_plain(q, k, v, window, causal)
+
+    def library():
+        return fa_library(q, k, v, causal, window)
+
+    for key, fn in (("ms", kernel), ("plain_ms", plain),
+                    ("library_ms", library), ("ms_again", kernel),
+                    ("plain_ms_again", plain)):
+        t[key] = graph_ms(fn, calls=calls)
     log(f"flash_attention timing {label}", json.dumps(t))
     return t
 
@@ -3012,6 +3110,10 @@ def serve_phase(rec, arch: str, kernel, traced: bool = True,
     profiles = {"prefill": device_profile(run_prefill),
                 "decode_8_steps": device_profile(run_decode)}
     log(f"serve {arch} profile", json.dumps(profiles))
+    del state
+    peak = torch.cuda.max_memory_allocated()
+    image_prefill = (vlm_prefill(arch, cfg, params)
+                     if cfg.arch_type == "vlm" else None)
 
     out = {"launches": counts, "batches": batches, "n_layers": cfg.n_layers,
            "cut": cut, "params": api.param_count(params),
@@ -3020,10 +3122,11 @@ def serve_phase(rec, arch: str, kernel, traced: bool = True,
            "prefill_s": res.prefill_s, "decode_s": res.decode_s,
            "prefill_tok_s": res.prefill_tok_s,
            "decode_tok_s": res.decode_tok_s,
-           "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+           "peak_mem_bytes": peak,
            "first_tokens": res.tokens[:, :8].tolist(), **SERVE,
-           "requests": N_REQUESTS, "profile": profiles, "traced": traced}
-    del params, state
+           "requests": N_REQUESTS, "profile": profiles, "traced": traced,
+           "image_prefill": image_prefill}
+    del params
     settled_allocated()
     out["phase_s"] = time.perf_counter() - t_phase
     rec.setdefault("serve", {})[arch] = out
@@ -3036,6 +3139,223 @@ def serve_phase(rec, arch: str, kernel, traced: bool = True,
         f"{res.prefill_s} s, decode {res.decode_s} s); phase "
         f"{out['phase_s']:.1f} s")
     return counts[kernel.__name__]
+
+
+def vlm_prefill(arch, cfg, params) -> dict:
+    """A VLM batch with its image prefix (``VLM_PREFILL``): each request's
+    ``n_image_tokens`` patch embeddings in front of its prompt, prefilled
+    in one call (K2 once a layer, at S = n_img + prompt), then greedy
+    decode steps at positions ``n_img + prompt ..`` (no kernel); after an
+    untimed warm-up. Prefill tokens per second count the image and the
+    text positions. Finite logits; the prefill's profile and the peak
+    memory."""
+    b, s, gen = (VLM_PREFILL[k] for k in ("batch", "prompt_len",
+                                          "gen_len"))
+    n_img = cfg.n_image_tokens
+    g = torch.Generator("cuda").manual_seed(1)
+    img = (VLM_PREFILL["img_std"] * torch.randn(
+        (b, n_img, cfg.d_model), generator=g, device="cuda")).to(cfg.dt)
+    toks = torch.randint(1, cfg.vocab_size, (b, s), generator=g,
+                         device="cuda", dtype=torch.int32)
+
+    def run_prefill():
+        return transformer.prefill(cfg, params, toks, img_embeds=img,
+                                   cache_extra=gen)
+
+    run_prefill()                                       # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with counted() as pre_counts:
+        t0 = time.perf_counter()
+        logits, cache = run_prefill()
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+    finite = torch.isfinite(logits).all()
+    out_tokens = []
+    pos = torch.full((b,), n_img + s, dtype=torch.int32, device="cuda")
+    with counted() as dec_counts:
+        t0 = time.perf_counter()
+        for _ in range(gen):
+            last = logits.argmax(-1)
+            out_tokens.append(last)
+            logits, cache = transformer.decode_step(cfg, params, cache,
+                                                    last[:, None], pos)
+            finite &= torch.isfinite(logits).all()
+            pos = pos + 1
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    slots = int(cache["slot_pos"].shape[-1])
+    del logits, cache
+    want = {fn.__name__: 0 for fn in KERNELS}
+    want_pre = dict(want, flash_attention=cfg.n_layers)
+    out = {"launches": pre_counts, "decode_launches": dec_counts,
+           "batch": b, "image_positions": n_img, "prompt_len": s,
+           "gen_len": gen, "cache_slots": slots, "prefill_s": prefill_s,
+           "prefill_tok_s": b * (n_img + s) / prefill_s,
+           "prefill_tok_s_counts": "image and text positions",
+           "decode_s": decode_s, "decode_tok_s": b * gen / decode_s,
+           "peak_mem_bytes": peak, "finite": bool(finite),
+           "first_tokens": torch.stack(out_tokens, 1)[:, :8].tolist()}
+    out["profile"] = device_profile(run_prefill)
+    log(f"serve {arch} image-prefix prefill: {json.dumps(out)}")
+    if not (pre_counts == want_pre and dec_counts == want and out["finite"]
+            and slots == n_img + s + gen):
+        raise AssertionError(f"{arch} image-prefix prefill: {out}")
+    return out
+
+
+def whisper_phase(rec) -> int:
+    """whisper-tiny at full width (bf16, parameters from the port's init on
+    the card; ``WHISPER``): frames ``[B, 1500, 384]`` from a seeded
+    generator (the audio frontend is a stub); ``encode`` (K2 once an
+    encoder layer, non-causal at S 1500), the teacher-forced ``forward``
+    of a 64-token decoder prompt (K2 once an encoder layer and once a
+    decoder self-attention layer: 8 a call; cross-attention is the plain
+    ``sdpa``), then ``init_cache`` (its encode: K2 once an encoder layer)
+    with room for the prompt and the generated tokens, the prompt decoded
+    step by step and 32 greedy steps (no kernel); each timed after an
+    untimed warm-up. Finite features and logits; returns K2's launches in
+    one ``forward``."""
+    t_phase = time.perf_counter()
+    cfg = WHISPER_CFG
+    b, s, gen = WHISPER["batch"], WHISPER["prompt_len"], WHISPER["gen_len"]
+    settled_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    params = api.init_params(cfg, torch.Generator("cuda").manual_seed(0))
+    g = torch.Generator("cuda").manual_seed(1)
+    frames = torch.randn((b, cfg.encoder_seq, cfg.d_model), generator=g,
+                         device="cuda").to(cfg.dt)
+    prompt = torch.randint(1, cfg.vocab_size, (b, s), generator=g,
+                           device="cuda", dtype=torch.int32)
+    whisper.forward(cfg, params, prompt, frames)        # warm-up
+    torch.cuda.synchronize()
+
+    def timed(fn):
+        with counted() as counts:
+            t0 = time.perf_counter()
+            value = fn()
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+        return value, secs, counts
+
+    enc, encode_s, enc_counts = timed(
+        lambda: whisper.encode(cfg, params, frames))
+    (feats, _), forward_s, fwd_counts = timed(
+        lambda: whisper.forward(cfg, params, prompt, frames))
+    cache, init_s, init_counts = timed(
+        lambda: whisper.init_cache(cfg, params, frames, b, s + gen))
+    state = {"cache": cache, "finite": torch.isfinite(enc).all()
+             & torch.isfinite(feats).all(), "tokens": []}
+
+    def step(tok, pos):
+        logits, state["cache"] = whisper.decode_step(
+            cfg, params, state["cache"], tok[:, None],
+            torch.full((b,), pos, dtype=torch.int32, device="cuda"))
+        state["finite"] &= torch.isfinite(logits).all()
+        return logits
+
+    def decode_prompt():
+        for t in range(s):
+            state["logits"] = step(prompt[:, t], t)
+
+    def decode_greedy():
+        for t in range(gen):
+            last = state["logits"].argmax(-1)
+            state["tokens"].append(last)
+            state["logits"] = step(last, s + t)
+
+    _, prompt_s, prompt_counts = timed(decode_prompt)
+    _, decode_s, decode_counts = timed(decode_greedy)
+    finite = bool(state["finite"])
+    none = {fn.__name__: 0 for fn in KERNELS}
+    out = {"launches": {"encode": enc_counts, "forward": fwd_counts,
+                        "init_cache": init_counts,
+                        "prompt_decode": prompt_counts,
+                        "greedy_decode": decode_counts},
+           "batch": b, "frames": cfg.encoder_seq, "prompt_len": s,
+           "gen_len": gen, "params": api.param_count(params),
+           "param_bytes": api.param_bytes(params), "encode_s": encode_s,
+           "forward_s": forward_s, "init_cache_s": init_s,
+           "prompt_decode_s": prompt_s, "decode_s": decode_s,
+           "decode_tok_s": b * gen / decode_s, "finite": finite,
+           "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+           "first_tokens": torch.stack(state["tokens"], 1)[:, :8].tolist()}
+    del params, state, cache, enc, feats
+    settled_allocated()
+    out["phase_s"] = time.perf_counter() - t_phase
+    rec["whisper"] = out
+    log(f"whisper-tiny: {json.dumps(out)}")
+    want = {"encode": dict(none, flash_attention=cfg.encoder_layers),
+            "forward": dict(none, flash_attention=cfg.encoder_layers
+                            + cfg.n_layers),
+            "init_cache": dict(none, flash_attention=cfg.encoder_layers),
+            "prompt_decode": none, "greedy_decode": none}
+    if out["launches"] != want or not finite:
+        raise AssertionError(f"whisper-tiny: launches {out['launches']}, "
+                             f"want {want}; finite {finite}")
+    return fwd_counts["flash_attention"]
+
+
+def smoke_whisper(out: dict) -> None:
+    """whisper-tiny's smoke config (fp32, ``WHISPER_SMOKE``) on the card
+    and on the CPU with the same parameters, frames and prompt: ``encode``
+    within SMOKE_LOGIT_TOL; the prompt decoded step by step from
+    ``init_cache`` then greedy steps, tokens equal; on the card, the
+    decode logits at the prompt's positions against the teacher-forced
+    ``forward``'s within SMOKE_LOGIT_TOL, and K2's launches (encode,
+    forward and init_cache: encoder layers, encoder and decoder layers,
+    encoder layers)."""
+    cfg = get_config("whisper-tiny", smoke=True)
+    b, s, gen = (WHISPER_SMOKE[k] for k in ("batch", "prompt_len",
+                                            "gen_len"))
+    params = api.init_params(cfg, torch.Generator().manual_seed(0))
+    g = torch.Generator().manual_seed(1)
+    frames = torch.randn((b, cfg.encoder_seq, cfg.d_model), generator=g)
+    prompt = torch.randint(1, cfg.vocab_size, (b, s), generator=g,
+                           dtype=torch.int32)
+
+    def run(device):
+        p = tree_map(lambda t: t.to(device), params)
+        fr, pr = frames.to(device), prompt.to(device)
+        enc = whisper.encode(cfg, p, fr)
+        feats, _ = whisper.forward(cfg, p, pr, fr)
+        full = (feats @ whisper.lm_head_weight(p)).float()
+        cache = whisper.init_cache(cfg, p, fr, b, s + gen)
+        at_prompt, tokens = [], []
+        for t in range(s + gen):
+            if t < s:
+                tok = pr[:, t]
+            else:
+                tok = logits.argmax(-1)
+                tokens.append(tok)
+            logits, cache = whisper.decode_step(
+                cfg, p, cache, tok[:, None],
+                torch.full((b,), t, dtype=torch.int32, device=device))
+            if t < s:
+                at_prompt.append(logits)
+        return (enc.cpu(), full.cpu(), torch.stack(at_prompt, 1).cpu(),
+                torch.stack(tokens, 1).cpu())
+
+    cpu = run("cpu")
+    with counted() as counts:
+        gpu = run("cuda")
+    res = {"encode_max_diff": float((gpu[0] - cpu[0]).abs().max()),
+           "forward_logit_max_diff": float((gpu[1] - cpu[1]).abs().max()),
+           "decode_vs_forward_max_diff": float(
+               (gpu[2] - gpu[1]).abs().max()),
+           "tokens_equal": bool(torch.equal(gpu[3], cpu[3])),
+           "launches": counts}
+    want = dict({fn.__name__: 0 for fn in KERNELS},
+                flash_attention=3 * cfg.encoder_layers + cfg.n_layers)
+    out["whisper-tiny"] = res
+    log(f"smoke whisper-tiny: card vs CPU {json.dumps(res)}")
+    if not (res["tokens_equal"] and counts == want
+            and res["encode_max_diff"] <= SMOKE_LOGIT_TOL
+            and res["forward_logit_max_diff"] <= SMOKE_LOGIT_TOL
+            and res["decode_vs_forward_max_diff"] <= SMOKE_LOGIT_TOL):
+        raise AssertionError(f"whisper-tiny smoke: {res}, launches want "
+                             f"{want}")
 
 
 def traced_serve(arch, cfg, params, queue, plain, want) -> dict:
@@ -3080,26 +3400,34 @@ def traced_serve(arch, cfg, params, queue, plain, want) -> dict:
 
 
 def smoke_serve_phase(rec):
-    """The smoke configs of ``SMOKE_SERVE_ARCHS`` (fp32) served on the card
-    and on the CPU with the same parameters: equal greedy tokens, prefill
-    logits within 1e-4."""
+    """The smoke configs of ``SMOKE_SERVE_ARCHS`` (fp32; the VLM text
+    only, as ``serve`` takes it) served on the card and on the CPU with
+    the same parameters, and hymba-smoke once more past its window
+    (``SMOKE_SERVE_LONG``): equal greedy tokens, prefill logits within
+    1e-4; then whisper-smoke (``smoke_whisper``)."""
     t0 = time.perf_counter()
     out = {}
-    for arch in SMOKE_SERVE_ARCHS:
+    runs = [(arch, arch, SMOKE_SERVE) for arch in SMOKE_SERVE_ARCHS]
+    runs += [(f"{arch} prompt {kw['prompt_len']}", arch, kw)
+             for arch, kw in SMOKE_SERVE_LONG.items()]
+    for label, arch, kw in runs:
         cfg = get_config(arch, smoke=True)
         params = api.init_params(cfg, torch.Generator().manual_seed(0))
         queue = make_requests(np.random.default_rng(0), 4,
-                              SMOKE_SERVE["prompt_len"], cfg.vocab_size)
-        cpu = serve(cfg, params, queue, device="cpu", **SMOKE_SERVE)
+                              kw["prompt_len"], cfg.vocab_size)
+        cpu = serve(cfg, params, queue, device="cpu", **kw)
         gpu = serve(cfg, tree_map(lambda t: t.cuda(), params), queue,
-                    device="cuda", **SMOKE_SERVE)
+                    device="cuda", **kw)
         diff = max(float((a - b).abs().max()) for a, b in
                    zip(gpu.prefill_logits, cpu.prefill_logits))
         same = bool(np.array_equal(gpu.tokens, cpu.tokens))
-        out[arch] = {"prefill_logit_max_diff": diff, "tokens_equal": same}
-        log(f"smoke serve {arch}: card vs CPU {json.dumps(out[arch])}")
+        out[label] = {"prefill_logit_max_diff": diff, "tokens_equal": same,
+                      "prompt_len": kw["prompt_len"],
+                      "window": cfg.sliding_window}
+        log(f"smoke serve {label}: card vs CPU {json.dumps(out[label])}")
         if not (same and diff <= SMOKE_LOGIT_TOL and gpu.finite):
-            raise AssertionError(f"{arch}: card and CPU disagree {out}")
+            raise AssertionError(f"{label}: card and CPU disagree {out}")
+    smoke_whisper(out)
     rec["smoke_serve"] = out
     rec["smoke_serve_s"] = time.perf_counter() - t0
     log(f"smoke serve: {rec['smoke_serve_s']:.1f} s")
@@ -3158,6 +3486,10 @@ def main() -> int:
     for arch, n_layers in SERVE_MORE.items():
         fa["launches_by_arch"][arch] = serve_phase(
             rec, arch, flash_attention, traced=False, n_layers=n_layers)
+    # ... in llava's image-prefix prefill, and in whisper's forward
+    fa["launches_by_arch"]["llava-next-34b image prefix"] = rec["serve"][
+        "llava-next-34b"]["image_prefill"]["launches"]["flash_attention"]
+    fa["launches_by_arch"]["whisper-tiny forward"] = whisper_phase(rec)
     # K2's and K3's launches in the traced serves (--net edge-v2 and a
     # JSONL tracer)
     fa["traced_serve_launches"] = rec["serve"]["llama3.2-1b"]["traced"][

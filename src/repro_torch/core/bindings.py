@@ -29,7 +29,7 @@ from typing import Any, Callable, NamedTuple
 import torch
 
 from repro_torch import resil
-from repro_torch.models import cnn, layers, transformer
+from repro_torch.models import cnn, layers, transformer, whisper
 from repro_torch.models.base import CNNConfig, ModelConfig
 from repro_torch.tree import (tree_leaves, tree_map, tree_unflatten,
                               tree_unstack)
@@ -158,6 +158,8 @@ def make_binding(cfg) -> Binding:
     if isinstance(cfg, CNNConfig):
         return _cnn_binding(cfg)
     if isinstance(cfg, ModelConfig):
+        if cfg.encoder_layers > 0:
+            return _whisper_binding(cfg)
         return _lm_binding(cfg)
     raise NotImplementedError(
         f"{type(cfg).__name__} models are not ported yet")
@@ -213,41 +215,18 @@ def _cnn_binding(cfg: CNNConfig) -> Binding:
                    loss, features, select_operands, forward)
 
 
-def _lm_binding(cfg: ModelConfig) -> Binding:
-    """A decoder LM under FACADE: the head is ``final_norm`` and an untied
-    ``lm_head``; the core's output is the pre-norm features."""
-    hk = ("final_norm", "lm_head")
-
-    def init(generator):
-        return _untie_lm_head(cfg, transformer.init_params(cfg, generator),
-                              generator)
-
-    def node_losses(params, batch):
-        return torch.stack([transformer.loss_fn(
-            cfg, node_params, {key: b[i] for key, b in batch.items()})[0]
-            for i, node_params in enumerate(tree_unstack(params))])
-
-    def loss(params, batch):
-        return node_losses(params, batch).sum()
-
-    def features(core, batch):
-        """[n, B, S, D] pre-norm features, one forward per node."""
-        return torch.stack([
-            transformer.forward(cfg, node_core, batch["tokens"][i],
-                                apply_final_norm=False)[0]
-            for i, node_core in enumerate(tree_unstack(core))])
-
+def _lm_select_operands(norm):
+    """Step 2c's operands for a language model whose head is a final norm
+    (``norm(feats, final_norm)``) and an ``lm_head``: head j of node i
+    scores ``norm(feats_i, final_norm[i, j]) @ lm_head[i, j]``. The norm
+    differs per head, so the kernel gets one normed stream per (node,
+    head), rounded to the param dtype as the norm rounds it: ``[n*k, B*S,
+    D]``, the heads as a view ``[n*k, 1, D, V]`` and labels ``[n*k, B*S]``
+    with the masked positions at -1."""
     def select_operands(feats, heads, batch):
-        """Head j of node i scores ``rms_norm(feats_i, final_norm[i, j])
-        @ lm_head[i, j]``: the gain differs per head, so the kernel gets
-        one normed stream per (node, head), rounded to the param dtype as
-        ``layers.rms_norm`` rounds it: ``[n*k, B*S, D]``, the heads as a
-        view ``[n*k, 1, D, V]`` and labels ``[n*k, B*S]`` with the masked
-        positions at -1."""
         n, k = heads["lm_head"].shape[:2]
-        f = feats.reshape(n, 1, -1, feats.shape[-1])
-        f = layers.rms_norm(f, heads["final_norm"][:, :, None, :],
-                            cfg.norm_eps)
+        f = norm(feats.reshape(n, 1, -1, feats.shape[-1]),
+                 tree_map(lambda g: g[:, :, None, :], heads["final_norm"]))
         labels = torch.where(batch["mask"] > 0, batch["labels"],
                              torch.full_like(batch["labels"], -1))
         labels = labels.reshape(n, 1, -1).expand(n, k, -1)
@@ -256,10 +235,83 @@ def _lm_binding(cfg: ModelConfig) -> Binding:
                                          heads["lm_head"].shape[2:]),
                 labels.reshape(n * k, -1).to(torch.int32).contiguous())
 
-    def forward(params, x):
-        raise NotImplementedError(
-            "per-node logits of a language model are not ported yet; "
-            "evaluate with binding.loss")
+    return select_operands
+
+
+def _no_forward(params, x):
+    raise NotImplementedError(
+        "per-node logits of a language model are not ported yet; "
+        "evaluate with binding.loss")
+
+
+def _node_batch(batch, i: int) -> dict:
+    return {key: b[i] for key, b in batch.items()}
+
+
+def _lm_binding(cfg: ModelConfig) -> Binding:
+    """A decoder LM under FACADE: the head is ``final_norm`` and an untied
+    ``lm_head``; the core's output is the pre-norm features of the text
+    positions (a VLM's batch also holds ``img_embeds`` [n, B, n_img, D])."""
+    hk = ("final_norm", "lm_head")
+
+    def init(generator):
+        return _untie_lm_head(cfg, transformer.init_params(cfg, generator),
+                              generator)
+
+    def node_losses(params, batch):
+        return torch.stack([transformer.loss_fn(
+            cfg, node_params, _node_batch(batch, i))[0]
+            for i, node_params in enumerate(tree_unstack(params))])
+
+    def loss(params, batch):
+        return node_losses(params, batch).sum()
+
+    def features(core, batch):
+        """[n, B, S, D] pre-norm features of the text positions, one
+        forward per node."""
+        img = batch.get("img_embeds")
+        n_img = 0 if img is None else img.shape[2]
+        return torch.stack([
+            transformer.forward(cfg, node_core, batch["tokens"][i],
+                                img_embeds=None if img is None else img[i],
+                                apply_final_norm=False)[0][:, n_img:]
+            for i, node_core in enumerate(tree_unstack(core))])
+
+    def norm(f, g):
+        return layers.rms_norm(f, g, cfg.norm_eps)
 
     return Binding(cfg, init, hk, node_losses, loss, features,
-                   select_operands, forward)
+                   _lm_select_operands(norm), _no_forward)
+
+
+def _whisper_binding(cfg: ModelConfig) -> Binding:
+    """The encoder-decoder under FACADE: the head is ``final_norm`` (a
+    LayerNorm's ``g`` and ``b``) and an untied ``lm_head``; the core is
+    the encoder and the decoder, whose output is the pre-norm decoder
+    features. The batch holds ``frames`` [n, B, S_enc, D]."""
+    hk = ("final_norm", "lm_head")
+
+    def init(generator):
+        return _untie_lm_head(cfg, whisper.init_params(cfg, generator),
+                              generator)
+
+    def node_losses(params, batch):
+        return torch.stack([whisper.loss_fn(
+            cfg, node_params, _node_batch(batch, i))[0]
+            for i, node_params in enumerate(tree_unstack(params))])
+
+    def loss(params, batch):
+        return node_losses(params, batch).sum()
+
+    def features(core, batch):
+        """[n, B, S, D] pre-norm decoder features, one forward per node."""
+        return torch.stack([
+            whisper.forward(cfg, node_core, batch["tokens"][i],
+                            batch["frames"][i], apply_final_norm=False)[0]
+            for i, node_core in enumerate(tree_unstack(core))])
+
+    def norm(f, g):
+        return layers.layer_norm(f, g["g"], g["b"], cfg.norm_eps)
+
+    return Binding(cfg, init, hk, node_losses, loss, features,
+                   _lm_select_operands(norm), _no_forward)

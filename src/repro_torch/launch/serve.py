@@ -7,7 +7,8 @@
 
 ``main`` serves the SMOKE variant of an architecture with parameters from
 the port's own init, as the reference does; ``serve`` is the request loop
-for any config and parameters. Prompts are right-padded to
+for any config and parameters. Both refuse an encoder-decoder config with
+the reference's ``SystemExit``; a VLM is served text only. Prompts are right-padded to
 ``prompt_len``; the first generated token is taken (greedily) from the
 logits of the last padded position, and decoding continues at
 ``pos = len(prompt)``, as in the reference (``ROADMAP.md`` queue 3 records
@@ -105,6 +106,13 @@ class ServeResult:
         return sum(self.batch_sizes) * self.gen_len / sum(self.decode_s)
 
 
+def refuse_encdec(cfg) -> None:
+    """The reference server's refusal of an encoder-decoder config."""
+    if cfg.encoder_layers > 0:
+        raise SystemExit("enc-dec serving: use examples/serve_batched.py "
+                         "(audio frontend is stubbed)")
+
+
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -122,6 +130,7 @@ def serve(cfg, params, queue, *, batch: int, prompt_len: int, gen_len: int,
     traffic goes through (``ServeResult.comm``). ``tracer``: an
     ``obs.Tracer`` given ``queue.wait`` events, ``prefill`` and
     ``decode`` spans and a final ``slo`` event."""
+    refuse_encdec(cfg)
     device = resolve(device)
     queue = list(queue)
     n_requests = len(queue)
@@ -244,6 +253,7 @@ def main(argv=None) -> None:
 
     device = resolve(args.device)
     cfg = get_config(args.arch, smoke=True)
+    refuse_encdec(cfg)
     params = api.init_params(cfg,
                              torch.Generator(device).manual_seed(args.seed))
     rng = np.random.default_rng(args.seed)

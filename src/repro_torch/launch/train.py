@@ -102,6 +102,22 @@ def make_train_step(cfg, opt: optim.Optimizer):
     return step
 
 
+def lm_extras(cfg, batch: int, device) -> dict:
+    """The stub inputs lm mode adds to each batch, as the reference's:
+    zero image embeddings ``[batch, n_image_tokens, d_model]`` for a VLM,
+    zero frames ``[batch, encoder_seq, d_model]`` for an
+    encoder-decoder, in the param dtype."""
+    out = {}
+    if cfg.arch_type == "vlm":
+        out["img_embeds"] = torch.zeros(
+            (batch, cfg.n_image_tokens, cfg.d_model), dtype=cfg.dt,
+            device=device)
+    if cfg.encoder_layers > 0:
+        out["frames"] = torch.zeros((batch, cfg.encoder_seq, cfg.d_model),
+                                    dtype=cfg.dt, device=device)
+    return out
+
+
 def lm_main(args) -> dict:
     """Pretrain ``args.arch``'s smoke config for ``args.steps`` steps;
     returns ``{"params", "losses"}`` (the final params and each step's
@@ -126,6 +142,7 @@ def lm_main(args) -> dict:
         rows = train[step * args.batch:(step + 1) * args.batch]
         batch = {k: torch.from_numpy(v).to(device)
                  for k, v in tokens_mod.lm_batch(rows).items()}
+        batch.update(lm_extras(cfg, args.batch, device))
         params, opt_state, loss, metrics = train_step(params, opt_state,
                                                       batch)
         losses.append(loss)

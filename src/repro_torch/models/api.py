@@ -1,13 +1,17 @@
-"""Uniform model API over the backbones the port runs (decoder LM, CNN),
-mirroring ``repro.models.api``."""
+"""Uniform model API over the three backbones (decoder LM, encoder-decoder,
+CNN), mirroring ``repro.models.api``."""
 from __future__ import annotations
 
 import torch
 
 from repro_torch.tree import tree_leaves
 
-from . import cnn, transformer
-from .base import CNNConfig
+from . import cnn, transformer, whisper
+from .base import CNNConfig, ModelConfig
+
+
+def is_encdec(cfg) -> bool:
+    return isinstance(cfg, ModelConfig) and cfg.encoder_layers > 0
 
 
 def is_cnn(cfg) -> bool:
@@ -19,6 +23,8 @@ def init_params(cfg, generator: torch.Generator) -> dict:
     device for the language models)."""
     if is_cnn(cfg):
         return cnn.init_params(cfg, generator)
+    if is_encdec(cfg):
+        return whisper.init_params(cfg, generator)
     return transformer.init_params(cfg, generator)
 
 
@@ -26,6 +32,8 @@ def loss_fn(cfg, params, batch):
     """-> (scalar loss, metrics dict), for every backbone the port runs."""
     if is_cnn(cfg):
         return cnn.loss_fn(cfg, params, batch)
+    if is_encdec(cfg):
+        return whisper.loss_fn(cfg, params, batch)
     return transformer.loss_fn(cfg, params, batch)
 
 

@@ -2,9 +2,9 @@
 ``repro.models.base``).
 
 Every language-model architecture is described by one ``ModelConfig``;
-``transformer.py`` interprets it. ``dt`` gives the ``torch.dtype`` of the
-parameters. The registry is filled by ``repro_torch.configs`` with the
-architectures the port runs so far.
+``transformer.py`` (and ``whisper.py`` for the encoder-decoder) interprets
+it. ``dt`` gives the ``torch.dtype`` of the parameters. The registry is
+filled by ``repro_torch.configs`` with the reference's ten archs.
 """
 from __future__ import annotations
 
@@ -16,8 +16,9 @@ import torch
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     """The reference's ``ModelConfig`` fields that the ported families
-    (dense GQA, MLA, MoE, RWKV6) read; a later slice adds its family's
-    fields."""
+    (dense GQA, MLA, MoE, RWKV6, hybrid, VLM, encoder-decoder) read; the
+    reference's ``head_keys`` and ``scan_unroll`` are left out (every
+    config keeps their defaults, and nothing of the port reads them)."""
 
     name: str
     arch_type: str  # dense | moe | hybrid | ssm | vlm | audio | cnn
@@ -50,8 +51,22 @@ class ModelConfig:
     router_aux_coef: float = 0.01
     capacity_factor: float = 1.25
 
+    # --- hybrid (hymba: parallel attention + mamba heads) -------------------
+    ssm_state: int = 0
+    ssm_expand: int = 1  # d_inner = ssm_expand * d_model
+    ssm_conv: int = 4
+
     # --- rwkv6 ---------------------------------------------------------------
     rwkv: bool = False
+
+    # --- encoder-decoder (whisper) -------------------------------------------
+    encoder_layers: int = 0
+    encoder_seq: int = 0  # number of (stubbed) audio frames
+    cross_attention: bool = False
+    max_decoder_len: int = 0  # whisper caps ctx at 448
+
+    # --- vlm -----------------------------------------------------------------
+    n_image_tokens: int = 0  # stubbed patch embeddings prepended to text
 
     norm_eps: float = 1e-5
     dtype: str = "bfloat16"
@@ -110,9 +125,7 @@ def register(arch_id: str, fn) -> None:
 def get_config(arch_id: str, smoke: bool = False):
     if arch_id not in _REGISTRY:
         raise KeyError(
-            f"arch {arch_id!r} is not in the port; ported: "
-            f"{sorted(_REGISTRY)}. The reference's other archs are still "
-            "to port (ROADMAP.md, queue 1)")
+            f"unknown arch {arch_id!r}; known: {sorted(_REGISTRY)}")
     return _REGISTRY[arch_id](smoke=smoke)
 
 

@@ -66,6 +66,17 @@ def rms_norm(x, gamma, eps: float = 1e-5):
     return (out * gamma.float()).to(x.dtype)
 
 
+def layer_norm(x, gamma, beta, eps: float = 1e-5):
+    """LayerNorm over the last axis in fp32 with the biased variance (as
+    ``jnp.var``), cast back to x's dtype."""
+    xf = x.float()
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.mean((xf - mu) ** 2, dim=-1, keepdim=True)
+    out = (xf - mu) * torch.rsqrt(var + eps)
+    out = out * gamma.float() + beta.float()
+    return out.to(x.dtype)
+
+
 def rope_freqs(positions, dim: int, theta: float):
     """cos/sin tables for given integer positions. positions [..., S]."""
     inv = 1.0 / (theta ** (torch.arange(0, dim, 2, dtype=torch.float32,
@@ -99,3 +110,21 @@ def swiglu(params, x):
     u = x @ params["w_up"]
     h = F.silu(g.float()).to(x.dtype) * u
     return h @ params["w_down"]
+
+
+def init_gelu_mlp(generator: torch.Generator, d_model: int, d_ff: int,
+                  dtype) -> dict:
+    dev = generator.device
+    return {
+        "w_in": dense_init(generator, d_model, d_ff, dtype),
+        "b_in": torch.zeros((d_ff,), dtype=dtype, device=dev),
+        "w_out": dense_init(generator, d_ff, d_model, dtype),
+        "b_out": torch.zeros((d_model,), dtype=dtype, device=dev),
+    }
+
+
+def gelu_mlp(params, x):
+    """``jax.nn.gelu``'s default is the tanh approximation, in fp32."""
+    h = x @ params["w_in"] + params["b_in"]
+    h = F.gelu(h.float(), approximate="tanh").to(x.dtype)
+    return h @ params["w_out"] + params["b_out"]

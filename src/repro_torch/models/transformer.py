@@ -1,21 +1,25 @@
-"""The decoder backbone for the dense (GQA or MLA attention), MoE and RWKV
-families, driven by ``ModelConfig`` (mirrors the dense, MoE, MLA and RWKV
-branches of ``repro.models.transformer``).
+"""The decoder backbone: dense (GQA or MLA attention), MoE, hybrid
+(attention + mamba), RWKV and VLM, driven by ``ModelConfig`` (mirrors
+``repro.models.transformer``).
 
 API (plain functions on nested dicts of tensors):
-    init_params(cfg, generator)                  -> params
-    forward(cfg, params, tokens)                 -> (features, aux)
-    loss_fn(cfg, params, batch)                  -> (loss, metrics)
-    init_cache(cfg, batch, cache_len, device)    -> empty cache (leading L)
-    prefill(cfg, params, tokens, cache_extra)    -> (last_logits, cache)
-    decode_step(cfg, params, cache, tokens, pos) -> (logits, cache)
+    init_params(cfg, generator)                         -> params
+    forward(cfg, params, tokens, img_embeds=None)       -> (features, aux)
+    loss_fn(cfg, params, batch)                         -> (loss, metrics)
+    init_cache(cfg, batch, cache_len, device)           -> empty cache
+    prefill(cfg, params, tokens, img_embeds=None, ...)  -> (last_logits,
+                                                            cache)
+    decode_step(cfg, params, cache, tokens, pos)        -> (logits, cache)
 
 Layers are stacked (a leading L axis on every leaf of ``params["layers"]``
 and of the cache), as in the reference; a Python loop over L takes the
 place of its ``lax.scan``. ``aux`` is MoE's router load-balance loss
 (summed over the layers; 0 for the other families), which ``loss_fn``
-adds at ``router_aux_coef``. Hybrid, VLM and audio models are not ported
-yet and raise ``NotImplementedError`` (``ROADMAP.md``).
+adds at ``router_aux_coef``. A VLM's ``img_embeds`` [B, n_img, D] (the
+stubbed vision tower's patch embeddings) go in front of the tokens, at
+positions ``0 .. n_img - 1``. The encoder-decoder (audio) family is
+``whisper.py``'s; this module refuses it, and any other family outside
+``PORTED``, with ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -25,20 +29,22 @@ from repro_torch.device import resolve
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.tree import tree_map, tree_unstack
 
-from . import attention, layers, moe, rwkv
+from . import attention, layers, moe, rwkv, ssm
 from .base import ModelConfig
 
 
-# (arch_type, attention, rwkv) of the families the port runs
+# (arch_type, attention, rwkv) of the families this module runs
 PORTED = {("dense", "gqa", False), ("dense", "mla", False),
-          ("moe", "gqa", False), ("ssm", "none", True)}
+          ("moe", "gqa", False), ("ssm", "none", True),
+          ("hybrid", "gqa", False), ("vlm", "gqa", False)}
 
 
 def _check_ported(cfg: ModelConfig) -> None:
     if (cfg.arch_type, cfg.attention, cfg.rwkv) not in PORTED:
         raise NotImplementedError(
             f"{cfg.name}: {cfg.arch_type} models with {cfg.attention} "
-            "attention are not ported yet (ROADMAP.md, queue 1)")
+            "attention are not run by transformer.py (encoder-decoder "
+            "models: whisper.py; ROADMAP.md)")
 
 
 def _layer(tree, i: int):
@@ -64,6 +70,12 @@ def init_layer(generator: torch.Generator, cfg: ModelConfig) -> dict:
         p["attn"] = attention.init_mla(generator, cfg)
     else:
         p["attn"] = attention.init_gqa(generator, cfg)
+    if cfg.arch_type == "hybrid":
+        p["ssm"] = ssm.init_ssm(generator, cfg)
+        p["branch_norm_attn"] = torch.ones((cfg.d_model,), dtype=cfg.dt,
+                                           device=dev)
+        p["branch_norm_ssm"] = torch.ones((cfg.d_model,), dtype=cfg.dt,
+                                          device=dev)
     if cfg.is_moe:
         p["moe"] = moe.init_moe(generator, cfg)
     else:
@@ -123,6 +135,13 @@ def _ffn(cfg: ModelConfig, lp, m):
     return layers.swiglu(lp["mlp"], m), None
 
 
+def _fuse(cfg: ModelConfig, lp, attn_out, ssm_out):
+    """Hymba's combination of its two branches, each normalised."""
+    return 0.5 * (
+        layers.rms_norm(attn_out, lp["branch_norm_attn"], cfg.norm_eps)
+        + layers.rms_norm(ssm_out, lp["branch_norm_ssm"], cfg.norm_eps))
+
+
 def block_forward(cfg: ModelConfig, lp, h, positions):
     """One layer, full sequence. Returns (h, aux): MoE's router loss, None
     for the other families."""
@@ -134,11 +153,15 @@ def block_forward(cfg: ModelConfig, lp, h, positions):
         cm, _ = rwkv.channel_mix(cfg, lp["channel_mix"], m)
         return h + cm, None
     if cfg.attention == "mla":
-        h = h + attention.mla_forward(cfg, lp["attn"], a, positions,
-                                      window=cfg.sliding_window)
+        attn_out = attention.mla_forward(cfg, lp["attn"], a, positions,
+                                         window=cfg.sliding_window)
     else:
-        h = h + attention.gqa_forward(cfg, lp["attn"], a, positions,
-                                      window=cfg.sliding_window)
+        attn_out = attention.gqa_forward(cfg, lp["attn"], a, positions,
+                                         window=cfg.sliding_window)
+    if cfg.arch_type == "hybrid":
+        attn_out = _fuse(cfg, lp, attn_out, ssm.ssm_forward(cfg, lp["ssm"],
+                                                            a))
+    h = h + attn_out
     m = layers.rms_norm(h, lp["norm2"], cfg.norm_eps)
     mo, aux = _ffn(cfg, lp, m)
     return h + mo, aux
@@ -147,22 +170,22 @@ def block_forward(cfg: ModelConfig, lp, h, positions):
 # ==========================================================================
 # full-sequence forward
 def embed_inputs(cfg: ModelConfig, params, tokens, img_embeds=None):
-    if img_embeds is not None:
-        raise NotImplementedError(
-            "image embeddings (VLM) are not ported yet (ROADMAP.md)")
     x = params["embed"][tokens.long()]
+    if img_embeds is not None:
+        x = torch.cat([img_embeds.to(x.dtype), x], dim=1)
     positions = torch.arange(x.shape[1], dtype=torch.int32,
                              device=x.device)[None].expand(x.shape[:2])
     return x, positions
 
 
-def forward(cfg: ModelConfig, params, tokens,
+def forward(cfg: ModelConfig, params, tokens, img_embeds=None,
             apply_final_norm: bool = True):
-    """-> (features [B,S,D], aux). ``apply_final_norm=False`` returns
-    pre-norm features (the FACADE core output). ``aux`` is the layers'
-    MoE router losses summed in order (0 without MoE)."""
+    """-> (features [B,S,D], aux); S includes a VLM's image positions.
+    ``apply_final_norm=False`` returns pre-norm features (the FACADE core
+    output). ``aux`` is the layers' MoE router losses summed in order (0
+    without MoE)."""
     _check_ported(cfg)
-    h, positions = embed_inputs(cfg, params, tokens)
+    h, positions = embed_inputs(cfg, params, tokens, img_embeds)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     for lp in tree_unstack(params["layers"]):      # one backward stack
         h, a = block_forward(cfg, lp, h, positions)
@@ -208,11 +231,13 @@ def chunked_ce(features, w_head, labels, mask, chunk: int = 512):
 
 
 def loss_fn(cfg: ModelConfig, params, batch):
-    """batch: {tokens [B,S], labels [B,S], mask [B,S]} -> (loss, metrics).
-    The loss is the masked mean NLL plus ``router_aux_coef`` times MoE's
-    router loss ``aux`` (0 without MoE); the metrics hold ``ce`` (the NLL),
-    ``aux`` and ``acc``."""
-    feats, aux = forward(cfg, params, batch["tokens"])
+    """batch: {tokens [B,S], labels [B,S], mask [B,S], img_embeds?} ->
+    (loss, metrics). The loss is the masked mean NLL over the text
+    positions plus ``router_aux_coef`` times MoE's router loss ``aux`` (0
+    without MoE); the metrics hold ``ce`` (the NLL), ``aux`` and ``acc``."""
+    img = batch.get("img_embeds")
+    feats, aux = forward(cfg, params, batch["tokens"], img_embeds=img)
+    feats = feats[:, 0 if img is None else img.shape[1]:]
     loss, acc = chunked_ce(feats, lm_head_weight(cfg, params),
                            batch["labels"], batch["mask"])
     total = loss + cfg.router_aux_coef * aux
@@ -226,8 +251,12 @@ def _layer_cache(cfg: ModelConfig, batch: int, cache_len: int, device):
     if cfg.rwkv:
         return rwkv.rwkv_init_cache(cfg, batch, device)
     if cfg.attention == "mla":
-        return attention.mla_init_cache(cfg, batch, cache_len, device)
-    return attention.gqa_init_cache(cfg, batch, cache_len, device)
+        c = attention.mla_init_cache(cfg, batch, cache_len, device)
+    else:
+        c = attention.gqa_init_cache(cfg, batch, cache_len, device)
+    if cfg.arch_type == "hybrid":
+        c = {"attn": c, "ssm": ssm.ssm_init_cache(cfg, batch, device)}
+    return c
 
 
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
@@ -246,9 +275,6 @@ def extend_cache(cfg: ModelConfig, caches, extra: int):
     state-only (rwkv) caches."""
     if extra <= 0 or cfg.rwkv:
         return caches
-    if cfg.sliding_window and \
-            caches["slot_pos"].shape[-1] == cfg.sliding_window:
-        return caches  # ring buffer: leave alone
 
     def pad(leaf, fill):
         shape = list(leaf.shape)
@@ -256,8 +282,16 @@ def extend_cache(cfg: ModelConfig, caches, extra: int):
         return torch.cat([leaf, torch.full(shape, fill, dtype=leaf.dtype,
                                            device=leaf.device)], dim=2)
 
-    return {name: pad(leaf, -1 if name == "slot_pos" else 0)
-            for name, leaf in caches.items()}
+    def pad_attn(c):
+        if cfg.sliding_window and \
+                c["slot_pos"].shape[-1] == cfg.sliding_window:
+            return c  # ring buffer: leave alone
+        return {name: pad(leaf, -1 if name == "slot_pos" else 0)
+                for name, leaf in c.items()}
+
+    if cfg.arch_type == "hybrid":
+        return {"attn": pad_attn(caches["attn"]), "ssm": caches["ssm"]}
+    return pad_attn(caches)
 
 
 def cache_physical_len(cfg: ModelConfig, seq_len: int) -> int:
@@ -284,8 +318,14 @@ def block_decode(cfg: ModelConfig, lp, h, pos, cache):
         return h + cm, {"s": s_new, "tm_x": tmx, "cm_x": cmx}
     decode = (attention.mla_decode if cfg.attention == "mla"
               else attention.gqa_decode)
-    attn_out, new_cache = decode(cfg, lp["attn"], a, pos, cache,
+    hybrid = cfg.arch_type == "hybrid"
+    attn_out, new_cache = decode(cfg, lp["attn"], a, pos,
+                                 cache["attn"] if hybrid else cache,
                                  window=cfg.sliding_window)
+    if hybrid:
+        ssm_out, new_ssm = ssm.ssm_decode(cfg, lp["ssm"], a, cache["ssm"])
+        attn_out = _fuse(cfg, lp, attn_out, ssm_out)
+        new_cache = {"attn": new_cache, "ssm": new_ssm}
     h = h + attn_out
     m = layers.rms_norm(h, lp["norm2"], cfg.norm_eps)
     return h + _ffn(cfg, lp, m)[0], new_cache
@@ -307,14 +347,17 @@ def decode_step(cfg: ModelConfig, params, cache, tokens, pos):
 
 # ==========================================================================
 # prefill: full forward that also materializes the decode cache
-def prefill(cfg: ModelConfig, params, tokens, cache_extra: int = 0):
+def prefill(cfg: ModelConfig, params, tokens, img_embeds=None,
+            cache_extra: int = 0):
     """-> (last-position logits [B,V] fp32, cache ready for decode at
-    pos=S). ``cache_extra`` reserves empty slots for tokens generated
+    pos=S, S counting a VLM's ``n_img`` image positions in front of the
+    tokens). ``cache_extra`` reserves empty slots for tokens generated
     afterwards. Attention (MLA's through ``attention.mla_attention``) and
     the wkv recurrence run through the hand-written kernels on the card
-    (one launch per layer)."""
+    (one launch per layer); hymba's mamba branch is the plain scan, whose
+    final state and conv window it caches."""
     _check_ported(cfg)
-    h, positions = embed_inputs(cfg, params, tokens)
+    h, positions = embed_inputs(cfg, params, tokens, img_embeds)
     b, s = h.shape[:2]
     cache_len = cache_physical_len(cfg, s)
     caches = []
@@ -332,16 +375,16 @@ def prefill(cfg: ModelConfig, params, tokens, cache_extra: int = 0):
 
         if cfg.attention == "mla":
             c_kv, k_rope = attention._mla_ckv(cfg, lp["attn"], a, positions)
-            h = h + attention.mla_forward(cfg, lp["attn"], a, positions,
-                                          window=cfg.sliding_window,
-                                          ckv=(c_kv, k_rope))
+            attn_out = attention.mla_forward(cfg, lp["attn"], a, positions,
+                                             window=cfg.sliding_window,
+                                             ckv=(c_kv, k_rope))
             kv = {"c_kv": c_kv, "k_rope": k_rope}
         else:
             q, k, v = attention._gqa_qkv(cfg, lp["attn"], a, positions)
             attn_out = flash_attention(q, k, v, causal=True,
                                        window=cfg.sliding_window)
-            h = h + (attn_out.reshape(b, s, -1).to(h.dtype)
-                     @ lp["attn"]["wo"])
+            attn_out = attn_out.reshape(b, s, -1).to(h.dtype) \
+                @ lp["attn"]["wo"]
             kv = {"k": k, "v": v}
 
         # ring-buffer placement: slot j holds position start + ((j-start)%W)
@@ -350,6 +393,12 @@ def prefill(cfg: ModelConfig, params, tokens, cache_extra: int = 0):
         src = start + (slots - start) % cache_len
         cache_l = {name: leaf[:, src] for name, leaf in kv.items()}
         cache_l["slot_pos"] = src.to(torch.int32)[None].expand(b, cache_len)
+        if cfg.arch_type == "hybrid":
+            ssm_out, h_ssm, u = ssm.ssm_branch(cfg, lp["ssm"], a)
+            attn_out = _fuse(cfg, lp, attn_out, ssm_out)
+            cache_l = {"attn": cache_l,
+                       "ssm": {"h": h_ssm, "conv": ssm.conv_tail(cfg, u)}}
+        h = h + attn_out
         caches.append(cache_l)
 
         m = layers.rms_norm(h, lp["norm2"], cfg.norm_eps)

@@ -25,6 +25,15 @@ SHAPES = [(1, 4, 4, 128, 64), (2, 8, 2, 256, 64), (1, 4, 1, 128, 128),
 # llama3.2-1b's serving shape, a long one and stablelm-12b's serving shape
 SERVING_SHAPES = [(4, 32, 8, 512, 64), (1, 32, 8, 4096, 64),
                   (4, 32, 8, 512, 160)]
+# the hybrid, audio and VLM families' prefill shapes, (B, Hq, Hkv, S, D),
+# causal, window: hymba-1.5b past its window of 1024 (GQA group 5),
+# whisper-tiny's encoder (non-causal, S 1500 ragged against the 64-row
+# tiles) and its smoke encoder, llava-next-34b's 2880 image positions and
+# 512-token prompt (GQA group 7)
+FAMILY_CASES = [((4, 25, 5, 2048, 64), True, 1024),
+                ((4, 6, 6, 1500, 64), False, 0),
+                ((2, 4, 4, 32, 32), False, 0),
+                ((4, 56, 8, 3392, 128), True, 0)]
 TOLS = {torch.float32: dict(atol=2e-6, rtol=2e-6),
         torch.bfloat16: dict(atol=1e-6, rtol=2.0 ** -8)}
 
@@ -82,6 +91,16 @@ def test_kernel_matches_plain_version(cuda_device, shape, dtype, window):
 def test_kernel_matches_plain_version_at_serving_shapes(cuda_device, shape,
                                                         dtype):
     _check(shape, dtype, 0, cuda_device)
+
+
+@requires_cuda
+@pytest.mark.parametrize("case", FAMILY_CASES, ids=str)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_kernel_matches_plain_version_at_the_new_families_shapes(
+        cuda_device, case, dtype):
+    shape, causal, window = case
+    _check(shape, dtype, window, cuda_device, causal=causal)
 
 
 @requires_cuda

@@ -26,24 +26,24 @@ torch.set_num_threads(1)
 N_REQ, BATCH, PROMPT, GEN = 5, 2, 16, 6
 
 
-def _reference_serve(cfg, params, queue):
+def _reference_serve(cfg, params, queue, prompt=PROMPT, gen_len=GEN):
     """``repro.launch.serve.main``'s request loop, greedy, without jit."""
-    cache_len = ref_tf.cache_physical_len(cfg, PROMPT + GEN)
+    cache_len = ref_tf.cache_physical_len(cfg, prompt + gen_len)
     out, first_logits = [], []
     queue = list(queue)
     while queue:
         reqs, queue = queue[:BATCH], queue[BATCH:]
         lens = np.array([len(r) for r in reqs], np.int32)
-        toks = np.zeros((len(reqs), PROMPT), np.int32)
+        toks = np.zeros((len(reqs), prompt), np.int32)
         for i, r in enumerate(reqs):
             toks[i, :len(r)] = r
         logits, cache = ref_tf.prefill(cfg, params, jnp.asarray(toks),
-                                       cache_extra=cache_len - PROMPT)
+                                       cache_extra=cache_len - prompt)
         first_logits.append(np.asarray(logits))
         last = jnp.argmax(logits, -1).astype(jnp.int32)
         pos = jnp.asarray(lens)
-        gen = np.zeros((len(reqs), GEN), np.int32)
-        for t in range(GEN):
+        gen = np.zeros((len(reqs), gen_len), np.int32)
+        for t in range(gen_len):
             gen[:, t] = np.asarray(last)
             logits, cache = ref_tf.decode_step(cfg, params, cache,
                                                last[:, None], pos)
@@ -55,7 +55,8 @@ def _reference_serve(cfg, params, queue):
 
 @pytest.mark.parametrize("arch", ["llama3.2-1b", "rwkv6-1.6b", "qwen3-8b",
                                   "stablelm-12b", "minicpm3-4b",
-                                  "deepseek-moe-16b", "grok-1-314b"])
+                                  "deepseek-moe-16b", "grok-1-314b",
+                                  "hymba-1.5b", "llava-next-34b"])
 def test_serve_matches_the_reference_loop(arch):
     ref_cfg = ref_get_config(arch, smoke=True)
     cfg = get_config(arch, smoke=True)
@@ -71,6 +72,27 @@ def test_serve_matches_the_reference_loop(arch):
     for got, ref in zip(res.prefill_logits, want_logits):
         np.testing.assert_allclose(got.numpy(), ref, rtol=1e-4, atol=1e-4)
     assert res.prefill_tok_s > 0 and res.decode_tok_s > 0
+
+
+def test_hymba_serve_past_its_window_matches_the_reference_loop():
+    """hymba-smoke with 96-token prompts (its window is 64): the prefill
+    keeps a 64-slot ring buffer, which decode writes around, and the
+    mamba state carries the whole prompt; equal greedy tokens."""
+    arch, prompt, gen_len = "hymba-1.5b", 96, 8
+    ref_cfg = ref_get_config(arch, smoke=True)
+    cfg = get_config(arch, smoke=True)
+    ref_params = ref_api.init_params(ref_cfg, jax.random.PRNGKey(1))
+    queue = port_serve.make_requests(np.random.default_rng(1), 3, prompt,
+                                     cfg.vocab_size)
+    want, want_logits = _reference_serve(ref_cfg, ref_params, queue,
+                                         prompt, gen_len)
+    res = port_serve.serve(cfg, lm_params_from_jax(ref_params), queue,
+                           batch=BATCH, prompt_len=prompt, gen_len=gen_len,
+                           device="cpu")
+    assert res.finite and cfg.sliding_window < prompt
+    np.testing.assert_array_equal(res.tokens, want)
+    for got, ref in zip(res.prefill_logits, want_logits):
+        np.testing.assert_allclose(got.numpy(), ref, rtol=1e-4, atol=1e-4)
 
 
 def test_make_requests_is_the_reference_queue():

@@ -72,10 +72,13 @@ def test_lm_step_from_the_reference_init_gives_its_losses(capsys):
     check_lm_steps("llama3.2-1b", capsys)
 
 
-@pytest.mark.parametrize("arch", ["minicpm3-4b", "deepseek-moe-16b"])
+@pytest.mark.parametrize("arch", ["minicpm3-4b", "deepseek-moe-16b",
+                                  "whisper-tiny", "llava-next-34b"])
 def test_lm_steps_of_the_mla_and_moe_smoke_configs(arch, capsys):
     """The same on the MLA and MoE smoke configs (the loss with MoE's
-    router term), and the port's own lm mode runs them."""
+    router term) and on the encoder-decoder and VLM ones (zero frames and
+    zero image embeddings beside the tokens, as the reference's lm mode
+    adds them), and the port's own lm mode runs them."""
     check_lm_steps(arch, capsys)
     out = train.main(LM + ["--arch", arch, "--device", "cpu"])
     assert len(out["losses"]) == 3 and np.isfinite(out["losses"]).all()
@@ -101,6 +104,7 @@ def check_lm_steps(arch, capsys):
     for i in range(3):
         batch = {k: torch.from_numpy(v) for k, v in
                  tokens.lm_batch(stream[2 * i:2 * i + 2]).items()}
+        batch.update(train.lm_extras(cfg, 2, "cpu"))
         params, opt_state, loss, metrics = step(params, opt_state, batch)
         losses.append(loss.item())
         assert not loss.requires_grad and 0.0 <= metrics["acc"].item() <= 1
@@ -127,6 +131,22 @@ def test_lm_mode_checkpoint_loads_in_both_packages(tmp_path, capsys):
     ref, _ = ref_io.load(path)
     for a, b in zip(jax.tree.leaves(ref["params"]), want):
         np.testing.assert_array_equal(np.asarray(a), b.numpy())
+
+
+def test_lm_extras_are_the_references_stub_inputs():
+    """Zero image embeddings for a VLM and zero frames for an
+    encoder-decoder, in the param dtype; nothing for the others."""
+    vlm = get_config("llava-next-34b", smoke=True)
+    enc = get_config("whisper-tiny", smoke=True)
+    got = train.lm_extras(vlm, 3, "cpu")
+    assert list(got) == ["img_embeds"]
+    assert got["img_embeds"].shape == (3, vlm.n_image_tokens, vlm.d_model)
+    got = train.lm_extras(enc.replace(dtype="bfloat16"), 2, "cpu")
+    assert list(got) == ["frames"] and got["frames"].dtype == torch.bfloat16
+    assert got["frames"].shape == (2, enc.encoder_seq, enc.d_model)
+    assert not got["frames"].any()
+    assert train.lm_extras(get_config("hymba-1.5b", smoke=True), 2,
+                           "cpu") == {}
 
 
 def test_the_card_is_never_replaced_by_the_cpu():
