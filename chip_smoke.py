@@ -23,7 +23,8 @@ failure raises and exits non-zero, before the last line is printed):
      faulty round gives them (a token of NaN features, a head of NaN
      weights, a +inf bias weight, a head of +inf weights): NaN and +inf
      at the plain version's places, the finite losses within 2e-5 and
-     equal argmins (a row's first NaN);
+     equal argmins (a row's first NaN), and its tensor-core body the same
+     way at an LM-regime shape (``HS_LM_NON_FINITE``, bf16);
      yardstick: a matmul and ``cross_entropy``; beside it the launch
      floor, one tiny in-place PyTorch op timed the same way. Then its
      tensor-core body (the LM regime, two device launches a call) at the
@@ -199,7 +200,7 @@ failure raises and exits non-zero, before the last line is printed):
    the CPU from the same seed, which must agree;
 4. FACADE on llama3.2-1b at full width (bf16, heads untied): 2 nodes in
    clusters 1:1, k 2, degree 1, H 2, B 4, S 256, lr 5e-3, head jitter
-   1e-3, clustered token streams, 3 rounds driven through
+   1e-3, clustered token streams, 3 rounds (rwkv6-1.6b 2) driven through
    ``runner.LMFacade`` (``facade_round``), then one more under
    ``torch.profiler``; before round 1, K1 against its plain version on the
    operands the LM binding builds for that round (2e-5 relative, equal
@@ -268,6 +269,29 @@ failure raises and exits non-zero, before the last line is printed):
    within 1e-4, the prompt decoded step by step and 8 greedy steps, tokens
    equal, and on the card the decode logits at the prompt's positions
    within 1e-4 of the teacher-forced forward's;
+5d. the step builders of ``launch/steps.py`` (``steps_phase``) at full
+   width with real tensors from seed 0 (``STEP_CASES``): llama3.2-1b at
+   ``prefill_32k``, ``decode_32k`` (a filled 32,768-slot cache),
+   ``long_500k`` (its 8,192-slot window, position 524,287), ``train_4k``
+   (remat, AdamW) and FACADE's step (2 nodes, S 4096, remat); rwkv6-1.6b
+   at the first three and ``train_4k`` cut to 1 of its 24 layers;
+   whisper-tiny at ``prefill_32k`` and ``decode_32k``; each at the
+   largest batch that fits (halving from the first tried on an
+   out-of-memory error; the halvings and cuts are in its record), a
+   warm-up and ``STEP_CALLS`` timed calls (1 where the warm-up took over
+   ``STEP_LONG_S``): launches a call (``step_launches``), finite outputs,
+   a first training or FACADE loss within ``STEP_LOSS_SPAN`` of ln V,
+   seconds, tokens per second, peak memory and the roofline terms of
+   ``roofline/analysis.py`` at the run's batch (traced on fake tensors in
+   worker processes beside the card's work) beside the measured time;
+   FACADE's step run again on the same
+   inputs and compared bit for bit (and, where it differs, twice under
+   ``device.deterministic()``). K2 and K3 at S 32,768 and K1 at the FACADE
+   step's T held against their plain versions there (K2 on one batch row
+   and one KV group, Hq 4 and Hkv 1; K1's plain version and library call
+   made in 2,048-token chunks) and timed beside their bounds and library
+   calls; the smoke configs' steps (``STEPS_SMOKE``) on the card and on
+   the CPU;
 6. a ``kernels`` JSON line (each kernel's launches on its path, error,
    times and bound; K2's launches in each full-width serve, in llava's
    image-prefix prefill and in a whisper forward under
@@ -276,7 +300,8 @@ failure raises and exits non-zero, before the last line is printed):
    2c under ``"resnet8"``,
    its launches on the driver phases under ``"driver_launches"``, the
    telemetry phase's under ``"obs"``; K2's and K3's in the traced serves
-   under ``"traced_serve_launches"``),
+   under ``"traced_serve_launches"``; each kernel's check, times, bound
+   and launches at the steps' lengths under ``"steps"``),
    the total time, then the last line ``{"ok": true, "device": {...}}``.
 
 Every kernel's launch count is set to 0 just before each path is driven
@@ -292,10 +317,13 @@ convolution of the run. A JSON record of every number goes to
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import contextlib
 import dataclasses
 import functools
+import gc
 import json
+import multiprocessing
 import pathlib
 import shutil
 import statistics
@@ -327,7 +355,9 @@ from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.flash_attention import attention_ref, flash_attention  # noqa: E402
 from repro_torch.kernels.head_select import head_losses, head_losses_ref  # noqa: E402
 from repro_torch.kernels.rwkv6 import wkv, wkv_scan, wkv_train  # noqa: E402
-from repro_torch.launch import train  # noqa: E402
+from repro_torch import device as device_mod  # noqa: E402
+from repro_torch.launch import dryrun, steps, train  # noqa: E402
+from repro_torch.launch.mesh import HW, MESH_NAME  # noqa: E402
 from repro_torch.launch.serve import make_requests, serve  # noqa: E402
 from repro_torch.models import api, attention, transformer, whisper  # noqa: E402
 from repro_torch.models.base import get_config  # noqa: E402
@@ -337,6 +367,7 @@ from repro_torch.obs import (JsonlSink, Obs, ObsConfig, Tracer,  # noqa: E402
                              read_jsonl)
 from repro_torch.obs.report import build_report  # noqa: E402
 from repro_torch.resil import FaultConfig, noise_spec  # noqa: E402
+from repro_torch.roofline import analyze_step, count_step  # noqa: E402
 from repro_torch.sweep import SweepCell, run_sweep  # noqa: E402
 from repro_torch.sweep import driver as sweep_driver  # noqa: E402
 from repro_torch.topo import TopoConfig, inclusion_stats  # noqa: E402
@@ -477,11 +508,12 @@ RW_TOL = 1e-5
 # FACADE on llama3.2-1b at full width (bf16, heads untied by the binding):
 # 2 nodes in clusters 1:1, k 2, degree 1, H 2, B 4, S 256 (T = 1024 tokens
 # a node at step 2c), tokens as examples/facade_lm_pretrain.py builds them;
-# 3 rounds
+# 3 rounds (rwkv6-1.6b 2: a round is about 25 s, most of it the plain wkv
+# backward, and the profiled round after them measures it again)
 LM_FACADE = dict(clusters=(1, 1), k=2, degree=1, local_steps=2, batch=4,
                  seq=256, lr=5e-3, head_jitter=1e-3, seqs_per_node=32,
                  seed=0)
-LM_ROUNDS = 3
+LM_ROUNDS = {"llama3.2-1b": 3, "rwkv6-1.6b": 2}
 # the profiler's host event around each ``wkv_train`` backward
 WKV_BACKWARD = "autograd::engine::evaluate_function: WkvFunctionBackward"
 # K2 in the LM FACADE path's step-2c feature pass: llama3.2-1b's heads at
@@ -557,6 +589,48 @@ FA_FAMILIES = {
                LLAVA_CFG.n_image_tokens + VLM_PREFILL["prompt_len"],
                LLAVA_CFG.hd), True, 0, 3)}
 SMOKE_LOGIT_TOL = 1e-4  # fp32 on both devices, other summation order
+# K1's LM body on non-finite inputs (bf16, V a multiple of 8): (n, K, T,
+# D, V), the non-finite values placed as hs_non_finite_case places them
+HS_LM_NON_FINITE = (4, 2, 256, 2048, 4096)
+# the step builders (launch/steps.py) at full width (steps_phase): (arch,
+# input shape, the batch tried first, layers kept or None). A case's batch
+# is the largest that fits on the card, halving from the first; rwkv6's
+# train_4k keeps 1 of its 24 layers (its wkv backward is the plain
+# recurrence, about 3 s a layer at S 4096). Each runs one warm-up call and
+# STEP_CALLS timed calls, 1 where the warm-up took over STEP_LONG_S.
+STEP_CASES = [("llama3.2-1b", "prefill_32k", 32, None),
+              ("llama3.2-1b", "decode_32k", 128, None),
+              ("llama3.2-1b", "long_500k", 1, None),
+              ("llama3.2-1b", "train_4k", 256, None),
+              ("llama3.2-1b", "facade_pod", 16, None),
+              ("rwkv6-1.6b", "prefill_32k", 32, None),
+              ("rwkv6-1.6b", "decode_32k", 128, None),
+              ("rwkv6-1.6b", "long_500k", 1, None),
+              ("rwkv6-1.6b", "train_4k", 1, 1),
+              ("whisper-tiny", "prefill_32k", 32, None),
+              ("whisper-tiny", "decode_32k", 128, None)]
+STEP_CALLS, STEP_LONG_S = 2, 3.0
+# the roofline traces (fake tensors on the CPU) run in worker processes
+# beside the card's work: workers and threads each
+TRACE_WORKERS, TRACE_THREADS = 2, 2
+# a loss on random tokens from the initial model: ln V plus about 0.4
+# (LM_SELECT_RANGE), within [ln V - 0.5, ln V + 1.5]
+STEP_LOSS_SPAN = (-0.5, 1.5)
+# K2 and K3 at the prefill_32k length, and K1 at the FACADE step's: the
+# check shapes (K2 on one batch row and one KV group, Hq 4 and Hkv 1: 17 GB
+# of fp32 scores in the plain version) and the timed shapes (K2 one batch
+# row of llama3.2-1b's heads; K3 one row and rwkv6-1.6b's prefill batch)
+FA_STEPS_CHECK = (1, 4, 1, 32768, 64)
+FA_STEPS_TIME = (1, 32, 8, 32768, 64)
+RW_STEPS = (1, 32768, 32, 64)
+# the smoke configs' steps on the card and on the CPU: (arch, shape) at B 2
+# and S 64
+STEPS_SMOKE = [("llama3.2-1b", "train_4k"), ("llama3.2-1b", "prefill_32k"),
+               ("llama3.2-1b", "decode_32k"), ("llama3.2-1b", "facade_pod"),
+               ("rwkv6-1.6b", "train_4k"), ("rwkv6-1.6b", "prefill_32k"),
+               ("rwkv6-1.6b", "decode_32k"), ("whisper-tiny", "prefill_32k"),
+               ("whisper-tiny", "decode_32k")]
+STEPS_SMOKE_SEQ = 64
 
 
 def log(*args):
@@ -712,6 +786,55 @@ def hs_non_finite_check() -> dict:
     return rec
 
 
+def hs_lm_non_finite_case(seed):
+    """LM-regime inputs (``HS_LM_NON_FINITE``, bf16) with the non-finite
+    values ``hs_non_finite_case`` places: node 0 a token of NaN features
+    (its label kept), node 1 a head of NaN weights, node 2 a +inf weight
+    on a feature that is 1 for every token, in a column none of its labels
+    names (a +inf logit, a +inf loss), node 3 a head of +inf weights (NaN
+    logits); the other nodes finite."""
+    n, k, t, d, v = HS_LM_NON_FINITE
+    feats, heads, labels = hs_lm_case(n, k, t, d, v, seed=seed)
+    labels[0, 3] = 5
+    feats[0, 3] = float("nan")
+    heads[1, 1] = float("nan")
+    feats[2, :, 0] = 1.0
+    free = sorted(set(range(v)) - set(labels[2].tolist()))[0]
+    heads[2, 0, 0, free] = float("inf")
+    heads[3, 1] = float("inf")
+    return feats, heads, labels
+
+
+def hs_lm_non_finite_check() -> dict:
+    """K1's tensor-core body against its plain version on
+    :func:`hs_lm_non_finite_case`, with the FMA body's gates
+    (``hs_non_finite_check``), or raise."""
+    feats, heads, labels = hs_lm_non_finite_case(seed=96)
+    got = head_losses(feats, heads, labels)
+    want = head_losses_ref(feats, heads, labels)
+    torch.cuda.synchronize()
+    fin = torch.isfinite(want)
+    err = (got[fin] - want[fin]).abs()
+    rec = {"shape": list(HS_LM_NON_FINITE), "dtype": "bf16",
+           "nan_equal": bool(torch.equal(got.isnan(), want.isnan())),
+           "posinf_equal": bool(torch.equal(got.isposinf(),
+                                            want.isposinf())),
+           "non_finite": int((~fin).sum()),
+           "max_abs_err": float(err.max()),
+           "max_rel_err": float((err / want[fin].abs().clamp(min=1)).max()),
+           "argmin_equal": bool(torch.equal(got.argmin(1),
+                                            want.argmin(1))),
+           "argmin_first_nodes": got.argmin(1)[:4].tolist(),
+           "got": got.tolist()}
+    log("head_select lm non-finite check", json.dumps(rec))
+    if not (rec["nan_equal"] and rec["posinf_equal"] and rec["argmin_equal"]
+            and rec["max_rel_err"] <= HS_TOL and rec["non_finite"] == 5
+            and rec["argmin_first_nodes"] == [0, 1, 1, 1]):
+        raise AssertionError(f"head_select's LM body disagrees with its "
+                             f"plain version on non-finite inputs: {rec}")
+    return rec
+
+
 def hs_library(feats, heads, labels):
     """One PyTorch product and cross-entropy for the same function (the
     yardstick; the port never calls it)."""
@@ -813,6 +936,7 @@ def kernel_phase(rec):
                                shape=list(MAIN_SHAPE), dtype=str(dtype)))
     rec["head_select_checks"] = checks
     rec["head_select_non_finite"] = hs_non_finite_check()
+    rec["head_select_lm_non_finite"] = hs_lm_non_finite_check()
 
     feats, heads, labels = hs_main_inputs(seed=99)
     bound_ms, bound_by, nbytes, flops = hs_bound(feats, heads, labels)
@@ -2559,7 +2683,7 @@ def lm_facade_phase(rec, arch: str) -> dict:
                                  f"{info['round_bytes']} != {want_bytes}")
         return info, counts
 
-    for rnd in range(1, LM_ROUNDS + 1):
+    for rnd in range(1, LM_ROUNDS[arch] + 1):
         t0 = time.perf_counter()
         info, counts = one_round(drawn if rnd == 1 else None)
         wall = time.perf_counter() - t0
@@ -3433,6 +3557,492 @@ def smoke_serve_phase(rec):
     log(f"smoke serve: {rec['smoke_serve_s']:.1f} s")
 
 
+def to_device(tree, dev):
+    """A step's arguments (dicts, tuples, a ``FacadeState``, tensors and
+    plain values) with every tensor on ``dev``."""
+    if isinstance(tree, torch.Tensor):
+        return tree.to(dev)
+    if isinstance(tree, dict):
+        return {k: to_device(v, dev) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(to_device(v, dev) for v in tree))
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(to_device(v, dev) for v in tree)
+    return tree
+
+
+def float_leaves(tree) -> list:
+    """The floating-point tensors of a step's output, in order."""
+    if isinstance(tree, torch.Tensor):
+        return [tree] if tree.is_floating_point() else []
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in float_leaves(v)]
+    if isinstance(tree, (tuple, list)):
+        return [x for v in tree for x in float_leaves(v)]
+    return []
+
+
+def step_launches(cfg, kind: str, n_nodes: int = 2) -> dict:
+    """Each kernel's launches in one call of a step: K2 once a prefill
+    layer (whisper: its encoder twice, ``encode`` and ``forward``, and its
+    decoder once), K3 once a prefill layer and, under remat, twice a
+    training layer (the forward and its recompute); FACADE's step one K1
+    call and its feature pass's K2 or K3 once a layer and node; decode
+    none."""
+    want = {fn.__name__: 0 for fn in KERNELS}
+    if kind == "prefill":
+        if cfg.encoder_layers:
+            want["flash_attention"] = 2 * cfg.encoder_layers + cfg.n_layers
+        else:
+            want["wkv" if cfg.rwkv else "flash_attention"] = cfg.n_layers
+    elif kind == "train" and cfg.rwkv:
+        want["wkv"] = 2 * cfg.n_layers
+    elif kind == "facade":
+        want["head_losses"] = 1
+        want["wkv" if cfg.rwkv else "flash_attention"] = \
+            n_nodes * cfg.n_layers
+    return want
+
+
+def build_step(arch, shape, cfg, batch, **kw):
+    if shape == "facade_pod":
+        return steps.build_facade_case(arch, batch_per_node=batch, cfg=cfg,
+                                       **kw)
+    return steps.build_case(arch, shape, batch=batch, cfg=cfg, **kw)
+
+
+def step_loss(kind, out):
+    """The loss a step reports: the metrics' ``ce`` (train), the least
+    selection loss (FACADE), else None."""
+    if kind == "train":
+        return float(out[2]["ce"])
+    if kind == "facade":
+        return float(out[1]["selection_losses"].min())
+    return None
+
+
+def step_first_call(arch, shape, cfg, batch):
+    """Build the case at ``batch`` on the card and run its warm-up call;
+    -> (case, output, launches, seconds). An out-of-memory error leaves
+    the frame (and frees the case) to the caller's halving."""
+    case = build_step(arch, shape, cfg, batch)
+    torch.cuda.synchronize()
+    with counted() as counts:
+        t0 = time.perf_counter()
+        out = case.step_fn(*case.args)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return case, out, counts, wall
+
+
+def step_config(arch, shape, n_layers):
+    """(config, cut or None) of a ``STEP_CASES`` entry."""
+    cfg = (get_config(arch) if shape == "facade_pod"
+           else steps.resolve_config(arch, shape))
+    if n_layers is None:
+        return cfg, None
+    return (cfg.replace(n_layers=n_layers),
+            f"{n_layers} of {cfg.n_layers} layers, every width as published")
+
+
+def step_case(arch, shape, first_batch, n_layers) -> dict:
+    """One of ``STEP_CASES`` on the card: the largest batch that fits
+    (halving from ``first_batch`` on an out-of-memory error), a warm-up
+    call and ``STEP_CALLS`` timed calls (1 where the warm-up took over
+    ``STEP_LONG_S``; host clock around a synchronised call), each call's
+    launches against ``step_launches``, finite outputs, a training or
+    FACADE loss within ``STEP_LOSS_SPAN`` of ln V; FACADE's step also
+    twice bit for bit (``facade_repeat``). Its roofline terms come from
+    ``trace_roofline`` in a worker process."""
+    t_case = time.perf_counter()
+    cfg, cut = step_config(arch, shape, n_layers)
+    batch, tried = first_batch, []
+    while True:
+        settled_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            case, out, counts, first_s = step_first_call(arch, shape, cfg,
+                                                         batch)
+            break
+        except torch.cuda.OutOfMemoryError:
+            tried.append(batch)
+        gc.collect()
+        if batch == 1:
+            raise AssertionError(f"steps {arch} {shape}: batch 1 does not "
+                                 f"fit")
+        batch //= 2
+    fit_s = time.perf_counter() - t_case
+    first_peak = torch.cuda.max_memory_allocated()
+    want = step_launches(cfg, case.kind)
+    label = f"{arch} {shape}"
+    if counts != want:
+        raise AssertionError(f"steps {label}: launches {counts}, want {want}")
+    loss = step_loss(case.kind, out)
+    ln_v = float(np.log(cfg.vocab_size))
+    if loss is not None and not (ln_v + STEP_LOSS_SPAN[0] <= loss
+                                 <= ln_v + STEP_LOSS_SPAN[1]):
+        raise AssertionError(f"steps {label}: first loss {loss}, ln V "
+                             f"{ln_v}")
+    repeat = None
+    if case.kind == "facade":
+        repeat = facade_repeat(case, out)
+    walls = []
+    for _ in range(STEP_CALLS if first_s <= STEP_LONG_S else 1):
+        del out
+        torch.cuda.synchronize()
+        with counted() as c:
+            t0 = time.perf_counter()
+            out = case.step_fn(*case.args)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        if c != want:
+            raise AssertionError(f"steps {label}: launches {c}, want {want}")
+    peak = torch.cuda.max_memory_allocated()
+    for leaf in float_leaves(out):
+        if not bool(torch.isfinite(leaf).all()):
+            raise AssertionError(f"steps {label}: non-finite output")
+    n_tokens = case.n_tokens
+    del out, case
+    settled_allocated()
+    wall = statistics.median(walls)
+    rec = {"arch": arch, "shape": shape, "batch": batch,
+           "batches_out_of_memory": tried, "fit_s": fit_s, "cut": cut,
+           "n_layers": cfg.n_layers, "tokens": n_tokens,
+           "warmup_s": first_s, "wall_s": walls, "median_s": wall,
+           "tok_s": n_tokens / wall, "peak_bytes": peak,
+           "warmup_peak_bytes": first_peak, "launches": want,
+           "calls": 1 + len(walls), "first_loss": loss, "ln_v": ln_v,
+           "facade_repeat": repeat, "case_s": time.perf_counter() - t_case}
+    log(f"steps {label}: B {batch} (out of memory at {tried}, "
+        f"{fit_s:.1f} s to fit), {n_tokens} tokens, median {wall:.4f} s "
+        f"of {len(walls)}, {rec['tok_s']:.1f} tok/s, peak "
+        f"{peak / 1e9:.2f} GB, launches {want}, loss {loss}; case "
+        f"{rec['case_s']:.1f} s")
+    return rec
+
+
+def trace_roofline(arch, shape, batch, n_layers) -> dict:
+    """The roofline terms of ``roofline/analysis.py`` of a ``STEP_CASES``
+    entry at the run's batch: the same step traced on fake tensors on the
+    CPU (run in a worker process, beside the card's work)."""
+    torch.set_num_threads(TRACE_THREADS)
+    t0 = time.perf_counter()
+    cfg, _ = step_config(arch, shape, n_layers)
+    fake = build_step(arch, shape, cfg, batch, abstract=True)
+    cost = count_step(fake.step_fn, fake.args, fake.context)
+    params = fake.args[0].cores if fake.kind == "facade" else fake.args[0]
+    report = analyze_step(
+        cost, arch=arch, shape=shape, mesh_name=MESH_NAME, chips=1, hw=HW,
+        n_params_active=dryrun.active_param_count(cfg, params),
+        n_tokens=fake.n_tokens,
+        kind="train" if fake.kind == "facade" else fake.kind)
+    return dict(report.row(), trace_s=time.perf_counter() - t0)
+
+
+def state_leaves(out) -> list:
+    state = out[0]
+    return (tree_leaves(state.cores) + tree_leaves(state.heads)
+            + [state.cluster_id])
+
+
+def facade_repeat(case, first) -> dict:
+    """FACADE's step run again on the same inputs, against the warm-up
+    call's state bit for bit; where they differ, twice more under
+    ``device.deterministic()`` (as ``run_experiment`` runs) and compared
+    again. Returns the outcome and the seconds a call took each way."""
+    saved = [x.cpu() for x in state_leaves(first)]
+    del first
+
+    def again():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = case.step_fn(*case.args)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def diff(out, ref):
+        got = state_leaves(out)
+        return max(float((a.cpu().float() - b.float()).abs().max())
+                   for a, b in zip(got, ref))
+
+    out, secs = again()
+    d = diff(out, saved)
+    rec = {"equal": d == 0.0, "max_abs_diff": d, "s": secs,
+           "deterministic_equal": None}
+    del out
+    if d != 0.0:
+        with device_mod.deterministic():
+            out, s1 = again()
+            ref = [x.cpu() for x in state_leaves(out)]
+            del out
+            out, s2 = again()
+            rec.update(deterministic_equal=diff(out, ref) == 0.0,
+                       deterministic_max_abs_diff=diff(out, ref),
+                       deterministic_s=[s1, s2])
+            del out
+    log("steps facade repeat", json.dumps(rec))
+    return rec
+
+
+def event_ms(fn, reps: int = 1) -> float:
+    """Device time of ``fn()`` between CUDA events, after one warm-up
+    call: for plain versions of thousands of launches, which a CUDA graph
+    would take long to capture; the median of ``reps``."""
+    fn()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def fa_steps_check() -> dict:
+    """K2 at the prefill_32k length: held against its plain version (run
+    in fp32 on the same bf16 values, ``FA_TOL``) at ``FA_STEPS_CHECK``,
+    and timed, with SDPA and its bound, at ``FA_STEPS_TIME``."""
+    q, k, v = fa_inputs(*FA_STEPS_CHECK, torch.bfloat16, seed=91)
+    got = flash_attention(q, k, v, causal=True)
+    want = fa_plain(q.float(), k.float(), v.float())
+    c = check("flash_attention steps", got, want,
+              *FA_TOL[torch.bfloat16], shape=list(FA_STEPS_CHECK),
+              dtype="bf16")
+    del got, want
+    t = {"check": c, "check_ms": graph_ms(
+        lambda: flash_attention(q, k, v, causal=True), calls=2, reps=3),
+         "plain_ms_check_shape": event_ms(lambda: fa_plain(q, k, v))}
+    del q, k, v
+    settled_allocated()
+    q, k, v = fa_inputs(*FA_STEPS_TIME, torch.bfloat16, seed=92)
+    bound_ms, bound_by, nbytes, flops = fa_bound(q, k, v)
+    t.update(shape=list(FA_STEPS_TIME), bound_ms=bound_ms,
+             bound_by=bound_by, bytes=nbytes, flops=flops,
+             ms=graph_ms(lambda: flash_attention(q, k, v, causal=True),
+                         calls=1, reps=3),
+             library_ms=graph_ms(lambda: fa_library(q, k, v), calls=2,
+                                 reps=3),
+             library="scaled_dot_product_attention, GQA, is_causal")
+    t["ms_again"] = graph_ms(lambda: flash_attention(q, k, v, causal=True),
+                             calls=1, reps=3)
+    del q, k, v
+    settled_allocated()
+    log("flash_attention steps", json.dumps(t))
+    return t
+
+
+def wkv_steps_check(sm_clock_hz) -> dict:
+    """K3 at the prefill_32k length: held against its plain version
+    (``RW_TOL`` on y and the final state) at ``RW_STEPS``, timed there
+    and at rwkv6-1.6b's prefill batch, beside the bound; the plain
+    recurrence timed once between events."""
+    args = wkv_inputs(*RW_STEPS, seed=93)
+    y, s_f = wkv(*args)
+    torch.cuda.synchronize()
+    y_ref, s_ref = wkv_scan(*args)
+    c = check("wkv steps y", y, y_ref, RW_TOL, shape=list(RW_STEPS))
+    c["state_max_abs_err"] = check("wkv steps state", s_f, s_ref, RW_TOL,
+                                   shape=list(RW_STEPS))["max_abs_err"]
+    del y, s_f, y_ref, s_ref
+    bound = wkv_bound(args[0], sm_clock_hz)
+    t = {"check": c, "shape": list(RW_STEPS), "bound_ms": bound[0],
+         "bound_by": bound[1], "bytes": bound[2], "flops": bound[3],
+         "serial_floor_ms": bound[4], "issue_floor_ms": bound[5],
+         "ms": graph_ms(lambda: wkv(*args), calls=2, reps=3),
+         "plain_ms": event_ms(lambda: wkv_scan(*args)),
+         "library_ms": None}
+    del args
+    return t
+
+
+def hs_lm_chunked(feats, heads, labels, fn, chunk=2048):
+    """The LM-regime step-2c loss per (node, head) with its logits made
+    ``chunk`` tokens at a time: ``fn(f, w, lab)`` gives a chunk's summed
+    NLL (the plain version's arithmetic, or the library's), over the
+    node's valid tokens."""
+    n, k = heads.shape[:2]
+    out = torch.zeros((n, k), dtype=torch.float32, device=feats.device)
+    for i in range(n):
+        count = (labels[i] >= 0).sum().clamp(min=1).float()
+        for j in range(k):
+            for c0 in range(0, feats.shape[1], chunk):
+                out[i, j] += fn(feats[i, c0:c0 + chunk], heads[i, j],
+                                labels[i, c0:c0 + chunk])
+            out[i, j] /= count
+    return out
+
+
+def hs_plain_chunk(f, w, lab):
+    """``head_losses_ref``'s arithmetic on one chunk: fp32 logits of the
+    values as given, log-sum-exp less the gold logit, summed over the
+    valid tokens."""
+    logits = f.float() @ w.float()
+    gold = logits.gather(-1, lab.long().clamp(min=0)[:, None])[:, 0]
+    nll = torch.logsumexp(logits, dim=-1) - gold
+    return torch.where(lab >= 0, nll, torch.zeros_like(nll)).sum()
+
+
+def hs_library_chunk(f, w, lab):
+    """The library yardstick on one chunk: a bf16 ``matmul`` and
+    ``cross_entropy`` on its fp32 logits, summed."""
+    return F.cross_entropy(torch.matmul(f, w).float(), lab.long(),
+                           ignore_index=-1, reduction="sum")
+
+
+def hs_steps_check(t_tokens: int) -> dict:
+    """K1's LM body at the FACADE step's shape (n·K 4, T the step's node
+    batch times 4096, D 2048, V 128,256, bf16, every label valid): held
+    against its plain version made in token chunks (``HS_TOL``, equal
+    argmins), timed beside its bound, the chunked plain version and the
+    chunked library call."""
+    shape = (4, 1, t_tokens, LM_CFG.d_model, LM_CFG.vocab_size)
+    feats, heads, labels = hs_lm_case(*shape, seed=94, drop=0.0)
+    got = head_losses(feats, heads, labels)
+    want = hs_lm_chunked(feats, heads, labels, hs_plain_chunk)
+    torch.cuda.synchronize()
+    c = hs_check("head_select steps", got, want, shape=list(shape),
+                 dtype="bf16")
+    bound_ms, bound_by, nbytes, flops = hs_bound(feats, heads, labels)
+    t = {"check": c, "shape": list(shape), "bound_ms": bound_ms,
+         "bound_by": bound_by, "bytes": nbytes, "flops": flops,
+         "ms": graph_ms(lambda: head_losses(feats, heads, labels), calls=2,
+                        reps=3),
+         "plain_ms": event_ms(lambda: hs_lm_chunked(
+             feats, heads, labels, hs_plain_chunk)),
+         "library_ms": event_ms(lambda: hs_lm_chunked(
+             feats, heads, labels, hs_library_chunk)),
+         "library": "per (node, head) and 2048-token chunk a bf16 matmul "
+                    "and cross_entropy"}
+    del feats, heads, labels
+    settled_allocated()
+    log("head_select steps", json.dumps(t))
+    return t
+
+
+def steps_smoke_phase() -> dict:
+    """The smoke configs' steps (``STEPS_SMOKE``, fp32, B 2, S
+    ``STEPS_SMOKE_SEQ``) on the card and on the CPU from the same
+    arguments: logits, caches and FACADE's states and losses within
+    ``SMOKE_LOGIT_TOL`` (absolute and relative), argmax tokens and
+    cluster ids equal; a training step's loss and moments within it and
+    its parameters where the gradient exceeds 1e-6 (elsewhere within twice
+    the step's size, ``2 lr``: Adam's first step, ``lr·g/(|g| + eps)``,
+    divides a gradient near its eps by its own magnitude, so each side may
+    move such a parameter by up to lr either way)."""
+    out = {}
+    for arch, shape in STEPS_SMOKE:
+        cfg = get_config(arch, smoke=True)
+        case = build_step(arch, shape, cfg, 2, device="cpu")
+        args = list(case.args)
+        if case.kind in ("train", "prefill"):
+            bi = 2 if case.kind == "train" else 1
+            args[bi] = {k: (x[:, :STEPS_SMOKE_SEQ] if k in
+                            ("tokens", "labels", "mask") else x)
+                        for k, x in args[bi].items()}
+        if case.kind == "facade":
+            args[1] = {k: x[..., :STEPS_SMOKE_SEQ] for k, x in
+                       args[1].items()}
+        cpu = case.step_fn(*args)
+        gpu = to_device(case.step_fn(*to_device(args, "cuda")), "cpu")
+        torch.cuda.synchronize()
+        rec = {"kind": case.kind}
+        if case.kind == "train":
+            rec["loss_diff"] = abs(float(gpu[2]["ce"]) - float(cpu[2]["ce"]))
+            pairs = zip(tree_leaves(gpu[0]), tree_leaves(cpu[0]),
+                        tree_leaves(cpu[1]["m"]))
+            small = big = 0.0
+            for g, c, m in pairs:
+                sel = (m / 0.1).abs() > 1e-6
+                d = (g - c).abs()
+                big = max(big, float((d[sel] / c[sel].abs().clamp(
+                    min=1)).max()) if bool(sel.any()) else 0.0)
+                small = max(small, float(d.max()))
+            rec.update(param_rel_diff=big, param_max_diff=small,
+                       moments_diff=max(
+                           float((a - b).abs().max()) for a, b in zip(
+                               tree_leaves(gpu[1]["m"])
+                               + tree_leaves(gpu[1]["v"]),
+                               tree_leaves(cpu[1]["m"])
+                               + tree_leaves(cpu[1]["v"]))))
+            ok = (rec["loss_diff"] <= SMOKE_LOGIT_TOL
+                  and big <= SMOKE_LOGIT_TOL and small <= 2 * 3e-4
+                  and rec["moments_diff"] <= SMOKE_LOGIT_TOL)
+        elif case.kind == "facade":
+            rec.update(
+                loss_diff=float((gpu[1]["selection_losses"]
+                                 - cpu[1]["selection_losses"]).abs().max()),
+                ids_equal=bool(torch.equal(gpu[0].cluster_id,
+                                           cpu[0].cluster_id)),
+                state_rel_diff=max(
+                    float((a - b).abs().max() / b.abs().max().clamp(
+                        min=1e-3)) for a, b in zip(state_leaves(gpu)[:-1],
+                                                   state_leaves(cpu)[:-1])))
+            ok = (rec["loss_diff"] <= SMOKE_LM_TOL and rec["ids_equal"]
+                  and rec["state_rel_diff"] <= SMOKE_LM_TOL)
+        else:
+            logits_g, logits_c = gpu[0], cpu[0]
+            rec.update(
+                logit_diff=float((logits_g - logits_c).abs().max()),
+                tokens_equal=bool(torch.equal(logits_g.argmax(-1),
+                                              logits_c.argmax(-1))),
+                rest_diff=max((float((a.float() - b.float()).abs().max())
+                               for a, b in zip(float_leaves(gpu[1]),
+                                               float_leaves(cpu[1]))),
+                              default=0.0))
+            ok = (rec["logit_diff"] <= SMOKE_LOGIT_TOL and rec["tokens_equal"]
+                  and rec["rest_diff"] <= SMOKE_LOGIT_TOL)
+        out[f"{arch} {shape}"] = rec
+        log(f"steps smoke {arch} {shape}: card vs CPU {json.dumps(rec)}")
+        if not ok:
+            raise AssertionError(f"steps smoke {arch} {shape}: card and CPU "
+                                 f"disagree {rec}")
+    return out
+
+
+def steps_phase(rec, sm_clock_hz) -> dict:
+    """The step builders of ``launch/steps.py`` at full width on the card
+    (``STEP_CASES``), the kernels held against their plain versions at
+    the steps' lengths, and the smoke configs' steps card against CPU;
+    returns each kernel's record of those shapes and launches."""
+    t0 = time.perf_counter()
+    settled_allocated()
+    kernels = {"flash_attention": fa_steps_check(),
+               "wkv": wkv_steps_check(sm_clock_hz)}
+    cases, traces = {}, {}
+    with concurrent.futures.ProcessPoolExecutor(
+            TRACE_WORKERS, mp_context=multiprocessing.get_context("spawn")
+    ) as pool:
+        for arch, shape, first, n_layers in STEP_CASES:
+            label = f"{arch} {shape}"
+            cases[label] = step_case(arch, shape, first, n_layers)
+            traces[label] = pool.submit(trace_roofline, arch, shape,
+                                        cases[label]["batch"], n_layers)
+        facade_batch = cases["llama3.2-1b facade_pod"]["batch"]
+        kernels["head_losses"] = hs_steps_check(facade_batch * 4096)
+        for label, fut in traces.items():
+            c = cases[label]
+            c["roofline"] = row = fut.result()
+            c["wall_over_compute"] = c["median_s"] / row["t_compute_s"]
+            c["wall_over_memory"] = c["median_s"] / row["t_memory_s"]
+            log(f"steps {label} roofline: compute {row['t_compute_s']:.4g}"
+                f" s, memory {row['t_memory_s']:.4g} s ({row['dominant']}),"
+                f" measured / compute {c['wall_over_compute']:.3g}, "
+                f"measured / memory {c['wall_over_memory']:.3g}, traced in "
+                f"{row['trace_s']:.1f} s")
+    for name, entry in kernels.items():
+        entry["launches"] = {label: c["launches"][name] * c["calls"]
+                             for label, c in cases.items()
+                             if c["launches"][name]}
+    smoke = steps_smoke_phase()
+    rec["steps"] = {"cases": cases, "kernels": kernels, "smoke": smoke,
+                    "phase_s": time.perf_counter() - t0}
+    log(f"steps phase: {rec['steps']['phase_s']:.1f} s")
+    return kernels
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing to drive",
@@ -3498,8 +4108,14 @@ def main() -> int:
         "launches"]["wkv"]
     # K3's launches on its second path: the RWKV FACADE rounds
     rw["train"]["launches"] = rwkv_launches["wkv"]
-    rw["train"]["launches_per_round"] = rwkv_launches["wkv"] // LM_ROUNDS
+    rw["train"]["launches_per_round"] = (rwkv_launches["wkv"]
+                                         // LM_ROUNDS["rwkv6-1.6b"])
     smoke_serve_phase(rec)
+    # the per-arch steps at full width; K1, K2 and K3 at their lengths
+    on_steps = steps_phase(rec, sm_clock_hz)
+    hs["steps"] = on_steps["head_losses"]
+    fa["steps"] = on_steps["flash_attention"]
+    rw["steps"] = on_steps["wkv"]
     # after the timed phases: a profiler run and one more graph timing
     split = head_select_lm_split()
     if split["body_ms"] is None:

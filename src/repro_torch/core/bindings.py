@@ -154,13 +154,17 @@ def _untie_lm_head(cfg: ModelConfig, params: dict,
     return params
 
 
-def make_binding(cfg) -> Binding:
+def make_binding(cfg, remat: bool = False) -> Binding:
+    """The binding of ``cfg``'s model. ``remat`` (language models): the
+    local steps recompute each transformer layer in the backward pass,
+    the same values in less memory (``launch/steps.build_facade_case``
+    needs it to fit a long sequence on one card); the CNNs ignore it."""
     if isinstance(cfg, CNNConfig):
         return _cnn_binding(cfg)
     if isinstance(cfg, ModelConfig):
         if cfg.encoder_layers > 0:
-            return _whisper_binding(cfg)
-        return _lm_binding(cfg)
+            return _whisper_binding(cfg, remat)
+        return _lm_binding(cfg, remat)
     raise NotImplementedError(
         f"{type(cfg).__name__} models are not ported yet")
 
@@ -248,7 +252,7 @@ def _node_batch(batch, i: int) -> dict:
     return {key: b[i] for key, b in batch.items()}
 
 
-def _lm_binding(cfg: ModelConfig) -> Binding:
+def _lm_binding(cfg: ModelConfig, remat: bool = False) -> Binding:
     """A decoder LM under FACADE: the head is ``final_norm`` and an untied
     ``lm_head``; the core's output is the pre-norm features of the text
     positions (a VLM's batch also holds ``img_embeds`` [n, B, n_img, D])."""
@@ -260,7 +264,7 @@ def _lm_binding(cfg: ModelConfig) -> Binding:
 
     def node_losses(params, batch):
         return torch.stack([transformer.loss_fn(
-            cfg, node_params, _node_batch(batch, i))[0]
+            cfg, node_params, _node_batch(batch, i), remat=remat)[0]
             for i, node_params in enumerate(tree_unstack(params))])
 
     def loss(params, batch):
@@ -284,7 +288,7 @@ def _lm_binding(cfg: ModelConfig) -> Binding:
                    _lm_select_operands(norm), _no_forward)
 
 
-def _whisper_binding(cfg: ModelConfig) -> Binding:
+def _whisper_binding(cfg: ModelConfig, remat: bool = False) -> Binding:
     """The encoder-decoder under FACADE: the head is ``final_norm`` (a
     LayerNorm's ``g`` and ``b``) and an untied ``lm_head``; the core is
     the encoder and the decoder, whose output is the pre-norm decoder
@@ -297,7 +301,7 @@ def _whisper_binding(cfg: ModelConfig) -> Binding:
 
     def node_losses(params, batch):
         return torch.stack([whisper.loss_fn(
-            cfg, node_params, _node_batch(batch, i))[0]
+            cfg, node_params, _node_batch(batch, i), remat=remat)[0]
             for i, node_params in enumerate(tree_unstack(params))])
 
     def loss(params, batch):

@@ -438,12 +438,14 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
-// (m, s) <- the log-sum-exp pair of (m, s) and (mb, sb); -inf max = empty
+// (m, s) <- the log-sum-exp pair of (m, s) and (mb, sb); -inf max = empty.
+// A pair at the max keeps its sum (exp(0) = 1), written so that a +inf
+// max keeps it too and not exp(inf - inf) = NaN.
 __device__ __forceinline__ void lse_merge(float& m, float& s, float mb,
                                           float sb) {
   const float mx = fmaxf(m, mb);
   if (mx == -INFINITY) return;
-  s = s * expf(m - mx) + sb * expf(mb - mx);
+  s = (m == mx ? s : s * expf(m - mx)) + (mb == mx ? sb : sb * expf(mb - mx));
   m = mx;
 }
 
@@ -592,13 +594,31 @@ head_losses_lm_kernel(const __grid_constant__ CUtensorMap fmap,
         const float m_new = fmaxf(m_run[h], quad_max(mx));
         const float ml = m_new * kLog2e;
         float se = 0.f;
+        if (!isinf(m_new)) {
 #pragma unroll
-        for (int jn = 0; jn < 32; ++jn)
+          for (int jn = 0; jn < 32; ++jn)
 #pragma unroll
-          for (int e = 0; e < 2; ++e)
-            se += ex2(fmaf(acc[4 * jn + 2 * h + e], kLog2e, -ml));
+            for (int e = 0; e < 2; ++e)
+              se += ex2(fmaf(acc[4 * jn + 2 * h + e], kLog2e, -ml));
+        } else {
+          // an infinite max (a +inf logit): a term at it is exp(0) = 1,
+          // not exp2(inf - inf) = NaN, as the FMA body and the plain
+          // version's logsumexp count it; a +inf logit then makes the
+          // loss +inf (a NaN logit still reaches the sum and makes it NaN)
+#pragma unroll
+          for (int jn = 0; jn < 32; ++jn)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const float z = acc[4 * jn + 2 * h + e];
+              se += z == m_new ? 1.f : ex2(fmaf(z, kLog2e, -ml));
+            }
+        }
         se = quad_sum(se);
-        s_run[h] = s_run[h] * ex2((m_run[h] - m_new) * kLog2e) + se;
+        // the running sum's factor is 1 where an infinite max stays
+        const float alpha = isinf(m_new) && m_run[h] == m_new
+                                ? 1.f
+                                : ex2((m_run[h] - m_new) * kLog2e);
+        s_run[h] = fmaf(s_run[h], alpha, se);
         m_run[h] = m_new;
         const int c = y[h] - v0;  // the label's column in this tile
         if (c >= 0 && c < kLmBV) {

@@ -28,13 +28,15 @@ def init_params(cfg, generator: torch.Generator) -> dict:
     return transformer.init_params(cfg, generator)
 
 
-def loss_fn(cfg, params, batch):
-    """-> (scalar loss, metrics dict), for every backbone the port runs."""
+def loss_fn(cfg, params, batch, remat: bool = False):
+    """-> (scalar loss, metrics dict), for every backbone the port runs.
+    ``remat`` recomputes each transformer layer in the backward pass (the
+    same loss and gradients, less memory); the CNN ignores it."""
     if is_cnn(cfg):
         return cnn.loss_fn(cfg, params, batch)
     if is_encdec(cfg):
-        return whisper.loss_fn(cfg, params, batch)
-    return transformer.loss_fn(cfg, params, batch)
+        return whisper.loss_fn(cfg, params, batch, remat=remat)
+    return transformer.loss_fn(cfg, params, batch, remat=remat)
 
 
 def param_count(params) -> int:

@@ -20,6 +20,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch import scan_ops
+
 from . import layers
 from .base import ModelConfig
 
@@ -80,7 +82,7 @@ def _conv_causal(p, u, conv_cache=None):
 def ssm_scan(cfg: ModelConfig, p, u, h0=None):
     """Selective scan. u [B,S,di] -> (y [B,S,di] in u's dtype, h_final
     [B,di,N] fp32)."""
-    b, s, di = u.shape
+    b, _, di = u.shape
     h = (torch.zeros((b, di, cfg.ssm_state), dtype=torch.float32,
                      device=u.device) if h0 is None else h0)
     a = -torch.exp(p["a_log"])                               # [di,N]
@@ -88,13 +90,26 @@ def ssm_scan(cfg: ModelConfig, p, u, h0=None):
     uf = u.float()
     da = torch.exp(dt[..., None] * a)                        # [B,S,di,N]
     dbu = dt[..., None] * bb[:, :, None, :] * uf[..., None]  # [B,S,di,N]
+    scan = _SCAN_OP if scan_ops.is_fake(u) else _scan_loop
+    hs, h = scan(da, dbu, h)
+    y = torch.einsum("bsdn,bsn->bsd", hs, cc) + uf * p["d_skip"]
+    return y.to(u.dtype), h
+
+
+def _scan_loop(da, dbu, h):
+    """``h_t = da_t h_{t-1} + dbu_t`` over S: (every h_t stacked [B,S,di,N],
+    the last)."""
     hs = []
-    for t in range(s):
+    for t in range(da.shape[1]):
         h = torch.addcmul(dbu[:, t], da[:, t], h)
         hs.append(h)
-    y = torch.einsum("bsdn,bsn->bsd", torch.stack(hs, dim=1), cc) \
-        + uf * p["d_skip"]
-    return y.to(u.dtype), h
+    return (torch.stack(hs, dim=1) if hs else dbu.new_zeros(dbu.shape)), h
+
+
+# elementwise only: FlopCounterMode counts 0 for the loop and its backward
+_SCAN_OP = scan_ops.define(
+    "ssm_scan", ("da", "dbu", "h0"), 2, _scan_loop,
+    lambda da, dbu, h0: (torch.empty_like(dbu), torch.empty_like(h0)))
 
 
 def ssm_branch(cfg: ModelConfig, p, x):

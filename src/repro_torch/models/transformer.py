@@ -4,8 +4,9 @@
 
 API (plain functions on nested dicts of tensors):
     init_params(cfg, generator)                         -> params
-    forward(cfg, params, tokens, img_embeds=None)       -> (features, aux)
-    loss_fn(cfg, params, batch)                         -> (loss, metrics)
+    forward(cfg, params, tokens, img_embeds=None,
+            remat=False)                                -> (features, aux)
+    loss_fn(cfg, params, batch, remat=False)            -> (loss, metrics)
     init_cache(cfg, batch, cache_len, device)           -> empty cache
     prefill(cfg, params, tokens, img_embeds=None, ...)  -> (last_logits,
                                                             cache)
@@ -13,9 +14,11 @@ API (plain functions on nested dicts of tensors):
 
 Layers are stacked (a leading L axis on every leaf of ``params["layers"]``
 and of the cache), as in the reference; a Python loop over L takes the
-place of its ``lax.scan``. ``aux`` is MoE's router load-balance loss
-(summed over the layers; 0 for the other families), which ``loss_fn``
-adds at ``router_aux_coef``. A VLM's ``img_embeds`` [B, n_img, D] (the
+place of its ``lax.scan``; ``remat=True`` recomputes each layer in the
+backward pass (``torch.utils.checkpoint``, non-reentrant), as the
+reference's ``jax.checkpoint`` of its scan body does. ``aux`` is MoE's
+router load-balance loss (summed over the layers; 0 for the other
+families), which ``loss_fn`` adds at ``router_aux_coef``. A VLM's ``img_embeds`` [B, n_img, D] (the
 stubbed vision tower's patch embeddings) go in front of the tokens, at
 positions ``0 .. n_img - 1``. The encoder-decoder (audio) family is
 ``whisper.py``'s; this module refuses it, and any other family outside
@@ -24,6 +27,7 @@ positions ``0 .. n_img - 1``. The encoder-decoder (audio) family is
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve
 from repro_torch.kernels.flash_attention import flash_attention
@@ -178,17 +182,26 @@ def embed_inputs(cfg: ModelConfig, params, tokens, img_embeds=None):
     return x, positions
 
 
+def remat_call(remat: bool, fn, *args):
+    """``fn(*args)``, or under ``remat`` its activations dropped after the
+    forward pass and recomputed in the backward one (the same values)."""
+    if not remat:
+        return fn(*args)
+    return checkpoint(fn, *args, use_reentrant=False,
+                      preserve_rng_state=False)
+
+
 def forward(cfg: ModelConfig, params, tokens, img_embeds=None,
-            apply_final_norm: bool = True):
+            apply_final_norm: bool = True, remat: bool = False):
     """-> (features [B,S,D], aux); S includes a VLM's image positions.
     ``apply_final_norm=False`` returns pre-norm features (the FACADE core
     output). ``aux`` is the layers' MoE router losses summed in order (0
-    without MoE)."""
+    without MoE). ``remat`` recomputes each layer in the backward pass."""
     _check_ported(cfg)
     h, positions = embed_inputs(cfg, params, tokens, img_embeds)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     for lp in tree_unstack(params["layers"]):      # one backward stack
-        h, a = block_forward(cfg, lp, h, positions)
+        h, a = remat_call(remat, block_forward, cfg, lp, h, positions)
         if a is not None:
             aux = aux + a
     if apply_final_norm:
@@ -230,13 +243,15 @@ def chunked_ce(features, w_head, labels, mask, chunk: int = 512):
     return nll / denom, acc / denom
 
 
-def loss_fn(cfg: ModelConfig, params, batch):
+def loss_fn(cfg: ModelConfig, params, batch, remat: bool = False):
     """batch: {tokens [B,S], labels [B,S], mask [B,S], img_embeds?} ->
     (loss, metrics). The loss is the masked mean NLL over the text
     positions plus ``router_aux_coef`` times MoE's router loss ``aux`` (0
-    without MoE); the metrics hold ``ce`` (the NLL), ``aux`` and ``acc``."""
+    without MoE); the metrics hold ``ce`` (the NLL), ``aux`` and ``acc``.
+    ``remat``: as :func:`forward`'s."""
     img = batch.get("img_embeds")
-    feats, aux = forward(cfg, params, batch["tokens"], img_embeds=img)
+    feats, aux = forward(cfg, params, batch["tokens"], img_embeds=img,
+                         remat=remat)
     feats = feats[:, 0 if img is None else img.shape[1]:]
     loss, acc = chunked_ce(feats, lm_head_weight(cfg, params),
                            batch["labels"], batch["mask"])

@@ -27,7 +27,7 @@ from repro_torch.tree import tree_map, tree_unstack
 
 from . import attention, layers
 from .base import ModelConfig
-from .transformer import chunked_ce
+from .transformer import chunked_ce, remat_call
 
 
 def sinusoids(length: int, channels: int, device=None):
@@ -143,30 +143,36 @@ def lm_head_weight(params):
     return params["lm_head"] if "lm_head" in params else params["embed"].T
 
 
+def _dec_block(cfg: ModelConfig, lp, h, enc):
+    a = _ln(cfg, h, lp["ln1"])
+    h = h + _mha(cfg, lp["self_attn"], a, causal=True)
+    c = _ln(cfg, h, lp["ln2"])
+    h = h + _mha(cfg, lp["cross_attn"], c, enc, causal=False)
+    m = _ln(cfg, h, lp["ln3"])
+    return h + layers.gelu_mlp(lp["mlp"], m)
+
+
 def forward(cfg: ModelConfig, params, tokens, frames,
-            apply_final_norm: bool = True):
+            apply_final_norm: bool = True, remat: bool = False):
     """Teacher-forced decode over the whole target -> (features [B,S,D],
-    aux = 0)."""
+    aux = 0). ``remat`` recomputes each decoder layer in the backward
+    pass (the encoder's are kept, as in the reference)."""
     enc = encode(cfg, params, frames)
     s = tokens.shape[1]
     h = params["embed"][tokens.long()] + params["decoder"]["pos_embed"][
         None, :s]
     for lp in tree_unstack(params["decoder"]["layers"]):
-        a = _ln(cfg, h, lp["ln1"])
-        h = h + _mha(cfg, lp["self_attn"], a, causal=True)
-        c = _ln(cfg, h, lp["ln2"])
-        h = h + _mha(cfg, lp["cross_attn"], c, enc, causal=False)
-        m = _ln(cfg, h, lp["ln3"])
-        h = h + layers.gelu_mlp(lp["mlp"], m)
+        h = remat_call(remat, _dec_block, cfg, lp, h, enc)
     if apply_final_norm:
         h = _ln(cfg, h, params["final_norm"])
     return h, torch.zeros((), dtype=torch.float32, device=h.device)
 
 
-def loss_fn(cfg: ModelConfig, params, batch):
+def loss_fn(cfg: ModelConfig, params, batch, remat: bool = False):
     """batch: {tokens, labels, mask [B,S], frames [B,S_enc,D]} -> (loss,
     metrics ``ce``, ``aux`` (0), ``acc``)."""
-    feats, aux = forward(cfg, params, batch["tokens"], batch["frames"])
+    feats, aux = forward(cfg, params, batch["tokens"], batch["frames"],
+                         remat=remat)
     loss, acc = chunked_ce(feats, lm_head_weight(params), batch["labels"],
                            batch["mask"])
     return loss, {"ce": loss, "aux": aux, "acc": acc}

@@ -279,9 +279,11 @@ def _lm_logits(f, w):
 
 def _lm_split(logits, y, vt0, vt1):
     """One V-split's (max, sum-exp, gold) per token over vocab tiles
-    vt0 .. vt1 - 1, in order: a tile's columns past V are -inf; lane q of a
-    row's quad sums exp2 of its columns 8 j + 2 q + e (j, then e) after the
-    log2(e) pre-scale, and the quad adds (q0 + q1) + (q2 + q3)."""
+    vt0 .. vt1 - 1, in order: a tile's columns past V are -inf; the max is
+    ``fmaxf``'s (a NaN dropped); lane q of a row's quad sums exp2 of its
+    columns 8 j + 2 q + e (j, then e) after the log2(e) pre-scale, and the
+    quad adds (q0 + q1) + (q2 + q3); under an infinite max a term at it
+    counts 1, and so does the running sum's factor where the max stays."""
     t, v = logits.shape
     m = np.full(t, -np.inf, np.float32)
     s = np.zeros(t, np.float32)
@@ -290,17 +292,21 @@ def _lm_split(logits, y, vt0, vt1):
         v0, v1 = vt * LM_BV, min(v, (vt + 1) * LM_BV)
         x = np.full((t, LM_BV), -np.inf, np.float32)
         x[:, :v1 - v0] = logits[:, v0:v1]
-        m_new = np.maximum(m, x.max(axis=1))
+        m_new = np.fmax(m, np.fmax.reduce(x, axis=1))
+        inf = np.isinf(m_new)
         ml = (m_new * LOG2E).astype(np.float32)
         lanes = x.reshape(t, 32, 4, 2).transpose(0, 2, 1, 3).reshape(t, 4, 64)
         p = _exp2(_fma32(lanes, LOG2E, -ml[:, None, None]))
+        p = np.where(inf[:, None, None] & (lanes == m_new[:, None, None]),
+                     np.float32(1), p)
         part = np.zeros((t, 4), np.float32)
         for i in range(64):
             part = (part + p[..., i]).astype(np.float32)
         se = ((part[:, 0] + part[:, 1]).astype(np.float32)
               + (part[:, 2] + part[:, 3]).astype(np.float32)).astype(
                   np.float32)
-        alpha = _exp2(((m - m_new) * LOG2E).astype(np.float32))
+        alpha = np.where(inf & (m == m_new), np.float32(1),
+                         _exp2(((m - m_new) * LOG2E).astype(np.float32)))
         s = _fma32(s, alpha, se)
         m = m_new
         hit = (y >= v0) & (y < v1)
@@ -331,12 +337,14 @@ def _emulate_lm_body(feats, heads, labels, splits):
         s = np.zeros(t, np.float32)
         g = np.zeros(t, np.float32)
         for mb, sb, gb in trip:
-            mx = np.maximum(m, mb)
+            mx = np.fmax(m, mb)
             with np.errstate(invalid="ignore"):
                 s = np.where(mx == -np.inf, s, (
-                    s * np.exp(m - mx).astype(np.float32)
-                    + sb * np.exp(mb - mx).astype(np.float32)).astype(
-                        np.float32))
+                    np.where(m == mx, s,
+                             s * np.exp(m - mx).astype(np.float32))
+                    + np.where(mb == mx, sb,
+                               sb * np.exp(mb - mx).astype(np.float32))
+                ).astype(np.float32))
             m = mx
             g = (g + gb).astype(np.float32)
         with np.errstate(divide="ignore", invalid="ignore"):
@@ -402,6 +410,54 @@ def test_lm_body_order_matches_the_pallas_kernel(n, k, t, d, v, splits):
             interpret=True))
         np.testing.assert_allclose(got[i], want, rtol=1e-5, atol=1e-5)
         assert int(np.argmin(got[i])) == int(np.argmin(want))
+
+
+def lm_non_finite_case(seed: int = 23):
+    """LM-regime inputs (n 4, K 2, T 40, D 16, V 776, bf16 values) with
+    :func:`non_finite_case`'s non-finite values: node 0 a token of NaN
+    features, node 1 a head of NaN weights, node 2 a +inf weight on a
+    feature that is 1 for every token, in a column none of its labels
+    names, node 3 a head of +inf weights (``chip_smoke.py`` checks the
+    kernel on the same construction)."""
+    feats, heads, labels = _case(2, 40, 16, 776, seed=seed, n=4, drop=0.1)
+    feats, heads = _bf16(feats), _bf16(heads)
+    labels[0, 3] = 5
+    feats[0, 3] = np.nan
+    heads[1, 1] = np.nan
+    feats[2, :, 0] = 1.0
+    free = sorted(set(range(776)) - set(labels[2].tolist()))[0]
+    heads[2, 0, 0, free] = np.inf
+    heads[3, 1] = np.inf
+    return feats, heads, labels
+
+
+@pytest.mark.parametrize("splits", [1, 2])
+def test_lm_body_order_on_non_finite_inputs(splits):
+    """The tensor-core body's order on :func:`lm_non_finite_case` against
+    the plain version and the reference's oracle, with the FMA body's
+    gates: NaN and +inf at the same places, the finite losses within
+    1e-5, the argmins [0, 1, 1, 1] (a row's first NaN, else the least
+    loss). Before the infinite-max rule, the +inf logit gave NaN (the
+    card showed it first)."""
+    feats, heads, labels = lm_non_finite_case()
+    with np.errstate(invalid="ignore", over="ignore"):
+        got = _emulate_lm_body(feats, heads, labels, splits)
+    plain = head_losses_ref(torch.from_numpy(feats),
+                            torch.from_numpy(heads),
+                            torch.from_numpy(labels)).numpy()
+    oracle = np.stack([np.asarray(jax_ref(
+        jnp.asarray(feats[i]), jnp.asarray(heads[i]), labels[i]))
+        for i in range(feats.shape[0])])
+    for want in (plain, oracle):
+        np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+        np.testing.assert_array_equal(np.isposinf(got), np.isposinf(want))
+        fin = np.isfinite(want)
+        np.testing.assert_allclose(got[fin], want[fin], rtol=1e-5,
+                                   atol=1e-5)
+    assert np.isnan(got[[0, 0, 1, 3], [0, 1, 1, 1]]).all()
+    assert np.isposinf(got[2, 0]) and np.isfinite(got[2, 1])
+    assert torch.argmin(torch.from_numpy(got), dim=1).tolist() == \
+        torch.argmin(torch.from_numpy(plain), dim=1).tolist() == [0, 1, 1, 1]
 
 
 @pytest.mark.parametrize("splits", [1, 3])
