@@ -180,6 +180,18 @@ failure raises and exits non-zero, before the last line is printed):
    FACADE's steady rate observed and unobserved (20 rounds, seed 1 of
    one cache each, OBS_RATE_REPS runs in turns, medians and quartiles),
    peak memory and capture seconds;
+3a. the node mesh (``mesh_phase``, same data and schedule) on the
+   driver's one card: ``mesh=(1,)`` (a one-rank NCCL group that
+   ``run_experiment`` starts itself; each round captured with its
+   all-gather of the sent tree inside) against ``mesh=None`` for the five
+   algorithms, without a medium and under ``edge-v2`` with the
+   reference's NaN-corrupting faults (``MESH_FAULTS``) and
+   ``Obs(ObsConfig())``: the same run and the same frames bit for bit,
+   K1 one a replayed FACADE round plus its warm-up call; FACADE's steady
+   rate with ``mesh=(1,)`` and with ``mesh=None`` (20 rounds, seed 1 of
+   one cache each, ``MESH_RATE_REPS`` runs in turns); the process group
+   destroyed at the end; the phase's seconds. The four-card run is
+   ``tools/mesh_run.py`` under ``torchrun``;
 3b. the launcher's paper mode (``launch.train.paper_main``) on full-width
    ResNet8 (64×64 images, 41 classes; ``RESNET8_PAPER``: 32 nodes in
    clusters 24:8, degree 4, H = 10, B = 8, 8 rounds) for the five
@@ -299,7 +311,7 @@ failure raises and exits non-zero, before the last line is printed):
    errors, times, bounds and SDPA times under ``"shapes"``; head select's ResNet8 step
    2c under ``"resnet8"``,
    its launches on the driver phases under ``"driver_launches"``, the
-   telemetry phase's under ``"obs"``; K2's and K3's in the traced serves
+   telemetry phase's under ``"obs"``, the node mesh's under ``"mesh"``; K2's and K3's in the traced serves
    under ``"traced_serve_launches"``; each kernel's check, times, bound
    and launches at the steps' lengths under ``"steps"``),
    the total time, then the last line ``{"ok": true, "device": {...}}``.
@@ -337,6 +349,7 @@ sys.path.insert(0, str(ROOT / "src"))
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
+import torch.distributed as dist  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
 from repro_torch.checkpoint import io as ckpt_io  # noqa: E402
@@ -441,6 +454,11 @@ TOPO_FLOOR_ROUNDS = 400
 # the telemetry phase: FACADE's observed rate in turns with the unobserved
 # one, OBS_RATE_REPS timed runs each (NET_RATE_ROUNDS rounds, seed 1)
 OBS_RATE_REPS = 5
+# the node-mesh phase: the reference's full stack (tests/test_mesh.py),
+# and FACADE's rate with mesh=(1,) in turns with mesh=None
+MESH_FAULTS = FaultConfig(crash_rate=0.1, restart_rate=0.5,
+                          corrupt_rate=0.2, corrupt_mode="nan")
+MESH_RATE_REPS = 3
 # the paper's Flickr-Mammals experiment through the launcher's paper_main:
 # full-width ResNet8 (64×64 images, 41 classes), 32 nodes in clusters 24:8
 # rotated rot0/rot180, k 2, degree 4, H 10, B 8, lr 0.05, 8 rounds with an
@@ -2315,6 +2333,94 @@ def obs_phase(rec, ds) -> int:
     return launches
 
 
+def mesh_phase(rec, ds) -> int:
+    """The node mesh on the driver's one card at paper scale on GN-LeNet
+    (the main path's data), ROUNDS rounds with an eval every EVAL_EVERY:
+
+    - the five algorithms with ``mesh=(1,)`` against ``mesh=None``,
+      without a medium and under ``edge-v2`` with ``MESH_FAULTS`` and
+      ``Obs(ObsConfig())``: the same run bit for bit (``run_diff``) and
+      the same frames; K1 ``FACADE_LAUNCHES`` in FACADE's meshed run (one
+      a replayed round, inside the captured round beside its all-gather,
+      and its warm-up call), none elsewhere;
+    - FACADE's steady rate with ``mesh=(1,)`` and ``mesh=None``: one
+      ``EngineCache`` each, whose seed-0 run captures, then
+      MESH_RATE_REPS runs of NET_RATE_ROUNDS rounds of seed 1 each, in
+      turns (``timed_run``), medians.
+    The one-rank process group ``mesh=(1,)`` started is destroyed at the
+    end. Returns K1's launches in the phase."""
+    t0 = time.perf_counter()
+    cfg = lenet()
+    kw = dict(PAPER, rounds=ROUNDS, eval_every=EVAL_EVERY, device="cuda")
+    full = NetworkConfig.preset("edge-v2", faults=MESH_FAULTS)
+    out = {"parity": {}, "rates": {}}
+    launches = 0
+    for algo in ALGOS:
+        for variant in ("plain", "full"):
+            extra = {} if variant == "plain" else {"net": full}
+            obs_a = obs_b = None
+            if variant == "full":
+                obs_a, obs_b = Obs(ObsConfig()), Obs(ObsConfig())
+            ref = run_experiment(algo, cfg, ds, obs=obs_a, **extra, **kw)
+            with counted() as counts:
+                got = run_experiment(algo, cfg, ds, obs=obs_b, mesh=(1,),
+                                     **extra, **kw)
+                torch.cuda.synchronize()
+            want = FACADE_LAUNCHES if algo == "facade" else 0
+            res = out["parity"][f"{algo} {variant}"] = {
+                "diff": run_diff(got, ref), "launches": counts,
+                "frames_equal": None if obs_a is None else frames_equal(
+                    obs_a.frames_table(), obs_b.frames_table())}
+            log(f"mesh (1,) {algo} {variant}: {json.dumps(res)}")
+            if not (res["diff"]["equal"] and res["frames_equal"] is not False
+                    and counts["head_losses"] == want):
+                raise AssertionError(f"mesh {algo} {variant}: "
+                                     f"{json.dumps(res)} (K1 want {want})")
+            launches += counts["head_losses"]
+    rate_kw = dict(PAPER, rounds=NET_RATE_ROUNDS,
+                   eval_every=NET_RATE_ROUNDS)
+    meshes = {"none": None, "mesh1": (1,)}
+    caches = {name: EngineCache() for name in meshes}
+    runs = {name: [] for name in meshes}
+    with counted() as counts:
+        for name, mesh in meshes.items():
+            run_experiment("facade", cfg, ds, cache=caches[name],
+                           device="cuda", mesh=mesh, **rate_kw)
+        for rep in range(MESH_RATE_REPS):
+            order = list(meshes) if rep % 2 == 0 else list(meshes)[::-1]
+            for name in order:
+                _, wall, peak, reserved = timed_run(
+                    "facade", cfg, ds, cache=caches[name],
+                    mesh=meshes[name], **dict(rate_kw, seed=1))
+                runs[name].append({"rounds_per_s": NET_RATE_ROUNDS / wall,
+                                   "peak_allocated": peak,
+                                   "peak_reserved": reserved})
+    for name in meshes:
+        rates = [r["rounds_per_s"] for r in runs[name]]
+        out["rates"][name] = {
+            "median": statistics.median(rates), "rates": rates,
+            "peak_allocated": max(r["peak_allocated"] for r in runs[name]),
+            "capture_s": caches[name].entry(dataclasses.replace(
+                paper_spec("facade", cfg, ds),
+                mesh=meshes[name])).engine.capture_s}
+    out["rates"]["mesh1_vs_none"] = (out["rates"]["mesh1"]["median"]
+                                     / out["rates"]["none"]["median"])
+    want = 2 * (1 + MESH_RATE_REPS) * NET_RATE_ROUNDS + 2 * WARMUP_ROUNDS
+    out["rates"]["launches"] = counts
+    log(f"mesh rate: {json.dumps(out['rates'])}")
+    if counts["head_losses"] != want:
+        raise AssertionError(f"mesh rate: {counts} K1, want {want}")
+    launches += counts["head_losses"]
+    del caches
+    dist.destroy_process_group()
+    out["launches"] = launches
+    out["phase_s"] = time.perf_counter() - t0
+    log(f"mesh phase: {out['phase_s']:.1f} s")
+    rec["mesh"] = out
+    torch.cuda.empty_cache()
+    return launches
+
+
 def small_input_phase(rec):
     """The same tiny experiment on the card and on the CPU (one seed, so
     the same draws), on GN-LeNet and on ResNet8: bytes and cluster ids
@@ -4077,7 +4183,8 @@ def main() -> int:
                              "netsim": netsim_phase(rec, ds),
                              "faults": faults_phase(rec, ds),
                              "topo": topo_phase(rec, ds),
-                             "obs": obs_phase(rec, ds)}
+                             "obs": obs_phase(rec, ds),
+                             "mesh": mesh_phase(rec, ds)}
     resnet8_launches = resnet8_paper_phase(rec)
     hs["resnet8"] = dict(resnet8_select_phase(rec),
                          launches=resnet8_launches)

@@ -12,9 +12,10 @@ from repro_torch import resil
 from repro_torch import topo as topo_mod
 from repro_torch.tree import tree_map
 
-from .. import split, topology
+from .. import meshctx, split, topology
 from ..bindings import Binding, gossip_mix, local_sgd
-from ..netwire import comm_info, masked_topology, sent_view
+from ..netwire import (comm_info, gather_sent, masked_topology, quarantined,
+                       sent_view)
 from ..state import BaselineState, freeze_inactive
 
 
@@ -74,18 +75,28 @@ def dac_round(cfg: DACConfig, binding: Binding, state: BaselineState,
         adj = torch.maximum(adj, adj.T)  # symmetrise (push-pull exchange)
     adj = masked_topology(net, adj)
 
-    # what each peer delivers: its published snapshot when stale
+    # what each peer delivers: its published snapshot when stale; under a
+    # node mesh every peer's, gathered once
     vis = sent_view(net, gossip, state.params, fault_cfg)
     guard = resil.guard_of(fault_cfg)
     delivered_params = state.params if vis is None else vis
+    senders = gather_sent(delivered_params)
+    peers_of = delivered_params if senders is None else senders
 
     # similarity: the inverse loss of each neighbour's model on the node's
-    # first local batch, all n * r pairs in one node-batched call
+    # first local batch, all n * r pairs in one node-batched call. Under a
+    # node mesh a rank holds only its nodes' batches: it scores its m * r
+    # pairs inside the call at mesh=None's n * r (the other pairs on zero
+    # inputs, so the grouped convolutions run mesh=None's kernels), and
+    # the scores are gathered: the similarity table is whole on every rank
     with torch.no_grad():
-        peers = tree_map(lambda l: l[nbr.reshape(-1)], delivered_params)
-        mine = {key: b[:, 0].repeat_interleave(r, dim=0)
+        peers = tree_map(lambda l: l[nbr.reshape(-1)], peers_of)
+        mine = {key: meshctx.pad_rows(b[:, 0].repeat_interleave(r, dim=0),
+                                      n * r)
                 for key, b in batches.items()}
         l_peer = binding.node_losses(peers, mine).reshape(n, r)
+    if senders is not None:
+        l_peer = meshctx.gather_tree(meshctx.rows(l_peer))
     if guard is not None:
         l_peer = torch.where(torch.isfinite(l_peer), l_peer,
                              torch.full_like(l_peer, 1e9))
@@ -99,8 +110,9 @@ def dac_round(cfg: DACConfig, binding: Binding, state: BaselineState,
 
     # aggregate with similarity weights, then train locally
     w = topology.weighted_mixing(adj, new_sim.clamp(min=1e-6))
-    params = local_sgd(binding, gossip_mix(w, state.params, vis,
-                                           guard=guard), batches, cfg.lr)
+    params = local_sgd(binding, gossip_mix(w, state.params, vis, guard=guard,
+                                           senders=senders),
+                       batches, cfg.lr)
     if net is not None:
         params = freeze_inactive(net.active, params, state.params)
         new_sim = torch.where(net.active[:, None] > 0, new_sim, sim)
@@ -108,7 +120,6 @@ def dac_round(cfg: DACConfig, binding: Binding, state: BaselineState,
         tree_map(lambda l: l[0], state.params))
     info = comm_info(net, adj, model_bytes, n * cfg.degree,
                      actual=part is not None)
-    info["quarantined"] = resil.quarantined_count(guard, vis,
-                                                  device=adj.device)
+    info["quarantined"] = quarantined(guard, vis, senders, adj.device)
     return (BaselineState(params=params, round=state.round + 1,
                           extra={"sim": new_sim}), info)

@@ -12,7 +12,8 @@ from repro_torch.tree import tree_map
 
 from .. import split, topology
 from ..bindings import Binding, gossip_mix, local_sgd
-from ..netwire import comm_info, masked_topology, sent_view
+from ..netwire import (comm_info, gather_sent, masked_topology, quarantined,
+                       sent_view)
 from ..state import BaselineState, freeze_inactive
 
 
@@ -47,7 +48,9 @@ def deprl_round(cfg: DeprlConfig, binding: Binding, state: BaselineState,
         pub_cores, _ = split.split_params(gossip, binding.head_keys)
     vis = sent_view(net, pub_cores, cores, fault_cfg)
     guard = resil.guard_of(fault_cfg)
-    cores = gossip_mix(topology.mixing_matrix(adj), cores, vis, guard=guard)
+    senders = gather_sent(cores if vis is None else vis)
+    cores = gossip_mix(topology.mixing_matrix(adj), cores, vis, guard=guard,
+                       senders=senders)
     params = local_sgd(binding, split.merge_params(cores, heads), batches,
                        cfg.lr)
     if net is not None:
@@ -55,6 +58,5 @@ def deprl_round(cfg: DeprlConfig, binding: Binding, state: BaselineState,
     core_bytes = split.tree_size_bytes(tree_map(lambda l: l[0], cores))
     info = comm_info(net, adj, core_bytes, cfg.n_nodes * cfg.degree,
                      actual=adaptive)
-    info["quarantined"] = resil.quarantined_count(guard, vis,
-                                                  device=adj.device)
+    info["quarantined"] = quarantined(guard, vis, senders, adj.device)
     return state._replace(params=params, round=state.round + 1), info

@@ -11,7 +11,8 @@ from repro_torch.tree import tree_map
 
 from .. import split, topology
 from ..bindings import Binding, gossip_mix, local_sgd
-from ..netwire import comm_info, masked_topology, sent_view
+from ..netwire import (comm_info, gather_sent, masked_topology, quarantined,
+                       sent_view)
 from ..state import BaselineState, freeze_inactive
 
 
@@ -44,14 +45,14 @@ def dpsgd_round(cfg: DpsgdConfig, binding: Binding, state: BaselineState,
     params = local_sgd(binding, state.params, batches, cfg.lr)
     vis = sent_view(net, gossip, params, fault_cfg)
     guard = resil.guard_of(fault_cfg)
+    senders = gather_sent(params if vis is None else vis)
     params = gossip_mix(topology.mixing_matrix(adj), params, vis,
-                        guard=guard)
+                        guard=guard, senders=senders)
     if net is not None:
         params = freeze_inactive(net.active, params, state.params)
     model_bytes = split.tree_size_bytes(
         tree_map(lambda l: l[0], state.params))
     info = comm_info(net, adj, model_bytes, cfg.n_nodes * cfg.degree,
                      actual=adaptive)
-    info["quarantined"] = resil.quarantined_count(guard, vis,
-                                                  device=adj.device)
+    info["quarantined"] = quarantined(guard, vis, senders, adj.device)
     return state._replace(params=params, round=state.round + 1), info

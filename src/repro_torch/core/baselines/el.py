@@ -11,7 +11,8 @@ from repro_torch.tree import tree_map
 
 from .. import split, topology
 from ..bindings import Binding, gossip_mix, local_sgd
-from ..netwire import comm_info, masked_topology, sent_view
+from ..netwire import (comm_info, gather_sent, masked_topology, quarantined,
+                       sent_view)
 from ..state import BaselineState, freeze_inactive
 
 
@@ -42,8 +43,9 @@ def el_round(cfg: ELConfig, binding: Binding, state: BaselineState, batches,
     adj = masked_topology(net, adj)
     vis = sent_view(net, gossip, state.params, fault_cfg)
     guard = resil.guard_of(fault_cfg)
+    senders = gather_sent(state.params if vis is None else vis)
     params = gossip_mix(topology.mixing_matrix(adj), state.params, vis,
-                        guard=guard)
+                        guard=guard, senders=senders)
     params = local_sgd(binding, params, batches, cfg.lr)
     if net is not None:
         params = freeze_inactive(net.active, params, state.params)
@@ -51,6 +53,5 @@ def el_round(cfg: ELConfig, binding: Binding, state: BaselineState, batches,
         tree_map(lambda l: l[0], state.params))
     info = comm_info(net, adj, model_bytes, cfg.n_nodes * cfg.degree,
                      actual=adaptive)
-    info["quarantined"] = resil.quarantined_count(guard, vis,
-                                                  device=adj.device)
+    info["quarantined"] = quarantined(guard, vis, senders, adj.device)
     return BaselineState(params=params, round=state.round + 1), info

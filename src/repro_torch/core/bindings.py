@@ -34,16 +34,29 @@ from repro_torch.models.base import CNNConfig, ModelConfig
 from repro_torch.tree import (tree_leaves, tree_map, tree_unflatten,
                               tree_unstack)
 
+from . import meshctx
+
 
 def node_matmul(a, x):
-    """The cross-node contraction ``out[i, ...] = sum_j a[i, j] x[j, ...]``."""
-    return torch.einsum("ij,j...->i...", a, x)
+    """The cross-node contraction ``out[i, ...] = sum_j a[i, j] x[j, ...]``.
+    Under a node mesh (:mod:`.meshctx`) ``a`` holds the rank's rows
+    ``[n/P, n]`` and ``x`` every sender ``[n, ...]`` (gathered once a round,
+    :func:`.meshctx.gather_tree`): the product runs at ``mesh=None``'s
+    shape (:func:`.meshctx.pad_rows`) and returns the rank's rows, each
+    ``mesh=None``'s bit for bit."""
+    n = x.shape[0]
+    return meshctx.rows_of(
+        torch.einsum("ij,j...->i...", meshctx.pad_rows(a, n), x), a)
 
 
 def node_head_matmul(a, onehot, h):
     """FACADE's Eq. 4 receive contraction
-    ``recv[i, c, ...] = sum_j a[i, j] onehot[j, c] h[j, ...]``."""
-    return torch.einsum("ij,jc,j...->ic...", a, onehot, h)
+    ``recv[i, c, ...] = sum_j a[i, j] onehot[j, c] h[j, ...]``; under a
+    node mesh, the rank's rows of ``a`` against every sender's ``onehot``
+    and ``h``, as :func:`node_matmul`."""
+    n = h.shape[0]
+    return meshctx.rows_of(torch.einsum(
+        "ij,jc,j...->ic...", meshctx.pad_rows(a, n), onehot, h), a)
 
 
 class Binding(NamedTuple):
@@ -76,7 +89,7 @@ def local_sgd(binding: Binding, params, batches, lr: float):
     return params
 
 
-def gossip_mix(w, tree, visible=None, guard=None):
+def gossip_mix(w, tree, visible=None, guard=None, senders=None):
     """Row-stochastic gossip mixing (Eq. 3) ``out_i = sum_j W_ij x_j`` over
     a node-stacked tree; the one mixing definition of every algorithm.
 
@@ -99,48 +112,72 @@ def gossip_mix(w, tree, visible=None, guard=None):
       ``min(1, clip * |self| / |sender|)``, so a blown-up payload pulls a
       receiver by at most ``clip`` times its own norm.
 
-    ``guard=None`` is the fault-free arithmetic bit for bit."""
+    ``guard=None`` is the fault-free arithmetic bit for bit.
+
+    Under a node mesh (:func:`.meshctx.current`) ``w`` is whole ``[n, n]``,
+    ``tree`` and ``visible`` hold the rank's rows, and the senders (what
+    the neighbours receive, ``visible`` or else ``tree``) are gathered
+    whole once (``senders``, when the caller has gathered them already);
+    each rank mixes its rows of ``w`` against every sender, and the guard
+    reads every sender's finiteness and norm."""
+    mesh = meshctx.current()
+    lo = 0
+    if mesh is not None:
+        if senders is None:
+            senders = meshctx.gather_tree(tree if visible is None
+                                          else visible, mesh)
+        lo = meshctx.row_offset(w.shape[0])
+        w = meshctx.rows(w)                                    # [m, n]
     if guard is None:
         if visible is None:
-            return tree_map(lambda p: node_matmul(w.to(p.dtype), p), tree)
-        diag = torch.diagonal(w)
+            if senders is None:
+                return tree_map(lambda p: node_matmul(w.to(p.dtype), p),
+                                tree)
+            return tree_map(lambda p, s: node_matmul(w.to(p.dtype), s),
+                            tree, senders)
+        diag = torch.diagonal(w, offset=lo)
+        v_all = visible if senders is None else senders
 
-        def mix(p, v):
+        def mix(p, v, s):
             v = v.to(p.dtype)
-            out = node_matmul(w.to(p.dtype), v)
+            out = node_matmul(w.to(p.dtype), s.to(p.dtype))
             d = diag.reshape((diag.shape[0],) + (1,) * (p.dim() - 1))
             return (out + d.to(p.dtype) * (p - v)).to(p.dtype)
 
-        return tree_map(mix, tree, visible)
+        return tree_map(mix, tree, visible, v_all)
 
     v_tree = tree if visible is None else visible
-    n = w.shape[0]
-    finite = resil.node_finite(v_tree)                         # [n]
-    vnorm = torch.where(finite > 0, resil.node_norm(v_tree),
+    v_all = v_tree if senders is None else senders
+    n = w.shape[1]
+    finite = resil.node_finite(v_all)                          # [n]
+    vnorm = torch.where(finite > 0, resil.node_norm(v_all),
                         torch.ones_like(finite))
-    pnorm = resil.node_norm(tree)                              # own, fresh
-    eye = torch.eye(n, dtype=w.dtype, device=w.device)
+    pnorm = meshctx.rows_of(resil.node_norm(tree_map(     # own, fresh
+        lambda l: meshctx.pad_rows(l, n), tree)), w)
+    eye = meshctx.rows(torch.eye(n, dtype=w.dtype, device=w.device))
     off = 1.0 - eye
     # quarantine: drop poisoned senders' off-diagonal mass, renormalise
     # each row over the survivors (the self weight is always kept)
     wq = w * off * finite[None, :] + w * eye
-    wr = wq / wq.sum(dim=1, keepdim=True).clamp(min=1e-12)
+    wr = wq / meshctx.rows_of(meshctx.pad_rows(wq, n).sum(
+        dim=1, keepdim=True), w).clamp(min=1e-12)
     # norm clip: cap each neighbour's contribution at clip x own norm
     scale = torch.clamp(guard.clip * pnorm.clamp(min=1e-12)[:, None]
                         / vnorm.clamp(min=1e-12)[None, :], max=1.0)
     scale = scale * off + eye          # never clip the self term
     ws = wr * scale
-    diag = torch.diagonal(wr)
+    diag = torch.diagonal(wr, offset=lo)
 
-    def mix(p, v):
+    def mix(p, s):
         m = finite.reshape((n,) + (1,) * (p.dim() - 1))
         # zero quarantined leaves before the product: 0 weight x NaN = NaN
-        vs = torch.where(m > 0, v.to(p.dtype), torch.zeros_like(p))
+        vs = torch.where(m > 0, s.to(p.dtype), torch.zeros_like(s,
+                                                               dtype=p.dtype))
         out = node_matmul(ws.to(p.dtype), vs)
-        d = diag.reshape((n,) + (1,) * (p.dim() - 1))
-        return (out + d.to(p.dtype) * (p - vs)).to(p.dtype)
+        d = diag.reshape((diag.shape[0],) + (1,) * (p.dim() - 1))
+        return (out + d.to(p.dtype) * (p - meshctx.rows(vs))).to(p.dtype)
 
-    return tree_map(mix, tree, v_tree)
+    return tree_map(mix, tree, v_all)
 
 
 def _untie_lm_head(cfg: ModelConfig, params: dict,

@@ -50,6 +50,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from . import meshctx
 from .bindings import make_binding
 from .engine import SegmentEngine
 
@@ -84,6 +85,12 @@ class EngineSpec:
     #                              forks the key); the host settings on
     #                              obs.Obs (sink, health, out_dir,
     #                              profile_dir) never appear here
+    mesh: Any = None             # node-mesh SHAPE (P,) or None
+    #                              (meshctx.normalize's form, never a
+    #                              DeviceMesh): a sharded round holds
+    #                              other shapes and collectives, so
+    #                              sharded and unsharded runs never share
+    #                              an entry
 
 
 _FP_MEMO: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
@@ -144,7 +151,7 @@ class CacheEntry:
             track_cluster=self.program.track_cluster,
             topology_draw=self.program.topology_draw, degree=spec.degree,
             net=spec.net, mixable_of=self.program.mixable_of,
-            topo=spec.topo, obs=spec.obs)
+            topo=spec.topo, obs=spec.obs, mesh=spec.mesh)
 
     def setup(self, draws):
         return self.program.setup(draws, self.spec.device)
@@ -158,9 +165,10 @@ class EngineCache:
     """Config-keyed store of :class:`CacheEntry` and evaluators.
 
     ``entry(spec)`` returns the cell's entry, building it on first use;
-    ``evaluator(binding, dataset, batch, device)`` the (cfg, batch,
-    fingerprint, device)-keyed evaluator, on the card unless ``device``
-    says otherwise, as ``runner.make_evaluator``. ``compile_count``
+    ``evaluator(binding, dataset, batch, device, mesh)`` the (cfg, batch,
+    fingerprint, device, mesh)-keyed evaluator, on the card unless
+    ``device`` says otherwise, as ``runner.make_evaluator`` (``mesh``: a
+    live node mesh, whose rank evaluates its block of nodes). ``compile_count``
     totals every program the cache ever built (captured rounds plus
     evaluator builds, monotone across LRU evictions), which stays flat
     once a cell is warm.
@@ -232,15 +240,17 @@ class EngineCache:
         return self._pins.get(spec, 0) > 0
 
     def evaluator(self, binding, dataset, batch: int = 256,
-                  device="cuda"):
+                  device="cuda", mesh=None):
         device = torch.device(device)
         key = (binding.cfg, batch, data_fingerprint(dataset), device)
+        if mesh is not None:
+            key += (meshctx.normalize(mesh),)
         ev = self._evaluators.get(key)
         if ev is None:
             from . import runner
             ev = self._evaluators[key] = runner.make_evaluator(
                 binding, dataset.node_cluster, dataset.test_x,
-                dataset.test_y, batch=batch, device=device)
+                dataset.test_y, batch=batch, device=device, mesh=mesh)
             self.evaluator_builds += 1
         return ev
 

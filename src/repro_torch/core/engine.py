@@ -85,6 +85,24 @@ increase of each count is taken back and added again once per replay, and
 the counts say what the card ran; warm-up calls are real launches and
 count as themselves.
 
+**Node mesh** (``mesh=``, :mod:`.meshctx`): one engine per rank, each
+holding its block of ``n / P`` nodes. The state's node-stacked leaves (and
+the gossip buffer's and the ``reset`` copy's) and the train arrays keep
+the rank's rows; the round's ``[n]`` and ``[n, n]`` tensors (the
+channel, the gossip ages, the crash chain, the policy's EWMAs, DAC's
+similarity table) stay whole. Every rank draws the whole segment and keeps
+its rows of the batch indices and the payload noise. The rounds run
+inside ``meshctx.activate``, so the closures gather what the neighbours
+send (one ``all_gather_into_tensor`` a round for the sent tree) and take
+their rows of the whole mixing matrices (the products at ``mesh=None``'s
+shape, ``meshctx.pad_rows``); on CUDA that collective is
+captured in the round's graph with the rest (the NCCL communicator is
+warmed by one collective first, and every rank captures the same
+collective sequence, since every rank runs the same segments). FACADE's
+cluster ids ``[L, n/P]`` are gathered into ``[L, n]`` behind the
+segment's last round, before its copy to the host, so a drain still
+waits on one event.
+
 **On the CPU** there is no graph: the same closures run eagerly, round by
 round, from the segment's stacked draws, with the same carry, static
 buffers and drain. ``compile_count`` counts captures on CUDA and, on the
@@ -94,6 +112,7 @@ shape), so it stays flat on a cell's second run either way.
 from __future__ import annotations
 
 import contextlib
+import functools
 import time
 from typing import Callable, NamedTuple
 
@@ -112,7 +131,7 @@ from repro_torch.resil import FaultState
 from repro_torch.topo import TopoDraw, TopoState, adaptive, static_draw
 from repro_torch.tree import tree_map
 
-from . import netwire
+from . import meshctx, netwire
 from .state import EngineCarry
 
 WARMUP_ROUNDS = 1          # eager rounds before a capture
@@ -122,6 +141,9 @@ COUNTED = (head_losses, flash_attention, wkv)
 # (FACADE, EL, DAC) or from its counter stream at the round (the rings)
 TOPOLOGY_DRAWS = ("perms", "gumbel", "policy", "policy_at")
 POLICY_DRAWS = ("policy", "policy_at")
+# state fields that stay whole on every rank of a node mesh: DAC's
+# similarity table [n, n] is a round tensor like the adjacency
+WHOLE_FIELDS = ("extra",)
 
 
 class Segment(NamedTuple):
@@ -203,6 +225,11 @@ class SegmentEngine:
     closures get its state as ``topo=``. ``obs``: the run's
     ``obs.ObsConfig`` or ``None``; with one, each round's frame row is
     drained as ``frame`` (``mixable_of`` is needed for its norms).
+    ``mesh``: ``None``, or a node mesh (a shape ``(P,)`` or anything
+    :func:`.meshctx.normalize` takes; :func:`.meshctx.build` makes the
+    live ``DeviceMesh`` over the default process group): this rank runs
+    its block of ``n / P`` nodes (see the module docstring). ``P`` must
+    divide ``n``.
 
     The engine owns the static buffers its graphs read and write: the
     carry (the state and, under ``net``, the channel and the gossip
@@ -218,7 +245,7 @@ class SegmentEngine:
                  track_cluster: bool = False,
                  topology_draw: str | None = None, degree: int = 4,
                  net=None, mixable_of: Callable | None = None, topo=None,
-                 obs=None):
+                 obs=None, mesh=None):
         if topology_draw not in (None,) + TOPOLOGY_DRAWS:
             raise ValueError(f"unknown topology draw {topology_draw!r}")
         if adaptive(topo) != (topology_draw in POLICY_DRAWS):
@@ -248,6 +275,14 @@ class SegmentEngine:
                              "over the mixable state); runner.algo_program "
                              "provides it")
         self._obs = obs
+        shape = meshctx.normalize(mesh)
+        if shape is not None and n % shape[0]:
+            raise ValueError(
+                f"mesh of {shape[0]} ranks must divide n={n} nodes evenly: "
+                "the carry's node axis is row-sharded in equal blocks (pad "
+                "the node count or shrink the mesh)")
+        self._mesh = meshctx.build(mesh, self._dev.type)
+        self._rows = n if shape is None else n // shape[0]
         self._state = None       # static state tensors, {field: tree}
         self._chan = None        # net: static ChannelState.bad [n, n]
         self._gossip = None      # net: static {"published", "age"}
@@ -277,11 +312,16 @@ class SegmentEngine:
         ``pipeline.place`` gives them. On CUDA they land in the static
         buffers of their shape and dtype, which the captured rounds read,
         so a later run of the same shapes refills them with no new
-        capture."""
-        if self._dev.type != "cuda":
+        capture. On a node mesh, the rank's rows of them."""
+        if self._mesh is None and self._dev.type != "cuda":
             return pipeline.place(dataset, self._dev)
         host = (torch.from_numpy(dataset.train_x),
                 torch.from_numpy(dataset.train_y).long())
+        if self._mesh is not None:
+            host = tuple(meshctx.local_rows(a, self._mesh, self._n)
+                         for a in host)
+            if self._dev.type != "cuda":
+                return tuple(a.to(self._dev) for a in host)
         static = self._static_data(*host)
         for s, h in zip(static, host):
             s.copy_(h)
@@ -305,7 +345,9 @@ class SegmentEngine:
         (allocated at the first run); the round counter as given. Under an
         ``ObsConfig``, ``tiers`` (the run's node tiers ``[n]`` float32 on
         the device, ``None``: all core) fills the frame's static tier
-        vector."""
+        vector. On a node mesh the carry is the whole one, the same on
+        every rank, and the engine keeps the rank's rows of it
+        (:meth:`_rows_of`)."""
         net = self._net
         faults = None if net is None else net.faults
         chain = faults is not None and faults.crash_rate > 0
@@ -334,6 +376,8 @@ class SegmentEngine:
         def like(l):
             return torch.empty(l.shape, dtype=l.dtype, device=self._dev)
 
+        whole = EngineCarry(state, chan, gossip, fault, topo)
+        state, chan, gossip, fault, topo = self._rows_of(whole)
         if self._state is None:
             self._state = tree_map(like, state_tensors(state))
             if chan is not None:
@@ -355,16 +399,78 @@ class SegmentEngine:
                 self._frame = torch.zeros((frame_width(self._obs),),
                                           dtype=torch.float32,
                                           device=self._dev)
-                self._hook = frame_hook(self._obs, self._n, self._tiers,
-                                        self._mixable_of)
+                self._hook = frame_hook(
+                    self._obs, self._n, self._tiers, self._mixable_of,
+                    gather=None if self._mesh is None else functools.partial(
+                        meshctx.gather_tree, mesh=self._mesh))
         if self._tiers is not None:
             if tiers is None:
                 self._tiers.zero_()
             else:
                 self._tiers.copy_(tiers)
-        carry = EngineCarry(state, chan, gossip, fault, topo)
-        self._load(carry)
+        self._load(EngineCarry(state, chan, gossip, fault, topo))
         return self._static_carry(state)
+
+    def _rows_of(self, carry: EngineCarry) -> EngineCarry:
+        """The rank's share of a whole carry on a node mesh (the carry
+        itself without one): the rows of every node-stacked leaf
+        (:func:`.meshctx.node_spec`) of the state, its ``reset`` copy and
+        the gossip buffer's published tree; the state's
+        :data:`WHOLE_FIELDS`, the gossip ages, the channel, the crash
+        chain's ``down`` and the policy's EWMAs whole."""
+        if self._mesh is None:
+            return carry
+        from torch.distributed.tensor import Shard
+
+        def rows(t):
+            if isinstance(meshctx.node_spec(t, self._n), Shard):
+                return meshctx.local_rows(t, self._mesh, self._n)
+            return t
+
+        def state_rows(st):
+            return st._replace(**{
+                f: v if f in WHOLE_FIELDS else tree_map(rows, v)
+                for f, v in state_tensors(st).items()})
+
+        gossip, fault = carry.gossip, carry.fault
+        if gossip is not None:
+            gossip = gossip._replace(published=tree_map(rows,
+                                                        gossip.published))
+        if fault is not None and fault.init is not None:
+            fault = fault._replace(init=state_rows(fault.init))
+        return carry._replace(state=state_rows(carry.state), gossip=gossip,
+                              fault=fault)
+
+    @property
+    def mesh(self):
+        """The live node ``DeviceMesh`` the rounds run on, or ``None``."""
+        return self._mesh
+
+    def whole_carry(self, carry: EngineCarry) -> EngineCarry:
+        """The inverse of :meth:`_rows_of`: every rank's rows of ``carry``
+        gathered whole (one collective, enqueued where the carry stands on
+        the stream), the same on every rank; ``carry`` itself without a
+        mesh. What a checkpoint saves."""
+        if self._mesh is None:
+            return carry
+
+        def row_fields(st):
+            return {f: v for f, v in state_tensors(st).items()
+                    if f not in WHOLE_FIELDS}
+
+        parts = {"state": row_fields(carry.state)}
+        if carry.gossip is not None:
+            parts["published"] = carry.gossip.published
+        if carry.fault is not None and carry.fault.init is not None:
+            parts["init"] = row_fields(carry.fault.init)
+        got = meshctx.gather_tree(parts, self._mesh)
+        gossip, fault = carry.gossip, carry.fault
+        if "published" in got:
+            gossip = gossip._replace(published=got["published"])
+        if "init" in got:
+            fault = fault._replace(init=fault.init._replace(**got["init"]))
+        return carry._replace(state=carry.state._replace(**got["state"]),
+                              gossip=gossip, fault=fault)
 
     def _static_carry(self, state) -> EngineCarry:
         """A carry whose tensors are the static buffers."""
@@ -438,11 +544,14 @@ class SegmentEngine:
         """``length`` rounds of draws from ``source`` (and, under ``net``,
         from its schedule ``sched``), in the loop's per-stream order, each
         stacked ``[length, ...]`` and moved to the device in one copy
-        (from pinned memory on CUDA)."""
+        (from pinned memory on CUDA). On a node mesh every rank draws the
+        whole rounds and keeps its rows of the batch indices and of the
+        payload noise (:meth:`_mine`)."""
         n, idx, topo = self._n, [], []
         nets = {f: [] for f in NetDraws._fields}
         for rnd in range(start, start + length):
-            idx.append(source.batch_indices(n, self._h, self._b, per_node))
+            idx.append(self._mine(source.batch_indices(n, self._h, self._b,
+                                                       per_node)))
             if self._topology_draw == "perms":
                 topo.append(source.perms(n, self._degree))
             elif self._topology_draw == "gumbel":
@@ -455,7 +564,8 @@ class SegmentEngine:
                 for f, v in zip(NetDraws._fields, sched.round(rnd)):
                     if isinstance(v, tuple):        # the payload noise
                         for i, leaf in enumerate(v):
-                            nets.setdefault(f"{f}.{i}", []).append(leaf)
+                            nets.setdefault(f"{f}.{i}", []).append(
+                                self._mine(leaf))
                     elif v is not None:
                         nets[f].append(v)
         out = {"idx": self._stack(idx)}
@@ -469,6 +579,12 @@ class SegmentEngine:
             if parts:
                 out["net." + f] = self._stack(parts)
         return out
+
+    def _mine(self, t):
+        """The rank's rows of a whole node-leading draw on a node mesh."""
+        if self._mesh is None:
+            return t
+        return meshctx.local_rows(t, self._mesh, self._n)
 
     def _stack(self, parts) -> torch.Tensor:
         pin = self._dev.type == "cuda"
@@ -497,7 +613,13 @@ class SegmentEngine:
         round_s)``, under ``net`` through ``netwire.net_round``, the loop's
         path; under an ``ObsConfig`` ``info["frame"]`` holds the round's
         frame row, from the carry's state before the round (the static
-        buffers, which only :meth:`_store` overwrites)."""
+        buffers, which only :meth:`_store` overwrites). On a node mesh
+        the round runs inside ``meshctx.activate``."""
+        with meshctx.activate(self._mesh):
+            return self._step_on(fn, carry, inputs, train_x, train_y)
+
+    def _step_on(self, fn, carry: EngineCarry, inputs: dict, train_x,
+                 train_y) -> tuple:
         batches = pipeline.sample_round_batches(inputs["idx"], train_x,
                                                 train_y)
         drawn = self._topology_args(inputs)
@@ -563,6 +685,9 @@ class SegmentEngine:
                 outs = self._eager(key, fn, draws, length, train_x,
                                    train_y, carry)
         device_outs = outs.pop("device")
+        if self._mesh is not None and "cluster_id" in device_outs:
+            device_outs["cluster_id"] = self._gather_ids(
+                device_outs["cluster_id"])
         outs["copy"] = HostCopy(device_outs) if device_outs else None
         outs["end"] = None
         if self._dev.type == "cuda":
@@ -570,6 +695,12 @@ class SegmentEngine:
             outs["end"].record(torch.cuda.current_stream(self._dev))
         return carry._replace(
             state=carry.state._replace(round=start + length)), outs
+
+    def _gather_ids(self, ids):
+        """A segment's cluster ids ``[L, n/P]`` from every rank -> ``[L,
+        n]``, enqueued behind the segment's last round."""
+        got = meshctx.gather_rows(ids.t(), self._mesh)         # [n, L]
+        return got.t().contiguous()
 
     def drain(self, outs, tracer=None, length: int | None = None) -> dict:
         """A dispatched segment's outs on the host: ``round_bytes`` ``[L]``
@@ -612,7 +743,7 @@ class SegmentEngine:
         an ``ObsConfig`` their frame rows ``[L, F]``."""
         out = {}
         if self._track:
-            out["cluster_id"] = torch.empty((length, self._n),
+            out["cluster_id"] = torch.empty((length, self._rows),
                                             dtype=torch.long,
                                             device=self._dev)
         if self._drains:
@@ -701,6 +832,12 @@ class SegmentEngine:
             None if carry.topo is None else TopoState(
                 *(t.clone() for t in carry.topo)))
         side = _capture_stream(self._dev)
+        if self._mesh is not None:
+            # NCCL sets up its communicator at its first collective, which
+            # must not be in a capture or in the sync-checked warm-up
+            meshctx.gather_rows(torch.zeros((1,), device=self._dev),
+                                self._mesh)
+            torch.cuda.synchronize(self._dev)
         side.wait_stream(torch.cuda.current_stream(self._dev))
         try:
             with torch.cuda.stream(side), _no_host_sync():
@@ -730,8 +867,12 @@ class SegmentEngine:
             self._pool = torch.cuda.graph_pool_handle()
         graph = torch.cuda.CUDAGraph()
         before = [k.launches for k in COUNTED]
+        # on a node mesh, NCCL's watchdog thread polls events while this
+        # thread captures: only this thread's capture is checked
+        mode = "global" if self._mesh is None else "thread_local"
         try:
-            with torch.cuda.graph(graph, pool=self._pool, stream=side):
+            with torch.cuda.graph(graph, pool=self._pool, stream=side,
+                                  capture_error_mode=mode):
                 round_bytes = captured_round()
         except RuntimeError as e:
             raise RuntimeError(f"capturing round function {name} in a CUDA "

@@ -27,7 +27,7 @@ from repro_torch import topo as topo_mod
 from repro_torch.kernels.head_select import head_losses
 from repro_torch.tree import tree_map
 
-from . import split, topology
+from . import meshctx, split, topology
 from .bindings import (Binding, gossip_mix, local_sgd, node_head_matmul,
                        node_matmul)
 from .netwire import comm_info, masked_topology, sent_view
@@ -43,7 +43,7 @@ class FacadeConfig:
 
 
 def _aggregate_heads(adj, cluster_id, heads, k: int, sent_heads=None,
-                     guard=None):
+                     guard=None, gathered=None):
     """Eq. 4: for each node i and cluster j, average the heads sent by
     neighbors claiming cluster j together with i's own stored head j.
     heads [n, k, ...]; node j' sends its head ``sent_heads[j', cid[j']]``.
@@ -56,18 +56,30 @@ def _aggregate_heads(adj, cluster_id, heads, k: int, sent_heads=None,
     counterpart of ``gossip_mix``'s guard. A sender whose published head
     is non-finite is quarantined (out of both the sum and the count), and
     finite senders are norm-clipped against the receiver's own per-slot
-    RMS head norm. ``None`` is the fault-free arithmetic bit for bit."""
-    n = adj.shape[0]
-    rows = torch.arange(n, device=adj.device)
-    sent = tree_map(lambda h: h[rows, cluster_id],
-                    heads if sent_heads is None else sent_heads)  # [n, ...]
-    onehot = F.one_hot(cluster_id, k).to(torch.float32)      # [n, k]
+    RMS head norm. ``None`` is the fault-free arithmetic bit for bit.
+
+    ``gathered`` (a node mesh, :func:`_gather_sent`): every sender's
+    published head and cluster id, ``{"head", "cid"}`` ``[n, ...]``;
+    ``adj`` is whole and ``heads`` holds the rank's rows, whose rows of
+    the result this returns."""
+    if gathered is None:
+        n = adj.shape[0]
+        rows = torch.arange(n, device=adj.device)
+        sent = tree_map(lambda h: h[rows, cluster_id],
+                        heads if sent_heads is None else sent_heads)
+        cid = cluster_id
+    else:
+        sent, cid = gathered["head"], gathered["cid"]
+        adj = meshctx.rows(adj)                              # [m, n]
+    onehot = F.one_hot(cid, k).to(torch.float32)             # [n, k]
     adj_w = adj
     if guard is not None:
         finite = resil.node_finite(sent)                     # [n]
         snorm = torch.where(finite > 0, resil.node_norm(sent),
                             torch.ones_like(finite))
-        own = resil.node_norm(heads) / math.sqrt(float(k))   # per-slot RMS
+        own = meshctx.rows_of(resil.node_norm(tree_map(      # per-slot RMS
+            lambda h: meshctx.pad_rows(h, adj.shape[1]), heads)), adj
+        ) / math.sqrt(float(k))
         clip = torch.clamp(
             guard.clip * own.clamp(min=1e-12)[:, None]
             / snorm.clamp(min=1e-12)[None, :], max=1.0)      # [n, n]
@@ -87,6 +99,21 @@ def _aggregate_heads(adj, cluster_id, heads, k: int, sent_heads=None,
     return tree_map(agg, heads, sent)
 
 
+def _gather_sent(cores, heads, cluster_id, finite_of=None):
+    """Under a node mesh, what every node sends this round, gathered whole
+    in one collective: its core ``cores``, the head it publishes (slot
+    ``cluster_id`` of ``heads``), its cluster id and, with ``finite_of``
+    (the guard's sent tree), whether all of it is finite (what
+    ``resil.quarantined_count`` counts). ``None`` without a mesh."""
+    if meshctx.current() is None:
+        return None
+    bundle = {"cores": cores, "head": split.select_head(heads, cluster_id),
+              "cid": cluster_id}
+    if finite_of is not None:
+        bundle["finite"] = resil.node_finite(finite_of)
+    return meshctx.gather_tree(bundle)
+
+
 def resil_tree_zero(tree, keep):
     """Zero the float leaves of nodes with ``keep == 0`` along the leading
     axis (quarantine hygiene: 0 weight times NaN is still NaN in a
@@ -103,7 +130,7 @@ def resil_tree_zero(tree, keep):
 def _select_heads(binding: Binding, cores, heads, batch, n: int):
     """losses [n, k] over shared core features (paper III-E): the core runs
     once per node on ``batch``, then one head-select call scores all k
-    heads of all n nodes."""
+    heads of all n nodes (under a node mesh, ``n`` is the rank's count)."""
     with torch.no_grad():
         feats = binding.features(cores, batch)
         f, w, labels = binding.select_operands(feats, heads, batch)
@@ -173,17 +200,24 @@ def facade_round(fcfg: FacadeConfig, binding: Binding, state: FacadeState,
         vis_cores, sent_heads = sent["cores"], sent["heads"]
         sent_cid = sent["cluster_id"]
 
-    # --- aggregation (steps 2a/2b) ---
+    # --- aggregation (steps 2a/2b); under a node mesh the senders are
+    # --- gathered once, and this rank mixes its m rows ---
     guard = resil.guard_of(fault_cfg)
-    cores = gossip_mix(w, state.cores, vis_cores, guard=guard)
+    whole = _gather_sent(state.cores if vis_cores is None else vis_cores,
+                         state.heads if sent_heads is None else sent_heads,
+                         sent_cid, None if guard is None else sent)
+    cores = gossip_mix(w, state.cores, vis_cores, guard=guard,
+                       senders=None if whole is None else whole["cores"])
     heads = _aggregate_heads(adj, sent_cid, state.heads, k,
-                             sent_heads=sent_heads, guard=guard)
+                             sent_heads=sent_heads, guard=guard,
+                             gathered=whole)
 
     # --- cluster identification (step 2c) on the first local batch ---
+    m = state.cluster_id.shape[0]          # n, or the rank's n / P
     first = {key: b[:, 0] for key, b in batches.items()}
-    losses = _select_heads(binding, cores, heads, first, n)  # [n, k]
+    losses = _select_heads(binding, cores, heads, first, m)  # [m, k]
     if warmup:
-        new_cid = torch.zeros((n,), dtype=torch.long, device=adj.device)
+        new_cid = torch.zeros((m,), dtype=torch.long, device=adj.device)
     else:
         new_cid = torch.argmin(losses, dim=1)
 
@@ -193,12 +227,13 @@ def facade_round(fcfg: FacadeConfig, binding: Binding, state: FacadeState,
     new_cores, new_head = split.split_params(params, binding.head_keys)
     if warmup:  # broadcast the trained head to every slot
         new_heads = tree_map(
-            lambda h: h.unsqueeze(1).expand((n, k) + h.shape[1:]).clone(),
+            lambda h: h.unsqueeze(1).expand((m, k) + h.shape[1:]).clone(),
             new_head)
     else:
         new_heads = split.set_head(heads, new_cid, new_head)
     if net is not None:
-        new_cid = torch.where(net.active > 0, new_cid, state.cluster_id)
+        new_cid = torch.where(meshctx.rows(net.active) > 0, new_cid,
+                              state.cluster_id)
         new_cores = freeze_inactive(net.active, new_cores, state.cores)
         new_heads = freeze_inactive(net.active, new_heads, state.heads)
 
@@ -206,21 +241,33 @@ def facade_round(fcfg: FacadeConfig, binding: Binding, state: FacadeState,
     new_state = FacadeState(cores=new_cores, heads=new_heads,
                             cluster_id=new_cid, round=state.round + 1)
     return new_state, {"selection_losses": losses, "cluster_id": new_cid,
-                       "quarantined": resil.quarantined_count(
-                           guard, sent, device=adj.device),
+                       "quarantined": _quarantined(guard, sent, whole,
+                                                   adj.device),
                        **comm_info(net, adj, payload_bytes(state),
                                    n * fcfg.degree, actual=adaptive)}
 
 
+def _quarantined(guard, sent, whole, device):
+    """The senders the guard quarantined this round, counted over every
+    sender: from the gathered finiteness under a node mesh."""
+    if guard is None or sent is None or whole is None:
+        return resil.quarantined_count(guard, sent, device=device)
+    return (1.0 - whole["finite"]).sum()
+
+
 def final_allreduce(fcfg: FacadeConfig, state: FacadeState) -> FacadeState:
     """Paper Sec. V-A: a final all-reduce where every node shares its model
-    with everyone and aggregates cluster-wise."""
+    with everyone and aggregates cluster-wise (under a node mesh, the
+    senders gathered once)."""
     n, k = fcfg.n_nodes, fcfg.k
     adj = topology.fully_connected(n, device=state.cluster_id.device)
     w = topology.mixing_matrix(adj)
+    whole = _gather_sent(state.cores, state.heads, state.cluster_id)
     return state._replace(
-        cores=gossip_mix(w, state.cores),
-        heads=_aggregate_heads(adj, state.cluster_id, state.heads, k))
+        cores=gossip_mix(w, state.cores,
+                         senders=None if whole is None else whole["cores"]),
+        heads=_aggregate_heads(adj, state.cluster_id, state.heads, k,
+                               gathered=whole))
 
 
 def node_models(state: FacadeState) -> dict:

@@ -29,8 +29,13 @@ entry point: :func:`net_round` folds each round's conditions into its
 EWMAs, and :func:`comm_info` counts the drawn graph's edges
 (``actual=True``) even on the ideal medium.
 
-The reference's mesh constraint (``meshctx.constrain_rows``) is the
-identity on one device.
+Under a node mesh (:mod:`.meshctx`) the node-stacked trees hold the
+rank's rows while the round's conditions, the adjacency, the crash chain,
+the gossip ages and the policy's EWMAs stay whole on every rank (they
+stand in for the reference's ``meshctx.constrain_rows``): the per-node
+selects here take the rank's rows of the whole masks, and the bytes and
+seconds are computed from the whole tensors, so they are ``mesh=None``'s
+exactly.
 """
 from __future__ import annotations
 
@@ -40,7 +45,7 @@ import torch
 from repro_torch import netsim, resil
 from repro_torch import topo as topo_mod
 
-from . import topology
+from . import meshctx, topology
 
 
 def masked_topology(net, adj):
@@ -58,7 +63,7 @@ def stale_view(net, published, fresh):
     async gossip is off or no buffer was given."""
     if net is None or published is None or net.stale is None:
         return None
-    return netsim.tree_select(net.stale, published, fresh)
+    return netsim.tree_select(meshctx.rows(net.stale), published, fresh)
 
 
 def sent_view(net, published, fresh, fault_cfg=None):
@@ -72,7 +77,28 @@ def sent_view(net, published, fresh, fault_cfg=None):
     if (fault_cfg is None or fault_cfg.corrupt_rate <= 0
             or net is None or net.corrupt is None):
         return vis
+    if meshctx.current() is not None:
+        # the rank's rows of the mask (the engine keeps the noise's rows)
+        net = net._replace(corrupt=meshctx.rows(net.corrupt))
     return resil.corrupt_view(fault_cfg, net, fresh if vis is None else vis)
+
+
+def gather_sent(tree):
+    """Under a node mesh, what every node sends (``tree``, the rank's rows)
+    gathered whole in one collective, for ``bindings.gossip_mix(senders=)``
+    and :func:`quarantined`; ``None`` without a mesh."""
+    if meshctx.current() is None:
+        return None
+    return meshctx.gather_tree(tree)
+
+
+def quarantined(guard, vis, senders, device):
+    """``resil.quarantined_count`` over every sender: the gathered
+    ``senders`` under a node mesh, what was delivered (``vis``)
+    otherwise."""
+    return resil.quarantined_count(
+        guard, vis if vis is None or senders is None else senders,
+        device=device)
 
 
 def comm_info(net, adj_eff, payload_bytes: int, nominal_sends: int,
@@ -159,12 +185,20 @@ def net_round(fn, mixable_of, state, chan, gossip, fault, batches,
     conds, fault, restarted = resil.advance(net, n, conds, fault, draws)
     if restarted is not None:
         state = resil.reset_nodes(n, restarted, fault.init, state)
+        mesh = meshctx.current()
+        if mesh is not None and mesh.size() > 1:
+            # the rank's rows of the model trees; the whole ones (DAC's
+            # similarity table) were reset above
+            state = resil.reset_nodes(n // mesh.size(),
+                                      meshctx.rows(restarted), fault.init,
+                                      state)
     conds, published = netsim.apply_async(net, conds, gossip)
     prev = state
     state, info = fn(prev, batches, *topology_args, net=conds,
                      gossip=published, **topo_kw(topo))
     if published is not None:
-        gossip = netsim.fold_gossip(net, gossip, conds, mixable_of(state))
+        gossip = netsim.fold_gossip(net, gossip, conds, mixable_of(state),
+                                    stay_rows=meshctx.rows(conds.stale))
     # after the round: round t samples from what was observed up to t - 1
     topo = topo_mod.advance(topo_cfg, net, topo, conds, tiers=draws.tiers)
     if frame is not None:

@@ -28,8 +28,10 @@ per-round ``MetricsFrame`` computed on the device at the same point of
 the round (inside the captured graph on the engine, drained with the
 segment's other outputs), tracer spans around capture, dispatch, drain,
 eval and checkpoint, a health verdict and a run manifest at the end. The
-reference's mesh (``mesh=``) is not ported; ``run_experiment`` has no
-parameter for it.
+engine also runs on a node mesh (``mesh=``, :mod:`.meshctx`): one process
+per card, every rank calling ``run_experiment`` with the same arguments
+and holding its block of ``n / P`` nodes, gossip a row-block contraction
+over all-gathered senders; every rank returns the same ``RunResult``.
 
 Randomness comes from a *draws* source (:class:`TorchDraws` by default):
 it supplies the initial parameters, each round's ``[n, H, B]`` batch
@@ -59,6 +61,7 @@ from typing import Any, Callable, NamedTuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import checkpoint
 from repro_torch import device as device_mod
@@ -76,7 +79,7 @@ from repro_torch.obs.trace import span
 from repro_torch.tree import tree_map
 
 from . import facade as facade_mod
-from . import netwire, split, topology
+from . import meshctx, netwire, split, topology
 from .baselines import (DACConfig, DeprlConfig, DpsgdConfig, ELConfig,
                         dac_round, deprl_round, dpsgd_round, el_round,
                         init_dac_extra)
@@ -301,7 +304,7 @@ def algo_setup(algo: str, binding: Binding, draws, n: int, k: int, *,
 
 # --------------------------------------------------------------------------
 def make_evaluator(binding: Binding, node_cluster, test_x, test_y,
-                   batch: int = 256, device="cuda") -> Callable:
+                   batch: int = 256, device="cuda", mesh=None) -> Callable:
     """Per-cluster evaluator: every node of a cluster runs the cluster's
     whole test set (zero-padded, masked eval batches), all of the cluster's
     nodes in one node-stacked forward per batch.
@@ -319,10 +322,18 @@ def make_evaluator(binding: Binding, node_cluster, test_x, test_y,
     ``finish`` waits for that copy and reduces on the host. The pipelined
     driver dispatches the next segment in between. ``evaluate(models)``
     is ``finish(begin(models))``.
+
+    ``mesh`` (a live node mesh): ``models`` hold the rank's block of
+    nodes, each rank predicts for its own nodes, and ``begin`` gathers
+    every node's predictions (one collective, rank blocks padded to one
+    size) before their copy, so ``finish`` reduces what ``mesh=None``
+    reduces.
     """
     dev = device_mod.resolve(device)
     node_cluster = np.asarray(node_cluster)
-    clusters = []
+    n = node_cluster.shape[0]
+    lo, m = (0, n) if mesh is None else meshctx.block(mesh, n)
+    clusters, picks = [], {}
     for c in range(len(test_x)):
         idx = np.where(node_cluster == c)[0]
         if idx.size == 0:
@@ -330,7 +341,16 @@ def make_evaluator(binding: Binding, node_cluster, test_x, test_y,
         x = np.asarray(test_x[c])
         xb, mask = pipeline_mod.padded_eval_batches(
             x, min(batch, max(1, x.shape[0])))
-        clusters.append((idx, torch.from_numpy(idx).to(dev),
+        mine = idx
+        if mesh is not None:
+            # this rank's nodes of the cluster, and where every node's
+            # predictions land in the gathered [P * m] padded blocks
+            mine = idx[(idx >= lo) & (idx < lo + m)] - lo
+            start = (idx // m) * m              # each node's block
+            picks[len(clusters)] = torch.from_numpy(
+                start + np.arange(idx.size) - np.searchsorted(idx, start)
+            ).to(dev)
+        clusters.append((idx, torch.from_numpy(mine).to(dev),
                          torch.from_numpy(xb).to(dev),
                          mask.reshape(-1) > 0, np.asarray(test_y[c])))
 
@@ -341,10 +361,23 @@ def make_evaluator(binding: Binding, node_cluster, test_x, test_y,
         return torch.stack(preds)                    # [nb, m, B]
 
     def begin(models) -> HostCopy:
-        return HostCopy({i: predict(tree_map(lambda l: l[idx_t], models),
-                                    len(idx), xb)
-                         for i, (idx, idx_t, xb, _, _) in
-                         enumerate(clusters)})
+        if mesh is None:
+            return HostCopy({i: predict(tree_map(lambda l: l[idx_t],
+                                                 models), len(idx), xb)
+                             for i, (idx, idx_t, xb, _, _) in
+                             enumerate(clusters)})
+        padded = {}
+        for i, (_, mine, xb, _, _) in enumerate(clusters):
+            out = torch.zeros((m,) + (xb.shape[0], xb.shape[1]),
+                              dtype=torch.long, device=dev)
+            if mine.numel():
+                out[:mine.numel()] = predict(
+                    tree_map(lambda l: l[mine], models), mine.numel(),
+                    xb).transpose(0, 1)
+            padded[str(i)] = out                     # [m, nb, B]
+        whole = meshctx.gather_tree(padded, mesh)    # [P * m, nb, B]
+        return HostCopy({i: whole[str(i)][picks[i]].transpose(0, 1)
+                         for i in range(len(clusters))})
 
     def finish(pending: HostCopy):
         preds = pending.wait()
@@ -404,6 +437,8 @@ class _History:
         next segment's replays on the same stream, they read this
         segment's state, which those replays then overwrite in place."""
         cid = getattr(state, "cluster_id", None)
+        if cid is not None and meshctx.current() is not None:
+            cid = meshctx.gather_tree(cid)      # every rank's block
         return (self._evaluator.begin(self._models_of(state)),
                 None if cid is None else HostCopy(cid))
 
@@ -466,7 +501,7 @@ def run_experiment(algo: str, cfg, dataset, *, rounds: int,
                    ckpt: str | None = None,
                    net: "netsim.NetworkConfig | None" = None,
                    topo: "topo_mod.TopoConfig | None" = None,
-                   obs=None) -> RunResult:
+                   obs=None, mesh=None) -> RunResult:
     """Run one (algorithm, dataset) experiment end to end on ``device``.
 
     ``algo`` is one of :data:`ALGOS`. ``draws`` supplies the initial
@@ -544,6 +579,28 @@ def run_experiment(algo: str, cfg, dataset, *, rounds: int,
     on the card is refused on the CPU, as the reference's spec holds its
     mesh.
 
+    ``mesh`` (engine only): shard the node axis over a 1-D node mesh, an
+    int, a 1-tuple ``(P,)`` or a 1-D ``DeviceMesh`` (:mod:`.meshctx`;
+    ``launch.mesh.make_node_mesh`` builds one). One process per card:
+    every rank calls ``run_experiment`` with the same arguments, ``(P,)``
+    with ``P > 1`` needs an initialised process group of ``P`` ranks
+    (``torchrun``), and ``(1,)`` starts a one-rank group itself when none
+    is. Each rank holds ``n / P`` nodes (``P`` must divide ``n``): it
+    draws the whole run from the seed and keeps its rows, the round's
+    ``[n]`` and ``[n, n]`` tensors are whole on every rank, and gossip
+    mixes the rank's rows of the mixing matrix against the senders
+    all-gathered once a round. Every rank returns the same result
+    (``models`` gathered whole). ``mesh=(1,)`` is ``mesh=None``'s run bit
+    for bit. On more ranks the bytes, seconds and frame counts are exact;
+    the cross-node products run at ``mesh=None``'s shapes
+    (``meshctx.pad_rows``), so the rest is exact where the device's
+    grouped convolutions give a node the same result in a block of n / P
+    nodes as in all n (an H100 does; the CPU's differ in the last ulp,
+    and the runs then drift within a small tolerance). The mesh shape is an
+    ``EngineSpec`` field, so it forks the cache and the checkpoint
+    fingerprint; under ``ckpt`` rank 0 writes the gathered carry and
+    every rank reads it back on resume.
+
     The run computes fp32 in full fp32 (TF32 off, as the reference) with
     cuDNN restricted to deterministic algorithms
     (:func:`device.deterministic`): with cuDNN's defaults two runs of one
@@ -559,14 +616,14 @@ def run_experiment(algo: str, cfg, dataset, *, rounds: int,
                     target_acc=target_acc, eval_batch=eval_batch,
                     verbose=verbose, device=device, draws=draws,
                     engine=engine, pipeline=pipeline, cache=cache,
-                    ckpt=ckpt, net=net, topo=topo, obs=obs)
+                    ckpt=ckpt, net=net, topo=topo, obs=obs, mesh=mesh)
 
 
 def _run(algo: str, cfg, dataset, *, rounds: int, k, degree: int,
          local_steps: int, batch_size: int, lr: float, eval_every: int,
          seed: int, warmup_rounds: int, head_jitter: float, target_acc,
          eval_batch: int, verbose: bool, device, draws, engine: bool,
-         pipeline: bool, cache, ckpt, net, topo, obs) -> RunResult:
+         pipeline: bool, cache, ckpt, net, topo, obs, mesh) -> RunResult:
     if ckpt is not None and not engine:
         raise ValueError(
             "ckpt= needs the segment engine (engine=True): the legacy "
@@ -575,6 +632,11 @@ def _run(algo: str, cfg, dataset, *, rounds: int, k, degree: int,
         raise ValueError(
             "pipeline=True needs the segment engine (engine=True): the "
             "legacy per-round loop has no segment dispatch to overlap")
+    mesh = meshctx.normalize(mesh)
+    if mesh is not None and not engine:
+        raise ValueError(
+            "mesh= needs the segment engine (engine=True): the per-round "
+            "loop is the single-device parity reference and never shards")
     if algo not in ALGOS:
         raise ValueError(f"algorithm {algo!r} is not ported yet; the port "
                          f"runs {ALGOS}")
@@ -596,6 +658,10 @@ def _run(algo: str, cfg, dataset, *, rounds: int, k, degree: int,
             f"target_acc={target_acc} can never trigger an early exit with "
             f"eval_every={eval_every} > rounds={rounds}")
     n = dataset.n_nodes
+    if mesh is not None and n % mesh[0] != 0:
+        raise ValueError(
+            f"mesh={mesh} must divide n={n} nodes evenly: the engine "
+            "row-shards the node axis in equal blocks per rank")
     for r in sorted({degree, topo_mod.budget(topo, degree)}):
         if not 1 <= r < n:
             raise ValueError(f"degree={r} out of range for n={n} nodes: "
@@ -621,13 +687,16 @@ def _run(algo: str, cfg, dataset, *, rounds: int, k, degree: int,
                       local_steps=local_steps, batch_size=batch_size, lr=lr,
                       warmup_rounds=warmup_rounds, head_jitter=head_jitter,
                       eval_batch=eval_batch, device=dev, net=net,
-                      topo=topo, obs=ocfg)
+                      topo=topo, obs=ocfg, mesh=mesh)
     ckpt_fp = None
     if ckpt is not None:
         # everything that shapes the trajectory or the resume schedule; a
-        # checkpoint of any other configuration is refused
+        # checkpoint of any other configuration is refused. On a mesh the
+        # ranks' cards differ: the fingerprint holds the device type
+        fp_spec = spec if mesh is None else dataclasses.replace(
+            spec, device=torch.device(dev.type))
         ckpt_fp = fingerprint({
-            "spec": repr(spec), "seed": seed, "rounds": rounds,
+            "spec": repr(fp_spec), "seed": seed, "rounds": rounds,
             "eval_every": eval_every, "warmup_rounds": warmup_rounds,
             "target": repr(target_acc), "draws": type(draws).__name__,
             "net": repr(net)})
@@ -642,12 +711,13 @@ def _run(algo: str, cfg, dataset, *, rounds: int, k, degree: int,
     # pinned while the run is live: an LRU-bounded cache must never evict
     # the engine whose static buffers the run is using
     with obs.profile() if obs is not None else contextlib.nullcontext(), \
-            cache.pin(spec), \
+            cache.pin(spec), meshctx.activate(entry.engine.mesh), \
             span(tracer, "run", algo=algo, seed=seed, engine=engine):
         setup = entry.setup(draws)
         builds0 = cache.evaluator_builds
         evaluator = cache.evaluator(entry.binding, dataset,
-                                    batch=eval_batch, device=dev)
+                                    batch=eval_batch, device=dev,
+                                    mesh=entry.engine.mesh)
         if tracer is not None and cache.evaluator_builds > builds0:
             tracer.event("evaluator.build", batch=eval_batch)
         sched = None if net is None else netsim.NetSchedule(
@@ -810,7 +880,10 @@ def _drive_loop(program: AlgoProgram, carry: EngineCarry, hist: _History,
 
 def _final_models(program: AlgoProgram, state):
     """The run's deployable models as copies: the state's tensors are the
-    engine's static buffers, which a later run of its entry overwrites."""
+    engine's static buffers, which a later run of its entry overwrites.
+    On a node mesh, every rank's block gathered whole."""
+    if meshctx.current() is not None:
+        return meshctx.gather_tree(program.models_of(state))
     return tree_map(torch.clone, program.models_of(state))
 
 
@@ -904,10 +977,10 @@ def _drive_engine(eng: SegmentEngine, program: AlgoProgram,
         if ckpt is not None:
             finished = hit or idx + 1 == len(plan)
             with span(tracer, "ckpt.save", segment=idx, finished=finished):
-                n_frames = _ckpt_save(ckpt, ckpt_fp, _carry_snapshot(carry),
-                                      draws.state(), hist, idx + 1,
-                                      finished, _seg_frames(seg, outs),
-                                      n_frames)
+                snap = _carry_snapshot(eng.whole_carry(carry))
+                n_frames = _ckpt_save(ckpt, ckpt_fp, snap, draws.state(),
+                                      hist, idx + 1, finished,
+                                      _seg_frames(seg, outs), n_frames)
         if hit:
             break
     return _final_models(program, carry.state)
@@ -963,7 +1036,8 @@ def _drive_pipelined(eng: SegmentEngine, program: AlgoProgram,
             # a hit returns this eval's models, which segment t+1's
             # replays overwrite in place
             kept = _final_models(program, carry.state)
-        snap = _carry_snapshot(carry) if ckpt is not None else None
+        snap = (_carry_snapshot(eng.whole_carry(carry))
+                if ckpt is not None else None)
         nxt = None
         if not last:
             next_carry, nxt, next_drawn = dispatch(idx + 1, carry)
@@ -1097,7 +1171,14 @@ def _ckpt_save(path: str, fp: str, snapshot: tuple, draws_state,
     (:func:`_frame_path`), one a segment, each written before the main
     archive that counts it, so a write costs the same at every segment
     and a crash between the two leaves an orphan the next run overwrites.
-    Returns the updated sidecar count."""
+    On a node mesh (``snapshot`` holds the gathered carry) rank 0 writes
+    and every rank waits at a barrier, so no rank runs ahead of a
+    checkpoint that is not on disk. Returns the updated sidecar count."""
+    mesh = meshctx.current()
+    if mesh is not None and mesh.get_local_rank(0) != 0:
+        snapshot[1].wait()
+        dist.barrier(group=mesh.get_group(0))
+        return n_frame_files + (new_frames is not None)
     if new_frames is not None:
         rnds, fr = new_frames
         checkpoint.save(
@@ -1118,6 +1199,8 @@ def _ckpt_save(path: str, fp: str, snapshot: tuple, draws_state,
                           "next_segment": int(next_segment),
                           "finished": bool(finished),
                           "frame_files": int(n_frame_files)})
+    if mesh is not None:
+        dist.barrier(group=mesh.get_group(0))
     return n_frame_files
 
 

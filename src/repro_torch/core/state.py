@@ -15,7 +15,7 @@ from repro_torch import device as device_mod
 from repro_torch.netsim import tree_select
 from repro_torch.tree import tree_map
 
-from . import split
+from . import meshctx, split
 
 
 class FacadeState(NamedTuple):
@@ -105,5 +105,6 @@ def init_baseline_state(binding, n: int, *, params=None,
 
 def freeze_inactive(active, new_tree, old_tree):
     """Churn semantics: nodes with ``active == 0`` sat the round out, so
-    every leaf keeps its old value along the leading node axis."""
-    return tree_select(active, new_tree, old_tree)
+    every leaf keeps its old value along the leading node axis (under a
+    node mesh, the trees hold the rank's rows of the whole ``active``)."""
+    return tree_select(meshctx.rows(active), new_tree, old_tree)

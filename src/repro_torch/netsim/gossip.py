@@ -78,14 +78,17 @@ def apply_async(cfg, conds, gossip):
             gossip.published)
 
 
-def fold_gossip(cfg, gossip, conds, new_mixable):
+def fold_gossip(cfg, gossip, conds, new_mixable, stay_rows=None):
     """Post-round hook: nodes that stayed stale keep their old snapshot and
     age by one; every other node publishes the round's fresh mixable state
-    and resets to age 0."""
+    and resets to age 0. ``stay_rows``: where ``published`` and
+    ``new_mixable`` hold a block of the nodes (a node mesh), that block's
+    rows of the stale mask; ``None``, the whole mask."""
     if gossip is None:
         return None
     stay = conds.stale
-    published = tree_select(stay, gossip.published, new_mixable)
+    published = tree_select(stay if stay_rows is None else stay_rows,
+                            gossip.published, new_mixable)
     age = torch.where(stay > 0, gossip.age + 1,
                       torch.zeros_like(gossip.age)).to(torch.int32)
     return GossipState(published=published, age=age)

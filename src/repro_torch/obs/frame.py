@@ -184,15 +184,25 @@ def frames_of_rows(rows, cfg: ObsConfig) -> MetricsFrame:
     return MetricsFrame(*cols)
 
 
-def frame_hook(cfg: ObsConfig, n: int, tiers, mixable_of):
+def frame_hook(cfg: ObsConfig, n: int, tiers, mixable_of, gather=None):
     """``hook(prev, state, info, conds, gossip) -> [F]`` row: the frame of
     one round from the states before and after it, what both drivers call
     (``netwire.net_round(frame=...)`` under ``net``). ``tiers`` is the
     run's tier vector on the device, read when the hook runs (the
-    engine's is a static buffer refilled each run)."""
+    engine's is a static buffer refilled each run). ``gather``: under a
+    node mesh, the function that gathers a tree of the rank's rows whole
+    (``core.meshctx.gather_tree``, one collective for both states and
+    their cluster ids), so the norms and switches count every node in
+    ``mesh=None``'s order."""
     def hook(prev, state, info, conds, gossip):
+        got = {"prev": mixable_of(prev), "new": mixable_of(state)}
+        for key, s in (("prev_cid", prev), ("new_cid", state)):
+            cid = getattr(s, "cluster_id", None)
+            if cid is not None:
+                got[key] = cid
+        if gather is not None:
+            got = gather(got)
         return frame_row(compute_frame(
-            cfg, n, tiers, mixable_of(prev), mixable_of(state),
-            getattr(prev, "cluster_id", None),
-            getattr(state, "cluster_id", None), info, conds, gossip))
+            cfg, n, tiers, got["prev"], got["new"], got.get("prev_cid"),
+            got.get("new_cid"), info, conds, gossip))
     return hook

@@ -36,7 +36,8 @@ PERTURB = {"algo": "el", "cfg": CFG.replace(width=CFG.width + 1), "n": 5,
            "lr": 0.01, "warmup_rounds": 2, "head_jitter": 0.1,
            "eval_batch": 128, "device": torch.device("cuda"),
            "net": NetworkConfig.preset("edge-churn"),
-           "topo": TopoConfig(policy="reliability"), "obs": ObsConfig()}
+           "topo": TopoConfig(policy="reliability"), "obs": ObsConfig(),
+           "mesh": (2,)}
 
 
 def _data(seed=3, test_per_class=8):

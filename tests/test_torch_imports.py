@@ -1,5 +1,6 @@
-"""The port stands alone: ``repro_torch`` and ``chip_smoke.py`` import
-neither JAX nor anything of the reference package ``repro``."""
+"""The port stands alone: ``repro_torch``, ``chip_smoke.py`` and the
+port's tools (``tools/*.py``) import neither JAX nor anything of the
+reference package ``repro``."""
 from __future__ import annotations
 
 import ast
@@ -12,7 +13,8 @@ import pytest
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 PORT = REPO / "src" / "repro_torch"
-SOURCES = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+SOURCES = (sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+           + sorted((REPO / "tools").glob("*.py")))
 
 _BLOCKED_IMPORT = r"""
 import importlib, importlib.util, pkgutil, sys
