@@ -304,6 +304,14 @@ failure raises and exits non-zero, before the last line is printed):
    made in 2,048-token chunks) and timed beside their bounds and library
    calls; the smoke configs' steps (``STEPS_SMOKE``) on the card and on
    the CPU;
+5e. the language models' mesh on one card (``lm_mesh_phase``,
+   ``LM_MESH_CASES``): ``make_debug_mesh((1, 1))`` over a one-rank NCCL
+   group, llama3.2-1b's ``prefill_32k`` and ``train_4k`` and rwkv6-1.6b's
+   ``prefill_32k`` at cut batches through ``steps.build_case(mesh=...)``
+   (DTensor arguments, the reference's hooks): every output bit for bit
+   the ``mesh=None`` step's, K2 (16 a prefill) and K3 (24) launched on
+   the DTensor path by the launch counters and by the profiler's kernel
+   names, and the phase's seconds;
 6. a ``kernels`` JSON line (each kernel's launches on its path, error,
    times and bound; K2's launches in each full-width serve, in llava's
    image-prefix prefill and in a whisper forward under
@@ -312,6 +320,7 @@ failure raises and exits non-zero, before the last line is printed):
    2c under ``"resnet8"``,
    its launches on the driver phases under ``"driver_launches"``, the
    telemetry phase's under ``"obs"``, the node mesh's under ``"mesh"``; K2's and K3's in the traced serves
+   and on the language models' mesh (``"lm_mesh"``)
    under ``"traced_serve_launches"``; each kernel's check, times, bound
    and launches at the steps' lengths under ``"steps"``),
    the total time, then the last line ``{"ok": true, "device": {...}}``.
@@ -370,7 +379,8 @@ from repro_torch.kernels.head_select import head_losses, head_losses_ref  # noqa
 from repro_torch.kernels.rwkv6 import wkv, wkv_scan, wkv_train  # noqa: E402
 from repro_torch import device as device_mod  # noqa: E402
 from repro_torch.launch import dryrun, steps, train  # noqa: E402
-from repro_torch.launch.mesh import HW, MESH_NAME  # noqa: E402
+from repro_torch.launch.mesh import (HW, MESH_NAME,  # noqa: E402
+                                     make_debug_mesh)
 from repro_torch.launch.serve import make_requests, serve  # noqa: E402
 from repro_torch.models import api, attention, transformer, whisper  # noqa: E402
 from repro_torch.models.base import get_config  # noqa: E402
@@ -649,6 +659,14 @@ STEPS_SMOKE = [("llama3.2-1b", "train_4k"), ("llama3.2-1b", "prefill_32k"),
                ("rwkv6-1.6b", "decode_32k"), ("whisper-tiny", "prefill_32k"),
                ("whisper-tiny", "decode_32k")]
 STEPS_SMOKE_SEQ = 64
+# the language models' mesh on one card (lm_mesh_phase): (arch, input
+# shape, batch, K2 and K3 launches a call); full width, cut batches
+LM_MESH_CASES = [("llama3.2-1b", "prefill_32k", 2, (16, 0)),
+                 ("llama3.2-1b", "train_4k", 2, (0, 0)),
+                 ("rwkv6-1.6b", "prefill_32k", 2, (0, 24))]
+# K2's and K3's kernels by name in a profile
+FA_KERNELS = ("fa_kernel", "fa_bf16_kernel")
+WKV_KERNEL = "wkv_kernel"
 
 
 def log(*args):
@@ -2419,6 +2437,76 @@ def mesh_phase(rec, ds) -> int:
     rec["mesh"] = out
     torch.cuda.empty_cache()
     return launches
+
+
+def whole_leaves(out) -> list:
+    """A step's output as its tensor leaves, each DTensor gathered."""
+    from torch.distributed.tensor import DTensor
+    leaves = []
+    for part in out:
+        for x in (tree_leaves(part) if isinstance(part, dict) else [part]):
+            if isinstance(x, DTensor):
+                x = x.full_tensor()
+            if isinstance(x, torch.Tensor):
+                leaves.append(x)
+    return leaves
+
+
+def lm_mesh_phase(rec) -> dict:
+    """The language models' mesh on one card (``LM_MESH_CASES``): each
+    step built with ``mesh=None`` and run, then built on
+    ``make_debug_mesh((1, 1))`` (a one-rank NCCL group) from the same seed
+    and run under the profiler: every output leaf equal bit for bit, K2
+    and K3 launched on the DTensor path as many times as the case says,
+    by the launch counters and by the profiler's kernel names. The group
+    is destroyed at the end. Returns the meshed runs' K2 and K3
+    launches. On one rank ``localmap.grad_in_layout`` hands ``x`` back
+    as it is, so the train step here skips its ``_InLayout`` node, which
+    every step on more ranks runs (``tools/lm_mesh_run.py``,
+    ``tests/test_torch_lm_mesh.py``'s gloo world)."""
+    t0 = time.perf_counter()
+    mesh = make_debug_mesh((1, 1), ("data", "model"))
+    out = {"cases": {}}
+    total = {"flash_attention": 0, "wkv": 0}
+    for arch, shape, batch, (n_fa, n_wkv) in LM_MESH_CASES:
+        plain = steps.build_case(arch, shape, batch=batch, seed=0)
+        want = whole_leaves(plain.step_fn(*plain.args))
+        del plain
+        case = steps.build_case(arch, shape, batch=batch, seed=0,
+                                mesh=mesh)
+        got = []
+        with counted() as counts:
+            prof = device_profile(
+                lambda: got.append(case.step_fn(*case.args)),
+                kernels=FA_KERNELS + (WKV_KERNEL,))
+        leaves = whole_leaves(got.pop())
+        del case
+        equal = len(leaves) == len(want) and all(
+            torch.equal(a, b) for a, b in zip(leaves, want))
+        by_name = prof.get("kernels") or {}
+        res = {"batch": batch, "bit_for_bit": equal, "leaves": len(want),
+               "launches": counts, "wall_s": prof["wall_s"],
+               "profiled_fa": sum(by_name.get(k, [0])[0] for k in
+                                  FA_KERNELS) if by_name else None,
+               "profiled_wkv": by_name[WKV_KERNEL][0] if by_name else None}
+        out["cases"][f"{arch} {shape}"] = res
+        log(f"lm mesh (1, 1) {arch} {shape}: {json.dumps(res)}")
+        if not (equal and counts["flash_attention"] == n_fa
+                and counts["wkv"] == n_wkv and counts["head_losses"] == 0
+                and res["profiled_fa"] in (None, n_fa)
+                and res["profiled_wkv"] in (None, n_wkv)):
+            raise AssertionError(f"lm mesh {arch} {shape}: {res}")
+        total["flash_attention"] += counts["flash_attention"]
+        total["wkv"] += counts["wkv"]
+        del want, leaves
+        gc.collect()
+        torch.cuda.empty_cache()
+    dist.destroy_process_group()
+    out["launches"] = total
+    out["phase_s"] = time.perf_counter() - t0
+    log(f"lm mesh phase: {out['phase_s']:.1f} s")
+    rec["lm_mesh"] = out
+    return total
 
 
 def small_input_phase(rec):
@@ -4223,6 +4311,10 @@ def main() -> int:
     hs["steps"] = on_steps["head_losses"]
     fa["steps"] = on_steps["flash_attention"]
     rw["steps"] = on_steps["wkv"]
+    # K2 and K3 on the DTensor path of the language models' mesh
+    on_mesh = lm_mesh_phase(rec)
+    fa["lm_mesh"] = on_mesh["flash_attention"]
+    rw["lm_mesh"] = on_mesh["wkv"]
     # after the timed phases: a profiler run and one more graph timing
     split = head_select_lm_split()
     if split["body_ms"] is None:

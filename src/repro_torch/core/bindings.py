@@ -28,7 +28,7 @@ from typing import Any, Callable, NamedTuple
 
 import torch
 
-from repro_torch import resil
+from repro_torch import localmap, resil
 from repro_torch.models import cnn, layers, transformer, whisper
 from repro_torch.models.base import CNNConfig, ModelConfig
 from repro_torch.tree import (tree_leaves, tree_map, tree_unflatten,
@@ -44,9 +44,32 @@ def node_matmul(a, x):
     :func:`.meshctx.gather_tree`): the product runs at ``mesh=None``'s
     shape (:func:`.meshctx.pad_rows`) and returns the rank's rows, each
     ``mesh=None``'s bit for bit."""
+    if localmap.any_dtensor(a, x):
+        return _node_contract("ij,j...->i...", a, (), x)
     n = x.shape[0]
     return meshctx.rows_of(
         torch.einsum("ij,j...->i...", meshctx.pad_rows(a, n), x), a)
+
+
+def _node_contract(eq, a, mids, x):
+    """A cross-node contraction of DTensors (an LM step's nodes on the
+    'pod' axis): x gathered whole along its node dim, each rank contracting
+    its shards of the other dims, the result laid out as x was."""
+    lm = localmap
+    ref = x if lm.is_dtensor(x) else a
+    xw = lm.settle(x if lm.is_dtensor(x) else lm.like(x, ref, {}),
+                   range(1, x.ndim))
+    from torch.distributed.tensor import Shard
+
+    ins = [lm.like(t, xw, {}) for t in (a, *mids)]
+    shift = len(mids)               # the head slot's dim [i, c, ...]
+    out_pl = tuple(Shard(p.dim + shift) if isinstance(p, Shard) else p
+                   for p in xw.placements)
+    out = lm.on_shards(lambda *ts: torch.einsum(eq, *ts), (*ins, xw),
+                       out_pl)
+    if lm.is_dtensor(x) and out.ndim == x.ndim:
+        out = out.redistribute(x.device_mesh, x.placements)
+    return out
 
 
 def node_head_matmul(a, onehot, h):
@@ -54,6 +77,8 @@ def node_head_matmul(a, onehot, h):
     ``recv[i, c, ...] = sum_j a[i, j] onehot[j, c] h[j, ...]``; under a
     node mesh, the rank's rows of ``a`` against every sender's ``onehot``
     and ``h``, as :func:`node_matmul`."""
+    if localmap.any_dtensor(a, onehot, h):
+        return _node_contract("ij,jc,j...->ic...", a, (onehot,), h)
     n = h.shape[0]
     return meshctx.rows_of(torch.einsum(
         "ij,jc,j...->ic...", meshctx.pad_rows(a, n), onehot, h), a)

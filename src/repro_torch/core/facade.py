@@ -22,10 +22,10 @@ import math
 import torch
 import torch.nn.functional as F
 
-from repro_torch import resil
+from repro_torch import localmap, resil
 from repro_torch import topo as topo_mod
 from repro_torch.kernels.head_select import head_losses
-from repro_torch.tree import tree_map
+from repro_torch.tree import tree_leaves, tree_map
 
 from . import meshctx, split, topology
 from .bindings import (Binding, gossip_mix, local_sgd, node_head_matmul,
@@ -215,22 +215,28 @@ def facade_round(fcfg: FacadeConfig, binding: Binding, state: FacadeState,
     # --- cluster identification (step 2c) on the first local batch ---
     m = state.cluster_id.shape[0]          # n, or the rank's n / P
     first = {key: b[:, 0] for key, b in batches.items()}
-    losses = _select_heads(binding, cores, heads, first, m)  # [m, k]
+    losses = localmap.per_node(                              # [m, k]
+        lambda c, h, b: _select_heads(binding, c, h, b,
+                                      tree_leaves(c)[0].shape[0]),
+        cores, heads, first)
     if warmup:
         new_cid = torch.zeros((m,), dtype=torch.long, device=adj.device)
     else:
         new_cid = torch.argmin(losses, dim=1)
 
     # --- local training (step 2d) ---
-    params = split.merge_params(cores, split.select_head(heads, new_cid))
-    params = local_sgd(binding, params, batches, fcfg.lr)
+    params = localmap.per_node(
+        lambda c, h, cid, b: local_sgd(
+            binding, split.merge_params(c, split.select_head(h, cid)), b,
+            fcfg.lr), cores, heads, new_cid, batches)
     new_cores, new_head = split.split_params(params, binding.head_keys)
     if warmup:  # broadcast the trained head to every slot
         new_heads = tree_map(
             lambda h: h.unsqueeze(1).expand((m, k) + h.shape[1:]).clone(),
             new_head)
     else:
-        new_heads = split.set_head(heads, new_cid, new_head)
+        new_heads = localmap.per_node(split.set_head, heads, new_cid,
+                                      new_head)
     if net is not None:
         new_cid = torch.where(meshctx.rows(net.active) > 0, new_cid,
                               state.cluster_id)

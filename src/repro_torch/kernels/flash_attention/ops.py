@@ -13,6 +13,16 @@ gradient (grad mode on and any input ``requires_grad``) the wrapper raises
 instead of returning an output cut off from autograd; a caller that trains
 takes a differentiable attention (``models.attention.gqa_forward`` does).
 ``flash_attention.launches`` counts kernel launches.
+
+On DTensors (a mesh: ``launch.steps.build_case(mesh=...)``) each rank's
+kernel takes its local ``[B/data, S, H/model, D]`` block through
+``local_map`` and the output keeps q's placements; the counter counts each
+rank's own launches. The kernel needs the whole sequence and head dim of
+its heads: a q, k or v sharded along S (``hooks.shard_heads``' fallback
+where heads do not divide the model axis) is gathered first, one sharded
+along D raises ``ValueError``. k and v take q's batch and head shards
+where their heads divide as q's do; otherwise each rank keeps them whole
+and takes the kv heads its query heads read.
 """
 from __future__ import annotations
 
@@ -21,6 +31,7 @@ import functools
 
 import torch
 
+from repro_torch import localmap
 from repro_torch.kernels import build
 
 from .ref import attention_ref
@@ -59,6 +70,8 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     if window < 0:
         raise ValueError(f"window must be >= 0, got {window}")
     scale = scale if scale is not None else 1.0 / (d ** 0.5)
+    if localmap.any_dtensor(q, k, v):
+        return _on_mesh(q, k, v, causal, window, scale)
     devices = {q.device, k.device, v.device}
     if devices == {torch.device("cpu")}:
         out = attention_ref(q.transpose(1, 2), k.transpose(1, 2),
@@ -99,3 +112,13 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
 
 
 flash_attention.launches = 0
+
+
+def _on_mesh(q, k, v, causal, window, scale):
+    """:func:`flash_attention` of DTensors, each rank's kernel on its local
+    heads (module docstring)."""
+    return localmap.heads_on_shards(
+        lambda ql, kl, vl: flash_attention(
+            ql.contiguous(), kl.contiguous(), vl.contiguous(),
+            causal=causal, window=window, scale=scale),
+        q, k, v, name="flash_attention")

@@ -10,6 +10,12 @@ shape: the LM regime (bf16 with D and V multiples of 8, any T > 0) runs
 on the tensor cores as two device launches with a workspace this wrapper
 allocates; every other input runs on the FMA body as one. ``head_losses.launches`` counts calls that launched the kernel
 (one per call, whichever body ran).
+
+On DTensors each rank scores its own nodes (``local_map``): the node dim
+may stay sharded, while a node's tokens, features, heads and vocabulary
+are gathered whole first (a node's loss is a mean over all its tokens
+and a log-sum-exp over the whole vocabulary); the counter counts each
+rank's launches.
 """
 from __future__ import annotations
 
@@ -18,6 +24,7 @@ import functools
 
 import torch
 
+from repro_torch import localmap
 from repro_torch.kernels import build
 
 from .ref import head_losses_ref
@@ -51,6 +58,8 @@ def head_losses(features, heads, labels) -> torch.Tensor:
         raise ValueError(
             f"shape mismatch: features {tuple(features.shape)}, heads "
             f"{tuple(heads.shape)}, labels {tuple(labels.shape)}")
+    if localmap.any_dtensor(features, heads, labels):
+        return _on_mesh(features, heads, labels)
     devices = {features.device, heads.device, labels.device}
     if devices == {torch.device("cpu")}:
         return head_losses_ref(features, heads, labels)
@@ -90,3 +99,17 @@ def head_losses(features, heads, labels) -> torch.Tensor:
 
 
 head_losses.launches = 0
+
+
+def _on_mesh(features, heads, labels):
+    """:func:`head_losses` of DTensors on each rank's nodes (module
+    docstring)."""
+    lm = localmap
+    ref = next(x for x in (features, heads, labels) if lm.is_dtensor(x))
+    ref = lm.settle(ref, (0,), "head_losses input")
+    f, h, lab = (lm.like(x, ref, {0: 0}) for x in (features, heads,
+                                                   labels))
+    return lm.on_shards(
+        lambda fl, hl, ll: head_losses(fl.contiguous(), hl.contiguous(),
+                                       ll.contiguous()),
+        (f, h, lab), tuple(f.placements))

@@ -13,6 +13,13 @@ launches.
 ``wkv_train`` is the recurrence for training: an autograd function whose
 forward is ``wkv`` (the kernel on CUDA tensors) and whose backward
 recomputes the plain ``wkv_scan`` and differentiates it.
+
+On DTensors (a mesh) both run on each rank's local ``[B/data, S,
+H/model, hd]`` block through ``local_map`` (:func:`on_mesh`): the
+recurrence is independent per (batch row, head), so the outputs keep r's
+batch and head shards; an input sharded along S is gathered first (the
+scan needs the whole sequence), one sharded along hd raises
+``ValueError``. The counter counts each rank's own launches.
 """
 from __future__ import annotations
 
@@ -21,6 +28,7 @@ import functools
 
 import torch
 
+from repro_torch import localmap
 from repro_torch.kernels import build
 
 from .ref import wkv_scan
@@ -50,6 +58,8 @@ def wkv(r, k, v, w, u):
         raise ValueError(
             f"shape mismatch: r/k/v/w {[tuple(x.shape) for x in (r, k, v, w)]}"
             f", u {tuple(u.shape)}")
+    if localmap.any_dtensor(r, k, v, w, u):
+        return on_mesh(wkv, r, k, v, w, u)
     tensors = (r, k, v, w, u)
     devices = {x.device for x in tensors}
     if devices == {torch.device("cpu")}:
@@ -142,4 +152,26 @@ def wkv_train(r, k, v, w, u):
     """:func:`wkv` for training: the same outputs, differentiable in r, k,
     v, w and u (:class:`WkvFunction`). On CUDA tensors the forward
     launches the kernel or raises; it never runs the plain loop there."""
+    if localmap.any_dtensor(r, k, v, w, u):
+        return on_mesh(wkv_train, r, k, v, w, u)
     return WkvFunction.apply(r, k, v, w, u)
+
+
+def on_mesh(fn, r, k, v, w, u, *rest):
+    """``fn(r, k, v, w, u, *rest)`` (a wkv of ``[B,S,H,hd]`` inputs, ``u``
+    ``[H,hd]`` and ``rest`` carried states ``[B,H,hd,hd]``, returning
+    ``(y, S_final)``) on each rank's local batch rows and heads."""
+    from torch.distributed.tensor import Shard
+
+    lm = localmap
+    ref = next(x for x in (r, k, v, w) if lm.is_dtensor(x))
+    ref = lm.settle(ref, (0, 2), "wkv r", strict=(3,))
+    seq = [lm.like(lm.settle(x, (0, 2), "wkv input", strict=(3,))
+                   if lm.is_dtensor(x) else x, ref, {0: 0, 2: 2})
+           for x in (r, k, v, w)]
+    u = lm.like(u, ref, {2: 0})
+    rest = [lm.like(x, ref, {0: 0, 2: 1}) for x in rest]
+    y_pl = tuple(seq[0].placements)
+    s_pl = tuple(Shard(1) if isinstance(p, Shard) and p.dim == 2 else p
+                 for p in y_pl)
+    return lm.on_shards(fn, (*seq, u, *rest), (y_pl, s_pl))

@@ -20,17 +20,32 @@ decode case's cache is filled as a prefill of the context would leave it
 (random keys and values, each slot holding the latest position before
 ``pos`` that maps to it), and ``pos`` is the context's last position.
 
-Left out of the reference's signatures: the mesh and how the step is
-sharded over it (``mesh``, ``fsdp``, ``act_sharding``, ``seq_model``: the
-port runs one card; the mesh slice brings them) and ``unroll`` (the
-port's layers are a Python loop, so there is no scan to unroll and every
-layer is counted). Added: ``batch`` and ``cfg``, through which a caller
-runs a step cut in batch or depth (the default is the input shape's batch
-and :func:`resolve_config`'s model), and ``remat`` on the FACADE case.
+On a mesh (``mesh=``, a ``DeviceMesh`` with the reference's axis names,
+``launch.mesh``) the arguments are DTensors laid out by
+``launch.shardings``' specs, as the reference's ``in_shardings``:
+parameters by ``param_specs(fsdp=)``, optimizer slots by ``opt_specs``,
+the batch by ``batch_specs``, a decode's cache by ``cache_specs`` and its
+tokens and positions on 'data' where the batch divides. Real tensors are
+drawn on every rank from the same seed, the values of ``mesh=None``'s
+draw, and each rank keeps its shards (a transformer's parameters leaf by
+leaf, one layer at a time, so no rank holds the whole model); fake tensors
+are wrapped shard by shard. The step then runs with the activation hooks
+the reference installs (``models.hooks``: the batch on ('pod',) 'data',
+heads on 'model'; ``seq_model`` only for training and not for RWKV, whose
+sequence is its recurrence) and with plain tensors made inside the step
+(positions, masks, scalars) taken as replicated. ``mesh=None`` is the
+single-card case, bit for bit.
+
+Left out of the reference's signatures: ``unroll`` (the port's layers are
+a Python loop, so there is no scan to unroll and every layer is counted).
+Added: ``batch``, ``cfg`` and ``seq``, through which a caller runs a
+step cut in batch, depth or length (the default is the input shape's
+batch and length and :func:`resolve_config`'s model), and ``remat`` on the FACADE case.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Callable
 
 import torch
@@ -43,9 +58,11 @@ from repro_torch.core import topology
 from repro_torch.core.bindings import make_binding
 from repro_torch.core.state import init_facade_state
 from repro_torch.device import resolve
-from repro_torch.models import api, transformer, whisper
+from repro_torch.models import api, hooks, transformer, whisper
 from repro_torch.models.base import ModelConfig, get_config
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
+
+from . import shardings
 
 # the image embeddings' scale (the stubbed vision tower, as the token
 # embeddings'); frames, keys, values and states are unit normal
@@ -158,6 +175,7 @@ class DryRunCase:
     args: tuple
     n_tokens: int           # tokens the step processes (decode: one each)
     context: Any = None     # the FakeTensorMode of abstract arguments
+    mesh: Any = None        # the DeviceMesh of DTensor arguments
 
 
 def _inputs(device, abstract: bool, seed: int):
@@ -177,28 +195,118 @@ def _detached(tree):
 # --------------------------------------------------------------------------
 def build_case(arch_id: str, shape_name: str, *, remat: bool = True,
                device="cuda", abstract: bool = False, seed: int = 0,
-               batch: int | None = None,
-               cfg: ModelConfig | None = None) -> DryRunCase:
+               batch: int | None = None, cfg: ModelConfig | None = None,
+               seq: int | None = None, mesh=None, fsdp: bool = True, act_sharding: bool = True,
+               seq_model: bool = False) -> DryRunCase:
     """The step of ``arch_id`` at ``shape_name`` and its arguments
     (``batch`` rows, default the shape's global batch; ``cfg``, default
-    :func:`resolve_config`'s)."""
+    :func:`resolve_config`'s; ``seq`` positions, default the shape's), on
+    one device or over ``mesh`` (module docstring)."""
     cfg = cfg if cfg is not None else resolve_config(arch_id, shape_name)
     shp = INPUT_SHAPES[shape_name]
     b = shp.global_batch if batch is None else batch
-    s = shp.seq_len
+    s = shp.seq_len if seq is None else seq
     dev, gen, mode = _inputs(device, abstract, seed)
+    init = api.init_params
+    if mesh is not None:
+        init = functools.partial(init_params_on_mesh, mesh=mesh, fsdp=fsdp)
     if mode is not None:
         mode.__enter__()
     try:
-        return _build(arch_id, shape_name, cfg, shp.kind, b, s, remat, dev,
-                      gen, mode)
+        case = _build(arch_id, shape_name, cfg, shp.kind, b, s, remat, dev,
+                      gen, mode, init)
+        if mesh is None:
+            return case
+        return _on_mesh(case, mesh, fsdp=fsdp, act_sharding=act_sharding,
+                        seq_model=seq_model)
     finally:
         if mode is not None:
             mode.__exit__(None, None, None)
 
 
-def _build(arch_id, shape_name, cfg, kind, b, s, remat, dev, gen, mode):
-    params = api.init_params(cfg, gen)
+def init_params_on_mesh(cfg: ModelConfig, gen: torch.Generator, mesh, *,
+                        fsdp: bool = True):
+    """``api.init_params(cfg, gen)``'s values as DTensors over ``mesh``
+    laid out by ``shardings.param_specs``: a transformer's leaves cut to
+    this rank's shards as ``init_params`` draws them (its ``place``), so a
+    rank holds its shards and one layer; whisper's drawn whole and
+    distributed."""
+    if api.is_encdec(cfg):
+        params = api.init_params(cfg, gen)
+        return shardings.distribute(params, mesh, shardings.param_specs(
+            params, mesh, fsdp=fsdp))
+
+    def place(leaf, path):
+        # a layer's leaf by its stack's rule (the stacked shape, the layer
+        # dim whole)
+        lead = (cfg.n_layers,) if path.startswith("layers/") else ()
+        spec = shardings.leaf_spec(path, lead + tuple(leaf.shape), mesh,
+                                   fsdp=fsdp, skip_leading=len(lead))
+        return shardings.distribute(leaf, mesh, spec[len(lead):])
+
+    return transformer.init_params(cfg, gen, place=place)
+
+
+def _hook_axes(mesh, act_sharding: bool, seq_model: bool, kind: str,
+               cfg: ModelConfig):
+    """The reference's activation hooks for a case (``build_case``):
+    ``(batch_axes, model_axis, seq_model)``, or all off."""
+    if not act_sharding:
+        return (None, None, False)
+    axes = shardings.axis_sizes(mesh)
+    batch_axes = ("pod", "data") if "pod" in axes else ("data",)
+    return (batch_axes, "model", seq_model and not cfg.rwkv
+            and kind == "train")
+
+
+def mesh_step(step_fn, hook_axes):
+    """``step_fn`` run with the case's hooks installed and the plain
+    tensors it makes taken as replicated DTensors."""
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    def run(*args):
+        with hooks.installed(*hook_axes), implicit_replication():
+            return step_fn(*args)
+
+    return run
+
+
+def _on_mesh(case: DryRunCase, mesh, *, fsdp: bool, act_sharding: bool,
+             seq_model: bool) -> DryRunCase:
+    """A case's arguments laid out over ``mesh`` by the reference's specs
+    (parameters that are DTensors already stay as they are)."""
+    pspecs = shardings.param_specs(case.args[0], mesh, fsdp=fsdp)
+    params = shardings.distribute(case.args[0], mesh, pspecs)
+    if case.kind == "train":
+        _, opt_state, batch = case.args
+        args = (params,
+                shardings.distribute(opt_state, mesh, shardings.opt_specs(
+                    opt_state, pspecs)),
+                shardings.distribute(batch, mesh, shardings.batch_specs(
+                    batch, mesh)))
+    elif case.kind == "prefill":
+        batch = case.args[1]
+        args = (params, shardings.distribute(batch, mesh,
+                                             shardings.batch_specs(batch,
+                                                                   mesh)))
+    else:
+        _, cache, tokens, pos = case.args
+        b = tokens.shape[0]
+        dsize = shardings.axis_sizes(mesh).get("data", 1)
+        on_data = "data" if b % dsize == 0 and b >= dsize else None
+        args = (params,
+                shardings.distribute(cache, mesh, shardings.cache_specs(
+                    cache, mesh)),
+                shardings.distribute(tokens, mesh, (on_data, None)),
+                shardings.distribute(pos, mesh, (on_data,)))
+    axes = _hook_axes(mesh, act_sharding, seq_model, case.kind, case.cfg)
+    return dataclasses.replace(case, step_fn=mesh_step(case.step_fn, axes),
+                               args=args, mesh=mesh)
+
+
+def _build(arch_id, shape_name, cfg, kind, b, s, remat, dev, gen, mode,
+           init=api.init_params):
+    params = init(cfg, gen)
     if kind == "train":
         opt = make_optimizer(arch_id, cfg)
 
@@ -274,7 +382,8 @@ def build_facade_case(arch_id: str, *, n_nodes: int = 2, k: int = 2,
                       batch_per_node: int = 16, seq: int = 4096,
                       local_steps: int = 1, remat: bool = True,
                       device="cuda", abstract: bool = False, seed: int = 0,
-                      cfg: ModelConfig | None = None) -> DryRunCase:
+                      cfg: ModelConfig | None = None, mesh=None,
+                      act_sharding: bool = True) -> DryRunCase:
     """The reference's FACADE step: ``n_nodes`` nodes (degree 1, lr 1e-3,
     ``local_steps`` local SGD steps) of ``arch_id``'s whole model, each
     node's batch ``batch_per_node`` sequences of ``seq`` tokens; its
@@ -282,7 +391,13 @@ def build_facade_case(arch_id: str, *, n_nodes: int = 2, k: int = 2,
     ``topology.draw_perms``) is an argument, as the port's round takes
     it. ``remat`` (the port's addition): the local steps recompute each
     layer in the backward pass; without it the plain attention's saved
-    scores at S 4096 do not fit one card."""
+    scores at S 4096 do not fit one card.
+
+    On a mesh the node axis lies on 'pod' (where the mesh has it): the
+    cores by ``param_specs(node_axis=True)``, the heads' ``[n, k, ...]``
+    leaves with ``extra_leading=(pod, None)``, the cluster ids on 'pod'
+    and each node's batch on 'data'; the hooks put the batch within a
+    node on 'data' only, with ``seq_model`` (the reference's choice)."""
     cfg = cfg if cfg is not None else get_config(arch_id)
     dev, gen, mode = _inputs(device, abstract, seed)
     if mode is not None:
@@ -307,5 +422,40 @@ def build_facade_case(arch_id: str, *, n_nodes: int = 2, k: int = 2,
 
     n_tok = n_nodes * local_steps * batch_per_node * \
         batches["tokens"].shape[-1]
-    return DryRunCase(arch_id, "facade_pod", "facade", cfg, facade_step,
-                      (state, batches, drawn), n_tok, mode)
+    if mesh is None:
+        return DryRunCase(arch_id, "facade_pod", "facade", cfg, facade_step,
+                          (state, batches, drawn), n_tok, mode)
+    if mode is not None:
+        mode.__enter__()
+    try:
+        state, batches = _facade_on_mesh(state, batches, mesh)
+    finally:
+        if mode is not None:
+            mode.__exit__(None, None, None)
+    axes = (("data",), "model", True) if act_sharding else (None, None,
+                                                            False)
+    return DryRunCase(arch_id, "facade_pod", "facade", cfg,
+                      mesh_step(facade_step, axes),
+                      (state, batches, drawn), n_tok, mode, mesh)
+
+
+def _facade_on_mesh(state, batches, mesh):
+    """The FACADE state and batches laid out as the reference's
+    ``build_facade_case`` lays them out (``build_facade_case``)."""
+    axes = shardings.axis_sizes(mesh)
+    pod = "pod" if "pod" in axes else None
+    core_specs = shardings.param_specs(state.cores, mesh, fsdp=True,
+                                       node_axis=True)
+    head_specs = shardings._map_with_path(
+        lambda ps, leaf: shardings.leaf_spec(
+            ps, leaf.shape, mesh, fsdp=True, skip_leading=0,
+            extra_leading=(pod, None)), state.heads)
+    on_data = "data" if batches["tokens"].shape[2] % axes.get(
+        "data", 1) == 0 else None
+    state = state._replace(
+        cores=shardings.distribute(state.cores, mesh, core_specs),
+        heads=shardings.distribute(state.heads, mesh, head_specs),
+        cluster_id=shardings.distribute(state.cluster_id, mesh, (pod,)))
+    batches = shardings.distribute(
+        batches, mesh, {key: (pod, None, on_data, None) for key in batches})
+    return state, batches

@@ -30,8 +30,10 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.flash_attention import HEAD_DIMS, flash_attention
+from repro_torch import localmap
+from repro_torch.localmap import merge_last, split_last
 
-from . import layers
+from . import hooks, layers
 from .base import ModelConfig
 
 NEG_INF = -1e30
@@ -43,7 +45,13 @@ def sdpa(q, k, v, q_pos, kv_pos, window: int = 0, scale: float | None = None):
     """q [B,Sq,Hq,Dq]  k [B,Skv,Hkv,Dq]  v [B,Skv,Hkv,Dv]
     q_pos [B,Sq] int, kv_pos [B,Skv] int (-1 = invalid slot).
     Returns [B,Sq,Hq,Dv]. Scores and softmax in fp32; query head h reads
-    kv head ``h // (Hq/Hkv)``."""
+    kv head ``h // (Hq/Hkv)``. On DTensors each rank attends with its
+    batch rows and query heads (q also its rows of Sq, with their
+    positions) to the whole of k and v (``localmap.heads_on_shards``)."""
+    if localmap.any_dtensor(q, k, v):
+        return localmap.heads_on_shards(
+            lambda *a: sdpa(*a, window=window, scale=scale), q, k, v,
+            (q_pos,), (kv_pos,), name="sdpa", q_seq=True)
     hq, dq = q.shape[2], q.shape[3]
     g = hq // k.shape[2]
     scale = scale if scale is not None else 1.0 / dq ** 0.5
@@ -52,6 +60,7 @@ def sdpa(q, k, v, q_pos, kv_pos, window: int = 0, scale: float | None = None):
         v = torch.repeat_interleave(v, g, dim=2)
 
     scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    scores = hooks.shard_heads(scores, batch_dim=0, head_dim=1, seq_dim=2)
     valid = (kv_pos[:, None, :] >= 0) & (kv_pos[:, None, :]
                                          <= q_pos[:, :, None])
     if window > 0:
@@ -87,14 +96,20 @@ def init_gqa(generator: torch.Generator, cfg: ModelConfig) -> dict:
 def _gqa_qkv(cfg: ModelConfig, p, x, positions):
     b, s, _ = x.shape
     hd = cfg.hd
-    q = (x @ p["wq"]).reshape(b, s, cfg.n_heads, hd)
-    k = (x @ p["wk"]).reshape(b, s, cfg.n_kv_heads, hd)
-    v = (x @ p["wv"]).reshape(b, s, cfg.n_kv_heads, hd)
+    q = split_last(x @ p["wq"], cfg.n_heads, hd)
+    k = split_last(x @ p["wk"], cfg.n_kv_heads, hd)
+    v = split_last(x @ p["wv"], cfg.n_kv_heads, hd)
     if cfg.qk_norm:
         q = layers.rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = layers.rms_norm(k, p["k_norm"], cfg.norm_eps)
     cos, sin = layers.rope_freqs(positions, hd, cfg.rope_theta)
-    return layers.apply_rope(q, cos, sin), layers.apply_rope(k, cos, sin), v
+    q = layers.apply_rope(q, cos, sin)
+    k = layers.apply_rope(k, cos, sin)
+    # q may fall back to sequence sharding; k and v must not (their
+    # sequence is the softmax's): they stay replicated where heads do not
+    # divide
+    return (hooks.shard_heads(q, seq_dim=1), hooks.shard_heads(k),
+            hooks.shard_heads(v))
 
 
 def _needs_grad(*xs) -> bool:
@@ -111,7 +126,8 @@ def gqa_forward(cfg: ModelConfig, p, x, positions, window: int = 0):
     else:
         out = flash_attention(q, k, v, causal=True, window=window)
     b, s = x.shape[:2]
-    return out.reshape(b, s, -1).to(x.dtype) @ p["wo"]
+    out = hooks.shard_batch(out)
+    return merge_last(out).to(x.dtype) @ p["wo"]
 
 
 def gqa_init_cache(cfg: ModelConfig, batch: int, cache_len: int,
@@ -144,7 +160,7 @@ def gqa_decode(cfg: ModelConfig, p, x, pos, cache, window: int = 0):
     sp = torch.where(hit, pos[:, None].to(torch.int32), cache["slot_pos"])
 
     out = sdpa(q, ck, cv, pos[:, None], sp, window=window)
-    y = out.reshape(b, 1, -1).to(x.dtype) @ p["wo"]
+    y = merge_last(out).to(x.dtype) @ p["wo"]
     return y, {"k": ck, "v": cv, "slot_pos": sp}
 
 
@@ -178,8 +194,8 @@ def init_mla(generator: torch.Generator, cfg: ModelConfig) -> dict:
 def _mla_q(cfg: ModelConfig, p, x, positions):
     b, s, _ = x.shape
     cq = layers.rms_norm(x @ p["w_dq"], p["q_norm"], cfg.norm_eps)
-    q = (cq @ p["w_uq"]).reshape(b, s, cfg.n_heads,
-                                 cfg.qk_nope_dim + cfg.qk_rope_dim)
+    q = split_last(cq @ p["w_uq"], cfg.n_heads,
+                   cfg.qk_nope_dim + cfg.qk_rope_dim)
     q_nope, q_rope = q.split([cfg.qk_nope_dim, cfg.qk_rope_dim], dim=-1)
     cos, sin = layers.rope_freqs(positions, cfg.qk_rope_dim, cfg.rope_theta)
     return q_nope, layers.apply_rope(q_rope, cos, sin)
@@ -221,16 +237,19 @@ def mla_forward(cfg: ModelConfig, p, x, positions, window: int = 0,
     q_nope, q_rope = _mla_q(cfg, p, x, positions)
     c_kv, k_rope = ckv if ckv is not None else _mla_ckv(cfg, p, x,
                                                         positions)
-    k_nope = (c_kv @ p["w_uk"]).reshape(b, s, h, cfg.qk_nope_dim)
-    v = (c_kv @ p["w_uv"]).reshape(b, s, h, cfg.v_head_dim)
+    k_nope = split_last(c_kv @ p["w_uk"], h, cfg.qk_nope_dim)
+    v = split_last(c_kv @ p["w_uv"], h, cfg.v_head_dim)
     q = torch.cat([q_nope, q_rope], dim=-1)
     k = torch.cat([k_nope, k_rope[:, :, None, :].expand(
         b, s, h, cfg.qk_rope_dim)], dim=-1)
+    q = hooks.shard_heads(q, seq_dim=1)
+    k, v = hooks.shard_heads(k), hooks.shard_heads(v)
     if _needs_grad(q, k, v):
         out = sdpa(q, k, v, positions, positions, window=window)
     else:
         out = mla_attention(q, k, v, window=window)
-    return out.reshape(b, s, -1).to(x.dtype) @ p["wo"]
+    out = hooks.shard_batch(out)
+    return merge_last(out).to(x.dtype) @ p["wo"]
 
 
 def mla_init_cache(cfg: ModelConfig, batch: int, cache_len: int,
@@ -262,7 +281,7 @@ def mla_decode(cfg: ModelConfig, p, x, pos, cache, window: int = 0):
     k_rope = torch.where(hit[:, :, None], r_new, cache["k_rope"])
     sp = torch.where(hit, pos[:, None].to(torch.int32), cache["slot_pos"])
 
-    wuk = p["w_uk"].reshape(cfg.kv_lora_rank, h, cfg.qk_nope_dim)
+    wuk = split_last(p["w_uk"], h, cfg.qk_nope_dim)
     q_abs = torch.einsum("bhd,rhd->bhr", q_nope[:, 0], wuk)   # absorbed
     scores = torch.einsum("bhr,bsr->bhs", q_abs.float(), c_kv.float())
     scores = scores + torch.einsum("bhd,bsd->bhs", q_rope[:, 0].float(),
@@ -276,7 +295,7 @@ def mla_decode(cfg: ModelConfig, p, x, pos, cache, window: int = 0):
     alpha = torch.softmax(scores, dim=-1).to(cfg.dt)
 
     out_c = torch.einsum("bhs,bsr->bhr", alpha, c_kv)
-    wuv = p["w_uv"].reshape(cfg.kv_lora_rank, h, cfg.v_head_dim)
-    out = torch.einsum("bhr,rhd->bhd", out_c, wuv).reshape(b, 1, -1)
+    wuv = split_last(p["w_uv"], h, cfg.v_head_dim)
+    out = merge_last(torch.einsum("bhr,rhd->bhd", out_c, wuv))[:, None]
     y = out.to(x.dtype) @ p["wo"]
     return y, {"c_kv": c_kv, "k_rope": k_rope, "slot_pos": sp}

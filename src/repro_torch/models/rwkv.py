@@ -21,6 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.rwkv6 import wkv_scan, wkv_train
+from repro_torch.localmap import merge_last, split_last
 
 from . import layers
 from .base import ModelConfig
@@ -93,8 +94,7 @@ def _decay(p, xw):
 
 
 def _heads(x, h):
-    b, s, d = x.shape
-    return x.reshape(b, s, h, d // h)
+    return split_last(x, h, x.shape[-1] // h)
 
 
 def time_mix(cfg: ModelConfig, p, x, state=None, last_x=None):
@@ -121,7 +121,7 @@ def time_mix(cfg: ModelConfig, p, x, state=None, last_x=None):
     mu = yn.mean(-1, keepdim=True)
     var = yn.var(-1, keepdim=True, unbiased=False)
     yn = (yn - mu) * torch.rsqrt(var + 64e-5)
-    y = (yn.reshape(b, s, cfg.d_model) * p["ln_g"].float()).to(x.dtype)
+    y = (merge_last(yn) * p["ln_g"].float()).to(x.dtype)
     y = y * F.silu(g.float()).to(x.dtype)
     return y @ p["w_o"], sf, x[:, -1, :]
 

@@ -20,7 +20,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch import scan_ops
+from repro_torch import localmap, scan_ops
 
 from . import layers
 from .base import ModelConfig
@@ -70,6 +70,15 @@ def _conv_causal(p, u, conv_cache=None):
     returns the next cache."""
     w = p["conv_w"]
     kw = w.shape[0]
+    if conv_cache is None and localmap.is_dtensor(u):
+        # per channel: each rank convolves its batch rows and channels
+        lm = localmap
+        u = lm.settle(u, (0, 2), "ssm conv input")
+        w = lm.like(w, u, {2: 1})
+        out = lm.on_shards(lambda ul, wl: _conv_causal({"conv_w": wl},
+                                                       ul)[0],
+                           (u, w), tuple(u.placements))
+        return out, None
     if conv_cache is not None:
         window = torch.cat([conv_cache, u], dim=1)           # [B,kw,di]
         out = torch.einsum("bkd,kd->bd", window, w)[:, None, :]
@@ -90,10 +99,27 @@ def ssm_scan(cfg: ModelConfig, p, u, h0=None):
     uf = u.float()
     da = torch.exp(dt[..., None] * a)                        # [B,S,di,N]
     dbu = dt[..., None] * bb[:, :, None, :] * uf[..., None]  # [B,S,di,N]
-    scan = _SCAN_OP if scan_ops.is_fake(u) else _scan_loop
-    hs, h = scan(da, dbu, h)
+    hs, h = _scan(da, dbu, h)
     y = torch.einsum("bsdn,bsn->bsd", hs, cc) + uf * p["d_skip"]
     return y.to(u.dtype), h
+
+
+def _scan(da, dbu, h):
+    """The loop (its one-op stand-in on fake tensors); on DTensors on each
+    rank's batch rows and channels."""
+    if localmap.any_dtensor(da, dbu, h):
+        from torch.distributed.tensor import Shard
+        lm = localmap
+        ref = next(x for x in (da, dbu) if lm.is_dtensor(x))
+        ref = lm.settle(ref, (0, 2), "ssm scan")
+        da, dbu = (lm.like(x, ref, {0: 0, 2: 2}) for x in (da, dbu))
+        h = lm.like(h, ref, {0: 0, 2: 1})
+        h_pl = tuple(Shard(1) if isinstance(pl, Shard) and pl.dim == 2
+                     else pl for pl in da.placements)
+        return lm.on_shards(_scan, (da, dbu, h),
+                            (tuple(da.placements), h_pl))
+    scan = _SCAN_OP if scan_ops.is_fake(da) else _scan_loop
+    return scan(da, dbu, h)
 
 
 def _scan_loop(da, dbu, h):

@@ -3,7 +3,7 @@
 ``repro.models.transformer``).
 
 API (plain functions on nested dicts of tensors):
-    init_params(cfg, generator)                         -> params
+    init_params(cfg, generator, place=None)             -> params
     forward(cfg, params, tokens, img_embeds=None,
             remat=False)                                -> (features, aux)
     loss_fn(cfg, params, batch, remat=False)            -> (loss, metrics)
@@ -29,11 +29,12 @@ from __future__ import annotations
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import localmap
 from repro_torch.device import resolve
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.tree import tree_map, tree_unstack
 
-from . import attention, layers, moe, rwkv, ssm
+from . import attention, hooks, layers, moe, rwkv, ssm
 from .base import ModelConfig
 
 
@@ -88,46 +89,70 @@ def init_layer(generator: torch.Generator, cfg: ModelConfig) -> dict:
     return p
 
 
-def _init_layers(generator: torch.Generator, cfg: ModelConfig) -> dict:
+def _placed(tree, place, path: str):
+    """``place(leaf, path)`` on every leaf of a layer's nested dicts."""
+    if isinstance(tree, dict):
+        return {k: _placed(v, place, f"{path}/{k}") for k, v in tree.items()}
+    return place(tree, path)
+
+
+def _init_layers(generator: torch.Generator, cfg: ModelConfig,
+                 place=None) -> dict:
     """The ``n_layers`` layers of ``init_layer``, drawn in order, each
     copied into preallocated ``[L, ...]`` leaves as it is drawn: the
     values of stacking them, with one layer above the stack in memory
-    where stacking holds all the layers twice."""
+    where stacking holds all the layers twice. ``place`` (as in
+    :func:`init_params`) takes each layer's leaves as they are drawn; the
+    stack is laid out as its placed leaves are, its layer dim whole."""
     stacked = None
     for i in range(cfg.n_layers):
         lp = init_layer(generator, cfg)
+        if place is not None:
+            lp = _placed(lp, place, "layers")
         if stacked is None:
             stacked = tree_map(
-                lambda a: a.new_empty((cfg.n_layers,) + a.shape), lp)
-        tree_map(lambda dst, src: dst[i].copy_(src), stacked, lp)
+                lambda a: localmap.new_stack(a, cfg.n_layers), lp)
+        tree_map(lambda dst, src: localmap.local(dst)[i].copy_(
+            localmap.local(src)), stacked, lp)
         del lp                  # freed before the next layer is drawn
     return stacked
 
 
-def init_params(cfg: ModelConfig, generator: torch.Generator) -> dict:
+def init_params(cfg: ModelConfig, generator: torch.Generator,
+                place=None) -> dict:
     """Parameters drawn from ``generator`` on its device, at the
     reference's scales (dense normal / sqrt(d_in), embedding and untied
     head 0.02, RWKV's constants). The values differ from the reference's
     (another generator); tests carry the reference's own parameters across
-    with ``interop.lm_params_from_jax``."""
+    with ``interop.lm_params_from_jax``.
+
+    ``place(leaf, path)``, where given, takes each leaf as it is drawn
+    and returns what the tree holds (``launch.steps``: the rank's shards
+    of it over a mesh, so no rank holds the whole model). ``path`` is the
+    leaf's path in the tree (``"embed"``, ``"layers/attn/wq"``); a layer's
+    leaf comes one layer at a time, without the stack's leading dim."""
     _check_ported(cfg)
+    put = place or (lambda leaf, path: leaf)
     params = {
-        "embed": layers.embed_init(generator, cfg.vocab_size, cfg.d_model,
-                                   cfg.dt),
-        "layers": _init_layers(generator, cfg),
-        "final_norm": torch.ones((cfg.d_model,), dtype=cfg.dt,
-                                 device=generator.device),
+        "embed": put(layers.embed_init(generator, cfg.vocab_size,
+                                       cfg.d_model, cfg.dt), "embed"),
+        "layers": _init_layers(generator, cfg, place),
+        "final_norm": put(torch.ones((cfg.d_model,), dtype=cfg.dt,
+                                     device=generator.device), "final_norm"),
     }
     if not cfg.tie_embeddings:
-        params["lm_head"] = layers.dense_init(
-            generator, cfg.d_model, cfg.vocab_size, cfg.dt, scale=0.02)
+        params["lm_head"] = put(layers.dense_init(
+            generator, cfg.d_model, cfg.vocab_size, cfg.dt, scale=0.02),
+            "lm_head")
     return params
 
 
 def lm_head_weight(cfg: ModelConfig, params):
     if "lm_head" in params:  # explicit head (incl. FACADE-untied variants)
         return params["lm_head"]
-    return params["embed"].T  # tied embeddings
+    # tied embeddings (on DTensors the head's gradient in the table's
+    # layout, as the lookup's comes)
+    return localmap.grad_in_layout(params["embed"]).T
 
 
 # ==========================================================================
@@ -148,12 +173,16 @@ def _fuse(cfg: ModelConfig, lp, attn_out, ssm_out):
 
 def block_forward(cfg: ModelConfig, lp, h, positions):
     """One layer, full sequence. Returns (h, aux): MoE's router loss, None
-    for the other families."""
-    a = layers.rms_norm(h, lp["norm1"], cfg.norm_eps)
+    for the other families. On DTensors each branch hands its gradient of
+    ``h`` back in ``h``'s layout (``localmap.grad_in_layout``), so that
+    the residual's and the branch's gradients add in one layout; the
+    layer's FSDP shards are gathered first (``localmap.gather_fsdp``)."""
+    lp = localmap.gather_fsdp(lp)
+    a = layers.rms_norm(_branch(h), lp["norm1"], cfg.norm_eps)
     if cfg.rwkv:
         tm, _, _ = rwkv.time_mix(cfg, lp["time_mix"], a)
         h = h + tm
-        m = layers.rms_norm(h, lp["norm2"], cfg.norm_eps)
+        m = layers.rms_norm(_branch(h), lp["norm2"], cfg.norm_eps)
         cm, _ = rwkv.channel_mix(cfg, lp["channel_mix"], m)
         return h + cm, None
     if cfg.attention == "mla":
@@ -166,15 +195,20 @@ def block_forward(cfg: ModelConfig, lp, h, positions):
         attn_out = _fuse(cfg, lp, attn_out, ssm.ssm_forward(cfg, lp["ssm"],
                                                             a))
     h = h + attn_out
-    m = layers.rms_norm(h, lp["norm2"], cfg.norm_eps)
+    m = layers.rms_norm(_branch(h), lp["norm2"], cfg.norm_eps)
     mo, aux = _ffn(cfg, lp, m)
     return h + mo, aux
+
+
+def _branch(h):
+    """``h`` entering a branch off the residual stream."""
+    return localmap.grad_in_layout(h) if torch.is_grad_enabled() else h
 
 
 # ==========================================================================
 # full-sequence forward
 def embed_inputs(cfg: ModelConfig, params, tokens, img_embeds=None):
-    x = params["embed"][tokens.long()]
+    x = localmap.lookup(params["embed"], tokens.long())
     if img_embeds is not None:
         x = torch.cat([img_embeds.to(x.dtype), x], dim=1)
     positions = torch.arange(x.shape[1], dtype=torch.int32,
@@ -201,6 +235,7 @@ def forward(cfg: ModelConfig, params, tokens, img_embeds=None,
     h, positions = embed_inputs(cfg, params, tokens, img_embeds)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     for lp in tree_unstack(params["layers"]):      # one backward stack
+        h = hooks.shard_batch(h)
         h, a = remat_call(remat, block_forward, cfg, lp, h, positions)
         if a is not None:
             aux = aux + a
@@ -215,6 +250,10 @@ def _ce_chunk(f, w_head, labels, mask):
     """Masked NLL and accuracy sums of one chunk. The product runs in the
     param dtype and is then widened, as the reference does."""
     logits = (f @ w_head).float()
+    if localmap.is_dtensor(logits):
+        # each rank's rows whole over the vocabulary: the log-sum-exp and
+        # the gold logit's gather read them all
+        logits = localmap.settle(logits, (0, 1), "logits")
     lse = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels.long().unsqueeze(-1)).squeeze(-1)
     correct = (logits.amax(dim=-1) <= gold).float()
@@ -253,7 +292,8 @@ def loss_fn(cfg: ModelConfig, params, batch, remat: bool = False):
     feats, aux = forward(cfg, params, batch["tokens"], img_embeds=img,
                          remat=remat)
     feats = feats[:, 0 if img is None else img.shape[1]:]
-    loss, acc = chunked_ce(feats, lm_head_weight(cfg, params),
+    loss, acc = chunked_ce(feats,
+                           localmap.gather_fsdp(lm_head_weight(cfg, params)),
                            batch["labels"], batch["mask"])
     total = loss + cfg.router_aux_coef * aux
     return total, {"ce": loss, "aux": aux, "acc": acc}
@@ -322,6 +362,7 @@ def cache_physical_len(cfg: ModelConfig, seq_len: int) -> int:
 # ==========================================================================
 # decode
 def block_decode(cfg: ModelConfig, lp, h, pos, cache):
+    lp = localmap.gather_fsdp(lp)
     a = layers.rms_norm(h, lp["norm1"], cfg.norm_eps)
     if cfg.rwkv:
         tm, s_new, tmx = rwkv.time_mix(cfg, lp["time_mix"], a,
@@ -349,7 +390,7 @@ def block_decode(cfg: ModelConfig, lp, h, pos, cache):
 def decode_step(cfg: ModelConfig, params, cache, tokens, pos):
     """tokens [B,1] int; pos [B] int -> (logits [B,V] fp32, new cache)."""
     _check_ported(cfg)
-    h = params["embed"][tokens.long()]
+    h = localmap.lookup(params["embed"], tokens.long())
     new = []
     for i in range(cfg.n_layers):
         h, nc = block_decode(cfg, _layer(params["layers"], i), h, pos,
@@ -377,7 +418,8 @@ def prefill(cfg: ModelConfig, params, tokens, img_embeds=None,
     cache_len = cache_physical_len(cfg, s)
     caches = []
     for i in range(cfg.n_layers):
-        lp = _layer(params["layers"], i)
+        lp = localmap.gather_fsdp(_layer(params["layers"], i))
+        h = hooks.shard_batch(h)
         a = layers.rms_norm(h, lp["norm1"], cfg.norm_eps)
         if cfg.rwkv:
             tm, s_new, tmx = rwkv.time_mix(cfg, lp["time_mix"], a)
@@ -398,7 +440,7 @@ def prefill(cfg: ModelConfig, params, tokens, img_embeds=None,
             q, k, v = attention._gqa_qkv(cfg, lp["attn"], a, positions)
             attn_out = flash_attention(q, k, v, causal=True,
                                        window=cfg.sliding_window)
-            attn_out = attn_out.reshape(b, s, -1).to(h.dtype) \
+            attn_out = localmap.merge_last(attn_out).to(h.dtype) \
                 @ lp["attn"]["wo"]
             kv = {"k": k, "v": v}
 

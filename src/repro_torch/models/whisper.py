@@ -23,6 +23,7 @@ import math
 import torch
 
 from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.localmap import merge_last, split_last
 from repro_torch.tree import tree_map, tree_unstack
 
 from . import attention, layers
@@ -57,9 +58,9 @@ def _mha(cfg: ModelConfig, p, xq, xkv=None, *, causal: bool):
     skv = xkv.shape[1]
     h = cfg.n_heads
     hd = d // h
-    q = (xq @ p["wq"]).reshape(b, sq, h, hd)
-    k = (xkv @ p["wk"]).reshape(b, skv, h, hd)
-    v = (xkv @ p["wv"]).reshape(b, skv, h, hd)
+    q = split_last(xq @ p["wq"], h, hd)
+    k = split_last(xkv @ p["wk"], h, hd)
+    v = split_last(xkv @ p["wv"], h, hd)
     if self_attn and not attention._needs_grad(q, k, v):
         out = flash_attention(q, k, v, causal=causal)
     else:
@@ -71,7 +72,7 @@ def _mha(cfg: ModelConfig, p, xq, xkv=None, *, causal: bool):
             kv_pos = torch.zeros_like(kv_pos)
             q_pos = torch.ones_like(q_pos)
         out = attention.sdpa(q, k, v, q_pos, kv_pos)
-    return out.reshape(b, sq, d).to(xq.dtype) @ p["wo"]
+    return merge_last(out).to(xq.dtype) @ p["wo"]
 
 
 def _ln(cfg: ModelConfig, x, p):
@@ -217,9 +218,9 @@ def decode_step(cfg: ModelConfig, params, cache, tokens, pos):
                           tree_unstack(cache["self"]),
                           tree_unstack(cache["cross"])):
         a = _ln(cfg, h, lp["ln1"])
-        q = (a @ lp["self_attn"]["wq"]).reshape(b, 1, nh, hd)
-        k = (a @ lp["self_attn"]["wk"]).reshape(b, 1, nh, hd)
-        v = (a @ lp["self_attn"]["wv"]).reshape(b, 1, nh, hd)
+        q = split_last(a @ lp["self_attn"]["wq"], nh, hd)
+        k = split_last(a @ lp["self_attn"]["wk"], nh, hd)
+        v = split_last(a @ lp["self_attn"]["wv"], nh, hd)
         cache_len = sc["k"].shape[1]
         slot = pos.long() % cache_len
         hit = torch.arange(cache_len, device=h.device)[None, :] == \
@@ -228,16 +229,16 @@ def decode_step(cfg: ModelConfig, params, cache, tokens, pos):
         cv = torch.where(hit[:, :, None, None], v, sc["v"])
         sp = torch.where(hit, pos[:, None].to(torch.int32), sc["slot_pos"])
         out = attention.sdpa(q, ck, cv, pos[:, None], sp)
-        h = h + out.reshape(b, 1, d).to(h.dtype) @ lp["self_attn"]["wo"]
+        h = h + merge_last(out).to(h.dtype) @ lp["self_attn"]["wo"]
 
         c = _ln(cfg, h, lp["ln2"])
-        qc = (c @ lp["cross_attn"]["wq"]).reshape(b, 1, nh, hd)
+        qc = split_last(c @ lp["cross_attn"]["wq"], nh, hd)
         s_enc = cc["k"].shape[1]
         out = attention.sdpa(
             qc, cc["k"], cc["v"],
             torch.ones((b, 1), dtype=torch.int32, device=h.device),
             torch.zeros((b, s_enc), dtype=torch.int32, device=h.device))
-        h = h + out.reshape(b, 1, d).to(h.dtype) @ lp["cross_attn"]["wo"]
+        h = h + merge_last(out).to(h.dtype) @ lp["cross_attn"]["wo"]
 
         m = _ln(cfg, h, lp["ln3"])
         h = h + layers.gelu_mlp(lp["mlp"], m)

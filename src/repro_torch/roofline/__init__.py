@@ -1,2 +1,3 @@
 from .analysis import (RooflineReport, StepCost, analyze_step,  # noqa: F401
-                       count_step, model_flops)
+                       collective_bytes_from_trace, count_step,
+                       model_flops)

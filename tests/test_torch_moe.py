@@ -21,6 +21,7 @@ import pytest
 import torch
 
 import repro.configs  # noqa: F401  (registry)
+from conftest import requires_set_mesh
 import repro_torch.configs  # noqa: F401  (registry)
 from repro.models import moe as ref_moe
 from repro.models.base import get_config as ref_get_config
@@ -175,3 +176,56 @@ def test_bf16_layer_keeps_the_router_in_fp32():
     got, aux, want, want_aux = _both(rcfg, cfg, ref_p, p, x)
     _close(got, want, 2e-2)
     _close(aux, want_aux, VALUE_TOL)
+
+
+GROUPED_SCRIPT = """
+import os, sys
+os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=2"
+import jax, jax.numpy as jnp, numpy as np
+from jax.sharding import Mesh
+import repro.configs
+from repro.models import hooks, moe
+from repro.models.base import get_config
+cfg = get_config("deepseek-moe-16b", smoke=True).replace(
+    n_experts=4, experts_per_token=2, n_shared_experts=1, dtype="float32")
+p = moe.init_moe(jax.random.PRNGKey(5), cfg)
+x = np.load(sys.argv[1])
+mesh = Mesh(np.asarray(jax.devices()[:2]).reshape(2, 1), ("data", "model"))
+hooks.set_activation_sharding(("data",), "model")
+with jax.set_mesh(mesh):
+    assert hooks.data_axis_size() == 2
+    out, aux = jax.jit(lambda p, x: moe.moe_forward(
+        cfg, p, x, capacity_factor=0.5))(p, jnp.asarray(x))
+np.savez(sys.argv[2], out=np.asarray(out), aux=np.asarray(aux))
+"""
+
+
+@requires_set_mesh
+def test_two_dispatch_groups_match_the_reference_under_its_hooks(tmp_path):
+    """The reference's grouped dispatch with its hooks on a 2-device data
+    axis (G 2, each group its own capacity; a capacity factor that drops
+    tokens) against the port's ``groups=2``; the port's single group
+    differs from it where a token is dropped."""
+    import os
+    import subprocess
+    import sys
+
+    rcfg, cfg = _cfgs(e=4, k=2, shared=1)
+    ref_p, p, _ = _layer(rcfg, 5, (1, 1, cfg.d_model))
+    x = (0.3 * np.random.default_rng(7).normal(
+        size=(4, 16, cfg.d_model))).astype(np.float32)
+    np.save(tmp_path / "x.npy", x)
+    src = os.path.join(os.path.dirname(__file__), "..", "src")
+    run = subprocess.run(
+        [sys.executable, "-c", GROUPED_SCRIPT, str(tmp_path / "x.npy"),
+         str(tmp_path / "out.npz")], env=dict(os.environ, PYTHONPATH=src),
+        capture_output=True, text=True, timeout=300)
+    assert run.returncode == 0, run.stderr[-2000:]
+    want = np.load(tmp_path / "out.npz")
+    got, aux = moe.moe_forward(cfg, p, torch.from_numpy(x),
+                               capacity_factor=0.5, groups=2)
+    _close(got.numpy(), want["out"], TOL)
+    _close(float(aux), float(want["aux"]), VALUE_TOL)
+    one, _ = moe.moe_forward(cfg, p, torch.from_numpy(x),
+                             capacity_factor=0.5)
+    assert not np.allclose(one.numpy(), want["out"], atol=TOL)
