@@ -311,7 +311,12 @@ failure raises and exits non-zero, before the last line is printed):
    (DTensor arguments, the reference's hooks): every output bit for bit
    the ``mesh=None`` step's, K2 (16 a prefill) and K3 (24) launched on
    the DTensor path by the launch counters and by the profiler's kernel
-   names, and the phase's seconds;
+   names, and the phase's seconds; and llama3.2-1b's FACADE step on the
+   multi-pod layout at ``make_debug_mesh((1, 1, 1), ("pod", "data",
+   "model"))`` (``LM_MESH_FACADE``: bf16, a node's batch 1 of 256
+   tokens), bit for bit the ``mesh=None`` step's, its step 2c through K1's
+   DTensor branch (once, by counter and by the LM body's kernel name) and
+   K2 32 times;
 6. a ``kernels`` JSON line (each kernel's launches on its path, error,
    times and bound; K2's launches in each full-width serve, in llava's
    image-prefix prefill and in a whisper forward under
@@ -319,9 +324,9 @@ failure raises and exits non-zero, before the last line is printed):
    errors, times, bounds and SDPA times under ``"shapes"``; head select's ResNet8 step
    2c under ``"resnet8"``,
    its launches on the driver phases under ``"driver_launches"``, the
-   telemetry phase's under ``"obs"``, the node mesh's under ``"mesh"``; K2's and K3's in the traced serves
-   and on the language models' mesh (``"lm_mesh"``)
-   under ``"traced_serve_launches"``; each kernel's check, times, bound
+   telemetry phase's under ``"obs"``, the node mesh's under ``"mesh"``;
+   K1's, K2's and K3's on the language models' mesh (``"lm_mesh"``);
+   K2's and K3's in the traced serves under ``"traced_serve_launches"``; each kernel's check, times, bound
    and launches at the steps' lengths under ``"steps"``),
    the total time, then the last line ``{"ok": true, "device": {...}}``.
 
@@ -428,6 +433,10 @@ FACADE_LAUNCHES = ROUNDS + WARMUP_ROUNDS
 PARITY_WARMUP = 2
 ENGINE_ROUNDS, ENGINE_EVAL_EVERY = 40, 20
 K1_KERNEL = "head_losses_kernel"      # K1's FMA body, by name in a profile
+K1_LM_KERNEL = "head_losses_lm_kernel"  # its LM body's tile kernel
+# NCCL's device kernels by name in a profile (not the profiler's "nccl:"
+# annotations, CUDA events too, each over its kernel)
+NCCL_KERNEL = "ncclDevKernel"
 # the driver phases (pipelined, checkpoint/resume, sweep) on the same data:
 # 40 rounds with an eval every 10, FACADE's first PARITY_WARMUP rounds in
 # its warmup phase; the sweep over three seeds, FACADE and EL
@@ -664,6 +673,10 @@ STEPS_SMOKE_SEQ = 64
 LM_MESH_CASES = [("llama3.2-1b", "prefill_32k", 2, (16, 0)),
                  ("llama3.2-1b", "train_4k", 2, (0, 0)),
                  ("rwkv6-1.6b", "prefill_32k", 2, (0, 24))]
+# ... and llama3.2-1b's FACADE step (bf16, n 2, k 2) on the multi-pod
+# layout at (1, 1, 1): a node's batch and length, cut so that the case
+# adds seconds
+LM_MESH_FACADE = dict(batch_per_node=1, seq=256)
 # K2's and K3's kernels by name in a profile
 FA_KERNELS = ("fa_kernel", "fa_bf16_kernel")
 WKV_KERNEL = "wkv_kernel"
@@ -2458,9 +2471,10 @@ def lm_mesh_phase(rec) -> dict:
     ``make_debug_mesh((1, 1))`` (a one-rank NCCL group) from the same seed
     and run under the profiler: every output leaf equal bit for bit, K2
     and K3 launched on the DTensor path as many times as the case says,
-    by the launch counters and by the profiler's kernel names. The group
-    is destroyed at the end. Returns the meshed runs' K2 and K3
-    launches. On one rank ``localmap.grad_in_layout`` hands ``x`` back
+    by the launch counters and by the profiler's kernel names; then
+    FACADE's step on the multi-pod layout at (1, 1, 1)
+    (``lm_mesh_facade``). The group is destroyed at the end. Returns the
+    meshed runs' K1, K2 and K3 launches. On one rank ``localmap.grad_in_layout`` hands ``x`` back
     as it is, so the train step here skips its ``_InLayout`` node, which
     every step on more ranks runs (``tools/lm_mesh_run.py``,
     ``tests/test_torch_lm_mesh.py``'s gloo world)."""
@@ -2501,12 +2515,82 @@ def lm_mesh_phase(rec) -> dict:
         del want, leaves
         gc.collect()
         torch.cuda.empty_cache()
+    res = lm_mesh_facade()
+    out["cases"]["llama3.2-1b facade_pod"] = res
+    total["head_losses"] = res["launches"]["head_losses"]
+    total["flash_attention"] += res["launches"]["flash_attention"]
     dist.destroy_process_group()
     out["launches"] = total
     out["phase_s"] = time.perf_counter() - t0
     log(f"lm mesh phase: {out['phase_s']:.1f} s")
     rec["lm_mesh"] = out
     return total
+
+
+def facade_step_leaves(out) -> list:
+    """A FACADE step's new state (cores, heads, cluster ids) and info
+    (selection losses, cluster ids) as tensor leaves, DTensors gathered."""
+    state, info = out
+    return whole_leaves([state.cores, state.heads, state.cluster_id,
+                         info["selection_losses"], info["cluster_id"]])
+
+
+def lm_mesh_facade() -> dict:
+    """``lm_mesh_phase``'s FACADE case: llama3.2-1b's step
+    (``LM_MESH_FACADE``) on ``make_debug_mesh((1, 1, 1), ("pod", "data",
+    "model"))`` against ``mesh=None`` from the same seed, bit for bit;
+    its step 2c through K1's DTensor branch (the selection losses come out
+    a DTensor), K1 once by counter and by its LM body's kernel name, K2
+    in both nodes' feature passes."""
+    from torch.distributed.tensor import DTensor
+
+    t0 = time.perf_counter()
+    mesh = make_debug_mesh((1, 1, 1), ("pod", "data", "model"))
+    cfg = get_config("llama3.2-1b")
+    plain = steps.build_facade_case("llama3.2-1b", seed=0, **LM_MESH_FACADE)
+    want_out = plain.step_fn(*plain.args)
+    want = facade_step_leaves(want_out)
+    bytes_want = want_out[1]["round_bytes"]
+    del plain, want_out
+    case = steps.build_facade_case("llama3.2-1b", seed=0, mesh=mesh,
+                                   **LM_MESH_FACADE)
+    got = []
+    with counted() as counts:
+        prof = device_profile(
+            lambda: got.append(case.step_fn(*case.args)),
+            kernels=(K1_KERNEL, K1_LM_KERNEL) + FA_KERNELS)
+    out = got.pop()
+    on_mesh = isinstance(out[1]["selection_losses"], DTensor)
+    leaves = facade_step_leaves(out)
+    bytes_got = out[1]["round_bytes"]
+    del case, out
+    equal = len(leaves) == len(want) and all(
+        torch.equal(a, b) for a, b in zip(leaves, want))
+    by_name = prof.get("kernels") or {}
+    n_fa = 2 * cfg.n_layers                       # both nodes' features
+    res = {**LM_MESH_FACADE, "dtype": cfg.dtype, "bit_for_bit": equal,
+           "leaves": len(want), "round_bytes_equal": bytes_got ==
+           bytes_want, "losses_dtensor": on_mesh, "launches": counts,
+           "wall_s": prof["wall_s"],
+           "profiled_k1": ({k: by_name[k][0] for k in (K1_KERNEL,
+                                                       K1_LM_KERNEL)}
+                           if by_name else None),
+           "profiled_fa": sum(by_name.get(k, [0])[0] for k in
+                              FA_KERNELS) if by_name else None}
+    res["case_s"] = time.perf_counter() - t0
+    log(f"lm mesh (1, 1, 1) llama3.2-1b facade_pod: {json.dumps(res)}")
+    k1_body = K1_LM_KERNEL if cfg.dtype == "bfloat16" else K1_KERNEL
+    if not (equal and on_mesh and res["round_bytes_equal"]
+            and counts["head_losses"] == 1
+            and counts["flash_attention"] == n_fa and counts["wkv"] == 0
+            and (res["profiled_k1"] is None
+                 or res["profiled_k1"][k1_body] == 1)
+            and res["profiled_fa"] in (None, n_fa)):
+        raise AssertionError(f"lm mesh llama3.2-1b facade_pod: {res}")
+    del want, leaves
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
 
 
 def small_input_phase(rec):
@@ -4311,8 +4395,9 @@ def main() -> int:
     hs["steps"] = on_steps["head_losses"]
     fa["steps"] = on_steps["flash_attention"]
     rw["steps"] = on_steps["wkv"]
-    # K2 and K3 on the DTensor path of the language models' mesh
+    # K1, K2 and K3 on the DTensor path of the language models' mesh
     on_mesh = lm_mesh_phase(rec)
+    hs["lm_mesh"] = on_mesh["head_losses"]
     fa["lm_mesh"] = on_mesh["flash_attention"]
     rw["lm_mesh"] = on_mesh["wkv"]
     # after the timed phases: a profiler run and one more graph timing

@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import localmap
 from repro_torch.tree import tree_leaves, tree_map
 
 
@@ -53,15 +54,30 @@ def select_head(stacked_head: dict, idx) -> dict:
 
 def set_head(stacked_head: dict, idx, head: dict) -> dict:
     """Write node i's ``head[i]`` into its slot ``idx[i]`` of the
-    node-stacked ``[n, k, ...]`` bank; returns a new bank."""
-    rows = torch.arange(idx.shape[0], device=idx.device)
-
+    node-stacked ``[n, k, ...]`` bank; returns a new bank. On DTensors
+    each rank writes into its shards of the bank (the slot dim whole,
+    ``head`` laid out as the bank's other dims): the card's DTensor (torch
+    2.11) has no rule for the index assignment."""
     def put(s, h):
+        if localmap.is_dtensor(s):
+            return _put_on_shards(s, h, idx)
         out = s.clone()
-        out[rows, idx] = h.to(s.dtype)
+        out[torch.arange(idx.shape[0], device=idx.device), idx] = \
+            h.to(s.dtype)
         return out
 
     return tree_map(put, stacked_head, head)
+
+
+def _put_on_shards(s, h, idx):
+    """:func:`set_head`'s write of one leaf, rank by rank."""
+    lm = localmap
+    s = lm.settle(s, [d for d in range(s.ndim) if d != 1], "head bank")
+    h = lm.like(h, s, {0: 0, **{d: d - 1 for d in range(2, s.ndim)}})
+    idx = lm.like(idx, s, {0: 0})
+    return lm.on_shards(
+        lambda sl, hl, il: set_head({"h": sl}, il, {"h": hl})["h"],
+        (s, h, idx), tuple(s.placements))
 
 
 def tree_size_bytes(tree) -> int:

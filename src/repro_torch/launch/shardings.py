@@ -256,14 +256,18 @@ def placements(spec, mesh) -> tuple:
     """A spec -> DTensor placements over ``mesh`` (a ``DeviceMesh``): each
     mesh dim named by tensor dim d is ``Shard(d)`` (a dim named with a
     tuple of axes is split over them in the mesh's order), every other
-    mesh dim ``Replicate()``."""
+    mesh dim ``Replicate()``. A mesh dim of size 1 splits nothing and is
+    ``Replicate()`` whatever the spec names, as a size-1 axis of the
+    reference's ``PartitionSpec`` is (DTensor would otherwise refuse to
+    view away a size-1 dim sharded over it: MoE's one dispatch group on a
+    (data 1, model 4) mesh)."""
     from torch.distributed.tensor import Replicate, Shard
 
     out = []
-    for name in mesh.mesh_dim_names:
+    for name, size in zip(mesh.mesh_dim_names, mesh.shape):
         dims = [d for d, s in enumerate(spec) if s == name or (
             isinstance(s, tuple) and name in s)]
-        out.append(Shard(dims[0]) if dims else Replicate())
+        out.append(Shard(dims[0]) if dims and size > 1 else Replicate())
     return tuple(out)
 
 

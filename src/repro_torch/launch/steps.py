@@ -40,7 +40,8 @@ Left out of the reference's signatures: ``unroll`` (the port's layers are
 a Python loop, so there is no scan to unroll and every layer is counted).
 Added: ``batch``, ``cfg`` and ``seq``, through which a caller runs a
 step cut in batch, depth or length (the default is the input shape's
-batch and length and :func:`resolve_config`'s model), and ``remat`` on the FACADE case.
+batch and length and :func:`resolve_config`'s model), and ``remat`` and
+``head_jitter`` on the FACADE case.
 """
 from __future__ import annotations
 
@@ -383,7 +384,8 @@ def build_facade_case(arch_id: str, *, n_nodes: int = 2, k: int = 2,
                       local_steps: int = 1, remat: bool = True,
                       device="cuda", abstract: bool = False, seed: int = 0,
                       cfg: ModelConfig | None = None, mesh=None,
-                      act_sharding: bool = True) -> DryRunCase:
+                      act_sharding: bool = True,
+                      head_jitter: float = 0.0) -> DryRunCase:
     """The reference's FACADE step: ``n_nodes`` nodes (degree 1, lr 1e-3,
     ``local_steps`` local SGD steps) of ``arch_id``'s whole model, each
     node's batch ``batch_per_node`` sequences of ``seq`` tokens; its
@@ -391,7 +393,9 @@ def build_facade_case(arch_id: str, *, n_nodes: int = 2, k: int = 2,
     ``topology.draw_perms``) is an argument, as the port's round takes
     it. ``remat`` (the port's addition): the local steps recompute each
     layer in the backward pass; without it the plain attention's saved
-    scores at S 4096 do not fit one card.
+    scores at S 4096 do not fit one card. ``head_jitter`` (the port's
+    addition, as ``init_facade_state``'s): the k heads start apart, so
+    that step 2c's choice is no tie.
 
     On a mesh the node axis lies on 'pod' (where the mesh has it): the
     cores by ``param_specs(node_axis=True)``, the heads' ``[n, k, ...]``
@@ -407,7 +411,7 @@ def build_facade_case(arch_id: str, *, n_nodes: int = 2, k: int = 2,
         fcfg = facade_mod.FacadeConfig(n_nodes=n_nodes, k=k, degree=1,
                                        lr=1e-3)
         state = init_facade_state(binding, n_nodes, k, generator=gen,
-                                  device=dev)
+                                  head_jitter=head_jitter, device=dev)
         batches = _lm_batch(cfg, batch_per_node, seq, gen,
                             lead=(n_nodes, local_steps))
         drawn = topology.draw_perms(

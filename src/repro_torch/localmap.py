@@ -102,6 +102,19 @@ def mesh_block(x, dim: int):
 
 
 
+def whole_seq(x):
+    """``x`` ``[B, S, ...]`` with its sequence dim 1 whole where a mesh dim
+    shards it (the hooks' ``seq_model`` carry), its other shards kept and
+    a ``Partial`` sum reduced; plain tensors and DTensors whose sequence
+    is whole pass through. The products and sequence slices that follow
+    read the whole sequence, as the reference's GSPMD gathers the
+    sequence-parallel carry before its matmuls; the card's DTensor (torch
+    2.11) cannot fold a sharded sequence dim into a matmul's rows."""
+    if not is_dtensor(x) or mesh_block(x, 1)[1] == 1:
+        return x
+    return settle(x, [d for d in range(x.ndim) if d != 1])
+
+
 def split_last(x, *sizes):
     """``x`` with its last dim split into ``sizes`` (heads first), as
     ``x.reshape(*x.shape[:-1], *sizes)``. A DTensor whose last dim is

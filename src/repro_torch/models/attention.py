@@ -125,9 +125,8 @@ def gqa_forward(cfg: ModelConfig, p, x, positions, window: int = 0):
         out = sdpa(q, k, v, positions, positions, window=window)
     else:
         out = flash_attention(q, k, v, causal=True, window=window)
-    b, s = x.shape[:2]
     out = hooks.shard_batch(out)
-    return merge_last(out).to(x.dtype) @ p["wo"]
+    return localmap.whole_seq(merge_last(out)).to(x.dtype) @ p["wo"]
 
 
 def gqa_init_cache(cfg: ModelConfig, batch: int, cache_len: int,
@@ -249,7 +248,7 @@ def mla_forward(cfg: ModelConfig, p, x, positions, window: int = 0,
     else:
         out = mla_attention(q, k, v, window=window)
     out = hooks.shard_batch(out)
-    return merge_last(out).to(x.dtype) @ p["wo"]
+    return localmap.whole_seq(merge_last(out)).to(x.dtype) @ p["wo"]
 
 
 def mla_init_cache(cfg: ModelConfig, batch: int, cache_len: int,

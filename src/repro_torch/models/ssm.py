@@ -170,6 +170,13 @@ def conv_tail(cfg: ModelConfig, u):
     [B,S,di]: its last ``ssm_conv - 1`` positions, zero-padded in front
     when S is shorter."""
     kw1 = cfg.ssm_conv - 1
+    if localmap.is_dtensor(u):
+        # on each rank's batch rows and channels, S whole: the card's
+        # DTensor (torch 2.11) lays out a padded DTensor over one mesh dim
+        # where its mesh has two
+        u = localmap.settle(u, (0, 2), "ssm conv tail")
+        return localmap.on_shards(lambda ul: conv_tail(cfg, ul), (u,),
+                                  tuple(u.placements))
     return F.pad(u, (0, 0, kw1, 0))[:, -kw1:]
 
 

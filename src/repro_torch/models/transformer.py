@@ -175,10 +175,15 @@ def block_forward(cfg: ModelConfig, lp, h, positions):
     """One layer, full sequence. Returns (h, aux): MoE's router loss, None
     for the other families. On DTensors each branch hands its gradient of
     ``h`` back in ``h``'s layout (``localmap.grad_in_layout``), so that
-    the residual's and the branch's gradients add in one layout; the
-    layer's FSDP shards are gathered first (``localmap.gather_fsdp``)."""
+    the residual's and the branch's gradients add in one layout, and gets
+    its output's gradient back in that output's layout, not the
+    residual's (a sharded sequence under the hooks' ``seq_model``, which
+    its products cannot take); the layer's FSDP shards are gathered first
+    (``localmap.gather_fsdp``), and each branch's normed input is taken
+    with its sequence whole (``localmap.whole_seq``)."""
     lp = localmap.gather_fsdp(lp)
-    a = layers.rms_norm(_branch(h), lp["norm1"], cfg.norm_eps)
+    a = localmap.whole_seq(layers.rms_norm(_branch(h), lp["norm1"],
+                                           cfg.norm_eps))
     if cfg.rwkv:
         tm, _, _ = rwkv.time_mix(cfg, lp["time_mix"], a)
         h = h + tm
@@ -194,15 +199,18 @@ def block_forward(cfg: ModelConfig, lp, h, positions):
     if cfg.arch_type == "hybrid":
         attn_out = _fuse(cfg, lp, attn_out, ssm.ssm_forward(cfg, lp["ssm"],
                                                             a))
-    h = h + attn_out
-    m = layers.rms_norm(_branch(h), lp["norm2"], cfg.norm_eps)
+    h = h + _branch(attn_out)
+    m = localmap.whole_seq(layers.rms_norm(_branch(h), lp["norm2"],
+                                           cfg.norm_eps))
     mo, aux = _ffn(cfg, lp, m)
-    return h + mo, aux
+    return h + _branch(mo), aux
 
 
-def _branch(h):
-    """``h`` entering a branch off the residual stream."""
-    return localmap.grad_in_layout(h) if torch.is_grad_enabled() else h
+def _branch(x):
+    """``x`` where the residual stream and a branch meet (the residual
+    entering a branch, or a branch's output joining it): under grad, its
+    gradient comes back in its own layout."""
+    return localmap.grad_in_layout(x) if torch.is_grad_enabled() else x
 
 
 # ==========================================================================
@@ -239,6 +247,7 @@ def forward(cfg: ModelConfig, params, tokens, img_embeds=None,
         h, a = remat_call(remat, block_forward, cfg, lp, h, positions)
         if a is not None:
             aux = aux + a
+    h = localmap.whole_seq(h)
     if apply_final_norm:
         h = layers.rms_norm(h, params["final_norm"], cfg.norm_eps)
     return h, aux

@@ -24,19 +24,14 @@ parameters (``steps.init_params_on_mesh``) are rank 0's shards of
 ``api.init_params``' draw from the same seed, on a fake world."""
 from __future__ import annotations
 
-import os
 import pickle
-import subprocess
 import sys
-import time
-from pathlib import Path
 
 import numpy as np
 import pytest
 
-REPO = Path(__file__).resolve().parents[1]
-WORLD = 4
-JOIN_S = 180
+from torch_worlds import REPO, join, near, run_world, start_reference, stop
+
 TOL = 1e-5
 LR = 3e-4
 CASES = (("llama3.2-1b", "prefill_32k"), ("llama3.2-1b", "decode_32k"),
@@ -117,22 +112,6 @@ def _ref_inputs(path):
         pickle.dump(ref, f)
 
 
-def _join(procs, deadline):
-    """Wait for ``procs``; a process that fails or outlives ``deadline``
-    fails the tests (its stderr in the message)."""
-    errs = []
-    for p in procs:
-        try:
-            _, err = p.communicate(timeout=max(1.0,
-                                               deadline - time.monotonic()))
-        except subprocess.TimeoutExpired:
-            p.kill()
-            _, err = p.communicate()
-            err = f"timed out after {JOIN_S} s\n{err}"
-        errs.append(err if p.returncode else "")
-    assert not any(errs), "\n".join(e[-3000:] for e in errs if e)
-
-
 @pytest.fixture(scope="module")
 def world_dir(tmp_path_factory):
     """A folder with the reference's inputs (``ref_in.pkl``) and the
@@ -140,16 +119,10 @@ def world_dir(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("lmworld")
     sys.path.insert(0, str(REPO / "tests"))
     _ref_inputs(tmp / "ref_in.pkl")
-    env = dict(os.environ, PYTHONPATH=str(REPO / "src"),
-               OMP_NUM_THREADS="1", JAX_PLATFORMS="cpu")
-    proc = subprocess.Popen(
-        [sys.executable, "-c", REF_SCRIPT, str(tmp / "ref_in.pkl"),
-         str(tmp / "ref_out.pkl")], env=env, stdout=subprocess.DEVNULL,
-        stderr=subprocess.PIPE, text=True)
-    yield tmp, proc, time.monotonic() + JOIN_S
-    if proc.poll() is None:
-        proc.kill()
-        proc.communicate()
+    proc, deadline = start_reference(REF_SCRIPT, tmp / "ref_in.pkl",
+                                     tmp / "ref_out.pkl")
+    yield tmp, proc, deadline
+    stop(proc)
 
 
 @pytest.fixture(scope="module")
@@ -157,32 +130,16 @@ def ranks(world_dir):
     """Each rank's pickled results (the world runs beside the
     reference's process)."""
     tmp, _, _ = world_dir
-    out = str(tmp / "out")
-    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
-        [str(REPO / "src"), str(REPO / "tests")]), OMP_NUM_THREADS="1")
-    procs = [subprocess.Popen(
-        [sys.executable, str(REPO / "tests" / "torch_lm_mesh_world.py"),
-         str(rank), str(WORLD), str(tmp / "store"), out,
-         str(tmp / "ref_in.pkl")], env=env,
-        stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
-        for rank in range(WORLD)]
-    _join(procs, time.monotonic() + JOIN_S)
-    return [pickle.load(open(f"{out}.{r}", "rb")) for r in range(WORLD)]
+    return run_world("torch_lm_mesh_world.py", tmp, tmp / "ref_in.pkl")
 
 
 @pytest.fixture(scope="module")
 def reference(world_dir):
     """The reference's outputs of each case on its (2, 2) mesh."""
     tmp, proc, deadline = world_dir
-    _join([proc], deadline)
-    return pickle.load(open(tmp / "ref_out.pkl", "rb"))
-
-
-def _near(got, want, msg):
-    scale = max(float(np.abs(want).max()), 1e-30) if want.size else 1.0
-    err = float(np.abs(got - want).max()) if want.size else 0.0
-    assert got.shape == want.shape, msg
-    assert err <= TOL * scale, f"{msg}: {err} > {TOL} x {scale}"
+    join([proc], deadline)
+    with open(tmp / "ref_out.pkl", "rb") as f:
+        return pickle.load(f)
 
 
 @pytest.mark.parametrize("arch, shape", [c for c in CASES
@@ -193,7 +150,7 @@ def test_forward_steps_match_mesh_none(ranks, arch, shape):
         for i, (a, b) in enumerate(zip(case["mesh"]["out"],
                                        case["none"]["out"], strict=True)):
             for j, (x, y) in enumerate(zip(a, b, strict=True)):
-                _near(x, y, f"rank {r} output {i} leaf {j}")
+                near(x, y, TOL, f"rank {r} output {i} leaf {j}")
         assert case["mesh"]["launches"] == (0, 0)
 
 
@@ -205,9 +162,9 @@ def test_train_step_matches_mesh_none(ranks):
         n = len(w_params)
         assert len(opt) == len(w_opt) == 2 * n
         for x, y in zip(metrics, w_metrics, strict=True):
-            _near(x, y, f"rank {r} metrics")
+            near(x, y, TOL, f"rank {r} metrics")
         for j, (x, y) in enumerate(zip(opt, w_opt)):
-            _near(x, y, f"rank {r} moment leaf {j}")
+            near(x, y, TOL, f"rank {r} moment leaf {j}")
         for g, w, m in zip(params, w_params, w_opt[:n], strict=True):
             big = np.abs(m / 0.1) > 1e-6                # m = (1 - b1) g
             np.testing.assert_allclose(g[big], w[big], rtol=TOL, atol=TOL)
@@ -250,7 +207,8 @@ def test_forward_steps_on_a_mesh_match_the_reference(ranks, reference, arch,
             if np.issubdtype(y.dtype, np.integer):
                 np.testing.assert_array_equal(x, y, f"rank {r} leaf {j}")
             else:
-                _near(np.asarray(x, np.float32), y, f"rank {r} leaf {j}")
+                near(np.asarray(x, np.float32), y, TOL,
+                     f"rank {r} leaf {j}")
 
 
 def test_train_step_on_a_mesh_matches_the_reference(ranks, reference):
@@ -263,14 +221,14 @@ def test_train_step_on_a_mesh_matches_the_reference(ranks, reference):
     for r, got in enumerate(ranks):
         params, opt, metrics = got[("llama3.2-1b", "train_4k")]["ref_mesh"]
         for name in ("ce", "aux", "acc"):
-            _near(np.asarray(metrics[name]), np.asarray(w_metrics[name]),
-                  f"rank {r} {name}")
+            near(np.asarray(metrics[name]), np.asarray(w_metrics[name]),
+                 TOL, f"rank {r} {name}")
         assert int(opt["count"]) == int(w_opt["count"]) == 1
         for slot in ("m", "v"):
             got_l, want_l = (jax.tree.leaves(t[slot]) for t in (opt, w_opt))
             assert len(got_l) == len(want_l)
             for j, (x, y) in enumerate(zip(got_l, want_l)):
-                _near(x, y, f"rank {r} {slot} leaf {j}")
+                near(x, y, TOL, f"rank {r} {slot} leaf {j}")
         for g, w, m in zip(jax.tree.leaves(params), jax.tree.leaves(w_params),
                            jax.tree.leaves(w_opt["m"]), strict=True):
             big = np.abs(m / 0.1) > 1e-6                # m = (1 - b1) g

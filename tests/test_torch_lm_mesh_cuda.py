@@ -4,6 +4,9 @@ and rwkv6-1.6b's smoke steps built by ``launch.steps.build_case(mesh=
 ...)`` are the ``mesh=None`` steps bit for bit, with K2 launched in every
 prefill layer and K3 in every RWKV prefill layer (and twice a training
 layer: its forward and remat's recompute) on the DTensor path;
+FACADE's smoke step on ``make_debug_mesh((1, 1, 1), ("pod", "data",
+"model"))`` is the ``mesh=None`` step bit for bit, with K1 once (step 2c
+through its DTensor branch) and K2 in both nodes' feature passes;
 a shard of the head dim is refused by the kernels' DTensor branch. On
 one rank ``localmap.grad_in_layout`` adds no node, so these train steps
 do not run its ``_InLayout`` (the four-rank gloo world of
@@ -73,6 +76,33 @@ def test_mesh_1x1_is_mesh_none_bit_for_bit(mesh, arch, shape, launches):
     torch.cuda.synchronize()
     assert (flash_attention.launches - fa0, wkv.launches - wkv0) == \
         launches
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@requires_cuda
+def test_facade_on_a_pod_mesh_1x1x1_is_mesh_none_bit_for_bit(cuda_device):
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.kernels.head_select import head_losses
+
+    pod = make_debug_mesh((1, 1, 1), ("pod", "data", "model"))
+    cfg = get_config("llama3.2-1b", smoke=True)
+    kw = dict(batch_per_node=2, seq=64, cfg=cfg, seed=0, device="cuda")
+    plain = steps.build_facade_case("llama3.2-1b", **kw)
+    state, info = plain.step_fn(*plain.args)
+    want = _leaves([state.cores, state.heads, state.cluster_id,
+                    info["selection_losses"]])
+    case = steps.build_facade_case("llama3.2-1b", mesh=pod, **kw)
+    k1, fa0 = head_losses.launches, flash_attention.launches
+    state, info = case.step_fn(*case.args)
+    torch.cuda.synchronize()
+    assert (head_losses.launches - k1, flash_attention.launches - fa0) == \
+        (1, 2 * cfg.n_layers)
+    assert isinstance(info["selection_losses"], DTensor)
+    got = _leaves([state.cores, state.heads, state.cluster_id,
+                   info["selection_losses"]])
     assert len(got) == len(want)
     for a, b in zip(got, want):
         assert torch.equal(a, b)

@@ -74,14 +74,17 @@ def _tree_np(tree):
     return tree
 
 
-def run_ref_case(arch, shape, batch, mesh, params, rest):
+def run_ref_case(arch, shape, batch, mesh, params, rest, cfg=None,
+                 seq=SEQ):
     """One step on ``mesh`` from the reference's parameters (numpy) and
-    the arguments ``rest`` (numpy trees) -> its outputs as numpy trees."""
+    the arguments ``rest`` (numpy trees) -> its outputs as numpy trees
+    (``cfg``: default ``arch``'s fp32 smoke config)."""
     from repro_torch.interop import lm_params_from_jax
     from repro_torch.launch import shardings
 
     case = steps.build_case(arch, shape, device="cpu", seed=0, batch=batch,
-                            cfg=smoke(arch), seq=SEQ)
+                            cfg=smoke(arch) if cfg is None else cfg,
+                            seq=seq)
     p = lm_params_from_jax(params)
     tensors = [pytree.tree_map(torch.from_numpy, r)
                for r in rest]

@@ -20,6 +20,14 @@ D 128, V 1024, one node), and in bf16 at the LM FACADE path's shape (n·K
 serving shape (B 4, S 512, Hq 32, Hkv 8, D 64) and at S = 4096, wkv at
 rwkv6-1.6b's (B 4, S 512, H 32, hd 64). Prints the card's name and power
 limit, then one JSON object (also written to ``--out``).
+
+    python3 tools/kernel_ab.py --library [--out FILE]
+
+times the current kernels against the PyTorch call that computes the
+same function (``chip_smoke.py``'s yardsticks, which the port never
+calls), in the order library, kernel, kernel, library, beside the bound
+worked out from the shapes (``chip_smoke.hs_bound``, ``fa_bound``) and
+the plain version's time, at the shapes of :data:`LIBRARY_SHAPES`.
 """
 from __future__ import annotations
 
@@ -37,6 +45,23 @@ import torch  # noqa: E402
 
 import chip_smoke as cs  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
+
+
+# (label, kernel, shape) timed against the library call: K1's FMA body
+# at the reference tests' HS_SHAPES[2] (K 5, T 128, D 128, V 1024, one
+# node), at a rank's n 8 of the node mesh's FACADE round on four cards
+# (32 nodes over 4 ranks: n 8, K 2, T 8, D 513, V 10) and at a rank's
+# step 2c in tools/lm_mesh_run.py's four-card FACADE step (one node's k 2
+# heads as n*K 2 rows of K' 1, T = 2 sequences of 256 tokens, D 2048,
+# V 128,256, fp32); K2 at the prefill_32k length on one KV group (B 1,
+# S 32,768, Hq 4, Hkv 1, D 64, bf16, causal)
+LIBRARY_SHAPES = (("head_select_hs2", "head_select", (1, 5, 128, 128, 1024)),
+                  ("head_select_node_rank", "head_select",
+                   (8, 2, 8, 513, 10)),
+                  ("head_select_facade_pod_rank", "head_select",
+                   (2, 1, 512, 2048, 128256)),
+                  ("flash_attention_steps", "flash_attention",
+                   (1, 4, 1, 32768, 64)))
 
 
 def load(src: pathlib.Path, out: pathlib.Path) -> ctypes.CDLL:
@@ -95,11 +120,68 @@ def wkv_call(lib, r, k, v, w, u, y, s_out):
     return y, s_out
 
 
+def library_inputs(kernel, shape):
+    """Inputs at ``shape`` and (the kernel's call, the library call, the
+    plain version, the bound and what bounds it)."""
+    if kernel == "head_select":
+        n, k, t, d, v = shape
+        feats, heads, labels = cs.hs_case(*shape, torch.float32, seed=97)
+        bound_ms, bound_by, _, _ = cs.hs_bound(feats, heads, labels)
+        return ((lambda: cs.head_losses(feats, heads, labels)),
+                (lambda: cs.hs_library(feats, heads, labels)),
+                (lambda: cs.head_losses_ref(feats, heads, labels)),
+                bound_ms, bound_by, "fp32")
+    q, k, v = cs.fa_inputs(*shape, torch.bfloat16, seed=97)
+    bound_ms, bound_by, _, _ = cs.fa_bound(q, k, v)
+    return ((lambda: cs.flash_attention(q, k, v, causal=True)),
+            (lambda: cs.fa_library(q, k, v)),
+            (lambda: cs.fa_plain(q.float(), k.float(), v.float())),
+            bound_ms, bound_by, "bf16")
+
+
+def library_main(out_path) -> dict:
+    """Each of ``LIBRARY_SHAPES``: the kernel held against its plain
+    version, then it and its library call timed in turns (CUDA graphs)
+    and the plain version once (CUDA events)."""
+    build.build("head_select", "flash_attention")
+    rec = {"order": ("library", "kernel", "kernel", "library")}
+    for label, kernel, shape in LIBRARY_SHAPES:
+        call, library, plain, bound_ms, bound_by, dtype = library_inputs(
+            kernel, shape)
+        got, want = call(), plain()
+        torch.cuda.synchronize()
+        tol = ((cs.HS_TOL,) if kernel == "head_select" else
+               cs.FA_TOL[torch.bfloat16])
+        check = (cs.hs_check if kernel == "head_select" else cs.check)(
+            label, got, want, *tol)
+        del got, want
+        big = shape[-1] * shape[-2] > 1 << 26 or shape[3] > 1 << 14
+        t = {"shape": list(shape), "dtype": dtype,
+             "max_abs_err": check["max_abs_err"], "bound_ms": bound_ms,
+             "bound_by": bound_by, "ms": [], "library_ms": []}
+        for which in rec["order"]:
+            fn = library if which == "library" else call
+            t["library_ms" if which == "library" else "ms"].append(
+                cs.graph_ms(fn, calls=1 if big else 20,
+                            reps=3 if big else 7))
+        t["plain_ms"] = cs.event_ms(plain)
+        rec[label] = t
+        print(label, json.dumps(t), flush=True)
+        del call, library, plain
+        torch.cuda.empty_cache()
+    return rec
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("baseline", type=pathlib.Path)
+    ap.add_argument("baseline", type=pathlib.Path, nargs="?")
+    ap.add_argument("--library", action="store_true",
+                    help="time the kernels against their library calls "
+                         "(no baseline)")
     ap.add_argument("--out", type=pathlib.Path)
     args = ap.parse_args()
+    if (args.baseline is None) != args.library:
+        ap.error("give either BASELINE_DIR or --library")
     if not torch.cuda.is_available():
         print("kernel_ab: CUDA is not available", file=sys.stderr)
         return 1
@@ -108,6 +190,14 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
     print(smi, flush=True)
+    if args.library:
+        rec = {"nvidia_smi": smi, "device": torch.cuda.get_device_name(0),
+               **library_main(args.out)}
+        if args.out:
+            args.out.parent.mkdir(parents=True, exist_ok=True)
+            args.out.write_text(json.dumps(rec, indent=1))
+        print(json.dumps(rec), flush=True)
+        return 0
     out_dir = build.BUILD_DIR.parent / "kernel_ab"
     libs = {name: {"baseline": load(args.baseline / f"{name}.cu",
                                     out_dir / f"lib{name}-baseline.so"),

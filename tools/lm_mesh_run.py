@@ -39,8 +39,27 @@ at a barrier); the meshed outputs are gathered whole on every rank.
    a prefill on each rank, each card's peak memory, prefill and decode
    tokens per second (host clock around synchronised calls) and the NCCL
    kernels' share of a profiled prefill's device time.
+4. llama3.2-1b's FACADE step (``steps.build_facade_case``) at full width
+   in fp32 on ``make_debug_mesh((2, 1, 2), ("pod", "data", "model"))``,
+   the multi-pod layout, at ``FACADE``'s batch and length (n 2, k 2,
+   degree 1, one local step; the heads jittered apart, so that step 2c's
+   choice is no tie): each pod's two ranks run their own node.
+   Against ``mesh=None`` on rank 0: the selection losses within
+   ``LOGIT_TOL`` of the largest, every leaf of the new state within
+   ``STATE_TOL`` of its largest value, the cluster ids equal (the margin
+   between each node's two heads' losses recorded); K1 once and K2 16
+   times (one node's feature pass) on every rank by counter and by the
+   profiler's kernel names; the step's seconds (the second call, host
+   clock around a synchronised call), peak memory a card and the NCCL
+   kernels' share of a profiled step's device time.
+5. hymba-1.5b's prefill at full width in fp32 (``HYMBA``'s batch and
+   prompt) on the (data 2, model 2) mesh of 1, where its 25 query and 5
+   kv heads do not divide the model axis (K2 gathers q along S), against
+   one card by the rule of 1; K2 32 times (its layers) on every rank by
+   counter and by kernel name.
 
-Rank 0 prints each card's name and power limit, then one JSON object
+``--only`` runs the named cases alone (``llama``, ``bf16``, ``rwkv``,
+``llava``, ``whole``, ``facade``, ``hymba``). Rank 0 prints each card's name and power limit, then one JSON object
 (also written to ``--out``). Exits non-zero when a check fails; the
 process group is taken down within a bounded time.
 """
@@ -90,6 +109,16 @@ LLAMA = (("prefill_32k", 4), ("decode_32k", 4), ("train_4k", 2))
 RWKV_BATCH = 2
 LLAVA_LAYERS = 16
 GEN = 32
+STATE_TOL = 1e-5        # FACADE's new state, of each leaf's largest value
+# FACADE's step: a node's batch and length. One card also holds the
+# mesh=None step in fp32 (chip_smoke.py's steps_phase peaks at 69.77 GB
+# on one H100 at B 4 of S 4096 in bf16), and in fp32 step 2c runs K1's
+# FMA body, which takes 24.8 s a rank's call at T 2048 on an H100
+# (tools/kernel_ab.py --library): T 512 a node
+FACADE = dict(n_nodes=2, batch_per_node=2, seq=256, head_jitter=0.1)
+# hymba-1.5b's prefill: chip_smoke's serving batch and prompt
+HYMBA = dict(batch=4, seq=512)
+CASES = ("llama", "bf16", "rwkv", "llava", "whole", "facade", "hymba")
 
 
 def rel_err(got, want) -> float:
@@ -171,9 +200,11 @@ def train_witness(arch, shape, batch, cfg, got, want) -> dict:
             "ok": mesh_err <= limit < ctrl_err}
 
 
-def run_step(arch, shape, batch, cfg, mesh, seq=None):
+def run_step(arch, shape, batch, cfg, mesh, seq=None, by_name=()):
     """One step from seed 0 (``seq`` positions, default the shape's); ->
-    (each output's tensor leaves, whole; launches; seconds)."""
+    (each output's tensor leaves, whole; launches; seconds). With
+    ``by_name``, the step is run once more under the profiler and the
+    launches get the device kernels whose names hold each string."""
     case = steps.build_case(arch, shape, batch=batch, cfg=cfg, seq=seq,
                             seed=0, mesh=mesh)
     torch.cuda.synchronize()
@@ -183,7 +214,12 @@ def run_step(arch, shape, batch, cfg, mesh, seq=None):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     parts = [cs.whole_leaves([part]) for part in out]
-    del case, out
+    del out
+    if by_name:
+        prof = cs.device_profile(lambda: case.step_fn(*case.args),
+                                 kernels=by_name)
+        counts["profiled"] = {k: v[0] for k, v in prof["kernels"].items()}
+    del case
     return parts, counts, wall
 
 
@@ -229,10 +265,14 @@ def guarded(name, fn, *args):
         return {"ok": False, "error": f"{name}: {type(e).__name__}: {e}"}
 
 
-def held(arch, shape, batch, cfg, mesh, rank, world, want_launches):
-    """A meshed step on every rank against mesh=None on rank 0."""
+def held(arch, shape, batch, cfg, mesh, rank, world, want_launches,
+         seq=None, by_name=None):
+    """A meshed step on every rank against mesh=None on rank 0; with
+    ``by_name`` (kernel name -> launches a step), also the launches by the
+    profiler's kernel names on every rank."""
     kind = steps.INPUT_SHAPES[shape].kind
-    got, counts, wall = run_step(arch, shape, batch, cfg, mesh)
+    got, counts, wall = run_step(arch, shape, batch, cfg, mesh, seq,
+                                 tuple(by_name or ()))
     every = [None] * world
     dist.all_gather_object(every, counts)
     res = None
@@ -241,15 +281,20 @@ def held(arch, shape, batch, cfg, mesh, rank, world, want_launches):
             got = to_host(got)
             gc.collect()
             torch.cuda.empty_cache()
-        want, one_counts, one_wall = run_step(arch, shape, batch, cfg, None)
+        want, one_counts, one_wall = run_step(arch, shape, batch, cfg, None,
+                                              seq)
         res = compare(kind, got, want)
         res.update(batch=batch, dtype=str(cfg.dt), launches_by_rank=every,
                    mesh_s=wall, one_card_s=one_wall,
                    one_card_launches=one_counts,
                    finite=all(bool(torch.isfinite(x.float()).all())
                               for x in sum(got, [])))
+        if seq is not None:
+            res["positions"] = seq
+        by_name = by_name or {}
         res["ok"] = res["ok"] and res["finite"] and all(
-            c == want_launches for c in every)
+            {k: v for k, v in c.items() if k != "profiled"} == want_launches
+            and c.get("profiled", {}) == by_name for c in every)
         if kind == "train":
             want = to_host(want)
             gc.collect()
@@ -353,9 +398,10 @@ def llava_whole(mesh, rank, world) -> dict:
             decode_s = time.perf_counter() - t0
         peak = torch.cuda.max_memory_allocated()
         del logits, cache
-        prof = cs.device_profile(prefill, kernels=("nccl", "fa_bf16_kernel",
+        prof = cs.device_profile(prefill, kernels=(cs.NCCL_KERNEL,
+                                                   "fa_bf16_kernel",
                                                    "fa_kernel"))
-    nccl_events, nccl_s = prof["kernels"]["nccl"]
+    nccl_events, nccl_s = prof["kernels"][cs.NCCL_KERNEL]
     res = {"layers": cfg.n_layers, "batch": b, "positions": n_pos,
            "gen": GEN, "init_s": init_s, "init_peak_bytes": init_peak,
            "weights": "init_params' draw, each layer drawn whole on every "
@@ -387,12 +433,17 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", type=pathlib.Path,
                     default=ROOT / "build" / "lm_mesh_run.json")
-    ap.add_argument("--skip-whole", action="store_true",
-                    help="leave out llava-next-34b's 60-layer run")
     ap.add_argument("--llava-layers", type=int, default=LLAVA_LAYERS,
                     help="layers of llava-next-34b's meshed prefill held "
                          "against one card")
+    ap.add_argument("--only", default=",".join(CASES),
+                    help="the cases to run, comma-separated (of "
+                         f"{', '.join(CASES)})")
     args = ap.parse_args()
+    only = set(args.only.split(","))
+    if not only <= set(CASES):
+        raise SystemExit(f"lm_mesh_run: unknown cases "
+                         f"{sorted(only - set(CASES))}")
     if not torch.cuda.is_available():
         raise SystemExit("lm_mesh_run: CUDA is not available")
     local = int(os.environ.get("LOCAL_RANK", 0))
@@ -412,7 +463,7 @@ def main() -> int:
         for s in smis:
             print(s, flush=True)
     if local == 0:
-        build.build("flash_attention", "wkv")
+        build.build("flash_attention", "wkv", "head_select")
     dist.barrier()
     t_all = time.perf_counter()
     rec = {"nvidia_smi_by_rank": smis, "world": world,
@@ -423,7 +474,7 @@ def main() -> int:
     mesh = make_debug_mesh((data, world // data), ("data", "model"))
     llama = steps.resolve_config("llama3.2-1b", "prefill_32k").replace(
         dtype="float32")
-    for shape, batch in LLAMA:
+    for shape, batch in LLAMA if "llama" in only else ():
         want = llama.n_layers if shape == "prefill_32k" else 0
         res = guarded(shape, held, "llama3.2-1b", shape, batch, llama,
                       mesh, rank, world, {"head_losses": 0,
@@ -432,27 +483,49 @@ def main() -> int:
         if rank == 0:
             rec["cases"][f"llama3.2-1b {shape}"] = res
             ok = ok and res["ok"]
-    res = guarded("bf16", bf16_prefill, mesh, rank, world)
-    if rank == 0:
-        rec["cases"]["llama3.2-1b prefill_32k bf16"] = res
-        ok = ok and res["ok"]
-    rwkv = steps.resolve_config("rwkv6-1.6b", "prefill_32k").replace(
-        dtype="float32")
-    res = guarded("rwkv", held, "rwkv6-1.6b", "prefill_32k", RWKV_BATCH,
-                  rwkv, mesh, rank, world, {"head_losses": 0,
-                                            "flash_attention": 0,
-                                            "wkv": rwkv.n_layers})
-    if rank == 0:
-        rec["cases"]["rwkv6-1.6b prefill_32k"] = res
-        ok = ok and res["ok"]
+    if "bf16" in only:
+        res = guarded("bf16", bf16_prefill, mesh, rank, world)
+        if rank == 0:
+            rec["cases"]["llama3.2-1b prefill_32k bf16"] = res
+            ok = ok and res["ok"]
+    if "rwkv" in only:
+        rwkv = steps.resolve_config("rwkv6-1.6b", "prefill_32k").replace(
+            dtype="float32")
+        res = guarded("rwkv", held, "rwkv6-1.6b", "prefill_32k",
+                      RWKV_BATCH, rwkv, mesh, rank, world,
+                      {"head_losses": 0, "flash_attention": 0,
+                       "wkv": rwkv.n_layers})
+        if rank == 0:
+            rec["cases"]["rwkv6-1.6b prefill_32k"] = res
+            ok = ok and res["ok"]
+    if "facade" in only:
+        pods = min(2, world)
+        mesh_pod = make_debug_mesh((pods, 1, world // pods),
+                                   ("pod", "data", "model"))
+        res = guarded("facade", facade_pod, mesh_pod, rank, world)
+        if rank == 0:
+            rec["cases"]["llama3.2-1b facade_pod"] = res
+            ok = ok and res["ok"]
+    if "hymba" in only:
+        hymba = get_config("hymba-1.5b").replace(dtype="float32")
+        res = guarded("hymba", held, "hymba-1.5b", "prefill_32k",
+                      HYMBA["batch"], hymba, mesh, rank, world,
+                      {"head_losses": 0, "flash_attention": hymba.n_layers,
+                       "wkv": 0}, HYMBA["seq"],
+                      {"fa_kernel": hymba.n_layers, "fa_bf16_kernel": 0})
+        if rank == 0:
+            rec["cases"]["hymba-1.5b prefill"] = res
+            ok = ok and res["ok"]
     mesh4 = make_debug_mesh((1, world), ("data", "model"))
     llava = get_config("llava-next-34b").replace(
         n_layers=args.llava_layers, dtype="float32")
-    res = guarded("llava", llava_slice, llava, mesh4, rank, world)
-    if rank == 0:
-        rec["cases"][f"llava-next-34b {llava.n_layers} layers prefill"] = res
-        ok = ok and res["ok"]
-    if not args.skip_whole:
+    if "llava" in only:
+        res = guarded("llava", llava_slice, llava, mesh4, rank, world)
+        if rank == 0:
+            rec["cases"][f"llava-next-34b {llava.n_layers} layers "
+                         "prefill"] = res
+            ok = ok and res["ok"]
+    if "whole" in only:
         every = guarded("llava whole", llava_whole, mesh4, rank, world)
         if isinstance(every, dict):         # failed: the error
             every = [every]
@@ -494,6 +567,125 @@ def llava_slice(llava, mesh4, rank, world):
             c["flash_attention"] == llava.n_layers for c in every)
         print(json.dumps({f"llava-next-34b {llava.n_layers} layers": res}),
               flush=True)
+        del want
+    del got
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.barrier()
+    return res
+
+
+def facade_step(mesh, cfg):
+    """llama3.2-1b's FACADE step (``FACADE``) on ``mesh`` or one card from
+    seed 0: (its case, its output)."""
+    case = steps.build_facade_case("llama3.2-1b", cfg=cfg, seed=0,
+                                   mesh=mesh, **FACADE)
+    return case, case.step_fn(*case.args)
+
+
+def facade_whole(out) -> dict:
+    """A FACADE step's new state and info, every tensor whole (gathered
+    on every rank, kept on rank 0's host)."""
+    from torch.distributed.tensor import DTensor
+
+    def whole(x):
+        if isinstance(x, DTensor):
+            x = x.full_tensor()
+        return x.detach().cpu() if dist.get_rank() == 0 else None
+
+    state, info = out
+    return {"leaves": [whole(x) for x in tree_leaves(state.cores)
+                       + tree_leaves(state.heads)],
+            "cluster_id": whole(state.cluster_id),
+            "losses": whole(info["selection_losses"]),
+            "info_cluster_id": whole(info["cluster_id"]),
+            "round_bytes": float(info["round_bytes"])}
+
+
+def facade_pod(mesh, rank, world) -> dict | None:
+    """llama3.2-1b's FACADE step on the multi-pod layout against
+    mesh=None on rank 0 (module docstring, 4)."""
+    cfg = get_config("llama3.2-1b").replace(dtype="float32")
+    k1 = (cs.K1_KERNEL,)
+    case, out = facade_step(mesh, cfg)                  # warm-up
+    del out
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with cs.counted() as counts:
+        t0 = time.perf_counter()
+        out = case.step_fn(*case.args)
+        torch.cuda.synchronize()
+        step_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    prof = cs.device_profile(lambda: case.step_fn(*case.args),
+                             kernels=k1 + cs.FA_KERNELS + (cs.NCCL_KERNEL,))
+    n_tok = case.n_tokens
+    del case
+    got = facade_whole(out)
+    del out
+    gc.collect()
+    torch.cuda.empty_cache()
+    nccl_events, nccl_s = prof["kernels"][cs.NCCL_KERNEL]
+    mine = {"launches": counts, "step_s": step_s, "peak_bytes": peak,
+            "profiled": {k: prof["kernels"][k][0] for k in
+                         k1 + cs.FA_KERNELS},
+            "k1_device_s": prof["kernels"][cs.K1_KERNEL][1],
+            "nccl_kernels": nccl_events, "nccl_s": nccl_s,
+            "device_busy_s": prof["device_busy_s"],
+            "nccl_share_of_busy": (None if not prof["device_busy_s"] else
+                                   nccl_s / prof["device_busy_s"]),
+            "top_kernels_s": prof["top_kernels_s"]}
+    every = [None] * world
+    dist.all_gather_object(every, mine)
+    res = None
+    if rank == 0:
+        plain, want = facade_step(None, cfg)
+        torch.cuda.synchronize()
+        with cs.counted() as one_counts:
+            t0 = time.perf_counter()
+            want = plain.step_fn(*plain.args)
+            torch.cuda.synchronize()
+            one_s = time.perf_counter() - t0
+        del plain
+        want = facade_whole(want)
+        losses = want["losses"]
+        margin = (losses[:, 0] - losses[:, 1]).abs()
+        state_err = max(rel_err(a, b) for a, b in zip(
+            got["leaves"], want["leaves"], strict=True))
+        res = {"mesh": list(mesh.shape), "dtype": "float32", **FACADE,
+               "tokens": n_tok, "losses_rel_err": rel_err(got["losses"],
+                                                          losses),
+               "state_rel_err": state_err,
+               "cluster_id": got["cluster_id"].tolist(),
+               "cluster_id_equal": bool(
+                   torch.equal(got["cluster_id"], want["cluster_id"])
+                   and torch.equal(got["info_cluster_id"],
+                                   want["info_cluster_id"])),
+               "selection_losses": losses.tolist(),
+               "head_margin": margin.tolist(),
+               "head_margin_over_tol": float(
+                   margin.min() / (LOGIT_TOL * losses.abs().max())),
+               "round_bytes": got["round_bytes"],
+               "round_bytes_equal": got["round_bytes"] ==
+               want["round_bytes"],
+               "one_card_s": one_s, "one_card_launches": one_counts,
+               "by_rank": every}
+        nodes = FACADE["n_nodes"]
+        n_fa = cfg.n_layers * nodes // mesh.shape[0]      # a pod's node
+        res["ok"] = (res["losses_rel_err"] <= LOGIT_TOL
+                     and state_err <= STATE_TOL and res["cluster_id_equal"]
+                     and res["round_bytes_equal"]
+                     and one_counts["head_losses"] == 1
+                     and one_counts["flash_attention"] ==
+                     cfg.n_layers * nodes
+                     and all(r["launches"]["head_losses"] == 1
+                             and r["profiled"][cs.K1_KERNEL] == 1
+                             and r["launches"]["flash_attention"] == n_fa
+                             and sum(r["profiled"][k] for k in
+                                     cs.FA_KERNELS) == n_fa
+                             for r in every))
+        print(json.dumps({"llama3.2-1b facade_pod": {
+            k: v for k, v in res.items() if k != "by_rank"}}), flush=True)
         del want
     del got
     gc.collect()

@@ -280,8 +280,8 @@ def main() -> int:
     with cs.counted() as counts:
         prof = cs.device_profile(lambda: entry.engine.run_segment(
             carry, 0, seg, train_x, train_y, draws),
-            kernels=("nccl", cs.K1_KERNEL))
-    nccl_events, nccl_s = prof["kernels"]["nccl"]
+            kernels=(cs.NCCL_KERNEL, cs.K1_KERNEL))
+    nccl_events, nccl_s = prof["kernels"][cs.NCCL_KERNEL]
     prof["nccl_share_of_busy"] = (None if not prof["device_busy_s"]
                                   else nccl_s / prof["device_busy_s"])
     prof["nccl_us_per_round"] = 1e6 * nccl_s / seg
