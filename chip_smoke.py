@@ -317,6 +317,31 @@ failure raises and exits non-zero, before the last line is printed):
    tokens), bit for bit the ``mesh=None`` step's, its step 2c through K1's
    DTensor branch (once, by counter and by the LM body's kernel name) and
    K2 32 times;
+5f. the six examples (``examples_phase``): each ``examples/torch_*.py``
+   loaded with ``importlib`` and its ``run`` called on the card, the
+   quickstart, fairness_eval, obs_demo and netsim_demo at the reference's
+   own settings (48 rounds, obs_demo 24; GN-LeNet smoke, 8 nodes),
+   serve_batched with llama3.2-1b's full config and facade_lm_pretrain
+   with it at ``EXAMPLES_LM`` (nodes 3 and 1, 4 rounds, eval every 2),
+   both with their weights drawn on the card (``CardInitDraws``):
+   EL's and FACADE's per-round bytes as ``round_bytes`` counts them (the
+   same model bytes, FACADE's 4-byte cluster id a push beside them), K1
+   exactly once a round and once before each capture in every FACADE
+   run, K2 16 times a prefill, K1 and K2 against their plain versions
+   (``HS_TOL``, ``FA_TOL``) on seeded inputs at every signature each
+   example gave them (seen by a pass-through, ``inputs_seen``; in the LM
+   examples K1's LM body at 8 (node, head) pairs of T 256, D 2048, V
+   128,256, K2 in bf16 at B 1 and 7 of S 32 in the prefills, B 4 of S 64
+   in the feature passes and B 8 of S 64 in the evaluations), obs_demo's
+   own dp/eo identity and its report, the robust run's finite node
+   accuracies, every returned tensor on the card; in the LM example K1
+   once a round and K2
+   in each feature pass and evaluation, and one more round at full
+   width profiled in a process of its own, K1's LM body by kernel name;
+   each example's wall time and peak memory; then the quickstart at
+   ``EXAMPLES_CARD_CPU`` on the card and on the CPU from the same draws,
+   with its heads decorrelated (``EXAMPLES_CARD_CPU_JITTER``): bytes and
+   cluster ids equal, accuracies within 0.1;
 6. a ``kernels`` JSON line (each kernel's launches on its path, error,
    times and bound; K2's launches in each full-width serve, in llava's
    image-prefix prefill and in a whisper forward under
@@ -326,6 +351,7 @@ failure raises and exits non-zero, before the last line is printed):
    its launches on the driver phases under ``"driver_launches"``, the
    telemetry phase's under ``"obs"``, the node mesh's under ``"mesh"``;
    K1's, K2's and K3's on the language models' mesh (``"lm_mesh"``);
+   K1's and K2's in the examples phase (``"examples"``);
    K2's and K3's in the traced serves under ``"traced_serve_launches"``; each kernel's check, times, bound
    and launches at the steps' lengths under ``"steps"``),
    the total time, then the last line ``{"ok": true, "device": {...}}``.
@@ -348,6 +374,8 @@ import contextlib
 import dataclasses
 import functools
 import gc
+import importlib.util
+import inspect
 import json
 import multiprocessing
 import pathlib
@@ -434,6 +462,7 @@ PARITY_WARMUP = 2
 ENGINE_ROUNDS, ENGINE_EVAL_EVERY = 40, 20
 K1_KERNEL = "head_losses_kernel"      # K1's FMA body, by name in a profile
 K1_LM_KERNEL = "head_losses_lm_kernel"  # its LM body's tile kernel
+K1_LM_MERGE = "head_losses_lm_merge"    # ... and its merge
 # NCCL's device kernels by name in a profile (not the profiler's "nccl:"
 # annotations, CUDA events too, each over its kernel)
 NCCL_KERNEL = "ncclDevKernel"
@@ -677,6 +706,11 @@ LM_MESH_CASES = [("llama3.2-1b", "prefill_32k", 2, (16, 0)),
 # layout at (1, 1, 1): a node's batch and length, cut so that the case
 # adds seconds
 LM_MESH_FACADE = dict(batch_per_node=1, seq=256)
+# the examples (``examples_phase``): the LM pretraining example at full
+# width, and the quickstart held card against CPU
+EXAMPLES_LM = dict(nodes=(3, 1), rounds=4, eval_every=2)
+EXAMPLES_CARD_CPU = dict(rounds=4, eval_every=2)
+EXAMPLES_CARD_CPU_JITTER = 0.05       # as small_input_phase
 # K2's and K3's kernels by name in a profile
 FA_KERNELS = ("fa_kernel", "fa_bf16_kernel")
 WKV_KERNEL = "wkv_kernel"
@@ -1109,9 +1143,15 @@ def head_select_lm_split_apart() -> dict:
     call (also before the segment engine's phases were added), while a
     fresh process records both launches, also after smoke serving, the
     small inputs or CPU work alone."""
+    return run_apart("head_select_lm_split")
+
+
+def run_apart(name: str) -> dict:
+    """``chip_smoke.<name>()`` in a process of its own; its JSON result
+    (the last line of its output that starts with ``{``)."""
     code = ("import json, sys; sys.path.insert(0, sys.argv[1]); "
             "import chip_smoke; "
-            "print(json.dumps(chip_smoke.head_select_lm_split()))")
+            f"print(json.dumps(chip_smoke.{name}()))")
     proc = subprocess.run([sys.executable, "-c", code, str(ROOT)],
                           capture_output=True, text=True, timeout=600,
                           check=True)
@@ -2591,6 +2631,377 @@ def lm_mesh_facade() -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     return res
+
+
+def load_example(name: str):
+    """``examples/torch_<name>.py`` as a module (the examples are scripts,
+    not a package)."""
+    path = ROOT / "examples" / f"torch_{name}.py"
+    spec = importlib.util.spec_from_file_location(f"torch_{name}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def returned_tensors(obj, seen=None) -> list:
+    """Every tensor in what an example returned: through dicts, lists,
+    tuples (named ones included) and dataclasses (``RunResult``)."""
+    seen = set() if seen is None else seen
+    if id(obj) in seen:
+        return []
+    seen.add(id(obj))
+    if isinstance(obj, torch.Tensor):
+        return [obj]
+    if isinstance(obj, dict):
+        items = obj.values()
+    elif isinstance(obj, (list, tuple)):
+        items = obj
+    elif dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        items = [getattr(obj, f.name) for f in dataclasses.fields(obj)]
+    else:
+        return []
+    return [t for item in items for t in returned_tensors(item, seen)]
+
+
+@contextlib.contextmanager
+def inputs_seen():
+    """Each distinct signature (input shapes and dtypes, keyword options)
+    with which the port's modules call K1's and K2's wrappers inside the
+    block: every module outside ``repro_torch.kernels`` that holds a
+    wrapper by name holds a pass-through to it meanwhile."""
+    seen = {fn.__name__: [] for fn in (head_losses, flash_attention)}
+
+    def tap(fn):
+        def through(*args, **kw):
+            sig = (tuple((tuple(a.shape), str(a.dtype)) for a in args),
+                   tuple(sorted(kw.items())))
+            if sig not in seen[fn.__name__]:
+                seen[fn.__name__].append(sig)
+            return fn(*args, **kw)
+        return through
+
+    taps = {fn: tap(fn) for fn in (head_losses, flash_attention)}
+    patched = [(mod, fn) for mod in list(sys.modules.values())
+               if getattr(mod, "__name__", "").startswith("repro_torch.")
+               and not mod.__name__.startswith("repro_torch.kernels")
+               for fn in taps if getattr(mod, fn.__name__, None) is fn]
+    for mod, fn in patched:
+        setattr(mod, fn.__name__, taps[fn])
+    try:
+        yield seen
+    finally:
+        for mod, fn in patched:
+            setattr(mod, fn.__name__, fn)
+
+
+def torch_dtype(name: str) -> torch.dtype:
+    return getattr(torch, name.removeprefix("torch."))
+
+
+def example_kernel_checks(name, counts, seen) -> dict:
+    """K1 and K2 against their plain versions on seeded inputs at every
+    signature the example gave them (``inputs_seen``): K1 by ``hs_check``
+    (``HS_TOL``, equal argmins; bf16 inputs as ``hs_lm_case`` draws them,
+    fp32 as ``hs_case``), K2 by ``check`` at ``FA_TOL``. Raises where a
+    kernel launched in the example's run but no call was seen."""
+    for key in seen:
+        if counts[key] and not seen[key]:
+            raise AssertionError(f"example {name}: {key} launched "
+                                 f"{counts[key]} times, no call seen")
+    t0 = time.perf_counter()
+    out = {"head_losses": [], "flash_attention": []}
+    for i, (args, opts) in enumerate(seen["head_losses"]):
+        (f_shape, f_dtype), (h_shape, _), (_, l_dtype) = args
+        if opts:
+            raise AssertionError(f"example {name}: K1 called with {opts}")
+        (n, t, d), (k, v) = f_shape, (h_shape[1], h_shape[3])
+        if torch_dtype(f_dtype) == torch.bfloat16:
+            feats, heads, labels = hs_lm_case(n, k, t, d, v, seed=200 + i)
+        else:
+            feats, heads, labels = hs_case(n, k, t, d, v,
+                                           torch_dtype(f_dtype), 200 + i)
+        labels = labels.to(torch_dtype(l_dtype))
+        got = head_losses(feats, heads, labels)
+        torch.cuda.synchronize()
+        out["head_losses"].append(hs_check(
+            f"example {name} head_select", got,
+            head_losses_ref(feats, heads, labels), shape=[n, k, t, d, v],
+            dtype=f_dtype))
+        del feats, heads, labels, got
+    for i, (args, opts) in enumerate(seen["flash_attention"]):
+        ((b, s, hq, d), q_dtype), ((_, _, hkv, _), _), _ = args
+        kw = dict(opts)
+        if not set(kw) <= {"causal", "window"}:
+            raise AssertionError(f"example {name}: K2 called with {kw}")
+        dtype = torch_dtype(q_dtype)
+        q, k, v = fa_inputs(b, hq, hkv, s, d, dtype, seed=300 + i)
+        got = flash_attention(q, k, v, **kw)
+        torch.cuda.synchronize()
+        want = fa_plain(q.float(), k.float(), v.float(),
+                        kw.get("window", 0), kw.get("causal", True))
+        out["flash_attention"].append(check(
+            f"example {name} flash_attention", got, want, *FA_TOL[dtype],
+            shape=[b, hq, hkv, s, d], dtype=q_dtype, **kw))
+        del q, k, v, got, want
+    torch.cuda.empty_cache()
+    out["wall_s"] = time.perf_counter() - t0
+    return out
+
+
+def example_setting(ex, name: str, default=None):
+    """The default of the example's ``run`` setting ``name``: the
+    reference example's value."""
+    param = inspect.signature(ex.run).parameters.get(name)
+    return default if param is None else param.default
+
+
+def drive_example(rec, name: str, **kw) -> tuple:
+    """``run(device="cuda", **kw)`` of the example ``name`` with the
+    launch counts set to 0 just before and read just after, and the
+    kernels' calls seen (``inputs_seen``); every tensor it returns must
+    be on the card. Returns (module, result, counts, calls seen,
+    record)."""
+    ex = load_example(name)
+    settled_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with counted() as counts, inputs_seen() as seen:
+        res = ex.run(device="cuda", **kw)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    tensors = returned_tensors(res)
+    off_card = sorted({str(t.device) for t in tensors
+                       if t.device.type != "cuda"})
+    entry = {"wall_s": wall, "launches": counts,
+             "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+             "tensors_returned": len(tensors),
+             "nvidia_smi": rec["nvidia_smi"]}
+    if not tensors or off_card:
+        raise AssertionError(f"example {name}: returned {len(tensors)} "
+                             f"tensors, off the card on {off_card}")
+    log(f"example {name}: {wall:.2f} s, launches {counts}")
+    return ex, res, counts, seen, entry
+
+
+def example_bytes_check(name, cfg, res, n: int, degree: int) -> dict:
+    """EL's and FACADE's first-round bytes: each what ``round_bytes``
+    counts, so the same model bytes a push, FACADE's push adding its
+    4-byte cluster id."""
+    el, fa = res["el"].comm.bytes[0], res["facade"].comm.bytes[0]
+    out = {"el": el, "facade": fa, "cluster_id_bytes": fa - el,
+           "el_want": round_bytes(cfg, "el", n, degree),
+           "facade_want": round_bytes(cfg, "facade", n, degree)}
+    if not (el == out["el_want"] and fa == out["facade_want"]
+            and fa - el == 4 * n * degree):
+        raise AssertionError(f"example {name}: per-round bytes {out}")
+    return out
+
+
+def k1_gate(name, ex, counts, facade_runs: int):
+    """K1 launched exactly as the example's FACADE runs launch it: each of
+    the ``rounds`` rounds once, and ``WARMUP_ROUNDS`` calls before each
+    capture of the segment engine (two captures where FACADE's
+    ``warmup_rounds`` boundary splits the run)."""
+    graphs = 2 if example_setting(ex, "warmup_rounds", 0) else 1
+    want = facade_runs * (example_setting(ex, "rounds")
+                          + WARMUP_ROUNDS * graphs)
+    if counts["head_losses"] != want:
+        raise AssertionError(f"example {name}: K1 launched "
+                             f"{counts['head_losses']} times in "
+                             f"{facade_runs} FACADE runs, want {want}")
+
+
+class CardInitDraws(TorchDraws):
+    """``TorchDraws`` with the initial parameters drawn on the card: a
+    full-width model's weights in about a second where the CPU takes half
+    a minute (batches and topologies as ``TorchDraws``)."""
+
+    def __init__(self, seed: int):
+        super().__init__(seed)
+        self._init = torch.Generator("cuda").manual_seed(
+            self._init.initial_seed())
+
+
+def examples_lm_profile() -> dict:
+    """One profiled round of ``torch_facade_lm_pretrain`` at llama3.2-1b's
+    full width (``EXAMPLES_LM`` with 1 round, evaluated once; its weights
+    drawn on the card): K1's launches by counter and its LM body's by
+    kernel name."""
+    ex = load_example("facade_lm_pretrain")
+    cfg = get_config("llama3.2-1b")
+    kw = dict(EXAMPLES_LM, rounds=1, eval_every=1)
+    with counted() as counts:
+        prof = device_profile(
+            lambda: ex.run(cfg=cfg, verbose=False, device="cuda",
+                           draws=CardInitDraws, **kw),
+            kernels=(K1_KERNEL, K1_LM_KERNEL, K1_LM_MERGE))
+    by_name = prof.get("kernels") or {}
+    out = {"launches": counts, "wall_s": prof["wall_s"],
+           "busy_share": prof["busy_share"],
+           "profiled_k1": {k: v[0] for k, v in by_name.items()}
+           if by_name else None}
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def quickstart_card_vs_cpu(qs) -> dict:
+    """``torch_quickstart`` at ``EXAMPLES_CARD_CPU`` on the card and on the
+    CPU from the same draws: accuracies within SMALL_TOL, bytes and
+    cluster ids equal, or raise. The heads are decorrelated
+    (``EXAMPLES_CARD_CPU_JITTER``): at the example's equal heads a
+    selection is a tie between the two devices' last ulps."""
+    runs = {dev: qs.run(device=dev, verbose=False,
+                        head_jitter=EXAMPLES_CARD_CPU_JITTER,
+                        **EXAMPLES_CARD_CPU) for dev in ("cuda", "cpu")}
+    out = {"head_jitter": EXAMPLES_CARD_CPU_JITTER, **EXAMPLES_CARD_CPU}
+    for algo in ("el", "facade"):
+        gpu, cpu = runs["cuda"][algo], runs["cpu"][algo]
+        hist = [[(r, c.tolist()) for r, c in res.cluster_history]
+                for res in (gpu, cpu)]
+        got = out[algo] = {
+            "acc_diff": float(np.abs(np.subtract(gpu.final_acc,
+                                                 cpu.final_acc)).max()),
+            "bytes_equal": gpu.comm.bytes == cpu.comm.bytes,
+            "cluster_ids_equal": hist[0] == hist[1]}
+        if not (got["acc_diff"] <= SMALL_TOL and got["bytes_equal"]
+                and got["cluster_ids_equal"]):
+            raise AssertionError(f"example quickstart {algo}: card and CPU "
+                                 f"disagree {got}, cluster history "
+                                 f"{hist}")
+    log(f"example quickstart card vs CPU {json.dumps(out)}")
+    return out
+
+
+def examples_phase(rec) -> dict:
+    """The six ``examples/torch_*.py`` through their ``run`` on the card,
+    as a user runs them: the four CNN examples at the reference's own
+    settings, ``torch_serve_batched`` and ``torch_facade_lm_pretrain`` at
+    llama3.2-1b's full width (``EXAMPLES_LM``; their weights drawn on
+    the card by their ``draws`` seam, ``CardInitDraws``). Gates: the
+    examples' per-round bytes (``example_bytes_check``), K1's exact
+    launches in the FACADE runs (``k1_gate``), K2 16 times a prefill, K1
+    and K2 against their plain versions at every signature each example
+    gave them (``example_kernel_checks``), obs_demo's own dp/eo identity
+    and its rendered report, the robust run's finite node accuracies,
+    every returned tensor on the card; K1 once a round of the LM example
+    and, in one profiled round in a process of its own, its LM body by
+    kernel name; then ``quickstart_card_vs_cpu``. Returns K1's and K2's
+    launches."""
+    t_phase = time.perf_counter()
+    out, total = {}, {"head_losses": 0, "flash_attention": 0}
+
+    def add(counts):
+        for key in total:
+            total[key] += counts[key]
+
+    lenet4 = lenet(smoke=True).replace(n_classes=4)
+    # quickstart and fairness_eval: EL and FACADE, 48 rounds, 8 nodes
+    for name in ("quickstart", "fairness_eval"):
+        kw = {"verbose": False} if name == "quickstart" else {}
+        ex, res, counts, seen, entry = drive_example(rec, name, **kw)
+        entry["bytes"] = example_bytes_check(name, lenet4, res, n=8,
+                                             degree=2)
+        k1_gate(name, ex, counts, 1)
+        entry["checks"] = example_kernel_checks(name, counts, seen)
+        entry["final_acc"] = {a: res[a].final_acc for a in ("el", "facade")}
+        entry["best_fair_acc"] = {a: res[a].best_fair_acc()
+                                  for a in ("el", "facade")}
+        log(ex.summary(res))
+        out[name] = entry
+        add(counts)
+
+    ex, res, counts, seen, entry = drive_example(
+        rec, "obs_demo", out_dir=ROOT / "build" / "examples_obs")
+    k1_gate("obs_demo", ex, counts, 1)
+    entry["checks"] = example_kernel_checks("obs_demo", counts, seen)
+    if not res["markdown"].startswith("# Run report"):
+        raise AssertionError(f"example obs_demo: report {res['markdown']!r}")
+    entry.update(verdict=res["manifest"].health["verdict"],
+                 dp=res["result"].dp, eo=res["result"].eo,
+                 manifest=str(res["manifest_path"].relative_to(ROOT)))
+    log(ex.summary(res).split("\nrendered report")[0])
+    out["obs_demo"] = entry
+    add(counts)
+
+    ex, res, counts, seen, entry = drive_example(rec, "netsim_demo")
+    n_runs = len(res["scenarios"]) + 2 + len(res["hostile"])
+    k1_gate("netsim_demo", ex, counts, n_runs)
+    entry["checks"] = example_kernel_checks("netsim_demo", counts, seen)
+    robust = np.asarray(res["hostile"]["robust"][0].node_acc, float)
+    unguarded = np.asarray(res["hostile"]["unguarded"][0].node_acc, float)
+    entry.update(runs=n_runs, robust_node_acc=robust.tolist(),
+                 unguarded_finite=bool(np.isfinite(unguarded).all()))
+    if not np.isfinite(robust).all():
+        raise AssertionError(f"example netsim_demo: robust node accuracies "
+                             f"{robust.tolist()}")
+    log(ex.summary(res))
+    out["netsim_demo"] = entry
+    add(counts)
+
+    cfg = get_config("llama3.2-1b")
+    ex, res, counts, seen, entry = drive_example(
+        rec, "serve_batched", cfg=cfg, draws=CardInitDraws)
+    prefills = len(res["generated"])
+    want = {"head_losses": 0, "flash_attention": cfg.n_layers * prefills,
+            "wkv": 0}
+    shapes = {c: list(g.shape) for c, g in res["generated"].items()}
+    entry.update(prefills=prefills, generated=shapes)
+    if counts != want or any(s[1] != 16 for s in shapes.values()):
+        raise AssertionError(f"example serve_batched: launches {counts}, "
+                             f"want {want}; generated {shapes}")
+    log(ex.summary(res))
+    del res
+    gc.collect()
+    entry["checks"] = example_kernel_checks("serve_batched", counts, seen)
+    out["serve_batched"] = entry
+    add(counts)
+
+    ex, res, counts, seen, entry = drive_example(
+        rec, "facade_lm_pretrain", cfg=cfg, draws=CardInitDraws,
+        **EXAMPLES_LM)
+    n = sum(EXAMPLES_LM["nodes"])
+    evals = len(res["evals"])
+    want = {"head_losses": EXAMPLES_LM["rounds"],
+            "flash_attention": (EXAMPLES_LM["rounds"] + evals) * n
+            * cfg.n_layers, "wkv": 0}
+    entry.update(rounds_per_s=res["rounds_per_s"], evals=[
+        {"round": r, "nll": nll, "cluster_id": cid.tolist(),
+         "rounds_per_s": rate} for r, nll, cid, rate in res["evals"]])
+    if counts != want or not all(np.isfinite(e["nll"]).all()
+                                 for e in entry["evals"]):
+        raise AssertionError(f"example facade_lm_pretrain: launches "
+                             f"{counts}, want {want}; evals "
+                             f"{entry['evals']}")
+    log(ex.summary(res))
+    del res
+    gc.collect()
+    torch.cuda.empty_cache()
+    entry["checks"] = example_kernel_checks("facade_lm_pretrain", counts,
+                                            seen)
+    # a process of its own: late in this one the profiler may record no
+    # device event (head_select_lm_split_apart)
+    t0 = time.perf_counter()
+    profile = entry["profiled_round"] = run_apart("examples_lm_profile")
+    profile["process_s"] = time.perf_counter() - t0
+    log(f"example facade_lm_pretrain profiled round {json.dumps(profile)}")
+    if not (profile["launches"]["head_losses"] == 1 and profile[
+            "profiled_k1"] and profile["profiled_k1"][K1_LM_KERNEL] == 1
+            and profile["profiled_k1"][K1_KERNEL] == 0):
+        raise AssertionError(f"example facade_lm_pretrain: profiled round "
+                             f"{profile}")
+    out["facade_lm_pretrain"] = entry
+    add(counts)
+
+    t0 = time.perf_counter()
+    out["quickstart_card_vs_cpu"] = quickstart_card_vs_cpu(
+        load_example("quickstart"))
+    out["quickstart_card_vs_cpu"]["wall_s"] = time.perf_counter() - t0
+    out["launches"] = total
+    out["phase_s"] = time.perf_counter() - t_phase
+    rec["examples"] = out
+    log(f"examples phase: {out['phase_s']:.1f} s, launches {total}")
+    return total
 
 
 def small_input_phase(rec):
@@ -4400,6 +4811,10 @@ def main() -> int:
     hs["lm_mesh"] = on_mesh["head_losses"]
     fa["lm_mesh"] = on_mesh["flash_attention"]
     rw["lm_mesh"] = on_mesh["wkv"]
+    # K1 and K2 on the examples' paths, as a user runs them
+    on_examples = examples_phase(rec)
+    hs["examples"] = on_examples["head_losses"]
+    fa["examples"] = on_examples["flash_attention"]
     # after the timed phases: a profiler run and one more graph timing
     split = head_select_lm_split()
     if split["body_ms"] is None:

@@ -1,6 +1,6 @@
-"""The port stands alone: ``repro_torch``, ``chip_smoke.py`` and the
-port's tools (``tools/*.py``) import neither JAX nor anything of the
-reference package ``repro``."""
+"""The port stands alone: ``repro_torch``, ``chip_smoke.py``, the
+port's tools (``tools/*.py``) and its examples (``examples/torch_*.py``)
+import neither JAX nor anything of the reference package ``repro``."""
 from __future__ import annotations
 
 import ast
@@ -13,8 +13,9 @@ import pytest
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 PORT = REPO / "src" / "repro_torch"
+EXAMPLES = sorted((REPO / "examples").glob("torch_*.py"))
 SOURCES = (sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
-           + sorted((REPO / "tools").glob("*.py")))
+           + sorted((REPO / "tools").glob("*.py")) + EXAMPLES)
 
 _BLOCKED_IMPORT = r"""
 import importlib, importlib.util, pkgutil, sys
@@ -25,8 +26,10 @@ names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                                "repro_torch.")]
 for name in names:
     importlib.import_module(name)
-spec = importlib.util.spec_from_file_location("chip_smoke", sys.argv[1])
-spec.loader.exec_module(importlib.util.module_from_spec(spec))
+for path in sys.argv[1:]:
+    spec = importlib.util.spec_from_file_location(
+        path.rsplit("/", 1)[-1][:-3], path)
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
 loaded = [m for m, mod in sys.modules.items() if mod is not None and
           (m.split(".")[0] in ("jax", "jaxlib", "repro"))]
 assert not loaded, loaded
@@ -37,7 +40,8 @@ print(len(names))
 def test_port_imports_with_jax_and_repro_blocked():
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
     proc = subprocess.run(
-        [sys.executable, "-c", _BLOCKED_IMPORT, str(REPO / "chip_smoke.py")],
+        [sys.executable, "-c", _BLOCKED_IMPORT, str(REPO / "chip_smoke.py")]
+        + [str(p) for p in EXAMPLES],
         env=env, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert int(proc.stdout.split()[-1]) >= 20     # every module was walked
@@ -58,6 +62,14 @@ def _imported_roots(path: pathlib.Path) -> set:
 def test_no_source_of_the_port_imports_jax_or_repro(path):
     bad = _imported_roots(path) & {"jax", "jaxlib", "repro"}
     assert not bad, f"{path.relative_to(REPO)} imports {sorted(bad)}"
+
+
+def test_the_checks_cover_the_six_examples():
+    """Each reference example has its port among the checked sources."""
+    ported = {p.stem[len("torch_"):] for p in EXAMPLES}
+    reference = {p.stem for p in (REPO / "examples").glob("*.py")
+                 if not p.stem.startswith("torch_")}
+    assert ported == reference and len(ported) == 6
 
 
 NETSIM_MODULES = ("repro_torch.netsim", "repro_torch.netsim.conditions",
