@@ -15,7 +15,8 @@ failure raises and exits non-zero, before the last line is printed):
    must leave the device memory as it found it), beside the kernel's
    bound:
    - head select at the reference kernel tests' shapes (fp32 and bf16,
-     ~10% of labels excluded; in bf16 they take the tensor-core body) and
+     ~10% of labels excluded; in bf16 they take the tensor-core body, in
+     fp32 the fp32 tiled body) and
      at the FACADE path's shape in fp32 and in bf16 (the FMA body; D 513),
      tolerance 2e-5 relative and equal argmins, timed at the FACADE path's
      shape and at ``HS_SHAPES[2]``;
@@ -37,6 +38,19 @@ failure raises and exits non-zero, before the last line is printed):
      ``torch.profiler`` after the last phase), with the tile kernel's
      registers and spills from the build log; yardstick: per (node, head)
      a bf16 matmul and ``cross_entropy`` on fp32 logits;
+   - head select's wider paths (``head_select_wide_phase``): the wrapper's
+     dispatch rule (``ops.body_for``) against the source's ``hs_body`` on
+     every shape the script and the archs give K1; the fp32 tiled body at
+     ``HS_SHAPES``, V 128 (``HS_F32_EDGE``) and a four-card FACADE rank's
+     step 2c (``HS_F32_CHECK``: n·K 2, T 512, D 2048, V 128,256) and the
+     tensor-core body on a ragged V at hymba-1.5b's and whisper-tiny's
+     vocabularies (``HS_PADDED``), each with a node of excluded labels
+     giving 0.0 and identical heads identical losses, both on non-finite
+     inputs; then timed beside bound, plain version and library call: the
+     fp32 body against the FMA body at ``HS_SHAPES`` and V 128 (the
+     threshold's reading), alone at T 512, 2048 and the fp32 llama
+     round's n·K 4, T 1024 (``HS_F32_TIMED``), the padded calls with the
+     heads' copy timed apart (``hs_pad_rows``);
    - flash attention at the reference tests' ``FA_SHAPES``, a ragged
      S = 200, llama3.2-1b's serving shape (B 4, S 512, Hq 32, Hkv 8, D 64)
      and a long one (B 1, S 4096), each in fp32 and bf16, the LM FACADE
@@ -212,9 +226,11 @@ failure raises and exits non-zero, before the last line is printed):
    the CPU from the same seed, which must agree;
 4. FACADE on llama3.2-1b at full width (bf16, heads untied): 2 nodes in
    clusters 1:1, k 2, degree 1, H 2, B 4, S 256, lr 5e-3, head jitter
-   1e-3, clustered token streams, 3 rounds (rwkv6-1.6b 2) driven through
+   1e-3, clustered token streams, 3 rounds driven through
    ``runner.LMFacade`` (``facade_round``), then one more under
-   ``torch.profiler``; before round 1, K1 against its plain version on the
+   ``torch.profiler`` (the device's activity; rwkv6-1.6b and hymba-1.5b
+   one round, the profiled one); before round 1, K1 against
+   its plain version on the
    operands the LM binding builds for that round (2e-5 relative, equal
    argmins, and equal to the round's own selection losses); checks one
    head-select call and 16 flash-attention launches per node a round (all
@@ -222,13 +238,23 @@ failure raises and exits non-zero, before the last line is printed):
    differentiable ``sdpa``), no wkv launch, round-1 selection losses in
    [11, 13], the bytes per round from the config alone and finite
    parameters; prints the round times and peak memory;
+4a'. hymba-1.5b the same way in bf16 (one round, run under the
+   profiler): step 2c on the tensor cores through
+   the padded copy of its V 32,001, K2 with its window in all 64
+   feature-pass layers, selection losses in [9.8, 11.8], the bytes from
+   the config (the mamba branch's fp32 leaves at 4 bytes); and one
+   llama3.2-1b round with the config in fp32 (step 2c at n·K 4, T 1024 on
+   the fp32 tiled body), then profiled; in every LM profile K1's kernels
+   by name (``lm_k1_by_name``: its body's tile kernel, the merge and the
+   copies once each, no other body's);
 4a. the same on rwkv6-1.6b at full width: one head-select call and 144
    wkv launches a round (24 a node in step 2c's feature pass and 24 a
    node in each local step's forward, through ``wkv_train``, whose
    backward is the plain recurrence), no flash attention, round-1
    selection losses in [10.5, 12.5], the bytes per round from the config
-   (RWKV's fp32 leaves at 4 bytes); the profiled round also gives the
-   host time under ``wkv_train``'s backward;
+   (RWKV's fp32 leaves at 4 bytes); its one round, profiled, also gives
+   the host time in ``wkv_train``'s 96 backward calls (a host clock
+   around ``WkvFunction.backward``, ``host_seconds_in``);
 4b. the smoke LM FACADE rounds (fp32) of ``SMOKE_LM_ARCHS`` (llama3.2-1b,
    rwkv6-1.6b, minicpm3-4b's MLA, deepseek-moe-16b's MoE and hymba-1.5b's
    hybrid, K1 on their feature passes) on the card and on the CPU from the same draws:
@@ -343,7 +369,10 @@ failure raises and exits non-zero, before the last line is printed):
    with its heads decorrelated (``EXAMPLES_CARD_CPU_JITTER``): bytes and
    cluster ids equal, accuracies within 0.1;
 6. a ``kernels`` JSON line (each kernel's launches on its path, error,
-   times and bound; K2's launches in each full-width serve, in llava's
+   times and bound; K1 once for each of its bodies: the FMA body on the
+   FACADE path, the tensor cores at llama's LM round and, with the padded
+   copy, at hymba's, the fp32 tiled body at the fp32 llama round's; K2's
+   launches in each full-width serve, in llava's
    image-prefix prefill and in a whisper forward under
    ``"launches_by_arch"`` and its D 160, MLA and ``FA_FAMILIES`` shapes'
    errors, times, bounds and SDPA times under ``"shapes"``; head select's ResNet8 step
@@ -409,14 +438,16 @@ from repro_torch.data.synthetic import SynthSpec, make_clustered_data  # noqa: E
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.flash_attention import attention_ref, flash_attention  # noqa: E402
 from repro_torch.kernels.head_select import head_losses, head_losses_ref  # noqa: E402
+from repro_torch.kernels.head_select import ops as hs_ops  # noqa: E402
 from repro_torch.kernels.rwkv6 import wkv, wkv_scan, wkv_train  # noqa: E402
+from repro_torch.kernels.rwkv6.ops import WkvFunction  # noqa: E402
 from repro_torch import device as device_mod  # noqa: E402
 from repro_torch.launch import dryrun, steps, train  # noqa: E402
 from repro_torch.launch.mesh import (HW, MESH_NAME,  # noqa: E402
                                      make_debug_mesh)
 from repro_torch.launch.serve import make_requests, serve  # noqa: E402
 from repro_torch.models import api, attention, transformer, whisper  # noqa: E402
-from repro_torch.models.base import get_config  # noqa: E402
+from repro_torch.models.base import get_config, list_archs  # noqa: E402
 from repro_torch.netsim import (PRESETS, NetSchedule,  # noqa: E402
                                 NetworkConfig)
 from repro_torch.obs import (JsonlSink, Obs, ObsConfig, Tracer,  # noqa: E402
@@ -449,6 +480,25 @@ HS_LM_SHAPE = (4, 1, 1024, 2048, 128256)
 # ... and FACADE on rwkv6-1.6b (the same n, k and T; V 65,536)
 HS_LM_RWKV = (4, 1, 1024, 2048, 65536)
 HS_LM_RAGGED = [(2, 2, 1000, 2048, 1000), (4, 1, 200, 2048, 65536)]
+# K1's fp32 tiled body (fp32 at an LM's shapes): held at HS_SHAPES and at a
+# four-card FACADE rank's step 2c (n·K 2, T 512, D 2048, V 128,256), and
+# timed there, at T 2048 (the reference's B 8 of S 256 a node) and at the
+# one-card fp32 llama round's n·K 4, T 1024; HS_F32_EDGE puts V at the
+# body's threshold (one 128-column tile)
+HS_F32_CHECK = (2, 1, 512, 2048, 128256)
+HS_F32_TIMED = [(2, 1, 2048, 2048, 128256), (4, 1, 1024, 2048, 128256)]
+HS_F32_EDGE = (1, 2, 128, 64, 128)
+# the tensor-core body on a ragged V (its heads copied into rows of V8 =
+# V rounded up to 8): hymba-1.5b's LM FACADE step 2c (n·K 4, T 1024, D
+# 1600, V 32,001) and whisper-tiny's vocabulary (n·K 2, T 256, D 384, V
+# 51,865)
+HS_PADDED = {"hymba": (4, 1, 1024, 1600, 32001),
+             "whisper": (2, 1, 256, 384, 51865)}
+# the two on non-finite inputs (hs_lm_non_finite_case's placement): the fp32
+# body at T 256, D 2048, V 4,096 and the tensor-core body with both D and V
+# ragged (both copies)
+HS_F32_NON_FINITE = (4, 2, 256, 2048, 4096)
+HS_PADDED_NON_FINITE = (4, 2, 256, 2044, 4099)
 PAPER = dict(k=2, degree=4, local_steps=10, batch_size=8, lr=0.05, seed=0)
 ROUNDS, EVAL_EVERY = 8, 4
 # a FACADE run through the segment engine captures one round (warmup 0) and
@@ -462,7 +512,14 @@ PARITY_WARMUP = 2
 ENGINE_ROUNDS, ENGINE_EVAL_EVERY = 40, 20
 K1_KERNEL = "head_losses_kernel"      # K1's FMA body, by name in a profile
 K1_LM_KERNEL = "head_losses_lm_kernel"  # its LM body's tile kernel
-K1_LM_MERGE = "head_losses_lm_merge"    # ... and its merge
+K1_LM_MERGE = "head_losses_lm_merge"    # ... and its merge (both tiled bodies)
+K1_F32_KERNEL = "head_losses_f32_kernel"  # its fp32 tiled body's tile kernel
+K1_PAD_KERNEL = "head_losses_pad_kernel"  # the tensor cores' ragged copy
+# each body's tile kernel by name (hs_ops.BODIES)
+K1_BODY_KERNEL = {"fma": K1_KERNEL, "fp32_tiled": K1_F32_KERNEL,
+                  "tensor_core": K1_LM_KERNEL}
+K1_NAMES = (K1_KERNEL, K1_F32_KERNEL, K1_LM_KERNEL, K1_LM_MERGE,
+            K1_PAD_KERNEL)
 # NCCL's device kernels by name in a profile (not the profiler's "nccl:"
 # annotations, CUDA events too, each over its kernel)
 NCCL_KERNEL = "ncclDevKernel"
@@ -574,13 +631,28 @@ RW_TOL = 1e-5
 # FACADE on llama3.2-1b at full width (bf16, heads untied by the binding):
 # 2 nodes in clusters 1:1, k 2, degree 1, H 2, B 4, S 256 (T = 1024 tokens
 # a node at step 2c), tokens as examples/facade_lm_pretrain.py builds them;
-# 3 rounds (rwkv6-1.6b 2: a round is about 25 s, most of it the plain wkv
-# backward, and the profiled round after them measures it again)
+# 3 rounds and one more profiled (rwkv6-1.6b 1, the profiled one: a round
+# takes 20-36 s, most of it the plain wkv backward)
 LM_FACADE = dict(clusters=(1, 1), k=2, degree=1, local_steps=2, batch=4,
                  seq=256, lr=5e-3, head_jitter=1e-3, seqs_per_node=32,
                  seed=0)
-LM_ROUNDS = {"llama3.2-1b": 3, "rwkv6-1.6b": 2}
-# the profiler's host event around each ``wkv_train`` backward
+# hymba-1.5b the same way in bf16 (its V 32,001 on the tensor cores through
+# the padded copy, K2 with its window of 1024 in every feature-pass layer;
+# one round, 13.5-25 s, most of it the plain SSM scan, and that one
+# profiled), and one llama3.2-1b round with the config in fp32 (step 2c on
+# the fp32 tiled body at n·K 4, T 1024, D 2048, V 128,256), then profiled
+# once more
+LM_ROUNDS = {"llama3.2-1b": 3, "rwkv6-1.6b": 1, "hymba-1.5b": 1,
+             "llama3.2-1b fp32": 1}
+LM_RUN_DTYPE = {"llama3.2-1b fp32": "float32"}
+# runs whose one round is the profiled one: a round takes 13.5-25 s (hymba)
+# or 20-36 s (rwkv), the profiler, with the device's activity alone, 14.5
+# and 42-45 s more to stop and read its 0.93 and 1.79 million events. A
+# profile of hymba's K1 call alone recorded no device event in the
+# script's process.
+LM_PROFILED_ONLY = ("hymba-1.5b", "rwkv6-1.6b")
+# the host seconds in each ``wkv_train`` backward, by a host clock around
+# ``WkvFunction.backward`` (the profiler's name for its host event)
 WKV_BACKWARD = "autograd::engine::evaluate_function: WkvFunctionBackward"
 # K2 in the LM FACADE path's step-2c feature pass: llama3.2-1b's heads at
 # LM_FACADE's batch and sequence, (B, Hq, Hkv, S, D) = (4, 32, 8, 256, 64)
@@ -589,9 +661,16 @@ FA_LM = (LM_FACADE["batch"], LM_CFG.n_heads, LM_CFG.n_kv_heads,
          LM_FACADE["seq"], LM_CFG.hd)
 # round 1 scores the initial heads: ln V, plus about 0.4 for logits of
 # standard deviation about 0.9 (untied head at 0.02, unit-RMS features):
-# llama3.2-1b ln 128,256 = 11.76, so [11, 13]; rwkv6-1.6b ln 65,536 =
-# 11.09, so [10.5, 12.5]
-LM_SELECT_RANGE = {"llama3.2-1b": (11.0, 13.0), "rwkv6-1.6b": (10.5, 12.5)}
+# llama3.2-1b ln 128,256 = 11.76, so [11, 13] (in fp32 too: the same
+# init); rwkv6-1.6b ln 65,536 = 11.09, so [10.5, 12.5]; hymba-1.5b ln
+# 32,001 = 10.37, and logits of standard deviation about 0.8 (0.02 times
+# sqrt(1600)) add 0.32 (the control, 10.69; read on the card: 10.70-10.72),
+# so [9.8, 11.8]
+LM_SELECT_RANGE = {"llama3.2-1b": (11.0, 13.0), "rwkv6-1.6b": (10.5, 12.5),
+                   "hymba-1.5b": (9.8, 11.8),
+                   "llama3.2-1b fp32": (11.0, 13.0)}
+# the launcher's lm mode runs on these two smoke configs
+LM_MODE_ARCHS = ("llama3.2-1b", "rwkv6-1.6b")
 # the smoke config (fp32) on the card and on the CPU: selection losses and
 # parameters (against each leaf's largest value) within 1e-4, the same fp32
 # arithmetic in other summation orders; cluster ids and bytes exact; 2
@@ -786,17 +865,17 @@ def hs_main_inputs(seed):
     return feats, heads, labels.abs()
 
 
-def hs_lm_case(n, k, t, d, v, seed, drop=0.1):
+def hs_lm_case(n, k, t, d, v, seed, drop=0.1, dtype=torch.bfloat16):
     """LM-regime inputs drawn on the card: features as ``rms_norm`` gives
-    them (unit scale), heads at the untied head's init scale (0.02), bf16;
-    ``drop`` of the labels excluded."""
+    them (unit scale), heads at the untied head's init scale (0.02), in
+    ``dtype`` (bf16 unless asked); ``drop`` of the labels excluded."""
     g = torch.Generator("cuda").manual_seed(seed)
     feats = torch.randn((n, t, d), generator=g, device="cuda")
     heads = 0.02 * torch.randn((n, k, d, v), generator=g, device="cuda")
     labels = torch.randint(0, v, (n, t), generator=g, dtype=torch.int32,
                            device="cuda")
     labels[torch.rand((n, t), generator=g, device="cuda") < drop] = -1
-    return feats.to(torch.bfloat16), heads.to(torch.bfloat16), labels
+    return feats.to(dtype), heads.to(dtype), labels
 
 
 def hs_lm_library(feats, heads, labels):
@@ -869,15 +948,17 @@ def hs_non_finite_check() -> dict:
     return rec
 
 
-def hs_lm_non_finite_case(seed):
-    """LM-regime inputs (``HS_LM_NON_FINITE``, bf16) with the non-finite
-    values ``hs_non_finite_case`` places: node 0 a token of NaN features
-    (its label kept), node 1 a head of NaN weights, node 2 a +inf weight
-    on a feature that is 1 for every token, in a column none of its labels
-    names (a +inf logit, a +inf loss), node 3 a head of +inf weights (NaN
-    logits); the other nodes finite."""
-    n, k, t, d, v = HS_LM_NON_FINITE
-    feats, heads, labels = hs_lm_case(n, k, t, d, v, seed=seed)
+def hs_lm_non_finite_case(seed, shape=HS_LM_NON_FINITE,
+                          dtype=torch.bfloat16):
+    """LM-regime inputs (``shape``, ``dtype``; ``HS_LM_NON_FINITE`` in bf16
+    unless asked) with the non-finite values ``hs_non_finite_case``
+    places: node 0 a token of NaN features (its label kept), node 1 a head
+    of NaN weights, node 2 a +inf weight on a feature that is 1 for every
+    token, in a column none of its labels names (a +inf logit, a +inf
+    loss), node 3 a head of +inf weights (NaN logits); the other nodes
+    finite."""
+    n, k, t, d, v = shape
+    feats, heads, labels = hs_lm_case(n, k, t, d, v, seed=seed, dtype=dtype)
     labels[0, 3] = 5
     feats[0, 3] = float("nan")
     heads[1, 1] = float("nan")
@@ -888,17 +969,20 @@ def hs_lm_non_finite_case(seed):
     return feats, heads, labels
 
 
-def hs_lm_non_finite_check() -> dict:
-    """K1's tensor-core body against its plain version on
-    :func:`hs_lm_non_finite_case`, with the FMA body's gates
+def hs_lm_non_finite_check(shape=HS_LM_NON_FINITE,
+                           dtype=torch.bfloat16) -> dict:
+    """K1's tiled bodies against the plain version on
+    :func:`hs_lm_non_finite_case` (the tensor-core body at
+    ``HS_LM_NON_FINITE`` unless asked), with the FMA body's gates
     (``hs_non_finite_check``), or raise."""
-    feats, heads, labels = hs_lm_non_finite_case(seed=96)
+    feats, heads, labels = hs_lm_non_finite_case(96, shape, dtype)
+    body = hs_ops.body_for(*shape, dtype)
     got = head_losses(feats, heads, labels)
     want = head_losses_ref(feats, heads, labels)
     torch.cuda.synchronize()
     fin = torch.isfinite(want)
     err = (got[fin] - want[fin]).abs()
-    rec = {"shape": list(HS_LM_NON_FINITE), "dtype": "bf16",
+    rec = {"shape": list(shape), "dtype": str(dtype), "body": body,
            "nan_equal": bool(torch.equal(got.isnan(), want.isnan())),
            "posinf_equal": bool(torch.equal(got.isposinf(),
                                             want.isposinf())),
@@ -913,7 +997,7 @@ def hs_lm_non_finite_check() -> dict:
     if not (rec["nan_equal"] and rec["posinf_equal"] and rec["argmin_equal"]
             and rec["max_rel_err"] <= HS_TOL and rec["non_finite"] == 5
             and rec["argmin_first_nodes"] == [0, 1, 1, 1]):
-        raise AssertionError(f"head_select's LM body disagrees with its "
+        raise AssertionError(f"head_select's {body} body disagrees with its "
                              f"plain version on non-finite inputs: {rec}")
     return rec
 
@@ -1116,6 +1200,182 @@ def hs_lm_timing(shape) -> dict:
     del feats, heads, labels
     torch.cuda.empty_cache()
     return t
+
+
+def hs_dispatch_shapes() -> list:
+    """(n, K, T, D, V, dtype) of every K1 input this script gives the
+    kernel, by its constants, and of every arch's LM FACADE step 2c (n·K 4,
+    T 1024) at full width in its dtype and in fp32 and of its smoke config:
+    the body depends on T > 0, D, V and the dtype alone."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    out = [(*MAIN_SHAPE, f32), (*MAIN_SHAPE, bf16), (8, 2, 8, 513, 10, f32),
+           (*HS_RESNET8, f32), (*HS_LM_SHAPE, bf16), (*HS_LM_RWKV, bf16),
+           (*HS_LM_NON_FINITE, bf16), (*HS_F32_CHECK, f32),
+           (*HS_F32_EDGE, f32), (*HS_F32_NON_FINITE, f32),
+           (*HS_PADDED_NON_FINITE, bf16)]
+    out += [(*s, bf16) for s in HS_LM_RAGGED]
+    out += [(*s, f32) for s in HS_F32_TIMED]
+    out += [(*s, bf16) for s in HS_PADDED.values()]
+    out += [(1, *s, dt) for s in HS_SHAPES for dt in (f32, bf16)]
+    for arch in list_archs():
+        cfg, smoke = get_config(arch), get_config(arch, smoke=True)
+        out += [(4, 1, 1024, cfg.d_model, cfg.vocab_size, cfg.dt),
+                (4, 1, 1024, cfg.d_model, cfg.vocab_size, f32),
+                (4, 1, 64, smoke.d_model, smoke.vocab_size, smoke.dt)]
+    return out
+
+
+def hs_dispatch_check() -> dict:
+    """``hs_ops.body_for`` (the wrapper's rule) against the source's
+    ``hs_body`` on :func:`hs_dispatch_shapes`, or raise; the count of
+    shapes each body takes."""
+    lib = hs_ops._library()
+    bodies, wrong = {}, []
+    for n, k, t, d, v, dtype in hs_dispatch_shapes():
+        mirror = hs_ops.body_for(n, k, t, d, v, dtype)
+        source = hs_ops.BODIES[lib.hs_body(n, k, t, d, v,
+                                           int(dtype == torch.bfloat16))]
+        bodies[mirror] = bodies.get(mirror, 0) + 1
+        if mirror != source:
+            wrong.append([n, k, t, d, v, str(dtype), mirror, source])
+    rec = {"shapes": sum(bodies.values()), "by_body": bodies,
+           "disagree": wrong}
+    log("head_select dispatch", json.dumps(rec))
+    if wrong:
+        raise AssertionError(f"head_select: body_for and hs_body disagree "
+                             f"on {wrong}")
+    return rec
+
+
+def hs_wide_check(name, shape, dtype, seed, body) -> dict:
+    """K1 at ``shape`` (drawn on the card as ``hs_lm_case``, the last
+    node's labels all excluded: 0.0) against its plain version at
+    ``HS_TOL`` with equal argmins, on ``body`` by the dispatch rule."""
+    if hs_ops.body_for(*shape, dtype) != body:
+        raise AssertionError(f"{name}: {shape} {dtype} takes "
+                             f"{hs_ops.body_for(*shape, dtype)}, not {body}")
+    feats, heads, labels = hs_lm_case(*shape, seed=seed, dtype=dtype)
+    labels[-1] = -1
+    got = head_losses(feats, heads, labels)
+    torch.cuda.synchronize()
+    c = hs_check(name, got, head_losses_ref(feats, heads, labels),
+                 shape=list(shape), dtype=str(dtype), body=body)
+    if not torch.equal(got[-1], torch.zeros_like(got[-1])):
+        raise AssertionError(f"{name}: a node with every label excluded "
+                             f"gives {got[-1].tolist()}")
+    # identical heads, identical losses
+    got = head_losses(feats, heads[:, :1].repeat(1, 2, 1, 1).contiguous(),
+                      labels)
+    if not torch.equal(got[:, 0], got[:, 1]):
+        raise AssertionError(f"{name}: identical heads give {got.tolist()}")
+    del feats, heads, labels, got
+    torch.cuda.empty_cache()
+    return c
+
+
+def hs_wide_timing(shape, dtype, calls=2, reps=3, fma=False) -> dict:
+    """K1 (its rule's body), its plain version and the library call timed
+    on a path's inputs (every label counts), beside the bound; with
+    ``fma`` the FMA body forced on the same inputs too; in bf16 on a ragged
+    V, also the copy of the heads into rows of V8 alone
+    (``hs_pad_rows``)."""
+    feats, heads, labels = hs_lm_case(*shape, seed=99, drop=0.0,
+                                      dtype=dtype)
+    bound_ms, bound_by, nbytes, flops = hs_bound(feats, heads, labels)
+    body = hs_ops.body_for(*shape, dtype)
+    library = hs_library if dtype == torch.float32 else hs_lm_library
+    t = {"shape": list(shape), "dtype": str(dtype), "body": body,
+         "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
+         "flops": flops}
+    timed = [("ms", lambda: head_losses(feats, heads, labels)),
+             ("plain_ms", lambda: head_losses_ref(feats, heads, labels)),
+             ("library_ms", lambda: library(feats, heads, labels)),
+             ("ms_again", lambda: head_losses(feats, heads, labels))]
+    if fma:
+        timed.append(("fma_ms", lambda: head_losses(feats, heads, labels,
+                                                    body="fma")))
+    for key, fn in timed:
+        t[key] = graph_ms(fn, calls=calls, reps=reps)
+    n, k, d, v = heads.shape
+    if body == "tensor_core" and v % 8:
+        lib = hs_ops._library()
+        rows, v8 = n * k * d, -(-v // 8) * 8
+        dst = torch.empty((rows, v8), dtype=heads.dtype, device="cuda")
+
+        def copy():
+            rc = lib.hs_pad_rows(heads.data_ptr(), dst.data_ptr(), rows, v,
+                                 v8, torch.cuda.current_stream().cuda_stream)
+            if rc:
+                raise RuntimeError(f"hs_pad_rows returned {rc}")
+        t["copy_ms"] = graph_ms(copy, calls=calls, reps=reps)
+        t["copy_share"] = t["copy_ms"] / t["ms"]
+        t["copy_bytes"] = 2 * heads.numel() * heads.element_size()
+        del dst
+    del feats, heads, labels
+    torch.cuda.empty_cache()
+    log("head_select wide timing", json.dumps(t))
+    return t
+
+
+def head_select_wide_phase(rec) -> list:
+    """K1's fp32 tiled body and its tensor-core body on a ragged V, on the
+    card: the dispatch rule against the source's; each held against the
+    plain version (``HS_TOL``, equal argmins, a node with every label
+    excluded 0.0, identical heads identical) at ``HS_SHAPES`` (fp32),
+    ``HS_F32_EDGE`` and ``HS_F32_CHECK``, and at ``HS_PADDED``'s hymba and
+    whisper shapes; on non-finite inputs (``HS_F32_NON_FINITE``,
+    ``HS_PADDED_NON_FINITE``); then timed beside their bounds and library
+    calls: the fp32 body against the FMA body at ``HS_SHAPES`` and
+    ``HS_F32_EDGE`` (the threshold's reading), alone at the LM shapes
+    (``HS_F32_CHECK``, ``HS_F32_TIMED``: the FMA body takes seconds
+    there), the padded calls with their copy apart. Returns the two
+    bodies' entries of the ``kernels`` line (launches filled in by the LM
+    rounds)."""
+    t0 = time.perf_counter()
+    out = {"dispatch": hs_dispatch_check(), "checks": []}
+    f32, bf16 = torch.float32, torch.bfloat16
+    for i, shape in enumerate([(1, *s) for s in HS_SHAPES]
+                              + [HS_F32_EDGE, HS_F32_CHECK]):
+        out["checks"].append(hs_wide_check("head_select fp32", shape, f32,
+                                           300 + i, "fp32_tiled"))
+    for i, shape in enumerate(HS_PADDED.values()):
+        out["checks"].append(hs_wide_check("head_select padded", shape,
+                                           bf16, 310 + i, "tensor_core"))
+    out["non_finite"] = [hs_lm_non_finite_check(HS_F32_NON_FINITE, f32),
+                         hs_lm_non_finite_check(HS_PADDED_NON_FINITE, bf16)]
+    out["threshold"] = [hs_wide_timing((1, *s), f32, calls=10, reps=5,
+                                       fma=True)
+                        for s in HS_SHAPES + [HS_F32_EDGE[1:]]]
+    out["fp32"] = [hs_wide_timing(s, f32)
+                   for s in [HS_F32_CHECK] + HS_F32_TIMED]
+    out["padded"] = {name: hs_wide_timing(s, bf16, calls=5, reps=5)
+                     for name, s in HS_PADDED.items()}
+    out["phase_s"] = time.perf_counter() - t0
+    rec["head_select_wide"] = out
+    log(f"head_select wide phase: {out['phase_s']:.1f} s")
+    f32_checks = [c for c in out["checks"] if c["body"] == "fp32_tiled"]
+    pad_checks = [c for c in out["checks"] if c["body"] == "tensor_core"]
+    base = {"route": "cuda", "source": "src/repro_torch/csrc/head_select.cu",
+            "replaces": "src/repro/kernels/head_select/kernel.py:62",
+            "launches": None}
+    # the fp32 body's entry at the fp32 llama round's step 2c; the padded
+    # path's at hymba's
+    main_f32 = next(t for t in out["fp32"]
+                    if t["shape"] == list(HS_F32_TIMED[1]))
+    hymba = out["padded"]["hymba"]
+    pick = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    return [dict(base, name="head_select_fp32_tiled", body="fp32_tiled",
+                 max_abs_err=max(c["max_abs_err"] for c in f32_checks),
+                 **{key: main_f32[key] for key in pick},
+                 shape=main_f32["shape"], shapes=out["fp32"],
+                 threshold=out["threshold"]),
+            dict(base, name="head_select_tensor_core_padded",
+                 body="tensor_core",
+                 max_abs_err=max(c["max_abs_err"] for c in pad_checks),
+                 **{key: hymba[key] for key in pick},
+                 shape=hymba["shape"], copy_ms=hymba["copy_ms"],
+                 copy_share=hymba["copy_share"],
+                 whisper=out["padded"]["whisper"])]
 
 
 def head_select_lm_split() -> dict:
@@ -2598,7 +2858,7 @@ def lm_mesh_facade() -> dict:
     with counted() as counts:
         prof = device_profile(
             lambda: got.append(case.step_fn(*case.args)),
-            kernels=(K1_KERNEL, K1_LM_KERNEL) + FA_KERNELS)
+            kernels=K1_NAMES + FA_KERNELS)
     out = got.pop()
     on_mesh = isinstance(out[1]["selection_losses"], DTensor)
     leaves = facade_step_leaves(out)
@@ -2612,14 +2872,15 @@ def lm_mesh_facade() -> dict:
            "leaves": len(want), "round_bytes_equal": bytes_got ==
            bytes_want, "losses_dtensor": on_mesh, "launches": counts,
            "wall_s": prof["wall_s"],
-           "profiled_k1": ({k: by_name[k][0] for k in (K1_KERNEL,
-                                                       K1_LM_KERNEL)}
+           "profiled_k1": ({k: by_name[k][0] for k in K1_NAMES}
                            if by_name else None),
            "profiled_fa": sum(by_name.get(k, [0])[0] for k in
                               FA_KERNELS) if by_name else None}
     res["case_s"] = time.perf_counter() - t0
     log(f"lm mesh (1, 1, 1) llama3.2-1b facade_pod: {json.dumps(res)}")
-    k1_body = K1_LM_KERNEL if cfg.dtype == "bfloat16" else K1_KERNEL
+    k1_body = K1_BODY_KERNEL[hs_ops.body_for(
+        1, 1, LM_MESH_FACADE["batch_per_node"] * LM_MESH_FACADE["seq"],
+        cfg.d_model, cfg.vocab_size, cfg.dt)]
     if not (equal and on_mesh and res["round_bytes_equal"]
             and counts["head_losses"] == 1
             and counts["flash_attention"] == n_fa and counts["wkv"] == 0
@@ -3246,7 +3507,7 @@ def lm_mode_phase(rec) -> dict:
     build_dir = ROOT / "build"
     build_dir.mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
-        for arch in LM_SELECT_RANGE:
+        for arch in LM_MODE_ARCHS:
             cfg = get_config(arch, smoke=True)
             path = str(pathlib.Path(tmp) / "lm.npz")
             argv = ["--mode", "lm", "--arch", arch, "--steps",
@@ -3290,8 +3551,9 @@ def lm_payload_bytes(cfg) -> int:
     """One push of an LM under FACADE, from the config alone: the core
     (embedding and layers) and one head (final norm and untied
     ``lm_head``) in the param dtype, RWKV's fp32 leaves (``decay_base`` and
-    ``bonus_u``, d values each a layer) at 4 bytes, and the 4-byte cluster
-    id."""
+    ``bonus_u``, d values each a layer) and the hybrid's (the mamba
+    branch's ``dt_bias``, ``a_log`` and ``d_skip``) at 4 bytes, and the
+    4-byte cluster id."""
     d, ff, size = cfg.d_model, cfg.d_ff, torch.finfo(cfg.dt).bits // 8
     if cfg.rwkv:
         # two norms; time mix: five mixes, w_r/k/v/g/o, the decay's rank-32
@@ -3302,6 +3564,13 @@ def lm_payload_bytes(cfg) -> int:
         hd = cfg.hd
         layer = (2 * d + d * cfg.n_heads * hd * 2
                  + d * cfg.n_kv_heads * hd * 2 + 3 * d * ff) * size
+    if cfg.arch_type == "hybrid":
+        # the mamba branch (models/ssm.py::init_ssm): w_in, the conv, the
+        # x projection to dt's rank and B, C, w_dt and w_out in the param
+        # dtype, dt_bias, a_log and d_skip in fp32; and two branch norms
+        di, n, rank = cfg.ssm_expand * d, cfg.ssm_state, max(1, d // 16)
+        layer += (d * 2 * di + cfg.ssm_conv * di + di * (rank + 2 * n)
+                  + rank * di + di * d + 2 * d) * size + (2 + n) * di * 4
     core = cfg.vocab_size * d * size + cfg.n_layers * layer
     head = (d + d * cfg.vocab_size) * size
     return core + head + 4
@@ -3334,20 +3603,29 @@ def lm_select_check(run, drawn) -> tuple:
         want = head_losses_ref(f, w, labels).reshape(run.n, -1)
     torch.cuda.synchronize()
     c = hs_check("head_select lm path", got, want,
-                 operands=[list(f.shape), list(w.shape)])
+                 operands=[list(f.shape), list(w.shape)],
+                 dtype=str(f.dtype).removeprefix("torch."))
     del feats, f, w, labels, want
     torch.cuda.empty_cache()
     return got, c
 
 
-def lm_facade_phase(rec, arch: str) -> dict:
-    """FACADE on ``arch`` at full width on the card; returns its kernels'
-    launches in the timed rounds."""
+def lm_facade_phase(rec, key: str) -> dict:
+    """FACADE at full width on the card for ``key``, a key of
+    ``LM_ROUNDS``: an arch, with ``LM_RUN_DTYPE``'s dtype where it names
+    one; returns its kernels' launches in the timed rounds. The profiled
+    round also counts K1's launches by kernel name: its body's tile kernel
+    once (``hs_ops.body_for`` on the round's operands), the merge once
+    after a tiled body, the copy once for each ragged D or V on the
+    tensor cores, and no other body's kernel."""
+    arch = key.split()[0]
     cfg = get_config(arch)
+    if key in LM_RUN_DTYPE:
+        cfg = cfg.replace(dtype=LM_RUN_DTYPE[key])
     p = LM_FACADE
     want_bytes = float(np.float32(len(p["clusters"]) * p["degree"]
                                   * lm_payload_bytes(cfg)))
-    select_range = LM_SELECT_RANGE[arch]
+    select_range = LM_SELECT_RANGE[key]
     rounds, launches = [], {}
     t0 = time.perf_counter()
     run = LMFacade(cfg, device="cuda",
@@ -3365,16 +3643,40 @@ def lm_facade_phase(rec, arch: str) -> dict:
             info = run.round(drawn)
             torch.cuda.synchronize()
         if counts != want:
-            raise AssertionError(f"LM FACADE {arch}: kernel launches "
+            raise AssertionError(f"LM FACADE {key}: kernel launches "
                                  f"{counts} in a round, want {want}")
         if info["round_bytes"] != want_bytes:
-            raise AssertionError(f"LM FACADE {arch}: bytes per round "
+            raise AssertionError(f"LM FACADE {key}: bytes per round "
                                  f"{info['round_bytes']} != {want_bytes}")
         return info, counts
 
-    for rnd in range(1, LM_ROUNDS[arch] + 1):
+    def profiled(fn):
+        """``fn()`` under torch.profiler (the device's activity), with the
+        host time in the wkv recurrence's backward (the plain loop; 2
+        nodes' H local steps, each layer once), and K1's kernels by
+        name."""
+        with host_seconds_in(WkvFunction, "backward") as backward:
+            prof = device_profile(fn, kernels=K1_NAMES, host=False)
+        if cfg.rwkv:
+            calls = run.n * p["local_steps"] * cfg.n_layers
+            if backward[1] != calls:
+                raise AssertionError(f"LM FACADE {key}: {backward[1]} wkv "
+                                     f"backward calls, want {calls}")
+            prof["host_spans"] = {WKV_BACKWARD: {
+                "host_s": backward[0], "events": backward[1],
+                "share_of_wall": backward[0] / prof["wall_s"]}}
+        return prof
+
+    profile = None
+    for rnd in range(1, LM_ROUNDS[key] + 1):
         t0 = time.perf_counter()
-        info, counts = one_round(drawn if rnd == 1 else None)
+        if rnd == 1 and key in LM_PROFILED_ONLY:
+            # its one round runs under the profiler
+            done = []
+            profile = profiled(lambda: done.append(one_round(drawn)))
+            info, counts = done[0]
+        else:
+            info, counts = one_round(drawn if rnd == 1 else None)
         wall = time.perf_counter() - t0
         losses = info["selection_losses"].float()
         if rnd == 1:
@@ -3383,14 +3685,14 @@ def lm_facade_phase(rec, arch: str) -> dict:
                 ((losses - k1_path).abs() / k1_path.abs().clamp(min=1))
                 .max())
             if not path_check["round_vs_check_rel_err"] <= HS_TOL:
-                raise AssertionError(f"LM FACADE {arch}: round 1 selected "
+                raise AssertionError(f"LM FACADE {key}: round 1 selected "
                                      f"on {losses.tolist()}, the checked "
                                      f"K1 call gave {k1_path.tolist()}")
         losses = losses.cpu()
         if rnd == 1 and not (bool(torch.isfinite(losses).all()) and
                              select_range[0] <= float(losses.min())
                              and float(losses.max()) <= select_range[1]):
-            raise AssertionError(f"LM FACADE {arch}: round-1 selection "
+            raise AssertionError(f"LM FACADE {key}: round-1 selection "
                                  f"losses {losses.tolist()} outside "
                                  f"{select_range}")
         for name, c in counts.items():
@@ -3399,31 +3701,78 @@ def lm_facade_phase(rec, arch: str) -> dict:
                        "selection_losses": losses.tolist(),
                        "cluster_id": info["cluster_id"].tolist(),
                        "launches": counts})
-        log(f"LM FACADE {arch} round {rnd}: {wall:.3f} s, selection losses "
+        log(f"LM FACADE {key} round {rnd}: {wall:.3f} s, selection losses "
             f"{losses.tolist()}, cluster ids "
             f"{info['cluster_id'].tolist()}")
     peak = torch.cuda.max_memory_allocated()
-    # where the time goes: one more round under torch.profiler, with the
-    # host time under the wkv recurrence's backward (the plain loop)
-    profile = device_profile(one_round,
-                             host_spans=(WKV_BACKWARD,) if cfg.rwkv else ())
+    # where the time goes: one more round under the profiler
+    if profile is None:
+        profile = profiled(one_round)
+    k1_names = lm_k1_by_name(key, path_check, profile)
     for leaf in tree_leaves(run.state.cores) + tree_leaves(run.state.heads):
         if not bool(torch.isfinite(leaf).all()):
-            raise AssertionError(f"LM FACADE {arch}: non-finite parameters")
-    out = {**p, "arch": arch, "n": run.n, "init_s": init_s,
-           "rounds": rounds, "round_1_s": rounds[0]["wall_s"],
+            raise AssertionError(f"LM FACADE {key}: non-finite parameters")
+    out = {**p, "arch": arch, "dtype": cfg.dtype, "n": run.n,
+           "init_s": init_s, "rounds": rounds,
+           "round_1_s": rounds[0]["wall_s"],
            "rounds_2_3_s": [r["wall_s"] for r in rounds[1:]],
            "peak_mem_bytes": peak, "bytes_per_round": want_bytes,
            "launches_per_round": want, "k1_path_check": path_check,
-           "profiled_round": profile}
-    rec.setdefault("lm_facade", {})[arch] = out
-    log(f"LM FACADE {arch} profile", json.dumps(profile))
-    log(f"LM FACADE {arch}: round 1 {out['round_1_s']:.3f} s, rounds 2-3 "
+           "k1_by_name": k1_names, "profiled_round": profile}
+    rec.setdefault("lm_facade", {})[key] = out
+    log(f"LM FACADE {key} profile", json.dumps(profile))
+    log(f"LM FACADE {key}: round 1 {out['round_1_s']:.3f} s, rounds 2-3 "
         f"{out['rounds_2_3_s']} s, peak memory {peak / 1e9:.2f} GB, "
         f"bytes/round {want_bytes:.0f}")
     del run, drawn
     torch.cuda.empty_cache()
     return launches
+
+
+@contextlib.contextmanager
+def host_seconds_in(cls, name: str):
+    """The static method ``cls.<name>`` timed on the host clock inside the
+    block: yields [seconds, calls]."""
+    inner, acc = getattr(cls, name), [0.0, 0]
+
+    def timed(*args, **kw):
+        t0 = time.perf_counter()
+        try:
+            return inner(*args, **kw)
+        finally:
+            acc[0] += time.perf_counter() - t0
+            acc[1] += 1
+
+    setattr(cls, name, staticmethod(timed))
+    try:
+        yield acc
+    finally:
+        setattr(cls, name, staticmethod(inner))
+
+
+def lm_k1_by_name(key: str, path_check: dict, profile: dict) -> dict:
+    """K1's kernels by name in an LM round's profile against its body
+    (``hs_ops.body_for`` on the operands ``lm_select_check`` built), or
+    raise; None where the profiler recorded no device time (not
+    measured)."""
+    (rows, t, d), (_, k, _, v) = path_check["operands"]
+    dtype = torch.bfloat16 if path_check["dtype"] == "bfloat16" \
+        else torch.float32
+    body = hs_ops.body_for(rows, k, t, d, v, dtype)
+    want = {name: 0 for name in K1_NAMES}
+    want[K1_BODY_KERNEL[body]] = 1
+    if body != "fma":
+        want[K1_LM_MERGE] = 1
+    if body == "tensor_core":
+        want[K1_PAD_KERNEL] = int(d % 8 != 0) + int(v % 8 != 0)
+    got = ({name: n for name, (n, _) in profile["kernels"].items()}
+           if profile.get("device_busy_s") is not None else None)
+    out = {"body": body, "want": want, "got": got}
+    log(f"LM FACADE {key} K1 by kernel name", json.dumps(out))
+    if got is not None and got != want:
+        raise AssertionError(f"LM FACADE {key}: K1's kernels by name {got}, "
+                             f"want {want}")
+    return out
 
 
 def smoke_lm_facade_phase(rec):
@@ -3781,7 +4130,7 @@ def wkv_backward_timing(shape, reps: int = 5) -> dict:
         device_ms[1:]), "host_ms": statistics.median(host_ms[1:])}
 
 
-def device_profile(fn, host_spans=(), kernels=()) -> dict:
+def device_profile(fn, host_spans=(), kernels=(), host=True) -> dict:
     """Host wall time of ``fn()`` (ending in a synchronise) and the device
     time of the kernels it ran, by ``torch.profiler``: busy time (the
     union of the kernels' intervals, since kernels of forked streams, a
@@ -3795,12 +4144,17 @@ def device_profile(fn, host_spans=(), kernels=()) -> dict:
     minutes), and the seconds the profiler took to stop and to be read
     are recorded; for each string in ``kernels``, the device kernels whose
     names hold it, as [events, seconds]. Where the profiler records no
-    device events, the device numbers are None (not measured)."""
+    device events, the device numbers are None (not measured). With
+    ``host`` False the profiler records the device's activity alone (no
+    host operators: a round of the plain SSM scan records millions, and
+    the profiler then takes tens of seconds to stop), and ``host_spans``
+    find nothing."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if host
+                                            else [])
+    with profile(activities=activities) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -4753,6 +5107,7 @@ def main() -> int:
         check=True).stdout.split()[0])
     t0 = time.perf_counter()
     hs = kernel_phase(rec)
+    hs_f32, hs_padded = head_select_wide_phase(rec)
     fa = flash_attention_phase(rec)
     rw = wkv_phase(rec, sm_clock_hz)
     ds = paper_lenet_data(rec)
@@ -4775,6 +5130,12 @@ def main() -> int:
     hs["lm"]["launches"] = lm_facade_phase(rec, "llama3.2-1b")["head_losses"]
     rwkv_launches = lm_facade_phase(rec, "rwkv6-1.6b")
     hs["lm"]["rwkv"]["launches"] = rwkv_launches["head_losses"]
+    # K1's wider paths as a user runs them: hymba's FACADE (the tensor
+    # cores through the padded copy), and a llama round in fp32 (the fp32
+    # tiled body)
+    hs_padded["launches"] = lm_facade_phase(rec, "hymba-1.5b")["head_losses"]
+    hs_f32["launches"] = lm_facade_phase(rec, "llama3.2-1b fp32")[
+        "head_losses"]
     smoke_lm_facade_phase(rec)
     # K3's launches on its third path: the launcher's lm mode on RWKV
     rw["train"]["lm_mode_launches"] = lm_mode_phase(rec)["rwkv6-1.6b"][
@@ -4827,7 +5188,18 @@ def main() -> int:
     prof = engine_profile_phase(rec, ds)
     hs["engine"] = {"launches_in_segment": prof["launches"]["head_losses"],
                     "us_per_replayed_round": prof["k1_us_per_round"]}
-    entries = [hs, fa, rw]
+    # each of K1's bodies on the line: the FMA body (the FACADE path), the
+    # tensor cores at llama's LM round, with a ragged V at hymba's, and the
+    # fp32 tiled body at the fp32 llama round's
+    lm = rec["head_select_lm"]
+    hs_tc = {"name": "head_select_tensor_core", "body": "tensor_core",
+             **{key: hs[key] for key in ("route", "source", "replaces")},
+             "launches": hs["lm"]["launches"],
+             **{key: lm[key] for key in ("max_abs_err", "ms", "plain_ms",
+                                         "bound_ms", "bound_by",
+                                         "library_ms", "shape")}}
+    hs["body"] = "fma"
+    entries = [hs, hs_tc, hs_padded, hs_f32, fa, rw]
     rec["kernels"] = entries
     rec["total_s"] = time.perf_counter() - t0
     log(f"total_s {rec['total_s']:.1f}")

@@ -9,16 +9,23 @@
 //      the kernel's sums the same way).
 // Inputs fp32 or bf16; every product and sum is accumulated in fp32.
 //
-// Two bodies behind one entry, hs_head_losses, picked from the shape:
-// - the LM regime (lm_body below: bf16 with D and V multiples of 8, at
-//   any T > 0; ragged token and vocab tiles are masked) runs on the
-//   tensor cores (wgmma fed by TMA under warp specialisation), in two
-//   launches (a tile kernel and a merge kernel) and
-//   with a workspace whose size hs_workspace_bytes gives; an input that
-//   body cannot take (a feature or head pointer off 16-byte alignment) is
-//   refused;
-// - every other input (the FACADE/GN-LeNet path: fp32, D = 513, V = 10)
-//   runs on the FMA kernel described next, in one launch.
+// Three bodies behind one entry, hs_head_losses, picked by body_for (below;
+// hs_body returns its answer, and ops.py::body_for mirrors it):
+// - tensor cores (bf16 with D and V multiples of 8, or with V of at least
+//   one 256-column vocab tile, at any T > 0): wgmma fed by TMA under warp
+//   specialisation, a tile kernel and a merge kernel, with a workspace whose
+//   size hs_workspace_bytes gives. A ragged D or V is copied first into a
+//   padded buffer in that workspace (rows of a multiple of 8 values, one
+//   more launch each); otherwise a feature or head pointer off 16-byte
+//   alignment is refused;
+// - fp32 tiled (fp32 with V of at least kF32MinV columns, any T > 0): a
+//   register-blocked SIMT product on tiles of 128 tokens x 128 columns fed
+//   by a cp.async ring, the same fold, workspace and merge kernel;
+// - FMA (every other input: the CNN paths' step 2c, fp32, D 513 or 65, V
+//   10 or 41) in one launch.
+// Every sum runs in a fixed order with no atomics in all three, so two
+// bit-identical heads give bit-identical losses and an argmin then picks
+// the lower index; a +inf logit gives a +inf loss, not NaN.
 //
 // FMA body. One block per (node, head); its 8 warps take tokens in turn, one
 // token a warp in each round. The block walks the vocabulary in chunks of
@@ -45,19 +52,18 @@
 // V = 10 a feature row starts every 2,052 bytes and a head row every 40, so
 // neither is 16-byte aligned throughout, and no read passes a row or a
 // tensor. Per-warp sums and counts are combined by one thread in warp
-// order, with no atomics, and every sum runs in a fixed order, so two
-// bit-identical heads give bit-identical losses and an argmin then picks
-// the lower index.
+// order.
 //
 // Bound on this card. At the FACADE path's shapes (n = 32, K = 2, T = 8,
 // D = 513, V = 10, fp32) the kernel reads 1.84 MB (heads 1.31 MB, features
 // 0.53 MB) and does 5.3 MFLOP: about 0.55 us of HBM traffic at 3.35 TB/s
 // and less of fp32 arithmetic, so at that size the launch itself bounds it.
-// In the LM regime (V of 65k-128k) the K x T x D x V products dominate:
-// at n * K = 4, T = 1024, D = 2048, V = 128,256 in bf16 they are 2.15
-// TFLOP, 2.18 ms at the 989 TFLOP/s of the bf16 tensor cores, against
-// 0.63 ms to read the 2.1 GB of heads once. The LM body is described at
-// its kernel below.
+// At an LM's shapes the K x T x D x V products dominate: at n * K = 4,
+// T = 1024, D = 2048, V = 128,256 they are 2.15 TFLOP, 2.18 ms at the
+// 989 TFLOP/s of the bf16 tensor cores, against 0.63 ms to read the 2.1 GB
+// of bf16 heads once; in fp32 the same products take 32.1 ms at the 67
+// TFLOP/s of the fp32 pipes (the 4.2 GB of heads 1.25 ms). The two tiled
+// bodies are described at their kernels below.
 #include <cuda.h>  // CUtensorMap and its enums (no libcuda linked)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -271,7 +277,13 @@ int launch(const void* feats, const void* heads, const int32_t* labels,
 //   slab [64 x 256] (four boxes of 64 columns), both with the 128-byte
 //   swizzle; each stage completes on its "full" mbarrier. The tensor maps
 //   are 3-D, (D, T, node) and (V, D, row), so TMA's zero fill covers
-//   ragged T, D and V inside each node's or row's own data;
+//   ragged T, D and V inside each node's or row's own data. A map's row
+//   stride must be a multiple of 16 bytes: where D (or V) is not a
+//   multiple of 8, the launcher first copies the features (or heads) into
+//   a buffer of the workspace whose rows hold D8 (V8) values, D (V)
+//   rounded up to 8 (head_losses_pad_kernel), and the map keeps the
+//   logical D (V) as its extent with the padded row as its stride, so the
+//   pad is never read: TMA fills past D (V) with zeros, as at any edge;
 // - two consumers (registers raised to 232), one per 64-token half, run
 //   wgmma m64n256k16 bf16 x bf16 -> fp32 on each stage that has arrived,
 //   four per D chunk, A K-major and B MN-major (the head is [D, V], V
@@ -682,49 +694,453 @@ head_losses_lm_merge(const float* __restrict__ ws,
   if (threadIdx.x == 0) out[r] = part_nll[0] / fmaxf(part_cnt[0], 1.f);
 }
 
-// The dispatch rule: the tensor-core body takes bf16 whose feature and
-// head rows are whole 16-byte chunks (D and V multiples of 8), at any
-// T > 0 (T = 0 or V = 0 would make an empty grid; the FMA body takes them).
-bool lm_body(int t, int d, int v, int dtype) {
-  return dtype == 1 && t > 0 && v > 0 && d % 8 == 0 && v % 8 == 0;
+// ---- fp32 at LM shapes: the tiled SIMT body ----
+//
+// Bound. The products (2 n K T D V FLOP) at the fp32 pipes' 67 TFLOP/s (no
+// TF32: run_experiment and LMFacade run with TF32 off, and the function is
+// fp32's), or the heads read once: at n * K = 2, T = 2048, D = 2048,
+// V = 128,256 that is 32.1 ms of operations (28.8 ms for the 90% of tokens
+// whose label counts) against 0.63 ms of HBM. One PyTorch call of the same
+// function (an fp32 matmul and cross_entropy) also writes the [T, V] logits
+// and reads them back, 1.05 GB a row; this body keeps them in registers.
+//
+// Design. The LM body's grid and V-split rule: a block takes one (row,
+// 128-token tile, range of 128-column vocab tiles), as many V-splits as
+// fill one wave at the blocks an SM holds (kF32Blocks = 2: 48 KB of shared
+// memory and at most 128 registers a thread). A first launch copies the
+// features transposed, [n][D][T4] with T4 = T rounded up to 4 and zeros
+// past T, into the workspace (head_losses_f32_transpose_kernel; 16 MB a
+// node at T 2048, D 2048, microseconds). The block's 256 threads form a
+// 16 x 16 grid over the [128, 128] logit tile: thread (ty, tx) holds tokens
+// 4 ty + c + 64 h and columns 4 tx + c + 64 h (c < 4, h < 2), 8 x 8 fp32
+// accumulators, each one FMA chain in the order of d (plain fmaf, no
+// TF32). D walks in chunks of kF32BK = 16 through a ring of kF32Stages = 3
+// stages of shared memory ([16][128 tokens] of the transposed features and
+// [16][128 columns] of the head, 16 KB), filled by cp.async: 16-byte
+// copies of the features, and of the head where V is a multiple of 4 and
+// the head 16-byte aligned (else 4-byte ones), zero-filled past T, D and
+// V. The ring runs on across vocab tiles, so the next tile's copies are in
+// flight while a tile is folded. For each d a thread reads its 8 tokens'
+// features and its 8 columns as four 16-byte words (the tokens two ty of a
+// warp read are 16 bytes apart; the columns 16 tx are 256 contiguous
+// bytes), for 64 FMAs. tools/hs_f32_tune.py times this body against
+// builds with other chunk depths and blocks an SM (PERF.md).
+//
+// Fold. After a vocab tile's last chunk, each token's 128 logits sit in
+// the 16 lanes of a half warp: each lane takes the max of its 8 (columns
+// past V are -inf), the half warp a butterfly max, then each lane sums
+// exp2 of its 8 in column order after the log2(e) pre-scale and the half
+// warp a butterfly sum; the running (max, sum-exp) pair and the gold
+// logit (the lane that holds the label's column, summed with zeros) are
+// updated as in the LM body, the +inf rule included. Lane i < 8 of a half
+// warp keeps token ty + 16 i's triple and label; the others read it by
+// shuffle. The triples go to the same three workspace planes as the LM
+// body's, and head_losses_lm_merge merges them.
+//
+// Order. Every sum is in a fixed order: the FMA chains in d, the fold in
+// column order and butterflies, the vocab tiles in order inside a split,
+// the merge in split order and its fixed tree.
+
+constexpr int kF32BT = 128;       // tokens per tile
+constexpr int kF32BV = 128;       // vocab columns per tile
+constexpr int kF32Cols = kF32BV / 16;  // columns a thread: 4 every 64
+constexpr int kF32BK = 16;        // D per ring stage
+constexpr int kF32Stages = 3;
+constexpr int kF32Threads = 256;
+constexpr int kF32Blocks = 2;     // blocks an SM, for __launch_bounds__
+constexpr int kF32AWords = kF32BK * kF32BT;  // features [16][128 tokens]
+constexpr int kF32BWords = kF32BK * kF32BV;  // head [16][128 columns]
+constexpr int kF32StageWords = kF32AWords + kF32BWords;
+constexpr int kF32SmemBytes = 4 * kF32Stages * kF32StageWords;
+// the least V for which fp32 takes this body: below it, and at the CNN
+// paths' V 10 and 41, the FMA body (PERF.md: the two bodies' times at
+// HS_SHAPES and at V 128)
+constexpr int kF32MinV = 128;
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(valid ? 16 : 0));
 }
 
-// Blocks resident per SM (set once; the attribute is set first)
-int lm_blocks_per_sm(cudaError_t* err) {
-  static int per_sm = 0;
-  if (per_sm == 0) {
-    *err = cudaFuncSetAttribute(head_losses_lm_kernel,
-                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                kLmSmemBytes);
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(valid ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// max and sum over the 16 lanes of a half warp (xor 1, 2, 4, 8)
+__device__ __forceinline__ float half_max(float x) {
+#pragma unroll
+  for (int o = 1; o < 16; o <<= 1) x = fmaxf(x, __shfl_xor_sync(kFull, x, o));
+  return x;
+}
+
+__device__ __forceinline__ float half_sum(float x) {
+#pragma unroll
+  for (int o = 1; o < 16; o <<= 1) x += __shfl_xor_sync(kFull, x, o);
+  return x;
+}
+
+// fT [n][D][tp] = feats [n][T][D] transposed, zero past T (tp: T rounded up
+// to 4, so that a 16-byte copy along T never passes a row): 32 x 32 tiles
+// through shared memory, both sides coalesced
+__global__ void __launch_bounds__(256)
+head_losses_f32_transpose_kernel(const float* __restrict__ feats,
+                                 float* __restrict__ ft, int t, int d,
+                                 int tp) {
+  __shared__ float tile[32][33];
+  const int t0 = blockIdx.x * 32, d0 = blockIdx.y * 32;
+  const float* src = feats + static_cast<size_t>(blockIdx.z) * t * d;
+  float* dst = ft + static_cast<size_t>(blockIdx.z) * d * tp;
+  for (int r = threadIdx.y; r < 32; r += 8) {
+    const int tok = t0 + r, col = d0 + threadIdx.x;
+    tile[r][threadIdx.x] =
+        tok < t && col < d ? src[static_cast<size_t>(tok) * d + col] : 0.f;
+  }
+  __syncthreads();
+  for (int r = threadIdx.y; r < 32; r += 8) {
+    const int row = d0 + r, tok = t0 + threadIdx.x;
+    if (row < d && tok < tp)
+      dst[static_cast<size_t>(row) * tp + tok] = tile[threadIdx.x][r];
+  }
+}
+
+// Stage s of the flattened (vocab tile, D chunk) walk into ring slot
+// s % kF32Stages; commits a (possibly empty) group either way. The
+// features come from their transposed copy ft [D][tp] in 16-byte copies;
+// the head's columns in copies of VEC floats (4 where V and the pointer
+// allow 16-byte copies, else 1).
+template <int VEC>
+__device__ __forceinline__ void f32_stage(float* ring, const float* ft,
+                                          const float* w, int s, int steps,
+                                          int d_steps, int vt0, int t0,
+                                          int t, int tp, int d, int v) {
+  if (s < steps) {
+    float* a = ring + (s % kF32Stages) * kF32StageWords;
+    float* b = a + kF32AWords;
+    const int d0 = (s % d_steps) * kF32BK;
+    const int v0 = (vt0 + s / d_steps) * kF32BV;
+#pragma unroll
+    for (int p = 0; p < kF32AWords / (kF32Threads * 4); ++p) {
+      const int i = threadIdx.x + kF32Threads * p;
+      // features: D row i / 32, tokens 4 (i % 32) .. + 3
+      const int row = d0 + i / (kF32BT / 4), tok = t0 + 4 * (i % (kF32BT / 4));
+      const bool ok = row < d && tok < t;
+      cp_async16(a + 4 * i, ok ? ft + static_cast<size_t>(row) * tp + tok : ft,
+                 ok);
+    }
+#pragma unroll
+    for (int p = 0; p < kF32BWords / (kF32Threads * VEC); ++p) {
+      const int i = threadIdx.x + kF32Threads * p;
+      // head: D row i / (128 / VEC), vocab columns VEC (i % (128 / VEC)) ..
+      const int row = d0 + i / (kF32BV / VEC);
+      const int vc = v0 + VEC * (i % (kF32BV / VEC));
+      const bool ok = row < d && vc < v;
+      const float* src = ok ? w + static_cast<size_t>(row) * v + vc : w;
+      if constexpr (VEC == 4)
+        cp_async16(b + 4 * i, src, ok);
+      else
+        cp_async4(b + i, src, ok);
+    }
+  }
+  cp_async_commit();
+}
+
+// ft: the features transposed ([n][D][tp], head_losses_f32_transpose_kernel);
+// ws: the LM body's three planes [splits][rows][t]
+template <int VEC>
+__global__ void __launch_bounds__(kF32Threads, kF32Blocks)
+head_losses_f32_kernel(const float* __restrict__ ft,
+                       const float* __restrict__ heads,
+                       const int32_t* __restrict__ labels,
+                       float* __restrict__ ws, int k, int t, int tp, int d,
+                       int v, int rows, int vt_per_split) {
+  extern __shared__ __align__(16) float f32_ring[];
+  const int t_tiles = (t + kF32BT - 1) / kF32BT;
+  const int tt = blockIdx.x % t_tiles;          // token tiles of one row and
+  const int r = (blockIdx.x / t_tiles) % rows;  // split are neighbours
+  const int split = blockIdx.x / (t_tiles * rows);
+  const int node = r / k;
+  const int t0 = tt * kF32BT;
+  const int v_tiles = (v + kF32BV - 1) / kF32BV;
+  const int vt0 = split * vt_per_split;
+  const int vt1 = min(v_tiles, vt0 + vt_per_split);
+  const int d_steps = (d + kF32BK - 1) / kF32BK;
+  const int steps = (vt1 - vt0) * d_steps;
+  const float* f = ft + static_cast<size_t>(node) * d * tp;
+  const float* w = heads + static_cast<size_t>(r) * d * v;
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  const int half = threadIdx.x % 32 & 16;  // this half warp's first lane
+
+  // thread (ty, tx) holds tokens 4 ty + c + 64 h (i = 4 h + c) and columns
+  // 4 tx + c + 64 h (j = 4 h + c); lane i < 8 of a half warp keeps token
+  // i's label and triple
+  const int my_tok = t0 + 4 * ty + (tx & 3) + 64 * ((tx & 7) >> 2);
+  const int y_st =
+      tx < 8 && my_tok < t ? labels[static_cast<size_t>(node) * t + my_tok]
+                           : -1;
+  float m_st = -INFINITY, s_st = 0.f, g_st = 0.f;
+  float acc[8][kF32Cols];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < kF32Cols; ++j) acc[i][j] = 0.f;
+
+  f32_stage<VEC>(f32_ring, f, w, 0, steps, d_steps, vt0, t0, t, tp, d, v);
+  f32_stage<VEC>(f32_ring, f, w, 1, steps, d_steps, vt0, t0, t, tp, d, v);
+  for (int s = 0; s < steps; ++s) {
+    cp_async_wait<1>();  // stage s has landed (for this thread's copies)
+    __syncthreads();     // ... for every thread's, and slot s - 1 is free
+    f32_stage<VEC>(f32_ring, f, w, s + 2, steps, d_steps, vt0, t0, t, tp, d,
+                   v);
+    const float* a = f32_ring + (s % kF32Stages) * kF32StageWords;
+    const float* b = a + kF32AWords;
+#pragma unroll
+    for (int kk = 0; kk < kF32BK; ++kk) {
+      const float4 a0 =
+          *reinterpret_cast<const float4*>(a + kk * kF32BT + 4 * ty);
+      const float4 a1 =
+          *reinterpret_cast<const float4*>(a + kk * kF32BT + 64 + 4 * ty);
+      const float fv[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      float hv[kF32Cols];
+#pragma unroll
+      for (int h = 0; h < kF32Cols / 4; ++h) {
+        const float4 bh = *reinterpret_cast<const float4*>(
+            b + kk * kF32BV + 64 * h + 4 * tx);
+        hv[4 * h] = bh.x;
+        hv[4 * h + 1] = bh.y;
+        hv[4 * h + 2] = bh.z;
+        hv[4 * h + 3] = bh.w;
+      }
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < kF32Cols; ++j)
+          acc[i][j] = fmaf(fv[i], hv[j], acc[i][j]);
+    }
+    if ((s + 1) % d_steps != 0) continue;
+
+    // the vocab tile is complete: fold its logits into the triples
+    const int v0 = (vt0 + s / d_steps) * kF32BV;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const float m_run = __shfl_sync(kFull, m_st, half | i);
+      const float s_run = __shfl_sync(kFull, s_st, half | i);
+      const int y = __shfl_sync(kFull, y_st, half | i);
+      float mx = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < kF32Cols; ++j) {
+        if (v0 + 4 * tx + (j & 3) + 64 * (j >> 2) >= v) acc[i][j] = -INFINITY;
+        mx = fmaxf(mx, acc[i][j]);
+      }
+      // finite unless the logits are: column v0 < V lies in the tile
+      const float m_new = fmaxf(m_run, half_max(mx));
+      const float ml = m_new * kLog2e;
+      float se = 0.f;
+      if (!isinf(m_new)) {
+#pragma unroll
+        for (int j = 0; j < kF32Cols; ++j)
+          se += ex2(fmaf(acc[i][j], kLog2e, -ml));
+      } else {
+        // an infinite max (a +inf logit): a term at it is exp(0) = 1, as
+        // in the LM body
+#pragma unroll
+        for (int j = 0; j < kF32Cols; ++j)
+          se += acc[i][j] == m_new ? 1.f : ex2(fmaf(acc[i][j], kLog2e, -ml));
+      }
+      se = half_sum(se);
+      const float alpha = isinf(m_new) && m_run == m_new
+                              ? 1.f
+                              : ex2((m_run - m_new) * kLog2e);
+      const float s_new = fmaf(s_run, alpha, se);
+      const int c = y - v0 - 4 * tx;  // the label's column among this lane's
+      float gv = 0.f;
+#pragma unroll
+      for (int j = 0; j < kF32Cols; ++j)
+        if (c == (j & 3) + 64 * (j >> 2)) gv = acc[i][j];
+      gv = half_sum(gv);  // one lane holds the label, or none
+      if (tx == i) {
+        m_st = m_new;
+        s_st = s_new;
+        if (y >= v0 && y < v0 + kF32BV) g_st = gv;
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < kF32Cols; ++j) acc[i][j] = 0.f;
+  }
+
+  if (tx < 8 && my_tok < t) {
+    const size_t plane = static_cast<size_t>(gridDim.x / t_tiles) * t;
+    const size_t idx = (static_cast<size_t>(split) * rows + r) * t + my_tok;
+    ws[idx] = m_st;
+    ws[plane + idx] = s_st;
+    ws[2 * plane + idx] = g_st;
+  }
+}
+
+// dst [rows][pitch] = src [rows][cols] (bf16, pitch a multiple of 8 and at
+// least cols; the pad zeroed): one thread writes 8 values, 16 bytes
+__global__ void head_losses_pad_kernel(const uint16_t* __restrict__ src,
+                                       uint16_t* __restrict__ dst,
+                                       long long rows, int cols, int pitch) {
+  const long long chunks = pitch / 8;
+  for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) +
+                     threadIdx.x;
+       i < rows * chunks; i += static_cast<long long>(gridDim.x) * blockDim.x) {
+    const long long row = i / chunks;
+    const int c0 = static_cast<int>(i % chunks) * 8;
+    const uint16_t* s = src + row * cols;
+    alignas(16) uint16_t out[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) out[e] = c0 + e < cols ? s[c0 + e] : 0;
+    *reinterpret_cast<uint4*>(dst + row * pitch + c0) =
+        *reinterpret_cast<const uint4*>(out);
+  }
+}
+
+// ---- dispatch and launch ----
+
+enum Body { kFma = 0, kF32Tiled = 1, kTensorCore = 2 };
+
+// The dispatch rule (ops.py::body_for mirrors it). bf16 goes to the tensor
+// cores where its rows are whole 16-byte chunks (D and V multiples of 8,
+// no copy) or V is at least one of their 256-column vocab tiles (a ragged
+// D or V then padded); fp32 goes to the tiled body from one of its
+// 128-column vocab tiles up. Everything else, and T, D or V of 0 (an empty
+// tile grid), takes the FMA body.
+int body_for(int t, int d, int v, int dtype) {
+  if (t <= 0 || d <= 0 || v <= 0) return kFma;
+  if (dtype == 1 && ((d % 8 == 0 && v % 8 == 0) || v >= kLmBV))
+    return kTensorCore;
+  if (dtype == 0 && v >= kF32MinV) return kF32Tiled;
+  return kFma;
+}
+
+// whether `body` takes this input (the FMA body takes every one)
+bool body_takes(int body, int t, int d, int v, int dtype) {
+  if (body == kFma) return dtype == 0 || dtype == 1;
+  if (t <= 0 || d <= 0 || v <= 0) return false;
+  return (body == kF32Tiled && dtype == 0) ||
+         (body == kTensorCore && dtype == 1);
+}
+
+// Blocks resident per SM of `kernel` (set once; the shared-memory
+// attribute is set first)
+template <typename K>
+int blocks_per_sm(K kernel, int threads, int smem, int* cache,
+                  cudaError_t* err) {
+  if (*cache == 0) {
+    *err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (*err != cudaSuccess) return 0;
-    *err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, head_losses_lm_kernel, kLmThreads, kLmSmemBytes);
+    *err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(cache, kernel,
+                                                         threads, smem);
     if (*err != cudaSuccess) return 0;
   }
   *err = cudaSuccess;
-  return per_sm;
+  return *cache;
+}
+
+// Blocks resident per SM of the tensor-core kernel, or of the fp32 kernel
+// with `vec4` copies (the 16-byte one sets the split count of both: they
+// take the same shared memory and register cap)
+int body_blocks_per_sm(int body, bool vec4, cudaError_t* err) {
+  static int lm = 0, f32_1 = 0, f32_4 = 0;
+  if (body == kTensorCore)
+    return blocks_per_sm(head_losses_lm_kernel, kLmThreads, kLmSmemBytes, &lm,
+                         err);
+  return vec4 ? blocks_per_sm(head_losses_f32_kernel<4>, kF32Threads,
+                              kF32SmemBytes, &f32_4, err)
+              : blocks_per_sm(head_losses_f32_kernel<1>, kF32Threads,
+                              kF32SmemBytes, &f32_1, err);
 }
 
 // Vocab tiles per V-split: as many splits as fill one wave of the card
-int lm_vt_per_split(int rows, int t, int v, cudaError_t* err) {
-  const int per_sm = lm_blocks_per_sm(err);
+int vt_per_split(int body, int rows, int t, int v, cudaError_t* err) {
+  const int per_sm = body_blocks_per_sm(body, true, err);
   if (*err != cudaSuccess) return 0;
   int dev = 0, sms = 0;
   *err = cudaGetDevice(&dev);
   if (*err == cudaSuccess)
     *err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (*err != cudaSuccess) return 0;
-  const int v_tiles = (v + kLmBV - 1) / kLmBV;
-  const long long base =
-      static_cast<long long>(rows) * ((t + kLmBT - 1) / kLmBT);
+  const int bt = body == kTensorCore ? kLmBT : kF32BT;
+  const int bv = body == kTensorCore ? kLmBV : kF32BV;
+  const int v_tiles = (v + bv - 1) / bv;
+  const long long base = static_cast<long long>(rows) * ((t + bt - 1) / bt);
   const long long fill = static_cast<long long>(per_sm) * sms / base;
   const int splits = static_cast<int>(
       fill < 1 ? 1 : (fill > v_tiles ? v_tiles : fill));
   return (v_tiles + splits - 1) / splits;
 }
 
-int lm_splits(int v, int vt_per_split) {
-  return ((v + kLmBV - 1) / kLmBV + vt_per_split - 1) / vt_per_split;
+int splits_of(int body, int v, int vt_per_split) {
+  const int bv = body == kTensorCore ? kLmBV : kF32BV;
+  return ((v + bv - 1) / bv + vt_per_split - 1) / vt_per_split;
+}
+
+long long round256(long long bytes) { return (bytes + 255) / 256 * 256; }
+
+int round8(int x) { return (x + 7) / 8 * 8; }
+
+int round4(int x) { return (x + 3) / 4 * 4; }
+
+// 16-byte copies of the heads in the fp32 body: rows of whole 16-byte
+// chunks, aligned
+bool f32_vec4(const void* heads, int v) {
+  return v % 4 == 0 && reinterpret_cast<uintptr_t>(heads) % 16 == 0;
+}
+
+// The workspace of a tiled body: the three planes of triples, then the
+// features transposed (the fp32 body) or padded (the tensor-core body with
+// a ragged D) and the heads padded (a ragged V), each on a 256-byte
+// boundary.
+struct Workspace {
+  int per, splits;
+  long long triples, feats, heads;  // bytes of each part
+};
+
+Workspace workspace_of(int body, int n, int k, int t, int d, int v,
+                       cudaError_t* err) {
+  Workspace w{};
+  const int rows = n * k;
+  w.per = vt_per_split(body, rows, t, v, err);
+  if (*err != cudaSuccess) return w;
+  w.splits = splits_of(body, v, w.per);
+  w.triples = round256(3LL * sizeof(float) * w.splits * rows * t);
+  if (body == kF32Tiled) w.feats = round256(4LL * n * d * round4(t));
+  if (body == kTensorCore) {
+    if (d % 8) w.feats = round256(2LL * n * t * round8(d));
+    if (v % 8) w.heads = round256(2LL * rows * d * round8(v));
+  }
+  return w;
+}
+
+cudaError_t pad_rows(const void* src, void* dst, long long rows, int cols,
+                     int pitch, cudaStream_t s) {
+  const long long work = rows * (pitch / 8);
+  const long long blocks = (work + 255) / 256;
+  const unsigned grid =
+      static_cast<unsigned>(blocks < 132 * 16 ? (blocks > 0 ? blocks : 1)
+                                              : 132 * 16);
+  head_losses_pad_kernel<<<grid, 256, 0, s>>>(
+      static_cast<const uint16_t*>(src), static_cast<uint16_t*>(dst), rows,
+      cols, pitch);
+  return cudaGetLastError();
 }
 
 // cuTensorMapEncodeTiled, from the driver through the runtime (the library
@@ -758,14 +1174,15 @@ EncodeTiled encode_tiled(cudaError_t* err) {
   return fn;
 }
 
-// A bf16 tensor [outer][mid][inner] as a 3-D map with boxes of (64, box_mid,
-// 1), the 128-byte swizzle and zero fill out of bounds
+// A bf16 tensor [outer][mid][inner] whose rows are `pitch` >= inner values
+// apart, as a 3-D map of extent (inner, mid, outer) with boxes of (64,
+// box_mid, 1), the 128-byte swizzle and zero fill out of bounds
 cudaError_t make_map(EncodeTiled fn, CUtensorMap* map, const void* base,
-                     int inner, int mid, int outer, int box_mid) {
+                     int inner, int pitch, int mid, int outer, int box_mid) {
   const cuuint64_t dims[3] = {static_cast<cuuint64_t>(inner),
                               static_cast<cuuint64_t>(mid),
                               static_cast<cuuint64_t>(outer)};
-  const cuuint64_t strides[2] = {2ull * inner, 2ull * inner * mid};
+  const cuuint64_t strides[2] = {2ull * pitch, 2ull * pitch * mid};
   const cuuint32_t box[3] = {static_cast<cuuint32_t>(kLmBox),
                              static_cast<cuuint32_t>(box_mid), 1};
   const cuuint32_t unit[3] = {1, 1, 1};
@@ -780,67 +1197,163 @@ cudaError_t make_map(EncodeTiled fn, CUtensorMap* map, const void* base,
 int launch_lm(const void* feats, const void* heads, const int32_t* labels,
               float* out, float* ws, int n, int k, int t, int d, int v,
               cudaStream_t s) {
-  if (reinterpret_cast<uintptr_t>(feats) % 16 ||
-      reinterpret_cast<uintptr_t>(heads) % 16)
+  const bool pad_f = d % 8 != 0, pad_h = v % 8 != 0;
+  if ((!pad_f && reinterpret_cast<uintptr_t>(feats) % 16) ||
+      (!pad_h && reinterpret_cast<uintptr_t>(heads) % 16))
     return static_cast<int>(cudaErrorMisalignedAddress);
   if (ws == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   const int rows = n * k;
   cudaError_t err;
-  const int per = lm_vt_per_split(rows, t, v, &err);
+  const Workspace w = workspace_of(kTensorCore, n, k, t, d, v, &err);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int splits = lm_splits(v, per);
   const long long blocks =
-      static_cast<long long>(splits) * rows * ((t + kLmBT - 1) / kLmBT);
+      static_cast<long long>(w.splits) * rows * ((t + kLmBT - 1) / kLmBT);
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  char* base = reinterpret_cast<char*>(ws);
+  const void* fsrc = feats;
+  const void* hsrc = heads;
+  if (pad_f) {
+    fsrc = base + w.triples;
+    err = pad_rows(feats, base + w.triples, static_cast<long long>(n) * t, d,
+                   round8(d), s);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  if (pad_h) {
+    hsrc = base + w.triples + w.feats;
+    err = pad_rows(heads, base + w.triples + w.feats,
+                   static_cast<long long>(rows) * d, v, round8(v), s);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
   const EncodeTiled fn = encode_tiled(&err);
   if (err != cudaSuccess) return static_cast<int>(err);
   CUtensorMap fmap, hmap;
-  err = make_map(fn, &fmap, feats, d, t, n, kLmBT);
-  if (err == cudaSuccess) err = make_map(fn, &hmap, heads, v, d, rows, kLmBD);
+  err = make_map(fn, &fmap, fsrc, d, pad_f ? round8(d) : d, t, n, kLmBT);
+  if (err == cudaSuccess)
+    err = make_map(fn, &hmap, hsrc, v, pad_h ? round8(v) : v, d, rows, kLmBD);
   if (err != cudaSuccess) return static_cast<int>(err);
   head_losses_lm_kernel<<<static_cast<unsigned>(blocks), kLmThreads,
                           kLmSmemBytes, s>>>(fmap, hmap, labels, ws, k, t, d,
-                                             v, rows, per);
+                                             v, rows, w.per);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   head_losses_lm_merge<<<rows, kMergeThreads, 0, s>>>(ws, labels, out, k, t,
-                                                      rows, splits);
+                                                      rows, w.splits);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch_f32(const void* feats, const void* heads, const int32_t* labels,
+               float* out, float* ws, int n, int k, int t, int d, int v,
+               cudaStream_t s) {
+  if (ws == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  const int rows = n * k;
+  const bool vec4 = f32_vec4(heads, v);
+  cudaError_t err;
+  const Workspace w = workspace_of(kF32Tiled, n, k, t, d, v, &err);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (!vec4) {
+    body_blocks_per_sm(kF32Tiled, false, &err);  // sets its smem attribute
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const long long blocks =
+      static_cast<long long>(w.splits) * rows * ((t + kF32BT - 1) / kF32BT);
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  if (n > 65535) return static_cast<int>(cudaErrorInvalidValue);  // grid.z
+  const int tp = round4(t);
+  float* ft = reinterpret_cast<float*>(reinterpret_cast<char*>(ws) +
+                                       w.triples);
+  const dim3 tgrid((tp + 31) / 32, (d + 31) / 32, n);
+  head_losses_f32_transpose_kernel<<<tgrid, dim3(32, 8), 0, s>>>(
+      static_cast<const float*>(feats), ft, t, d, tp);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const float* h = static_cast<const float*>(heads);
+  if (vec4)
+    head_losses_f32_kernel<4><<<static_cast<unsigned>(blocks), kF32Threads,
+                                kF32SmemBytes, s>>>(ft, h, labels, ws, k, t,
+                                                    tp, d, v, rows, w.per);
+  else
+    head_losses_f32_kernel<1><<<static_cast<unsigned>(blocks), kF32Threads,
+                                kF32SmemBytes, s>>>(ft, h, labels, ws, k, t,
+                                                    tp, d, v, rows, w.per);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  head_losses_lm_merge<<<rows, kMergeThreads, 0, s>>>(ws, labels, out, k, t,
+                                                      rows, w.splits);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// Bytes of the workspace hs_head_losses needs for this input (0 for the
-// FMA body), or -1 with the CUDA error unreadable here: a later launch
-// reports it.
-extern "C" long long hs_workspace_bytes(int n, int k, int t, int d, int v,
-                                        int dtype) {
-  if (!lm_body(t, d, v, dtype) || n * k == 0) return 0;
-  cudaError_t err;
-  const int per = lm_vt_per_split(n * k, t, v, &err);
-  if (err != cudaSuccess) return -1;
-  return 3LL * sizeof(float) * lm_splits(v, per) * n * k * t;
+// The body hs_head_losses runs for this input: 0 = FMA, 1 = fp32 tiled,
+// 2 = tensor cores (ops.py::body_for gives the same answer).
+extern "C" int hs_body(int n, int k, int t, int d, int v, int dtype) {
+  (void)n;
+  (void)k;
+  return body_for(t, d, v, dtype);
 }
 
-// dtype: 0 = fp32, 1 = bf16. The body is picked by lm_body: the LM regime
-// takes `workspace` (hs_workspace_bytes of it) and launches twice, the FMA
-// body ignores it and launches once. Launches on `stream`, does not
-// synchronise, and returns cudaGetLastError() (0 when the launches were
-// accepted).
+// Bytes of the workspace that `body` needs for this input (0 for the FMA
+// body), or -1 with the CUDA error unreadable here: a later launch reports
+// it.
+extern "C" long long hs_workspace_bytes_for(int body, int n, int k, int t,
+                                            int d, int v, int dtype) {
+  if (body == kFma || n * k == 0 || !body_takes(body, t, d, v, dtype))
+    return 0;
+  cudaError_t err;
+  const Workspace w = workspace_of(body, n, k, t, d, v, &err);
+  if (err != cudaSuccess) return -1;
+  return w.triples + w.feats + w.heads;
+}
+
+extern "C" long long hs_workspace_bytes(int n, int k, int t, int d, int v,
+                                        int dtype) {
+  return hs_workspace_bytes_for(body_for(t, d, v, dtype), n, k, t, d, v,
+                                dtype);
+}
+
+// dtype: 0 = fp32, 1 = bf16. Runs `body` (which must take the input, else
+// cudaErrorInvalidValue): the tiled bodies take `workspace`
+// (hs_workspace_bytes_for of it) and launch twice, or three or four times
+// where the tensor-core body pads D or V; the FMA body ignores it and
+// launches once. Launches on `stream`, does not synchronise, and returns
+// cudaGetLastError() (0 when the launches were accepted).
+extern "C" int hs_head_losses_for(int body, const void* feats,
+                                  const void* heads, const void* labels,
+                                  void* out, void* workspace, int n, int k,
+                                  int t, int d, int v, int dtype,
+                                  void* stream) {
+  if (!body_takes(body, t, d, v, dtype))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int32_t* lab = static_cast<const int32_t*>(labels);
+  float* o = static_cast<float*>(out);
+  float* ws = static_cast<float*>(workspace);
+  if (body == kTensorCore)
+    return launch_lm(feats, heads, lab, o, ws, n, k, t, d, v, s);
+  if (body == kF32Tiled)
+    return launch_f32(feats, heads, lab, o, ws, n, k, t, d, v, s);
+  if (dtype == 0) return launch<float>(feats, heads, lab, o, n, k, t, d, v, s);
+  return launch<__nv_bfloat16>(feats, heads, lab, o, n, k, t, d, v, s);
+}
+
+// hs_head_losses_for with the body hs_body picks
 extern "C" int hs_head_losses(const void* feats, const void* heads,
                               const void* labels, void* out, void* workspace,
                               int n, int k, int t, int d, int v, int dtype,
                               void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int32_t* lab = static_cast<const int32_t*>(labels);
-  float* o = static_cast<float*>(out);
-  if (lm_body(t, d, v, dtype))
-    return launch_lm(feats, heads, lab, o, static_cast<float*>(workspace), n,
-                     k, t, d, v, s);
-  if (dtype == 0) return launch<float>(feats, heads, lab, o, n, k, t, d, v, s);
-  if (dtype == 1)
-    return launch<__nv_bfloat16>(feats, heads, lab, o, n, k, t, d, v, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return hs_head_losses_for(body_for(t, d, v, dtype), feats, heads, labels,
+                            out, workspace, n, k, t, d, v, dtype, stream);
+}
+
+// The tensor-core body's copy of a ragged D or V alone, for timing it:
+// dst [rows][pitch] bf16 = src [rows][cols], the pad zeroed.
+extern "C" int hs_pad_rows(const void* src, void* dst, long long rows,
+                           int cols, int pitch, void* stream) {
+  if (pitch % 8 || pitch < cols ||
+      reinterpret_cast<uintptr_t>(dst) % 16)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(
+      pad_rows(src, dst, rows, cols, pitch, static_cast<cudaStream_t>(stream)));
 }
 
 extern "C" const char* hs_error_string(int code) {

@@ -315,23 +315,28 @@ def _lm_split(logits, y, vt0, vt1):
     return m, s, gold
 
 
-def _emulate_lm_body(feats, heads, labels, splits):
+def _emulate_lm_body(feats, heads, labels, splits, logits_fn=None,
+                     split_fn=None, bv=LM_BV):
     """The tensor-core body in numpy, in its order, with V cut into (at
     most) ``splits`` ranges of whole vocab tiles as the launch cuts it
     (the card picks the count from its SMs): each split's triples, then the
     merge kernel: per token the splits in index order (log-sum-exp pairs,
     gold logits added), ``max + log(sum) - gold`` summed by thread
     ``token % 256`` in token order, the 256 partial sums added in a
-    halving tree, divided by ``max(valid, 1)``."""
+    halving tree, divided by ``max(valid, 1)``. ``logits_fn``, ``split_fn``
+    and ``bv`` (a vocab tile's columns) put another tiled body's products
+    and fold in place of this one's (the fp32 body shares the merge)."""
+    logits_fn = logits_fn or _lm_logits
+    split_fn = split_fn or _lm_split
     n, t, _ = feats.shape
     k, v = heads.shape[1], heads.shape[3]
-    v_tiles = -(-v // LM_BV)
+    v_tiles = -(-v // bv)
     per = -(-v_tiles // splits)
     out = np.zeros((n, k), np.float32)
     for node, head in np.ndindex(n, k):
         y = labels[node]
-        logits = _lm_logits(feats[node], heads[node, head])
-        trip = [_lm_split(logits, y, vt0, min(v_tiles, vt0 + per))
+        logits = logits_fn(feats[node], heads[node, head])
+        trip = [split_fn(logits, y, vt0, min(v_tiles, vt0 + per))
                 for vt0 in range(0, v_tiles, per)]
         m = np.full(t, -np.inf, np.float32)
         s = np.zeros(t, np.float32)

@@ -4,14 +4,19 @@ Needs an NVIDIA card and ``nvcc``; elsewhere every test skips with the
 reason. This file imports no JAX, so it also runs where only PyTorch is
 installed. Tolerance: 2e-5 absolute and relative — kernel and plain
 version read the same values and both accumulate in fp32, so they differ
-only in summation order. Argmin must agree exactly. bf16 inputs with D and
-V multiples of 8 (and T > 0) take the tensor-core body (the LM regime),
-every other input the FMA body. So in bf16 the tensor-core body runs the
-first three SHAPES, EDGE_SHAPES' (2, 2, 8, 32, 16) and (2, 3, 1, 64, 24)
-(one 128 × 256 tile, mostly masked) and every LM_SHAPES case; the FMA body
-runs bf16 at the other SHAPES and EDGE_SHAPES (D 1, 31, 33, 65, 70 or 513,
-or V 1, 10, 17, 41 or 45) and in the bf16 identical-heads case; fp32 always runs
-the FMA body.
+only in summation order. Argmin must agree exactly. The kernel has three
+bodies (``ops.body_for``): bf16 with D and V multiples of 8, or with V of
+at least 256 (a ragged D or V copied into padded rows first), takes the
+tensor-core body; fp32 with V of at least 128 the fp32 tiled body; every
+other input the FMA body. So in bf16 the tensor-core body runs the first
+three SHAPES, EDGE_SHAPES' (2, 2, 8, 32, 16), (3, 1, 3, 33, 1024) (D
+padded) and (2, 3, 1, 64, 24) (one 128 × 256 tile, mostly masked), every
+LM_SHAPES case and every PADDED_SHAPES case; the FMA body runs bf16 at the
+other SHAPES and EDGE_SHAPES (D 1, 31, 65, 70 or 513 with V under 256, or
+V 1, 10, 17, 41 or 45) and in the bf16 identical-heads case. fp32 runs the
+tiled body at the first three SHAPES, EDGE_SHAPES' (3, 1, 3, 33, 1024) and
+every F32_SHAPES case, and the FMA body at the CNN shapes (V 10 and 41)
+and the other EDGE_SHAPES.
 """
 from __future__ import annotations
 
@@ -51,9 +56,28 @@ LM_SHAPES = [(4, 1, 1024, 2048, 128256), (2, 2, 1000, 2048, 1000),
              (2, 2, 4096, 32, 8), (3, 1, 1, 8, 8), (3, 1, 127, 64, 248),
              (3, 3, 128, 72, 256), (5, 1, 129, 64, 264),
              (3, 3, 129, 8, 1032)]
+# the fp32 tiled body's edges (fp32 only): T around its 128-token tiles
+# (1, 127, 129), D around its 16-row chunks and off its 16-byte copies (16,
+# 17, 33, 5), V around its 128-column tiles (128, 129, 255, 383) and in
+# several V-splits, n·K odd; then a four-card FACADE rank's step 2c (n·K
+# 2, T 512, D 2048, V 128,256). The last node's labels are all excluded.
+F32_SHAPES = [(1, 2, 1, 16, 128), (3, 1, 127, 17, 129),
+              (3, 3, 129, 33, 255), (2, 2, 200, 5, 383),
+              (5, 1, 130, 64, 1000), (2, 1, 512, 2048, 128256)]
+# the tensor-core body on a ragged V or D (bf16 only): V 249, 257, 1001 and
+# 4,099 (one to 17 vocab tiles, the last ragged), D 36, 70 and 2,044 (off
+# the 8-value rows); hymba-1.5b's LM FACADE step 2c (V 32,001) and
+# whisper-tiny's vocabulary (V 51,865). The last node's labels are all
+# excluded.
+PADDED_SHAPES = [(1, 2, 130, 64, 249), (3, 1, 129, 36, 1001),
+                 (3, 1, 64, 24, 257), (2, 2, 127, 70, 1001),
+                 (2, 1, 300, 2044, 4099), (4, 1, 1024, 1600, 32001),
+                 (2, 1, 256, 384, 51865)]
 CASES = [(dt, shape) for dt in (torch.float32, torch.bfloat16)
          for shape in SHAPES + EDGE_SHAPES] + \
-    [(torch.bfloat16, shape) for shape in LM_SHAPES]
+    [(torch.bfloat16, shape) for shape in LM_SHAPES] + \
+    [(torch.float32, shape) for shape in F32_SHAPES] + \
+    [(torch.bfloat16, shape) for shape in PADDED_SHAPES]
 DTYPE_IDS = {torch.float32: "fp32", torch.bfloat16: "bf16"}
 TOL = 2e-5
 
@@ -88,7 +112,7 @@ def _no_tf32():
                          ids=[f"{DTYPE_IDS[dt]}-{shape}"
                               for dt, shape in CASES])
 def test_kernel_matches_plain_version(cuda_device, shape, dtype):
-    lm = shape in LM_SHAPES
+    lm = shape in LM_SHAPES + F32_SHAPES + PADDED_SHAPES
     feats, heads, labels = _case(*shape, dtype, cuda_device,
                                  draw_on=cuda_device if lm else None)
     if shape in EDGE_SHAPES or lm:
@@ -112,10 +136,15 @@ def test_kernel_matches_plain_version(cuda_device, shape, dtype):
     (torch.bfloat16, (32, 1, 8, 513, 10)),
     (torch.bfloat16, (2, 1, 1024, 2048, 128256)),
     (torch.bfloat16, (3, 1, 129, 72, 1032)),
-], ids=["fp32", "bf16", "bf16-lm", "bf16-lm-edge"])
+    (torch.float32, (2, 1, 1024, 2048, 128256)),
+    (torch.float32, (3, 1, 129, 17, 383)),
+    (torch.bfloat16, (2, 1, 1024, 1600, 32001)),
+    (torch.bfloat16, (3, 1, 129, 70, 1001)),
+], ids=["fp32", "bf16", "bf16-lm", "bf16-lm-edge", "fp32-lm", "fp32-edge",
+        "bf16-padded", "bf16-padded-edge"])
 def test_identical_heads_give_bit_identical_losses(cuda_device, dtype,
                                                    shape):
-    lm = shape[-1] > 1024
+    lm = shape[-1] > 300
     feats, heads, labels = _case(*shape, dtype, cuda_device,
                                  draw_on=cuda_device if lm else None)
     got = head_losses(feats, heads.repeat(1, 2, 1, 1).contiguous(), labels)
@@ -149,3 +178,56 @@ def test_kernel_refuses_what_it_does_not_take(cuda_device):
     shifted.copy_(heads)
     with pytest.raises(RuntimeError, match="misaligned"):
         head_losses(feats, shifted, labels)
+
+
+@requires_cuda
+@pytest.mark.parametrize("dtype,shape,body", [
+    (torch.float32, (1, 5, 128, 128, 1024), "fma"),
+    (torch.float32, (2, 2, 130, 33, 300), "fma"),
+    (torch.float32, (4, 2, 8, 513, 10), "fp32_tiled"),
+    (torch.bfloat16, (2, 2, 130, 36, 300), "fma"),
+    (torch.bfloat16, (4, 2, 8, 513, 10), "tensor_core"),
+], ids=["fp32-hs2-fma", "fp32-ragged-fma", "fp32-cnn-tiled",
+        "bf16-ragged-fma", "bf16-cnn-tc"])
+def test_a_forced_body_matches_plain_version(cuda_device, dtype, shape,
+                                             body):
+    """Each body on inputs the rule gives another (the timings' forced
+    calls): the same function within the tolerance."""
+    feats, heads, labels = _case(*shape, dtype, cuda_device, seed=3)
+    got = head_losses(feats, heads, labels, body=body)
+    torch.cuda.synchronize()
+    want = head_losses_ref(feats, heads, labels)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               rtol=TOL, atol=TOL)
+    assert torch.equal(got.argmin(1), want.argmin(1))
+    with pytest.raises(ValueError, match="does not take"):
+        head_losses(feats, heads, labels,
+                    body="tensor_core" if dtype == torch.float32
+                    else "fp32_tiled")
+
+
+@requires_cuda
+@pytest.mark.parametrize("dtype,shape", [
+    (torch.float32, (2, 2, 130, 64, 300)),
+    (torch.bfloat16, (2, 2, 130, 64, 249)),
+], ids=["fp32-4-byte-copies", "bf16-padded"])
+def test_wider_paths_take_inputs_off_16_byte_alignment(cuda_device, dtype,
+                                                       shape):
+    """Features and heads one element off 16-byte alignment: the fp32 body
+    falls back to 4-byte copies, and the padded copy of a ragged V reads any
+    address (the features stay aligned: D 64 is copied by no one)."""
+    feats, heads, labels = _case(*shape, dtype, cuda_device, seed=4)
+    if dtype == torch.float32:
+        shifted = torch.empty(feats.numel() + 1, dtype=dtype,
+                              device=cuda_device)[1:].view(feats.shape)
+        shifted.copy_(feats)
+        feats = shifted
+    shifted = torch.empty(heads.numel() + 1, dtype=dtype,
+                          device=cuda_device)[1:].view(heads.shape)
+    shifted.copy_(heads)
+    got = head_losses(feats, shifted, labels)
+    torch.cuda.synchronize()
+    want = head_losses_ref(feats, shifted, labels)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               rtol=TOL, atol=TOL)
+    assert torch.equal(got.argmin(1), want.argmin(1))

@@ -1,0 +1,168 @@
+#!/usr/bin/env python3
+"""Time the head-select kernel's fp32 tiled body against builds of it with
+other tile constants, on one card.
+
+    python3 tools/hs_f32_tune.py [--shape N K T D V] [--out FILE]
+
+Builds ``csrc/head_select.cu`` once for each (D chunk, blocks an SM,
+vocab tile) of :data:`VARIANTS`, put in place of the source's ``kF32BK``,
+``kF32Blocks`` and ``kF32BV`` (the first is the source as it stands; a
+thread holds 8 tokens and ``kF32BV / 16`` columns), with the port's
+``nvcc`` flags; holds each against the plain version (``chip_smoke``'s
+``HS_TOL``, equal argmins) and times each with CUDA graphs at ``--shape``
+(default: a four-card FACADE rank's step 2c at the reference's B 8 of S
+256, n·K 2, T 2048, D 2048, V 128,256, fp32), in the order of
+:data:`VARIANTS` and back, ``--rounds`` times. Beside them: the fp32
+``torch.matmul`` alone and the library call (``matmul`` and
+``cross_entropy``), the bound, and the SM clock and power draw that
+``nvidia-smi`` reads while the source's build runs for ``--sustain``
+seconds (``hs_lm_ablate.sustained``). Prints the card's name and power
+limit, then one JSON object (also written to ``--out``).
+"""
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import pathlib
+import statistics
+import subprocess
+import sys
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+sys.path.insert(0, str(ROOT / "tools"))
+
+import torch  # noqa: E402
+
+import chip_smoke as cs  # noqa: E402
+from hs_lm_ablate import sustained  # noqa: E402
+from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels.head_select.ops import BODIES  # noqa: E402
+
+# (kF32BK, kF32Blocks, kF32BV): the source's own first
+VARIANTS = ((16, 2, 128), (32, 2, 128), (16, 1, 256), (8, 1, 256),
+            (32, 1, 256))
+F32_TILED = BODIES.index("fp32_tiled")
+
+
+def variant_source(bk: int, blocks: int, bv: int) -> str:
+    src = (build.CSRC / "head_select.cu").read_text()
+    for name, value in (("kF32BK", bk), ("kF32Blocks", blocks),
+                        ("kF32BV", bv)):
+        line = next(ln for ln in src.splitlines()
+                    if ln.startswith(f"constexpr int {name} = "))
+        src = src.replace(line, f"constexpr int {name} = {value};")
+    return src
+
+
+def build_variants(out_dir: pathlib.Path) -> dict:
+    """All variants compiled together; {(bk, blocks, bv): (library,
+    ptxas lines of the fp32 kernel)}."""
+    out_dir.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for var in VARIANTS:
+        src = out_dir / ("hs_f32_bk{}_b{}_bv{}.cu".format(*var))
+        src.write_text(variant_source(*var))
+        lib = src.with_suffix(".so")
+        procs[var] = (lib, subprocess.Popen(
+            [build.nvcc(), *build.NVCC_FLAGS, "-o", str(lib), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    libs = {}
+    for var, (path, proc) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed on variant {var}:\n{log}")
+        lib = ctypes.CDLL(str(path))
+        lib.hs_head_losses_for.argtypes = (
+            [ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+            + [ctypes.c_void_p])
+        lib.hs_workspace_bytes_for.argtypes = [ctypes.c_int] * 7
+        lib.hs_workspace_bytes_for.restype = ctypes.c_longlong
+        lines, keep = log.splitlines(), []
+        for i, line in enumerate(lines):
+            if "Compiling entry function" in line and "f32_kernel" in line:
+                keep += [ln.strip() for ln in lines[i + 1:i + 4]]
+        libs[var] = (lib, keep)
+    return libs
+
+
+def label(var) -> str:
+    return "bk{}_b{}_bv{}".format(*var)
+
+
+def call(lib, feats, heads, labels, out, ws):
+    n, k, d, v = heads.shape
+    rc = lib.hs_head_losses_for(
+        F32_TILED, feats.data_ptr(), heads.data_ptr(), labels.data_ptr(),
+        out.data_ptr(), ws.data_ptr(), n, k, feats.shape[1], d, v, 0,
+        torch.cuda.current_stream().cuda_stream)
+    if rc:
+        raise RuntimeError(f"hs_head_losses_for returned {rc}")
+    return out
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--shape", type=int, nargs=5,
+                    default=(2, 1, 2048, 2048, 128256))
+    ap.add_argument("--rounds", type=int, default=1)
+    ap.add_argument("--sustain", type=float, default=3.0)
+    ap.add_argument("--out", type=pathlib.Path)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("hs_f32_tune: CUDA is not available", file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    print(smi, flush=True)
+    libs = build_variants(build.BUILD_DIR.parent / "hs_f32_tune")
+    shape = tuple(args.shape)
+    feats, heads, labels = cs.hs_lm_case(*shape, seed=99, drop=0.0,
+                                         dtype=torch.float32)
+    want = cs.head_losses_ref(feats, heads, labels)
+    out = torch.empty_like(want)
+    n, k, t, d, v = shape
+    bound = cs.hs_bound(feats, heads, labels)
+    rec = {"nvidia_smi": smi, "device": torch.cuda.get_device_name(0),
+           "shape": list(shape), "bound_ms": bound[0], "bound_by": bound[1],
+           "variants": {}}
+    ws = {}
+    for var, (lib, ptxas) in libs.items():
+        ws[var] = torch.empty(lib.hs_workspace_bytes_for(
+            F32_TILED, n, k, t, d, v, 0) // 4, device="cuda")
+        got = call(lib, feats, heads, labels, out, ws[var])
+        torch.cuda.synchronize()
+        check = cs.hs_check(f"hs_f32_tune {var}", got, want)
+        rec["variants"][label(var)] = {
+            "max_rel_err": check["max_rel_err"], "ptxas": ptxas, "ms": []}
+    order = (list(VARIANTS) + list(reversed(VARIANTS))) * args.rounds
+    for var in order:
+        lib = libs[var][0]
+        ms = cs.graph_ms(lambda: call(lib, feats, heads, labels, out,
+                                      ws[var]), calls=2, reps=3)
+        rec["variants"][label(var)]["ms"].append(ms)
+        print(var, ms, flush=True)
+    for entry in rec["variants"].values():
+        entry["median_ms"] = statistics.median(entry["ms"])
+    rec["matmul_ms"] = cs.graph_ms(
+        lambda: torch.matmul(feats[:, None], heads), calls=2, reps=3)
+    rec["library_ms"] = cs.graph_ms(
+        lambda: cs.hs_library(feats, heads, labels), calls=2, reps=3)
+    lib = libs[VARIANTS[0]][0]
+    rec["sustained_source"] = sustained(
+        lambda: call(lib, feats, heads, labels, out, ws[VARIANTS[0]]),
+        args.sustain)
+    rec["sustained_matmul"] = sustained(
+        lambda: torch.matmul(feats[:, None], heads), args.sustain)
+    if args.out:
+        args.out.parent.mkdir(parents=True, exist_ok=True)
+        args.out.write_text(json.dumps(rec, indent=1))
+    print(json.dumps(rec), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

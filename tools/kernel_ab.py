@@ -27,7 +27,9 @@ times the current kernels against the PyTorch call that computes the
 same function (``chip_smoke.py``'s yardsticks, which the port never
 calls), in the order library, kernel, kernel, library, beside the bound
 worked out from the shapes (``chip_smoke.hs_bound``, ``fa_bound``) and
-the plain version's time, at the shapes of :data:`LIBRARY_SHAPES`.
+the plain version's time, at the shapes of :data:`LIBRARY_SHAPES`; K1
+there also on its FMA body where the dispatch rule gives another one
+(``head_losses(body="fma")``) and that body still finishes.
 """
 from __future__ import annotations
 
@@ -47,21 +49,34 @@ import chip_smoke as cs  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 
 
-# (label, kernel, shape) timed against the library call: K1's FMA body
-# at the reference tests' HS_SHAPES[2] (K 5, T 128, D 128, V 1024, one
-# node), at a rank's n 8 of the node mesh's FACADE round on four cards
-# (32 nodes over 4 ranks: n 8, K 2, T 8, D 513, V 10) and at a rank's
-# step 2c in tools/lm_mesh_run.py's four-card FACADE step (one node's k 2
-# heads as n*K 2 rows of K' 1, T = 2 sequences of 256 tokens, D 2048,
-# V 128,256, fp32); K2 at the prefill_32k length on one KV group (B 1,
-# S 32,768, Hq 4, Hkv 1, D 64, bf16, causal)
-LIBRARY_SHAPES = (("head_select_hs2", "head_select", (1, 5, 128, 128, 1024)),
-                  ("head_select_node_rank", "head_select",
-                   (8, 2, 8, 513, 10)),
-                  ("head_select_facade_pod_rank", "head_select",
-                   (2, 1, 512, 2048, 128256)),
-                  ("flash_attention_steps", "flash_attention",
-                   (1, 4, 1, 32768, 64)))
+# (label, kernel, shape, dtype, the FMA body's timing) timed against the
+# library call: K1 at the reference tests' HS_SHAPES[2] (K 5, T 128, D
+# 128, V 1024, one node; the fp32 tiled body, beside the FMA body), at a
+# rank's n 8 of the node mesh's FACADE round on four cards (32 nodes over
+# 4 ranks: n 8, K 2, T 8, D 513, V 10; the FMA body), at a rank's step 2c
+# in tools/lm_mesh_run.py's four-card FACADE step (one node's k 2 heads as
+# n*K 2 rows of K' 1, T = 2 sequences of 256 tokens, D 2048, V 128,256,
+# fp32) and at the one-card fp32 llama FACADE round's (n·K 4 as 1 node of
+# K 4, T 1024; the fp32 tiled body), and at hymba-1.5b's LM FACADE step 2c
+# (n·K 4, T 1024, D 1600, V 32,001, bf16; the tensor cores through the
+# padded copy); K2 at the prefill_32k length on one KV group (B 1, S
+# 32,768, Hq 4, Hkv 1, D 64, bf16, causal). The FMA body, where the rule
+# gives another body, is timed in turns with it ("graph") or, where it
+# takes seconds a call, once by CUDA events ("once"), or not at all (None)
+# where it would take tens of seconds.
+LIBRARY_SHAPES = (
+    ("head_select_hs2", "head_select", (1, 5, 128, 128, 1024),
+     torch.float32, "graph"),
+    ("head_select_node_rank", "head_select", (8, 2, 8, 513, 10),
+     torch.float32, None),
+    ("head_select_facade_pod_rank", "head_select", (2, 1, 512, 2048, 128256),
+     torch.float32, "once"),
+    ("head_select_f32_round", "head_select", (1, 4, 1024, 2048, 128256),
+     torch.float32, None),
+    ("head_select_hymba", "head_select", (4, 1, 1024, 1600, 32001),
+     torch.bfloat16, "once"),
+    ("flash_attention_steps", "flash_attention", (1, 4, 1, 32768, 64),
+     torch.bfloat16, None))
 
 
 def load(src: pathlib.Path, out: pathlib.Path) -> ctypes.CDLL:
@@ -120,23 +135,28 @@ def wkv_call(lib, r, k, v, w, u, y, s_out):
     return y, s_out
 
 
-def library_inputs(kernel, shape):
+def library_inputs(kernel, shape, dtype):
     """Inputs at ``shape`` and (the kernel's call, the library call, the
-    plain version, the bound and what bounds it)."""
+    plain version, the FMA body's call, the bound and what bounds it);
+    K1's inputs drawn on the card (``chip_smoke.hs_lm_case``), its library
+    call an fp32 ``matmul`` and ``cross_entropy`` in fp32 and per (node,
+    head) in bf16."""
     if kernel == "head_select":
-        n, k, t, d, v = shape
-        feats, heads, labels = cs.hs_case(*shape, torch.float32, seed=97)
+        feats, heads, labels = cs.hs_lm_case(*shape, seed=97, dtype=dtype)
         bound_ms, bound_by, _, _ = cs.hs_bound(feats, heads, labels)
+        library = (cs.hs_library if dtype == torch.float32
+                   else cs.hs_lm_library)
         return ((lambda: cs.head_losses(feats, heads, labels)),
-                (lambda: cs.hs_library(feats, heads, labels)),
+                (lambda: library(feats, heads, labels)),
                 (lambda: cs.head_losses_ref(feats, heads, labels)),
-                bound_ms, bound_by, "fp32")
-    q, k, v = cs.fa_inputs(*shape, torch.bfloat16, seed=97)
+                (lambda: cs.head_losses(feats, heads, labels, body="fma")),
+                bound_ms, bound_by)
+    q, k, v = cs.fa_inputs(*shape, dtype, seed=97)
     bound_ms, bound_by, _, _ = cs.fa_bound(q, k, v)
     return ((lambda: cs.flash_attention(q, k, v, causal=True)),
             (lambda: cs.fa_library(q, k, v)),
             (lambda: cs.fa_plain(q.float(), k.float(), v.float())),
-            bound_ms, bound_by, "bf16")
+            None, bound_ms, bound_by)
 
 
 def library_main(out_path) -> dict:
@@ -144,10 +164,11 @@ def library_main(out_path) -> dict:
     version, then it and its library call timed in turns (CUDA graphs)
     and the plain version once (CUDA events)."""
     build.build("head_select", "flash_attention")
-    rec = {"order": ("library", "kernel", "kernel", "library")}
-    for label, kernel, shape in LIBRARY_SHAPES:
-        call, library, plain, bound_ms, bound_by, dtype = library_inputs(
-            kernel, shape)
+    rec = {"order": ("library", "kernel", "kernel", "library"),
+           "fma_order": ("fma", "kernel", "kernel", "fma")}
+    for label, kernel, shape, dtype, fma_timing in LIBRARY_SHAPES:
+        call, library, plain, fma, bound_ms, bound_by = library_inputs(
+            kernel, shape, dtype)
         got, want = call(), plain()
         torch.cuda.synchronize()
         tol = ((cs.HS_TOL,) if kernel == "head_select" else
@@ -156,18 +177,26 @@ def library_main(out_path) -> dict:
             label, got, want, *tol)
         del got, want
         big = shape[-1] * shape[-2] > 1 << 26 or shape[3] > 1 << 14
-        t = {"shape": list(shape), "dtype": dtype,
+        t = {"shape": list(shape), "dtype": str(dtype),
              "max_abs_err": check["max_abs_err"], "bound_ms": bound_ms,
              "bound_by": bound_by, "ms": [], "library_ms": []}
+        if kernel == "head_select":
+            t["body"] = cs.hs_ops.body_for(*shape, dtype)
         for which in rec["order"]:
             fn = library if which == "library" else call
             t["library_ms" if which == "library" else "ms"].append(
                 cs.graph_ms(fn, calls=1 if big else 20,
                             reps=3 if big else 7))
+        if fma_timing == "graph":
+            t["fma_ms"] = [cs.graph_ms(fma if which == "fma" else call,
+                                       calls=20, reps=7)
+                           for which in rec["fma_order"]]
+        elif fma_timing == "once":
+            t["fma_ms"] = cs.event_ms(fma)
         t["plain_ms"] = cs.event_ms(plain)
         rec[label] = t
         print(label, json.dumps(t), flush=True)
-        del call, library, plain
+        del call, library, plain, fma
         torch.cuda.empty_cache()
     return rec
 

@@ -110,11 +110,12 @@ RWKV_BATCH = 2
 LLAVA_LAYERS = 16
 GEN = 32
 STATE_TOL = 1e-5        # FACADE's new state, of each leaf's largest value
-# FACADE's step: a node's batch and length. One card also holds the
+# FACADE's step: a node's batch and length, cut from the reference's B 16
+# of S 4096 (src/repro/launch/steps.py:220): one card also holds the
 # mesh=None step in fp32 (chip_smoke.py's steps_phase peaks at 69.77 GB
-# on one H100 at B 4 of S 4096 in bf16), and in fp32 step 2c runs K1's
-# FMA body, which takes 24.8 s a rank's call at T 2048 on an H100
-# (tools/kernel_ab.py --library): T 512 a node
+# on one H100 at B 4 of S 4096 in bf16). Step 2c runs K1's fp32 tiled
+# body (K1's FMA body, which it ran before, took 24.8 s a rank's call at
+# T 2048; tools/kernel_ab.py --library): T 512 a node
 FACADE = dict(n_nodes=2, batch_per_node=2, seq=256, head_jitter=0.1)
 # hymba-1.5b's prefill: chip_smoke's serving batch and prompt
 HYMBA = dict(batch=4, seq=512)
@@ -606,7 +607,10 @@ def facade_pod(mesh, rank, world) -> dict | None:
     """llama3.2-1b's FACADE step on the multi-pod layout against
     mesh=None on rank 0 (module docstring, 4)."""
     cfg = get_config("llama3.2-1b").replace(dtype="float32")
-    k1 = (cs.K1_KERNEL,)
+    k1_name = cs.K1_BODY_KERNEL[cs.hs_ops.body_for(
+        1, 1, FACADE["batch_per_node"] * FACADE["seq"], cfg.d_model,
+        cfg.vocab_size, cfg.dt)]
+    k1 = (k1_name,)
     case, out = facade_step(mesh, cfg)                  # warm-up
     del out
     torch.cuda.synchronize()
@@ -629,7 +633,7 @@ def facade_pod(mesh, rank, world) -> dict | None:
     mine = {"launches": counts, "step_s": step_s, "peak_bytes": peak,
             "profiled": {k: prof["kernels"][k][0] for k in
                          k1 + cs.FA_KERNELS},
-            "k1_device_s": prof["kernels"][cs.K1_KERNEL][1],
+            "k1_device_s": prof["kernels"][k1_name][1],
             "nccl_kernels": nccl_events, "nccl_s": nccl_s,
             "device_busy_s": prof["device_busy_s"],
             "nccl_share_of_busy": (None if not prof["device_busy_s"] else
@@ -679,7 +683,7 @@ def facade_pod(mesh, rank, world) -> dict | None:
                      and one_counts["flash_attention"] ==
                      cfg.n_layers * nodes
                      and all(r["launches"]["head_losses"] == 1
-                             and r["profiled"][cs.K1_KERNEL] == 1
+                             and r["profiled"][k1_name] == 1
                              and r["launches"]["flash_attention"] == n_fa
                              and sum(r["profiled"][k] for k in
                                      cs.FA_KERNELS) == n_fa
