@@ -87,9 +87,20 @@ failure raises and exits non-zero, before the last line is printed):
      chunks, strong and weak decay, B * H = 264 blocks), the RWKV FACADE
      round's shape (B 4, S 256, H 32, hd 64) and rwkv6-1.6b's serving
      shape (B 4, S 512), tolerance 1e-5 on y and on the final state; no
-     single PyTorch call computes it; timed at both shapes, and one
-     ``wkv_train`` backward (the plain recurrence, eager) timed at the
-     round's;
+     single PyTorch call computes it; timed at both shapes;
+   - wkv's backward kernel (``wkv_backward``, ``wkv_backward_phase``) at
+     ``RW_BWD_CASES`` (the round's shape, S 1, S 33 at hd 64 and 32,
+     ragged last chunks at S 100, w near 0 and near 1), with y's gradient
+     alone and with the final state's: dr, dk, dv, dw and du against a
+     float64 witness (the plain loop in float64 on the same inputs),
+     each within ``RW_BWD_FACTOR`` times the plain fp32 loop's own
+     distance from it (or ``RW_BWD_FLOOR``) and within 1e-5, relative to
+     the leaf's largest |gradient|, the same bits twice, and the kernel's
+     order in plain PyTorch (``wkv_backward_scan``) within 1e-5 too;
+     timed at the round's shape beside its bound and the plain version
+     (autograd through ``wkv_scan``), and one ``wkv_train`` backward as
+     training runs it (events and host clock); no single PyTorch call
+     computes it;
 3. the FACADE path: ``run_experiment`` for FACADE and the baselines EL,
    D-PSGD, DEPRL and DAC at paper scale (full-width GN-LeNet, 32 nodes in
    clusters 24:8, degree 4, H = 10, B = 8) on its default driver, the
@@ -228,8 +239,8 @@ failure raises and exits non-zero, before the last line is printed):
    clusters 1:1, k 2, degree 1, H 2, B 4, S 256, lr 5e-3, head jitter
    1e-3, clustered token streams, 3 rounds driven through
    ``runner.LMFacade`` (``facade_round``), then one more under
-   ``torch.profiler`` (the device's activity; rwkv6-1.6b and hymba-1.5b
-   one round, the profiled one); before round 1, K1 against
+   ``torch.profiler`` (the device's activity; hymba-1.5b one round, the
+   profiled one); before round 1, K1 against
    its plain version on the
    operands the LM binding builds for that round (2e-5 relative, equal
    argmins, and equal to the round's own selection losses); checks one
@@ -247,14 +258,16 @@ failure raises and exits non-zero, before the last line is printed):
    the fp32 tiled body), then profiled; in every LM profile K1's kernels
    by name (``lm_k1_by_name``: its body's tile kernel, the merge and the
    copies once each, no other body's);
-4a. the same on rwkv6-1.6b at full width: one head-select call and 144
-   wkv launches a round (24 a node in step 2c's feature pass and 24 a
-   node in each local step's forward, through ``wkv_train``, whose
-   backward is the plain recurrence), no flash attention, round-1
-   selection losses in [10.5, 12.5], the bytes per round from the config
-   (RWKV's fp32 leaves at 4 bytes); its one round, profiled, also gives
-   the host time in ``wkv_train``'s 96 backward calls (a host clock
-   around ``WkvFunction.backward``, ``host_seconds_in``);
+4a. the same on rwkv6-1.6b at full width (3 rounds and one profiled):
+   one head-select call, 144 wkv launches a round (24 a node in step
+   2c's feature pass and 24 a node in each local step's forward, through
+   ``wkv_train``) and 96 of its backward kernel (24 a node and local
+   step), by counter and, in the profiled round, by kernel name; no
+   flash attention, round-1 selection losses in [10.5, 12.5], the bytes
+   per round from the config (RWKV's fp32 leaves at 4 bytes); the
+   profiled round also gives the host time in ``wkv_train``'s 96
+   backward calls (a host clock around ``WkvFunction.backward``,
+   ``host_seconds_in``);
 4b. the smoke LM FACADE rounds (fp32) of ``SMOKE_LM_ARCHS`` (llama3.2-1b,
    rwkv6-1.6b, minicpm3-4b's MLA, deepseek-moe-16b's MoE and hymba-1.5b's
    hybrid, K1 on their feature passes) on the card and on the CPU from the same draws:
@@ -263,8 +276,8 @@ failure raises and exits non-zero, before the last line is printed):
 4c. the launcher's lm mode (``launch.train.main``) on both LM smoke configs
    (``LM_MODE``: 20 AdamW steps) with ``--ckpt`` in a temporary directory
    under ``build/``: finite losses, the checkpoint loads back bit-equal to
-   the final parameters, one wkv launch per layer and step for RWKV and no
-   other kernel launch;
+   the final parameters, one wkv launch and one of its backward per layer
+   and step for RWKV and no other kernel launch;
 5. the serving path: ``serve`` for llama3.2-1b and then rwkv6-1.6b at full
    width (bf16, parameters from the port's init on the card), 8 requests
    in batches of 4, prompt length 512, 32 generated tokens, greedy, seed
@@ -312,7 +325,8 @@ failure raises and exits non-zero, before the last line is printed):
    ``prefill_32k``, ``decode_32k`` (a filled 32,768-slot cache),
    ``long_500k`` (its 8,192-slot window, position 524,287), ``train_4k``
    (remat, AdamW) and FACADE's step (2 nodes, S 4096, remat); rwkv6-1.6b
-   at the first three and ``train_4k`` cut to 1 of its 24 layers;
+   at the four, ``train_4k`` at all 24 layers (K3 twice and its backward
+   once a layer);
    whisper-tiny at ``prefill_32k`` and ``decode_32k``; each at the
    largest batch that fits (halving from the first tried on an
    out-of-memory error; the halvings and cuts are in its record), a
@@ -328,7 +342,8 @@ failure raises and exits non-zero, before the last line is printed):
    step's T held against their plain versions there (K2 on one batch row
    and one KV group, Hq 4 and Hkv 1; K1's plain version and library call
    made in 2,048-token chunks) and timed beside their bounds and library
-   calls; the smoke configs' steps (``STEPS_SMOKE``) on the card and on
+   calls; K3's backward against the float64 witness at S 4096 on one
+   batch row and timed at ``train_4k``'s batch; the smoke configs' steps (``STEPS_SMOKE``) on the card and on
    the CPU;
 5e. the language models' mesh on one card (``lm_mesh_phase``,
    ``LM_MESH_CASES``): ``make_debug_mesh((1, 1))`` over a one-rank NCCL
@@ -380,6 +395,9 @@ failure raises and exits non-zero, before the last line is printed):
    its launches on the driver phases under ``"driver_launches"``, the
    telemetry phase's under ``"obs"``, the node mesh's under ``"mesh"``;
    K1's, K2's and K3's on the language models' mesh (``"lm_mesh"``);
+   K3's backward (``wkv_backward``, its own entry: the gradient of
+   ``wkv_kernel``, which the TPU kernel lacks) with its launches in the
+   RWKV FACADE rounds, in lm mode and in the steps;
    K1's and K2's in the examples phase (``"examples"``);
    K2's and K3's in the traced serves under ``"traced_serve_launches"``; each kernel's check, times, bound
    and launches at the steps' lengths under ``"steps"``),
@@ -439,7 +457,10 @@ from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.flash_attention import attention_ref, flash_attention  # noqa: E402
 from repro_torch.kernels.head_select import head_losses, head_losses_ref  # noqa: E402
 from repro_torch.kernels.head_select import ops as hs_ops  # noqa: E402
-from repro_torch.kernels.rwkv6 import wkv, wkv_scan, wkv_train  # noqa: E402
+from repro_torch.kernels.rwkv6 import (wkv, wkv_backward,  # noqa: E402
+                                      wkv_backward_scan, wkv_scan,
+                                      wkv_train)
+from repro_torch.kernels.rwkv6 import ops as wkv_ops  # noqa: E402
 from repro_torch.kernels.rwkv6.ops import WkvFunction  # noqa: E402
 from repro_torch import device as device_mod  # noqa: E402
 from repro_torch.launch import dryrun, steps, train  # noqa: E402
@@ -464,7 +485,7 @@ HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
 FP32_FLOPS = 67e12            # H100 SXM data sheet, fp32 outside tensor cores
 BF16_FLOPS = 989e12           # H100 SXM data sheet, dense bf16 tensor cores
 FMA_LATENCY_CYCLES = 4        # dependent fp32 FMA latency on Hopper
-KERNELS = (head_losses, flash_attention, wkv)
+KERNELS = (head_losses, flash_attention, wkv, wkv_backward)
 # (K, T, D, V): the reference kernel tests' HS_SHAPES (tests/test_kernels.py)
 HS_SHAPES = [(2, 128, 64, 256), (3, 256, 64, 512), (5, 128, 128, 1024)]
 MAIN_SHAPE = (32, 2, 8, 513, 10)        # n, K, T = B, D = 512 + bias, V
@@ -628,11 +649,29 @@ RW_CASES = [((1, 1, 2, 64), 0.0), ((2, 31, 2, 64), 0.0),
             ((2, 33, 2, 64), 0.0), ((2, 100, 3, 64), 2.0),
             ((1, 512, 2, 32), -6.0), ((6, 48, 44, 64), 0.0)]
 RW_TOL = 1e-5
+# K3's backward (wkv_backward): (B, S, H, hd), log decay shift, each with
+# y's gradient alone and with the final state's too. The RWKV FACADE
+# round's shape; S 1; S 33 around both head dims' chunks (8 steps at hd
+# 64, 16 at hd 32); ragged last chunks at S 100 (hd 64: 12 chunks and 4
+# steps; hd 32: 6 and 4); w near 0 (exp(-e^2)), where rebuilding a state
+# backwards would divide by it, and near 1 (exp(-e^-6))
+RW_BWD_CASES = [((4, 256, 32, 64), 0.0), ((1, 1, 2, 64), 0.0),
+                ((2, 33, 2, 64), 0.0), ((2, 33, 2, 32), 0.0),
+                ((2, 100, 3, 64), 2.0), ((2, 100, 4, 32), -6.0)]
+# ... and at train_4k's length on one batch row (steps_phase)
+RW_BWD_LONG = (1, 4096, 32, 64)
+# the backward's gate, against a float64 witness (the plain loop on the
+# same inputs in float64), each leaf relative to its largest |gradient|:
+# the kernel's distance within RW_BWD_FACTOR times the plain fp32 loop's
+# own distance (the control), or within RW_BWD_FLOOR (a few fp32 ulps of
+# the largest, where the control is near exact), and always within RW_TOL
+RW_BWD_FACTOR = 4.0
+RW_BWD_FLOOR = 2.0 ** -21
 # FACADE on llama3.2-1b at full width (bf16, heads untied by the binding):
 # 2 nodes in clusters 1:1, k 2, degree 1, H 2, B 4, S 256 (T = 1024 tokens
 # a node at step 2c), tokens as examples/facade_lm_pretrain.py builds them;
-# 3 rounds and one more profiled (rwkv6-1.6b 1, the profiled one: a round
-# takes 20-36 s, most of it the plain wkv backward)
+# 3 rounds and one more profiled (rwkv6-1.6b too since its wkv backward
+# is a kernel: a round took 20-36 s on the plain backward)
 LM_FACADE = dict(clusters=(1, 1), k=2, degree=1, local_steps=2, batch=4,
                  seq=256, lr=5e-3, head_jitter=1e-3, seqs_per_node=32,
                  seed=0)
@@ -642,17 +681,19 @@ LM_FACADE = dict(clusters=(1, 1), k=2, degree=1, local_steps=2, batch=4,
 # profiled), and one llama3.2-1b round with the config in fp32 (step 2c on
 # the fp32 tiled body at n·K 4, T 1024, D 2048, V 128,256), then profiled
 # once more
-LM_ROUNDS = {"llama3.2-1b": 3, "rwkv6-1.6b": 1, "hymba-1.5b": 1,
+LM_ROUNDS = {"llama3.2-1b": 3, "rwkv6-1.6b": 3, "hymba-1.5b": 1,
              "llama3.2-1b fp32": 1}
 LM_RUN_DTYPE = {"llama3.2-1b fp32": "float32"}
-# runs whose one round is the profiled one: a round takes 13.5-25 s (hymba)
-# or 20-36 s (rwkv), the profiler, with the device's activity alone, 14.5
-# and 42-45 s more to stop and read its 0.93 and 1.79 million events. A
-# profile of hymba's K1 call alone recorded no device event in the
-# script's process.
-LM_PROFILED_ONLY = ("hymba-1.5b", "rwkv6-1.6b")
+# runs whose one round is the profiled one: a round takes 13.5-25 s
+# (hymba), the profiler, with the device's activity alone, 14.5 s more to
+# stop and read its 0.93 million events (rwkv6-1.6b's round on the plain
+# wkv backward took 20-36 s and 42-45 s more for 1.79 million). A profile
+# of hymba's K1 call alone recorded no device event in the script's
+# process.
+LM_PROFILED_ONLY = ("hymba-1.5b",)
 # the host seconds in each ``wkv_train`` backward, by a host clock around
-# ``WkvFunction.backward`` (the profiler's name for its host event)
+# ``WkvFunction.backward`` (the profiler's name for its host event), and
+# K3's forward and backward kernels by name in RWKV's profiled round
 WKV_BACKWARD = "autograd::engine::evaluate_function: WkvFunctionBackward"
 # K2 in the LM FACADE path's step-2c feature pass: llama3.2-1b's heads at
 # LM_FACADE's batch and sequence, (B, Hq, Hkv, S, D) = (4, 32, 8, 256, 64)
@@ -740,9 +781,12 @@ HS_LM_NON_FINITE = (4, 2, 256, 2048, 4096)
 # the step builders (launch/steps.py) at full width (steps_phase): (arch,
 # input shape, the batch tried first, layers kept or None). A case's batch
 # is the largest that fits on the card, halving from the first; rwkv6's
-# train_4k keeps 1 of its 24 layers (its wkv backward is the plain
-# recurrence, about 3 s a layer at S 4096). Each runs one warm-up call and
+# train_4k runs all 24 layers since its wkv backward is a kernel (it kept
+# 1 on the plain recurrence, about 3 s a layer at S 4096), from a batch
+# reckoned from memory, RWKV_TRAIN_BATCH: on an 80 GB card B 16 peaks at
+# 49.43 GB and B 32 runs out of memory. Each runs one warm-up call and
 # STEP_CALLS timed calls, 1 where the warm-up took over STEP_LONG_S.
+RWKV_TRAIN_BATCH = 16
 STEP_CASES = [("llama3.2-1b", "prefill_32k", 32, None),
               ("llama3.2-1b", "decode_32k", 128, None),
               ("llama3.2-1b", "long_500k", 1, None),
@@ -751,7 +795,7 @@ STEP_CASES = [("llama3.2-1b", "prefill_32k", 32, None),
               ("rwkv6-1.6b", "prefill_32k", 32, None),
               ("rwkv6-1.6b", "decode_32k", 128, None),
               ("rwkv6-1.6b", "long_500k", 1, None),
-              ("rwkv6-1.6b", "train_4k", 1, 1),
+              ("rwkv6-1.6b", "train_4k", RWKV_TRAIN_BATCH, None),
               ("whisper-tiny", "prefill_32k", 32, None),
               ("whisper-tiny", "decode_32k", 128, None)]
 STEP_CALLS, STEP_LONG_S = 2, 3.0
@@ -790,9 +834,11 @@ LM_MESH_FACADE = dict(batch_per_node=1, seq=256)
 EXAMPLES_LM = dict(nodes=(3, 1), rounds=4, eval_every=2)
 EXAMPLES_CARD_CPU = dict(rounds=4, eval_every=2)
 EXAMPLES_CARD_CPU_JITTER = 0.05       # as small_input_phase
-# K2's and K3's kernels by name in a profile
+# K2's and K3's kernels by name in a profile (K3's backward apart:
+# "wkv_kernel" is not in its name)
 FA_KERNELS = ("fa_kernel", "fa_bf16_kernel")
 WKV_KERNEL = "wkv_kernel"
+WKV_BWD_KERNEL = "wkv_backward_kernel"
 
 
 def log(*args):
@@ -1053,6 +1099,14 @@ def ptxas_report(source: str, kernel: str) -> dict:
         elif "warning" in line.lower():
             out[current]["warnings"].append(line.strip())
     return out
+
+
+def launches_of(**nonzero) -> dict:
+    """Every kernel's launch count, 0 but for ``nonzero``'s, as
+    ``counted`` reports them."""
+    want = {fn.__name__: 0 for fn in KERNELS}
+    want.update(nonzero)
+    return want
 
 
 @contextlib.contextmanager
@@ -1460,8 +1514,7 @@ def main_path_phase(rec, ds):
             results[algo] = (res, time.perf_counter() - t0)
 
     out = {"launches": counts}
-    if counts != {"head_losses": FACADE_LAUNCHES, "flash_attention": 0,
-                  "wkv": 0}:
+    if counts != launches_of(head_losses=FACADE_LAUNCHES):
         raise AssertionError(f"kernel launches {counts} in {ROUNDS} rounds "
                              f"of each of {ALGOS} (want one head select per "
                              f"FACADE round and per warm-up call before "
@@ -3204,8 +3257,7 @@ def examples_phase(rec) -> dict:
     ex, res, counts, seen, entry = drive_example(
         rec, "serve_batched", cfg=cfg, draws=CardInitDraws)
     prefills = len(res["generated"])
-    want = {"head_losses": 0, "flash_attention": cfg.n_layers * prefills,
-            "wkv": 0}
+    want = launches_of(flash_attention=cfg.n_layers * prefills)
     shapes = {c: list(g.shape) for c, g in res["generated"].items()}
     entry.update(prefills=prefills, generated=shapes)
     if counts != want or any(s[1] != 16 for s in shapes.values()):
@@ -3223,9 +3275,9 @@ def examples_phase(rec) -> dict:
         **EXAMPLES_LM)
     n = sum(EXAMPLES_LM["nodes"])
     evals = len(res["evals"])
-    want = {"head_losses": EXAMPLES_LM["rounds"],
-            "flash_attention": (EXAMPLES_LM["rounds"] + evals) * n
-            * cfg.n_layers, "wkv": 0}
+    want = launches_of(head_losses=EXAMPLES_LM["rounds"],
+                       flash_attention=(EXAMPLES_LM["rounds"] + evals) * n
+                       * cfg.n_layers)
     entry.update(rounds_per_s=res["rounds_per_s"], evals=[
         {"round": r, "nll": nll, "cluster_id": cid.tolist(),
          "rounds_per_s": rate} for r, nll, cid, rate in res["evals"]])
@@ -3501,8 +3553,8 @@ def lm_mode_phase(rec) -> dict:
     checkpoint in a temporary directory under ``build/``: finite losses,
     the checkpoint loads back bit-equal to the final parameters, no K1 or
     K2 launch (training attention is the plain ``sdpa``) and, for RWKV,
-    one K3 launch per layer and step (``wkv_train``'s forward); returns
-    each arch's launches."""
+    one K3 launch and one of its backward per layer and step
+    (``wkv_train``); returns each arch's launches."""
     out = {}
     build_dir = ROOT / "build"
     build_dir.mkdir(exist_ok=True)
@@ -3520,8 +3572,8 @@ def lm_mode_phase(rec) -> dict:
                 res = train.main(argv)
                 torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-            want = {fn.__name__: 0 for fn in KERNELS}
-            want["wkv"] = LM_MODE["steps"] * cfg.n_layers if cfg.rwkv else 0
+            per_run = LM_MODE["steps"] * cfg.n_layers if cfg.rwkv else 0
+            want = launches_of(wkv=per_run, wkv_backward=per_run)
             if counts != want:
                 raise AssertionError(f"lm mode {arch}: kernel launches "
                                      f"{counts}, want {want}")
@@ -3580,13 +3632,13 @@ def lm_launches_per_round(cfg, n: int, local_steps: int) -> dict:
     """Kernel launches an LM FACADE round makes: one head-select call;
     step 2c's no-grad feature pass runs one K2 (attention) or K3 (wkv)
     launch a layer and node; training attention is the plain ``sdpa``
-    (no K2), while each local step's forward runs K3 a layer and node
-    (``wkv_train``; its backward is the plain recurrence)."""
+    (no K2), while each local step runs K3's forward and its backward
+    kernel once a layer and node (``wkv_train``)."""
     per_pass = n * cfg.n_layers
     if cfg.rwkv:
-        return {"head_losses": 1, "flash_attention": 0,
-                "wkv": per_pass * (1 + local_steps)}
-    return {"head_losses": 1, "flash_attention": per_pass, "wkv": 0}
+        return launches_of(head_losses=1, wkv=per_pass * (1 + local_steps),
+                           wkv_backward=per_pass * local_steps)
+    return launches_of(head_losses=1, flash_attention=per_pass)
 
 
 def lm_select_check(run, drawn) -> tuple:
@@ -3652,11 +3704,13 @@ def lm_facade_phase(rec, key: str) -> dict:
 
     def profiled(fn):
         """``fn()`` under torch.profiler (the device's activity), with the
-        host time in the wkv recurrence's backward (the plain loop; 2
-        nodes' H local steps, each layer once), and K1's kernels by
-        name."""
+        host time in the wkv recurrence's backward (its kernel; 2 nodes' H
+        local steps, each layer once), and K1's kernels by name, and for
+        RWKV K3's forward and backward kernels by name."""
+        names = K1_NAMES + ((WKV_KERNEL, WKV_BWD_KERNEL) if cfg.rwkv
+                            else ())
         with host_seconds_in(WkvFunction, "backward") as backward:
-            prof = device_profile(fn, kernels=K1_NAMES, host=False)
+            prof = device_profile(fn, kernels=names, host=False)
         if cfg.rwkv:
             calls = run.n * p["local_steps"] * cfg.n_layers
             if backward[1] != calls:
@@ -3665,6 +3719,15 @@ def lm_facade_phase(rec, key: str) -> dict:
             prof["host_spans"] = {WKV_BACKWARD: {
                 "host_s": backward[0], "events": backward[1],
                 "share_of_wall": backward[0] / prof["wall_s"]}}
+            if prof["device_busy_s"] is not None:
+                by_name = {name: prof["kernels"][name][0]
+                           for name in (WKV_KERNEL, WKV_BWD_KERNEL)}
+                named = {WKV_KERNEL: want["wkv"],
+                         WKV_BWD_KERNEL: want["wkv_backward"]}
+                prof["k3_by_name"] = by_name
+                if by_name != named:
+                    raise AssertionError(f"LM FACADE {key}: K3's kernels by "
+                                         f"name {by_name}, want {named}")
         return prof
 
     profile = None
@@ -3765,7 +3828,7 @@ def lm_k1_by_name(key: str, path_check: dict, profile: dict) -> dict:
         want[K1_LM_MERGE] = 1
     if body == "tensor_core":
         want[K1_PAD_KERNEL] = int(d % 8 != 0) + int(v % 8 != 0)
-    got = ({name: n for name, (n, _) in profile["kernels"].items()}
+    got = ({name: profile["kernels"][name][0] for name in K1_NAMES}
            if profile.get("device_busy_s") is not None else None)
     out = {"body": body, "want": want, "got": got}
     log(f"LM FACADE {key} K1 by kernel name", json.dumps(out))
@@ -4076,18 +4139,172 @@ def wkv_phase(rec, sm_clock_hz):
 
     timing = {label: wkv_timing(shape, sm_clock_hz) for label, shape in
               (("train", RW_TRAIN), ("serve", RW_SERVE))}
-    timing["train"]["backward"] = wkv_backward_timing(RW_TRAIN)
     rec["wkv_timing"] = timing
     log("wkv timing", json.dumps(timing))
     t = timing["serve"]
-    return {"name": "wkv", "route": "cuda", "source": "src/repro_torch/csrc/wkv.cu",
-            "replaces": "src/repro/kernels/rwkv6/kernel.py:53",
-            "launches": None,
-            "max_abs_err": max(checks[-1]["max_abs_err"],
-                               checks[-1]["state_max_abs_err"]),
+    fwd = {"name": "wkv", "route": "cuda",
+           "source": "src/repro_torch/csrc/wkv.cu",
+           "replaces": "src/repro/kernels/rwkv6/kernel.py:53",
+           "launches": None,
+           "max_abs_err": max(checks[-1]["max_abs_err"],
+                              checks[-1]["state_max_abs_err"]),
+           "ms": t["ms"], "plain_ms": t["plain_ms"],
+           "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+           "library_ms": None, "train": timing["train"]}
+    return fwd, wkv_backward_phase(rec, sm_clock_hz)
+
+
+def wkv_backward_phase(rec, sm_clock_hz) -> dict:
+    """K3's backward (``wkv_backward``) against the float64 witness at
+    ``RW_BWD_CASES``, with y's gradient alone and with the final state's,
+    the same bits twice; timed at the round's shape beside its bound and
+    the plain version (autograd through ``wkv_scan``), and one
+    ``wkv_train`` backward as training runs it (events and host clock);
+    returns its entry of the kernels line (launches filled in later)."""
+    checks = [wkv_backward_check(shape, log_decay, with_state, seed=200 + i)
+              for i, (shape, log_decay) in enumerate(RW_BWD_CASES)
+              for with_state in (False, True)]
+    rec["wkv_backward_checks"] = checks
+    t = wkv_backward_timing(RW_TRAIN, sm_clock_hz)
+    t["wkv_train_backward"] = wkv_train_backward_timing(RW_TRAIN)
+    rec["wkv_backward_timing"] = t
+    log("wkv backward timing", json.dumps(t))
+    return {"name": "wkv_backward", "route": "cuda",
+            "source": "src/repro_torch/csrc/wkv_backward.cu",
+            "replaces": "src/repro/kernels/rwkv6/kernel.py:53 (its "
+                        "gradient; the TPU kernel is forward-only)",
+            "launches": None, "max_abs_err": checks[0]["max_abs_err"],
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-            "library_ms": None, "train": timing["train"]}
+            "library_ms": None, "train": t}
+
+
+def wkv_grad_seeds(shape, seed, with_state):
+    """An output gradient for y and, ``with_state``, for the final state,
+    drawn from ``seed`` on the CPU and moved to the card."""
+    b, s, h, hd = shape
+    g = torch.Generator().manual_seed(seed)
+    gy = torch.randn((b, s, h, hd), generator=g).cuda()
+    gs = (torch.randn((b, h, hd, hd), generator=g).cuda() if with_state
+          else None)
+    return gy, gs
+
+
+def wkv_plain_grads(args, gy, gs, dtype):
+    """(dr, dk, dv, dw, du): autograd through the plain ``wkv_scan`` on the
+    card, the inputs and output gradients cast to ``dtype``."""
+    leaves = [x.detach().to(dtype).requires_grad_() for x in args]
+    y, s_final = wkv_scan(*leaves)
+    outs, grads = [y], [gy.to(dtype)]
+    if gs is not None:
+        outs.append(s_final)
+        grads.append(gs.to(dtype))
+    return torch.autograd.grad(outs, leaves, grads, materialize_grads=True)
+
+
+def wkv_backward_check(shape, log_decay, with_state, seed,
+                       explicit=True) -> dict:
+    """K3's backward at ``shape`` against the plain loop in float64 (the
+    witness) beside the plain fp32 loop (the control), each of dr, dk, dv,
+    dw and du relative to the witness's largest |gradient|, by the gate of
+    ``RW_BWD_FACTOR``, ``RW_BWD_FLOOR`` and ``RW_TOL``; two calls on the
+    same inputs give the same bits; with ``explicit``, the kernel's order
+    in plain PyTorch (``wkv_backward_scan`` in the kernel's chunks, fp32)
+    within ``RW_TOL`` of the witness too; or raise."""
+    args = wkv_inputs(*shape, seed=seed, log_decay=log_decay)
+    gy, gs = wkv_grad_seeds(shape, seed + 1000, with_state)
+    got = wkv_backward(*args, gy, gs)
+    again = wkv_backward(*args, gy, gs)
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    del again
+    plain = wkv_plain_grads(args, gy, gs, torch.float32)
+    witness = wkv_plain_grads(args, gy, gs, torch.float64)
+    chunk = wkv_ops._backward_library().wkv_backward_chunk(shape[3])
+    order = (wkv_backward_scan(*args, gy, gs, chunk=chunk) if explicit
+             else (None,) * 5)
+    leaves, ok = {}, same
+    for name, g, p, x, o in zip(("dr", "dk", "dv", "dw", "du"), got, plain,
+                                witness, order):
+        scale = float(x.abs().max())
+        finite = bool(torch.isfinite(g).all())
+        e_o = None
+        if scale == 0.0:        # w's gradient at S 1 without the state's
+            e_k, e_p = float(g.abs().max()), float(p.abs().max())
+            passes = e_k == 0.0
+        else:
+            e_k = float((g.double() - x).abs().max()) / scale
+            e_p = float((p.double() - x).abs().max()) / scale
+            passes = e_k <= min(max(RW_BWD_FACTOR * e_p, RW_BWD_FLOOR),
+                                RW_TOL)
+            if o is not None:
+                e_o = float((o.double() - x).abs().max()) / scale
+                passes = passes and e_o <= RW_TOL
+        leaves[name] = {"scale": scale, "kernel_rel": e_k, "plain_rel": e_p,
+                        "explicit_rel": e_o,
+                        "ratio": e_k / e_p if e_p else None,
+                        "max_abs_err_vs_plain": float((g - p).abs().max()),
+                        "ok": passes and finite}
+        ok = ok and passes and finite
+    rec = {"shape": list(shape), "log_decay": log_decay,
+           "with_state": with_state, "same_bits_twice": same,
+           "max_abs_err": max(v["max_abs_err_vs_plain"]
+                              for v in leaves.values()),
+           "leaves": leaves}
+    log("wkv backward check", json.dumps(rec))
+    if not ok:
+        raise AssertionError(f"wkv backward fails its gate against the "
+                             f"float64 witness: {rec}")
+    return rec
+
+
+def wkv_backward_bound(r, sm_clock_hz):
+    """The backward's bound at r's shape for y's gradient alone: bytes (r,
+    k, v, w, dy and u read, dr, dk, dv, dw and du written) and the
+    function's 14 hd^2 fp32 operations a step and
+    (b, h) (the state 3, dr, dk, dv and dw 2 each, dS 3); the issue floor
+    of the design's 10 fp32 instructions an element a step (the state in
+    each of its two forward passes 2, the walk 6) over one SM's 128 lanes,
+    in waves of one (b, h) per SM."""
+    b, s, h, hd = r.shape
+    nbytes = 4 * (9 * r.numel() + 2 * h * hd)
+    flops = 14 * b * s * h * hd * hd
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = flops / FP32_FLOPS * 1e3
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    waves = -(-b * h // sms)
+    issue_ms = waves * s * 10 * hd * hd / 128 / sm_clock_hz * 1e3
+    return max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops
+                                   else "operations"), nbytes, flops, \
+        issue_ms
+
+
+def wkv_backward_timing(shape, sm_clock_hz, calls=20, reps=7,
+                        plain=True) -> dict:
+    """K3's backward (y's gradient alone, as training runs it) timed at
+    ``shape`` by CUDA-graph replays, beside its bound, its issue floor,
+    its workspace and, with ``plain``, the plain version (autograd through
+    ``wkv_scan``, between events)."""
+    args = wkv_inputs(*shape, seed=98)
+    gy, _ = wkv_grad_seeds(shape, 97, False)
+    bound_ms, bound_by, nbytes, flops, issue_ms = wkv_backward_bound(
+        args[0], sm_clock_hz)
+    b, s, h, hd = shape
+    chunk = wkv_ops._backward_library().wkv_backward_chunk(hd)
+    t = {"shape": list(shape), "bound_ms": bound_ms, "bound_by": bound_by,
+         "bytes": nbytes, "flops": flops, "issue_floor_ms": issue_ms,
+         "workspace_bytes": 4 * b * h * -(-s // chunk) * hd * hd,
+         "sm_clock_hz": sm_clock_hz}
+
+    def kernel():
+        return wkv_backward(*args, gy)
+
+    t["ms"] = graph_ms(kernel, calls=calls, reps=reps)
+    if plain:
+        t["plain_ms"] = event_ms(
+            lambda: wkv_plain_grads(args, gy, None, torch.float32))
+    t["ms_again"] = graph_ms(kernel, calls=calls, reps=reps)
+    return t
 
 
 def wkv_timing(shape, sm_clock_hz) -> dict:
@@ -4106,11 +4323,11 @@ def wkv_timing(shape, sm_clock_hz) -> dict:
     return t
 
 
-def wkv_backward_timing(shape, reps: int = 5) -> dict:
+def wkv_train_backward_timing(shape, reps: int = 5) -> dict:
     """One ``wkv_train`` backward at ``shape`` as the training path runs it
-    (eager: the plain recurrence recomputed and differentiated): CUDA
-    events and the host clock around ``torch.autograd.grad`` of y, the
-    median of ``reps`` after one warm-up."""
+    (eager: one launch of the backward kernel): CUDA events and the host
+    clock around ``torch.autograd.grad`` of y, the median of ``reps``
+    after one warm-up."""
     leaves = [x.requires_grad_() for x in wkv_inputs(*shape, seed=98)]
     y, _ = wkv_train(*leaves)
     grad_y = torch.randn_like(y)
@@ -4139,9 +4356,9 @@ def device_profile(fn, host_spans=(), kernels=(), host=True) -> dict:
     launches recorded]); for each
     string in ``host_spans``, the host time of the profiler's host events
     whose names hold it (their own and their children's) and their count.
-    The profiler's raw events are read as they come (a round of the plain
-    wkv backward records millions; building its event tree would take
-    minutes), and the seconds the profiler took to stop and to be read
+    The profiler's raw events are read as they come (a round of hymba's
+    plain scan records about a million; building its event tree would
+    take minutes), and the seconds the profiler took to stop and to be read
     are recorded; for each string in ``kernels``, the device kernels whose
     names hold it, as [events, seconds]. Where the profiler records no
     device events, the device numbers are None (not measured). With
@@ -4629,7 +4846,8 @@ def step_launches(cfg, kind: str, n_nodes: int = 2) -> dict:
     """Each kernel's launches in one call of a step: K2 once a prefill
     layer (whisper: its encoder twice, ``encode`` and ``forward``, and its
     decoder once), K3 once a prefill layer and, under remat, twice a
-    training layer (the forward and its recompute); FACADE's step one K1
+    training layer (the forward and its recompute) and its backward once;
+    FACADE's step one K1
     call and its feature pass's K2 or K3 once a layer and node; decode
     none."""
     want = {fn.__name__: 0 for fn in KERNELS}
@@ -4640,6 +4858,7 @@ def step_launches(cfg, kind: str, n_nodes: int = 2) -> dict:
             want["wkv" if cfg.rwkv else "flash_attention"] = cfg.n_layers
     elif kind == "train" and cfg.rwkv:
         want["wkv"] = 2 * cfg.n_layers
+        want["wkv_backward"] = cfg.n_layers
     elif kind == "facade":
         want["head_losses"] = 1
         want["wkv" if cfg.rwkv else "flash_attention"] = \
@@ -4901,6 +5120,29 @@ def wkv_steps_check(sm_clock_hz) -> dict:
     return t
 
 
+def wkv_backward_steps_check(sm_clock_hz, batch) -> dict:
+    """K3's backward at train_4k's length: the float64 witness's gate on one
+    batch row (``RW_BWD_LONG``, y's gradient alone), the plain fp32 loop
+    timed there between events, and the kernel timed at rwkv6-1.6b's
+    train_4k shape at the case's ``batch``, beside its bound."""
+    check = wkv_backward_check(RW_BWD_LONG, 0.0, False, seed=95,
+                               explicit=False)
+    args = wkv_inputs(*RW_BWD_LONG, seed=95)
+    gy, _ = wkv_grad_seeds(RW_BWD_LONG, 1095, False)
+    plain_ms = event_ms(lambda: wkv_plain_grads(args, gy, None,
+                                                torch.float32))
+    del args, gy
+    settled_allocated()
+    shape = (batch,) + RW_BWD_LONG[1:]
+    t = wkv_backward_timing(shape, sm_clock_hz, calls=2, reps=3,
+                            plain=False)
+    t.update(check=check, plain_ms_check_shape=plain_ms,
+             check_shape=list(RW_BWD_LONG), library_ms=None)
+    settled_allocated()
+    log("wkv backward steps", json.dumps(t))
+    return t
+
+
 def hs_lm_chunked(feats, heads, labels, fn, chunk=2048):
     """The LM-regime step-2c loss per (node, head) with its logits made
     ``chunk`` tokens at a time: ``fn(f, w, lab)`` gives a chunk's summed
@@ -5065,6 +5307,8 @@ def steps_phase(rec, sm_clock_hz) -> dict:
                                         cases[label]["batch"], n_layers)
         facade_batch = cases["llama3.2-1b facade_pod"]["batch"]
         kernels["head_losses"] = hs_steps_check(facade_batch * 4096)
+        kernels["wkv_backward"] = wkv_backward_steps_check(
+            sm_clock_hz, cases["rwkv6-1.6b train_4k"]["batch"])
         for label, fut in traces.items():
             c = cases[label]
             c["roofline"] = row = fut.result()
@@ -5109,7 +5353,7 @@ def main() -> int:
     hs = kernel_phase(rec)
     hs_f32, hs_padded = head_select_wide_phase(rec)
     fa = flash_attention_phase(rec)
-    rw = wkv_phase(rec, sm_clock_hz)
+    rw, rw_bwd = wkv_phase(rec, sm_clock_hz)
     ds = paper_lenet_data(rec)
     hs["launches"] = main_path_phase(rec, ds)
     engine_phase(rec, ds)
@@ -5137,9 +5381,11 @@ def main() -> int:
     hs_f32["launches"] = lm_facade_phase(rec, "llama3.2-1b fp32")[
         "head_losses"]
     smoke_lm_facade_phase(rec)
-    # K3's launches on its third path: the launcher's lm mode on RWKV
-    rw["train"]["lm_mode_launches"] = lm_mode_phase(rec)["rwkv6-1.6b"][
-        "launches"]["wkv"]
+    # K3's and its backward's launches on their third path: the launcher's
+    # lm mode on RWKV
+    lm_mode_rwkv = lm_mode_phase(rec)["rwkv6-1.6b"]["launches"]
+    rw["train"]["lm_mode_launches"] = lm_mode_rwkv["wkv"]
+    rw_bwd["lm_mode_launches"] = lm_mode_rwkv["wkv_backward"]
     fa["launches"] = serve_phase(rec, "llama3.2-1b", flash_attention)
     rw["launches"] = serve_phase(rec, "rwkv6-1.6b", wkv)
     # K2 in every prefill layer of SERVE_MORE's configs
@@ -5161,12 +5407,17 @@ def main() -> int:
     rw["train"]["launches"] = rwkv_launches["wkv"]
     rw["train"]["launches_per_round"] = (rwkv_launches["wkv"]
                                          // LM_ROUNDS["rwkv6-1.6b"])
+    # K3's backward on its main path: the RWKV FACADE rounds' local steps
+    rw_bwd["launches"] = rwkv_launches["wkv_backward"]
+    rw_bwd["launches_per_round"] = (rwkv_launches["wkv_backward"]
+                                    // LM_ROUNDS["rwkv6-1.6b"])
     smoke_serve_phase(rec)
     # the per-arch steps at full width; K1, K2 and K3 at their lengths
     on_steps = steps_phase(rec, sm_clock_hz)
     hs["steps"] = on_steps["head_losses"]
     fa["steps"] = on_steps["flash_attention"]
     rw["steps"] = on_steps["wkv"]
+    rw_bwd["steps"] = on_steps["wkv_backward"]
     # K1, K2 and K3 on the DTensor path of the language models' mesh
     on_mesh = lm_mesh_phase(rec)
     hs["lm_mesh"] = on_mesh["head_losses"]
@@ -5199,7 +5450,7 @@ def main() -> int:
                                          "bound_ms", "bound_by",
                                          "library_ms", "shape")}}
     hs["body"] = "fma"
-    entries = [hs, hs_tc, hs_padded, hs_f32, fa, rw]
+    entries = [hs, hs_tc, hs_padded, hs_f32, fa, rw, rw_bwd]
     rec["kernels"] = entries
     rec["total_s"] = time.perf_counter() - t0
     log(f"total_s {rec['total_s']:.1f}")

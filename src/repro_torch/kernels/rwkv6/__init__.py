@@ -1,2 +1,2 @@
-from .ops import wkv, wkv_train  # noqa: F401
-from .ref import wkv_scan  # noqa: F401
+from .ops import wkv, wkv_backward, wkv_train  # noqa: F401
+from .ref import wkv_backward_scan, wkv_scan  # noqa: F401

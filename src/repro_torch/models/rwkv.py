@@ -11,9 +11,11 @@ with the data-dependent per-channel decay ``w_t = exp(-exp(wb + lora(x_t)))``.
 Over a full sequence from a zero state (prefill, forward, training) the
 recurrence goes through ``kernels/rwkv6.wkv_train``: its forward is the
 hand-written kernel on the card (the plain ``wkv_scan`` on the CPU), and
-under autograd its backward recomputes the plain ``wkv_scan`` and
-differentiates it. With a carried state (decode, one step) it is the
-plain ``wkv_scan``, as the reference's decode is.
+under autograd its backward is the hand-written backward kernel on the
+card (``wkv_backward``: the state kept at each chunk's start, a chunk's
+states recomputed, then walked back) and autograd through the plain
+``wkv_scan`` on the CPU. With a carried state (decode, one step) it is
+the plain ``wkv_scan``, as the reference's decode is.
 """
 from __future__ import annotations
 

@@ -1,15 +1,20 @@
 """The kernels without a backward refuse to run under autograd on the
 card, attention that needs a gradient goes through the differentiable
 plain ``sdpa``, and the wkv recurrence trains through ``wkv_train`` (K3
-forward, the plain recurrence's gradients).
+forward, K3's backward kernel).
 
 Needs an NVIDIA card and ``nvcc``; elsewhere every test skips with the
 reason. This file imports no JAX. Tolerance of the card against the CPU:
 1e-4 absolute and relative on the output and on every gradient (fp32 on
 both, TF32 off; the matmuls and softmax sum in other orders).
 ``wkv_train`` against the plain ``wkv_scan`` on the card: y and the
-final state 1e-5 (K3's tolerance), the gradients 1e-6 (the backward
-recomputes the same plain arithmetic on the same device). RWKV's
+final state 1e-5 (K3's tolerance); the gradients, one backward launch,
+against a float64 witness (the plain loop in float64 on the same
+inputs), each leaf relative to its largest |gradient|: within
+``BWD_FACTOR`` times the plain fp32 loop's own distance from the witness
+(or ``BWD_FLOOR``, a few fp32 ulps of the largest, where that distance is
+near 0), and within 1e-5 (chip_smoke.py's gate; the largest ratio read
+on the card was 2.32). RWKV's
 ``time_mix`` on the card against the CPU: the output 1e-4 as above, each
 gradient within 1e-4 of its leaf's largest gradient (as the round tests
 hold parameters): its gradients span three orders of magnitude within a
@@ -25,12 +30,13 @@ import torch
 import repro_torch.configs  # noqa: F401  (registry)
 from repro_torch.device import no_tf32
 from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.kernels.rwkv6 import wkv, wkv_scan, wkv_train
+from repro_torch.kernels.rwkv6 import wkv, wkv_backward, wkv_scan, wkv_train
 from repro_torch.models import attention, rwkv
 from repro_torch.models.base import get_config
 from torch_caps import cuda_device, requires_cuda  # noqa: F401
 
 TOL = 1e-4
+BWD_FACTOR, BWD_FLOOR, BWD_TOL = 4.0, 2.0 ** -21, 1e-5
 
 
 @requires_cuda
@@ -98,13 +104,15 @@ def _wkv_inputs(device, b=2, s=100, h=3, hd=64, seed=0):
 
 @requires_cuda
 @pytest.mark.parametrize("s", [1, 33, 256])
-def test_wkv_train_runs_k3_forward_and_the_plain_gradients(cuda_device, s):
+def test_wkv_train_runs_k3_forward_and_its_backward_kernel(cuda_device, s):
     got_in = _wkv_inputs(cuda_device, s=s, seed=s)
     want_in = [x.detach().clone().requires_grad_() for x in got_in]
-    before = wkv.launches
+    wide_in = [x.detach().double().requires_grad_() for x in got_in]
+    before, before_bwd = wkv.launches, wkv_backward.launches
     y, s_final = wkv_train(*got_in)
     assert wkv.launches == before + 1
     y_ref, s_ref = wkv_scan(*want_in)
+    y_wide, s_wide = wkv_scan(*wide_in)
     torch.testing.assert_close(y, y_ref, rtol=1e-5, atol=1e-5)
     torch.testing.assert_close(s_final, s_ref, rtol=1e-5, atol=1e-5)
     g = torch.Generator(device=cuda_device).manual_seed(1)
@@ -113,13 +121,25 @@ def test_wkv_train_runs_k3_forward_and_the_plain_gradients(cuda_device, s):
     for used in (1, 2):              # y alone (training), then y and state
         got = torch.autograd.grad((y, s_final)[:used], got_in, seeds[:used],
                                   retain_graph=True)
-        want = torch.autograd.grad((y_ref, s_ref)[:used], want_in,
-                                   seeds[:used], retain_graph=True,
-                                   materialize_grads=True)
-        assert wkv.launches == before + 1      # the backward runs no K3
-        for name, a, b in zip("rkvwu", got, want, strict=True):
-            torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6,
-                                       msg=name)
+        assert wkv.launches == before + 1      # no forward launch
+        assert wkv_backward.launches == before_bwd + used
+        plain = torch.autograd.grad((y_ref, s_ref)[:used], want_in,
+                                    seeds[:used], retain_graph=True,
+                                    materialize_grads=True)
+        wide = torch.autograd.grad(
+            (y_wide, s_wide)[:used], wide_in,
+            [x.double() for x in seeds[:used]], retain_graph=True,
+            materialize_grads=True)
+        for name, a, p, x in zip("rkvwu", got, plain, wide, strict=True):
+            assert bool(torch.isfinite(a).all()), name
+            scale = float(x.abs().max())
+            if scale == 0.0:          # w's gradient at S 1 without the state's
+                assert float(a.abs().max()) == 0.0, name
+                continue
+            err = float((a.double() - x).abs().max()) / scale
+            control = float((p.double() - x).abs().max()) / scale
+            assert err <= min(max(BWD_FACTOR * control, BWD_FLOOR),
+                              BWD_TOL), (name, err, control)
 
 
 @requires_cuda
@@ -133,11 +153,13 @@ def test_rwkv_time_mix_trains_on_the_card_as_on_the_cpu(cuda_device):
         leaves = {"x": x.to(device).requires_grad_(),
                   **{k: w.to(device).requires_grad_() for k, w in p.items()}}
         params = {k: leaves[k] for k in p}
-        before = wkv.launches
+        before, before_bwd = wkv.launches, wkv_backward.launches
         with no_tf32():
             out, _, _ = rwkv.time_mix(cfg, params, leaves["x"])
             out.square().sum().backward()
-        assert wkv.launches == before + (device.type == "cuda")
+        on_card = int(device.type == "cuda")
+        assert wkv.launches == before + on_card
+        assert wkv_backward.launches == before_bwd + on_card
         return out.detach().cpu(), {k: t.grad.cpu()
                                     for k, t in leaves.items()}
 

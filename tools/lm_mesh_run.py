@@ -480,7 +480,7 @@ def main() -> int:
         res = guarded(shape, held, "llama3.2-1b", shape, batch, llama,
                       mesh, rank, world, {"head_losses": 0,
                                           "flash_attention": want,
-                                          "wkv": 0})
+                                          "wkv": 0, "wkv_backward": 0})
         if rank == 0:
             rec["cases"][f"llama3.2-1b {shape}"] = res
             ok = ok and res["ok"]
@@ -495,7 +495,7 @@ def main() -> int:
         res = guarded("rwkv", held, "rwkv6-1.6b", "prefill_32k",
                       RWKV_BATCH, rwkv, mesh, rank, world,
                       {"head_losses": 0, "flash_attention": 0,
-                       "wkv": rwkv.n_layers})
+                       "wkv": rwkv.n_layers, "wkv_backward": 0})
         if rank == 0:
             rec["cases"]["rwkv6-1.6b prefill_32k"] = res
             ok = ok and res["ok"]
@@ -512,7 +512,7 @@ def main() -> int:
         res = guarded("hymba", held, "hymba-1.5b", "prefill_32k",
                       HYMBA["batch"], hymba, mesh, rank, world,
                       {"head_losses": 0, "flash_attention": hymba.n_layers,
-                       "wkv": 0}, HYMBA["seq"],
+                       "wkv": 0, "wkv_backward": 0}, HYMBA["seq"],
                       {"fa_kernel": hymba.n_layers, "fa_bf16_kernel": 0})
         if rank == 0:
             rec["cases"]["hymba-1.5b prefill"] = res
