@@ -40,17 +40,25 @@ failure raises and exits non-zero, before the last line is printed):
      a bf16 matmul and ``cross_entropy`` on fp32 logits;
    - head select's wider paths (``head_select_wide_phase``): the wrapper's
      dispatch rule (``ops.body_for``) against the source's ``hs_body`` on
-     every shape the script and the archs give K1; the fp32 tiled body at
-     ``HS_SHAPES``, V 128 (``HS_F32_EDGE``) and a four-card FACADE rank's
-     step 2c (``HS_F32_CHECK``: n·K 2, T 512, D 2048, V 128,256) and the
-     tensor-core body on a ragged V at hymba-1.5b's and whisper-tiny's
-     vocabularies (``HS_PADDED``), each with a node of excluded labels
-     giving 0.0 and identical heads identical losses, both on non-finite
-     inputs; then timed beside bound, plain version and library call: the
-     fp32 body against the FMA body at ``HS_SHAPES`` and V 128 (the
-     threshold's reading), alone at T 512, 2048 and the fp32 llama
-     round's n·K 4, T 1024 (``HS_F32_TIMED``), the padded calls with the
-     heads' copy timed apart (``hs_pad_rows``);
+     every shape the script and the archs give K1; both fp32 bodies, the
+     SIMT one and the tensor cores' (3xTF32), forced at ``HS_SHAPES``, V
+     128 (``HS_F32_EDGE``), a four-card FACADE rank's step 2c
+     (``HS_F32_CHECK``: n·K 2, T 512, D 2048, V 128,256) and
+     ``HS_F32_TIMED``, and the tensor-core body on a ragged V at
+     hymba-1.5b's and whisper-tiny's vocabularies (``HS_PADDED``), each
+     with a node of excluded labels giving 0.0 and identical heads
+     identical losses, the fp32 tensor cores also against a float64
+     witness (within ``HS_TC32_FACTOR`` times the plain fp32 version's
+     distance, or ``HS_TC32_FLOOR``) and the same bits twice; all three
+     on non-finite inputs (the fp32 tensor cores there with the same
+     gates, ``hs_tc32_non_finite_check``); then timed beside bound, plain
+     version and library call: the two fp32 bodies in turns and the FMA
+     body at ``HS_SHAPES`` and V 128, the two fp32 bodies in turns around
+     the rule's D 192 and at the smoke LM step 2c (``HS_TC32_SWEEP``; the
+     thresholds' readings), and beside both bounds (the fp32 pipes' and
+     three TF32 products') at T 512, 2048 and the fp32 llama round's n·K
+     4, T 1024 (``HS_F32_TIMED``), the padded calls with the heads' copy
+     timed apart (``hs_pad_rows``);
    - flash attention at the reference tests' ``FA_SHAPES``, a ragged
      S = 200, llama3.2-1b's serving shape (B 4, S 512, Hq 32, Hkv 8, D 64)
      and a long one (B 1, S 4096), each in fp32 and bf16, the LM FACADE
@@ -255,9 +263,9 @@ failure raises and exits non-zero, before the last line is printed):
    feature-pass layers, selection losses in [9.8, 11.8], the bytes from
    the config (the mamba branch's fp32 leaves at 4 bytes); and one
    llama3.2-1b round with the config in fp32 (step 2c at n·K 4, T 1024 on
-   the fp32 tiled body), then profiled; in every LM profile K1's kernels
-   by name (``lm_k1_by_name``: its body's tile kernel, the merge and the
-   copies once each, no other body's);
+   the fp32 tensor-core body), then profiled; in every LM profile K1's
+   kernels by name (``lm_k1_by_name``: its body's tile kernel, the merge,
+   the features' split and the copies once each, no other body's);
 4a. the same on rwkv6-1.6b at full width (3 rounds and one profiled):
    one head-select call, 144 wkv launches a round (24 a node in step
    2c's feature pass and 24 a node in each local step's forward, through
@@ -386,7 +394,9 @@ failure raises and exits non-zero, before the last line is printed):
 6. a ``kernels`` JSON line (each kernel's launches on its path, error,
    times and bound; K1 once for each of its bodies: the FMA body on the
    FACADE path, the tensor cores at llama's LM round and, with the padded
-   copy, at hymba's, the fp32 tiled body at the fp32 llama round's; K2's
+   copy, at hymba's, the two fp32 bodies at the fp32 llama round's shape,
+   each with its launches on the fp32 LM paths, the llama round and the
+   smoke LM rounds, that take it (none for the SIMT one since PR 35); K2's
    launches in each full-width serve, in llava's
    image-prefix prefill and in a whisper forward under
    ``"launches_by_arch"`` and its D 160, MLA and ``FA_FAMILIES`` shapes'
@@ -484,6 +494,7 @@ from repro_torch.tree import tree_leaves, tree_map  # noqa: E402
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
 FP32_FLOPS = 67e12            # H100 SXM data sheet, fp32 outside tensor cores
 BF16_FLOPS = 989e12           # H100 SXM data sheet, dense bf16 tensor cores
+TF32_FLOPS = 495e12           # H100 SXM data sheet, dense TF32 tensor cores
 FMA_LATENCY_CYCLES = 4        # dependent fp32 FMA latency on Hopper
 KERNELS = (head_losses, flash_attention, wkv, wkv_backward)
 # (K, T, D, V): the reference kernel tests' HS_SHAPES (tests/test_kernels.py)
@@ -501,11 +512,12 @@ HS_LM_SHAPE = (4, 1, 1024, 2048, 128256)
 # ... and FACADE on rwkv6-1.6b (the same n, k and T; V 65,536)
 HS_LM_RWKV = (4, 1, 1024, 2048, 65536)
 HS_LM_RAGGED = [(2, 2, 1000, 2048, 1000), (4, 1, 200, 2048, 65536)]
-# K1's fp32 tiled body (fp32 at an LM's shapes): held at HS_SHAPES and at a
-# four-card FACADE rank's step 2c (n·K 2, T 512, D 2048, V 128,256), and
-# timed there, at T 2048 (the reference's B 8 of S 256 a node) and at the
-# one-card fp32 llama round's n·K 4, T 1024; HS_F32_EDGE puts V at the
-# body's threshold (one 128-column tile)
+# K1's fp32 bodies (the SIMT one and the tensor cores', fp32 at an LM's
+# shapes): held at HS_SHAPES and at a four-card FACADE rank's step 2c (n·K
+# 2, T 512, D 2048, V 128,256), and held and timed there, at T 2048 (the
+# reference's B 8 of S 256 a node) and at the one-card fp32 llama round's
+# n·K 4, T 1024; HS_F32_EDGE puts V at the tiled bodies' threshold (one
+# 128-column tile)
 HS_F32_CHECK = (2, 1, 512, 2048, 128256)
 HS_F32_TIMED = [(2, 1, 2048, 2048, 128256), (4, 1, 1024, 2048, 128256)]
 HS_F32_EDGE = (1, 2, 128, 64, 128)
@@ -520,6 +532,26 @@ HS_PADDED = {"hymba": (4, 1, 1024, 1600, 32001),
 # ragged (both copies)
 HS_F32_NON_FINITE = (4, 2, 256, 2048, 4096)
 HS_PADDED_NON_FINITE = (4, 2, 256, 2044, 4099)
+# K1's fp32 tensor-core body (3xTF32) against a float64 witness (the plain
+# version's steps in float64 on the same inputs), each loss relative to
+# max(|loss|, 1): its distance within HS_TC32_FACTOR times the plain fp32
+# version's own distance (the control), or within HS_TC32_FLOOR (four
+# halves of an fp32 ulp, where both sit at the losses' own rounding).
+# Readings: the CPU model (tests/test_torch_head_select_tc32.py's witness
+# test, D 2048, heads at 0.02 and 0.05) 1.04 and 3.44 times the control
+# (8.1e-8 and 1.7e-7, under the floor); the card (an H100, this script's
+# fp32 shapes) 0 to 1.37 times, 1.0e-7 at most
+HS_TC32_FACTOR = 4.0
+HS_TC32_FLOOR = 2.0 ** -22
+# K1's two fp32 bodies (hs_ops.BODIES), each held and timed at every fp32
+# shape above whichever the rule gives it
+F32_BODIES = ("fp32_tiled", "fp32_tensor_core")
+# ... and timed in turns around the rule's D threshold (hs_ops.F32_TC_MIN_D)
+# at HS_SHAPES' T and V, and at the smoke LM FACADE step 2c (n·K 4, T 64, D
+# 256, V 512)
+HS_TC32_SWEEP = ([(1, 3, 256, d, 512) for d in (128, 192, 256, 512)]
+                 + [(1, 5, 128, d, 1024) for d in (192, 256, 512)]
+                 + [(4, 1, 64, 256, 512)])
 PAPER = dict(k=2, degree=4, local_steps=10, batch_size=8, lr=0.05, seed=0)
 ROUNDS, EVAL_EVERY = 8, 4
 # a FACADE run through the segment engine captures one round (warmup 0) and
@@ -536,11 +568,14 @@ K1_LM_KERNEL = "head_losses_lm_kernel"  # its LM body's tile kernel
 K1_LM_MERGE = "head_losses_lm_merge"    # ... and its merge (both tiled bodies)
 K1_F32_KERNEL = "head_losses_f32_kernel"  # its fp32 tiled body's tile kernel
 K1_PAD_KERNEL = "head_losses_pad_kernel"  # the tensor cores' ragged copy
+K1_F32TC_KERNEL = "head_losses_f32tc_kernel"  # fp32 on the tensor cores
+K1_SPLIT_KERNEL = "head_losses_tf32_split_kernel"  # ... its features' split
 # each body's tile kernel by name (hs_ops.BODIES)
 K1_BODY_KERNEL = {"fma": K1_KERNEL, "fp32_tiled": K1_F32_KERNEL,
-                  "tensor_core": K1_LM_KERNEL}
+                  "tensor_core": K1_LM_KERNEL,
+                  "fp32_tensor_core": K1_F32TC_KERNEL}
 K1_NAMES = (K1_KERNEL, K1_F32_KERNEL, K1_LM_KERNEL, K1_LM_MERGE,
-            K1_PAD_KERNEL)
+            K1_PAD_KERNEL, K1_F32TC_KERNEL, K1_SPLIT_KERNEL)
 # NCCL's device kernels by name in a profile (not the profiler's "nccl:"
 # annotations, CUDA events too, each over its kernel)
 NCCL_KERNEL = "ncclDevKernel"
@@ -679,8 +714,8 @@ LM_FACADE = dict(clusters=(1, 1), k=2, degree=1, local_steps=2, batch=4,
 # the padded copy, K2 with its window of 1024 in every feature-pass layer;
 # one round, 13.5-25 s, most of it the plain SSM scan, and that one
 # profiled), and one llama3.2-1b round with the config in fp32 (step 2c on
-# the fp32 tiled body at n·K 4, T 1024, D 2048, V 128,256), then profiled
-# once more
+# the fp32 tensor-core body at n·K 4, T 1024, D 2048, V 128,256), then
+# profiled once more
 LM_ROUNDS = {"llama3.2-1b": 3, "rwkv6-1.6b": 3, "hymba-1.5b": 1,
              "llama3.2-1b fp32": 1}
 LM_RUN_DTYPE = {"llama3.2-1b fp32": "float32"}
@@ -1016,14 +1051,15 @@ def hs_lm_non_finite_case(seed, shape=HS_LM_NON_FINITE,
 
 
 def hs_lm_non_finite_check(shape=HS_LM_NON_FINITE,
-                           dtype=torch.bfloat16) -> dict:
+                           dtype=torch.bfloat16, body=None) -> dict:
     """K1's tiled bodies against the plain version on
     :func:`hs_lm_non_finite_case` (the tensor-core body at
-    ``HS_LM_NON_FINITE`` unless asked), with the FMA body's gates
-    (``hs_non_finite_check``), or raise."""
+    ``HS_LM_NON_FINITE`` unless asked; ``body`` forces one), with the FMA
+    body's gates (``hs_non_finite_check``), or raise."""
     feats, heads, labels = hs_lm_non_finite_case(96, shape, dtype)
-    body = hs_ops.body_for(*shape, dtype)
-    got = head_losses(feats, heads, labels)
+    kw = {"body": body} if body else {}
+    body = body or hs_ops.body_for(*shape, dtype)
+    got = head_losses(feats, heads, labels, **kw)
     want = head_losses_ref(feats, heads, labels)
     torch.cuda.synchronize()
     fin = torch.isfinite(want)
@@ -1048,6 +1084,43 @@ def hs_lm_non_finite_check(shape=HS_LM_NON_FINITE,
     return rec
 
 
+def hs_tc32_non_finite_check(shape=HS_F32_NON_FINITE) -> dict:
+    """The fp32 tensor-core body on :func:`hs_lm_non_finite_case` with the
+    gates ``hs_wide_check`` holds it to elsewhere, or raise: the finite
+    losses against the float64 witness (``hs_witness_check``), two calls
+    the same bits (NaN included), identical heads the same bits, and a
+    node whose labels are all excluded (the last, whose head of +inf
+    weights gives NaN logits) 0.0. ``hs_lm_non_finite_check`` holds the
+    NaN and +inf places."""
+    name = "head_select fp32_tensor_core non-finite"
+    feats, heads, labels = hs_lm_non_finite_case(96, shape, torch.float32)
+
+    def call(h=heads, lab=labels):
+        return head_losses(feats, h, lab, body="fp32_tensor_core")
+
+    def bits(x):
+        return x.view(torch.int32)
+    got, again = call(), call()
+    plain = head_losses_ref(feats, heads, labels)
+    witness = hs_witness(feats, heads, labels)
+    fin = torch.isfinite(witness) & torch.isfinite(plain)
+    rec = {"shape": list(shape), "finite_losses": int(fin.sum()),
+           "witness": hs_witness_check(name, got[fin], plain[fin],
+                                       witness[fin]),
+           "same_bits_twice": bool(torch.equal(bits(got), bits(again)))}
+    same = call(h=heads[:, :1].repeat(1, 2, 1, 1).contiguous())
+    rec["identical_heads_same_bits"] = bool(torch.equal(bits(same[:, 0]),
+                                                        bits(same[:, 1])))
+    excluded = labels.clone()
+    excluded[-1] = -1
+    rec["excluded_node"] = call(lab=excluded)[-1].tolist()
+    log(f"{name} check", json.dumps(rec))
+    if not (rec["same_bits_twice"] and rec["identical_heads_same_bits"]
+            and rec["excluded_node"] == [0.0, 0.0]):
+        raise AssertionError(f"{name}: {rec}")
+    return rec
+
+
 def hs_library(feats, heads, labels):
     """One PyTorch product and cross-entropy for the same function (the
     yardstick; the port never calls it)."""
@@ -1060,7 +1133,12 @@ def hs_library(feats, heads, labels):
     return nll.sum(-1) / (labels >= 0).sum(-1, keepdim=True).clamp(min=1)
 
 
-def hs_bound(feats, heads, labels):
+def hs_bound(feats, heads, labels, tc32=False):
+    """K1's bound in ms, what bounds it, its bytes and FLOPs: the products
+    (2 K T D V FLOP over the tokens whose label counts) at the bf16 tensor
+    cores' rate, in fp32 at the fp32 pipes' or, with ``tc32``, as three
+    TF32 products at the TF32 tensor cores' (the fp32 tensor-core body);
+    or the inputs read once and the output written."""
     n, k, d, v = heads.shape
     nbytes = (feats.numel() * feats.element_size()
               + heads.numel() * heads.element_size()
@@ -1068,6 +1146,8 @@ def hs_bound(feats, heads, labels):
     valid = int((labels >= 0).sum())              # tokens this data needs
     flops = 2 * k * valid * d * v
     peak = BF16_FLOPS if feats.dtype == torch.bfloat16 else FP32_FLOPS
+    if tc32:
+        flops, peak = 3 * flops, TF32_FLOPS
     by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     by_ops = flops / peak * 1e3
     return max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops
@@ -1268,7 +1348,7 @@ def hs_dispatch_shapes() -> list:
            (*HS_F32_EDGE, f32), (*HS_F32_NON_FINITE, f32),
            (*HS_PADDED_NON_FINITE, bf16)]
     out += [(*s, bf16) for s in HS_LM_RAGGED]
-    out += [(*s, f32) for s in HS_F32_TIMED]
+    out += [(*s, f32) for s in HS_F32_TIMED + HS_TC32_SWEEP]
     out += [(*s, bf16) for s in HS_PADDED.values()]
     out += [(1, *s, dt) for s in HS_SHAPES for dt in (f32, bf16)]
     for arch in list_archs():
@@ -1301,42 +1381,92 @@ def hs_dispatch_check() -> dict:
     return rec
 
 
-def hs_wide_check(name, shape, dtype, seed, body) -> dict:
+def hs_witness(feats, heads, labels):
+    """The plain version's steps in float64 on the same inputs: the
+    witness of the fp32 tensor-core body's gate."""
+    n, k = heads.shape[:2]
+    t = feats.shape[1]
+    logits = torch.einsum("ntd,nkdv->nktv", feats.double(), heads.double())
+    lse = torch.logsumexp(logits, dim=-1)
+    labs = labels.long().clamp(min=0)[:, None, :, None].expand(n, k, t, 1)
+    gold = torch.gather(logits, -1, labs).squeeze(-1)
+    del logits
+    valid = (labels >= 0)[:, None, :]
+    nll = torch.where(valid, lse - gold, torch.zeros_like(lse))
+    return nll.sum(-1) / valid.sum(-1).clamp(min=1)
+
+
+def hs_witness_check(name, got, plain, witness) -> dict:
+    """``got``'s distance from the float64 witness (each loss relative to
+    max(|witness|, 1)) within ``HS_TC32_FACTOR`` times the plain fp32
+    version's (the control) or within ``HS_TC32_FLOOR``, or raise."""
+    def dist(x):
+        return float(((x.double() - witness).abs()
+                      / witness.abs().clamp(min=1)).max())
+    rec = {"witness_err": dist(got), "control_err": dist(plain),
+           "factor": HS_TC32_FACTOR, "floor": HS_TC32_FLOOR}
+    rec["ratio"] = rec["witness_err"] / max(rec["control_err"], 1e-30)
+    if not rec["witness_err"] <= max(HS_TC32_FACTOR * rec["control_err"],
+                                     HS_TC32_FLOOR):
+        raise AssertionError(f"{name}: farther from the float64 witness "
+                             f"than the plain version allows: {rec}")
+    return rec
+
+
+def hs_wide_check(name, shape, dtype, seed, body, forced=False) -> dict:
     """K1 at ``shape`` (drawn on the card as ``hs_lm_case``, the last
     node's labels all excluded: 0.0) against its plain version at
-    ``HS_TOL`` with equal argmins, on ``body`` by the dispatch rule."""
-    if hs_ops.body_for(*shape, dtype) != body:
-        raise AssertionError(f"{name}: {shape} {dtype} takes "
-                             f"{hs_ops.body_for(*shape, dtype)}, not {body}")
+    ``HS_TOL`` with equal argmins, on ``body``: the dispatch rule's, or
+    forced where ``forced``; identical heads identical losses. The fp32
+    tensor-core body also against the float64 witness
+    (``hs_witness_check``), and two calls the same bits."""
+    rule = hs_ops.body_for(*shape, dtype)
+    if not forced and rule != body:
+        raise AssertionError(f"{name}: {shape} {dtype} takes {rule}, not "
+                             f"{body}")
+    kw = {"body": body} if forced else {}
     feats, heads, labels = hs_lm_case(*shape, seed=seed, dtype=dtype)
     labels[-1] = -1
-    got = head_losses(feats, heads, labels)
+    got = head_losses(feats, heads, labels, **kw)
     torch.cuda.synchronize()
-    c = hs_check(name, got, head_losses_ref(feats, heads, labels),
-                 shape=list(shape), dtype=str(dtype), body=body)
+    plain = head_losses_ref(feats, heads, labels)
+    c = hs_check(name, got, plain, shape=list(shape), dtype=str(dtype),
+                 body=body, rule=rule)
     if not torch.equal(got[-1], torch.zeros_like(got[-1])):
         raise AssertionError(f"{name}: a node with every label excluded "
                              f"gives {got[-1].tolist()}")
+    if body == "fp32_tensor_core":
+        c["witness"] = hs_witness_check(name, got, plain,
+                                        hs_witness(feats, heads, labels))
+        again = head_losses(feats, heads, labels, **kw)
+        c["same_bits_twice"] = bool(torch.equal(got, again))
+        log(f"{name} witness", json.dumps(c["witness"]))
+        if not c["same_bits_twice"]:
+            raise AssertionError(f"{name}: two calls give {got.tolist()} "
+                                 f"and {again.tolist()}")
     # identical heads, identical losses
     got = head_losses(feats, heads[:, :1].repeat(1, 2, 1, 1).contiguous(),
-                      labels)
+                      labels, **kw)
     if not torch.equal(got[:, 0], got[:, 1]):
         raise AssertionError(f"{name}: identical heads give {got.tolist()}")
-    del feats, heads, labels, got
+    del feats, heads, labels, got, plain
     torch.cuda.empty_cache()
     return c
 
 
 def hs_wide_timing(shape, dtype, calls=2, reps=3, fma=False) -> dict:
     """K1 (its rule's body), its plain version and the library call timed
-    on a path's inputs (every label counts), beside the bound; with
-    ``fma`` the FMA body forced on the same inputs too; in bf16 on a ragged
-    V, also the copy of the heads into rows of V8 alone
-    (``hs_pad_rows``)."""
+    on a path's inputs (every label counts), beside the bound; in fp32 also
+    both fp32 bodies forced, in turns (tensor cores, SIMT, SIMT, tensor
+    cores), beside both bounds (``hs_bound``: the fp32 pipes' and three
+    TF32 products'); with ``fma`` the FMA body forced on the same inputs
+    too; in bf16 on a ragged V, also the copy of the heads into rows of V8
+    alone (``hs_pad_rows``)."""
     feats, heads, labels = hs_lm_case(*shape, seed=99, drop=0.0,
                                       dtype=dtype)
-    bound_ms, bound_by, nbytes, flops = hs_bound(feats, heads, labels)
     body = hs_ops.body_for(*shape, dtype)
+    bound_ms, bound_by, nbytes, flops = hs_bound(
+        feats, heads, labels, tc32=body == "fp32_tensor_core")
     library = hs_library if dtype == torch.float32 else hs_lm_library
     t = {"shape": list(shape), "dtype": str(dtype), "body": body,
          "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
@@ -1345,6 +1475,17 @@ def hs_wide_timing(shape, dtype, calls=2, reps=3, fma=False) -> dict:
              ("plain_ms", lambda: head_losses_ref(feats, heads, labels)),
              ("library_ms", lambda: library(feats, heads, labels)),
              ("ms_again", lambda: head_losses(feats, heads, labels))]
+    if dtype == torch.float32:
+        for tc32 in (False, True):
+            key = "bound_tf32" if tc32 else "bound_fp32"
+            t[key + "_ms"], t[key + "_by"] = hs_bound(feats, heads, labels,
+                                                       tc32=tc32)[:2]
+        for key, forced in (("tc_ms", "fp32_tensor_core"),
+                            ("simt_ms", "fp32_tiled"),
+                            ("simt_ms_again", "fp32_tiled"),
+                            ("tc_ms_again", "fp32_tensor_core")):
+            timed.append((key, lambda forced=forced: head_losses(
+                feats, heads, labels, body=forced)))
     if fma:
         timed.append(("fma_ms", lambda: head_losses(feats, heads, labels,
                                                     body="fma")))
@@ -1372,34 +1513,49 @@ def hs_wide_timing(shape, dtype, calls=2, reps=3, fma=False) -> dict:
 
 
 def head_select_wide_phase(rec) -> list:
-    """K1's fp32 tiled body and its tensor-core body on a ragged V, on the
-    card: the dispatch rule against the source's; each held against the
+    """K1's fp32 bodies and its tensor-core body on a ragged V, on the
+    card: the dispatch rule against the source's; both fp32 bodies, the
+    SIMT one and the tensor cores' (3xTF32), forced and held against the
     plain version (``HS_TOL``, equal argmins, a node with every label
-    excluded 0.0, identical heads identical) at ``HS_SHAPES`` (fp32),
-    ``HS_F32_EDGE`` and ``HS_F32_CHECK``, and at ``HS_PADDED``'s hymba and
-    whisper shapes; on non-finite inputs (``HS_F32_NON_FINITE``,
-    ``HS_PADDED_NON_FINITE``); then timed beside their bounds and library
-    calls: the fp32 body against the FMA body at ``HS_SHAPES`` and
-    ``HS_F32_EDGE`` (the threshold's reading), alone at the LM shapes
+    excluded 0.0, identical heads identical; the tensor cores' also against
+    the float64 witness, ``hs_witness_check``, and two calls the same bits)
+    at ``HS_SHAPES`` (fp32), ``HS_F32_EDGE``, ``HS_F32_CHECK`` and
+    ``HS_F32_TIMED``, and the tensor-core body at ``HS_PADDED``'s hymba and
+    whisper shapes by the rule; on non-finite inputs
+    (``HS_F32_NON_FINITE`` for both fp32 bodies, the tensor cores' with
+    every gate above, ``HS_PADDED_NON_FINITE``);
+    then timed beside their bounds and library calls: the two fp32 bodies
+    in turns and the FMA body at ``HS_SHAPES`` and ``HS_F32_EDGE``, the
+    two fp32 bodies in turns at ``HS_TC32_SWEEP`` (the thresholds'
+    readings), the two fp32 bodies in turns at the LM shapes
     (``HS_F32_CHECK``, ``HS_F32_TIMED``: the FMA body takes seconds
-    there), the padded calls with their copy apart. Returns the two
-    bodies' entries of the ``kernels`` line (launches filled in by the LM
+    there), the padded calls with their copy apart. Returns the three
+    entries of the ``kernels`` line (launches filled in by the LM
     rounds)."""
     t0 = time.perf_counter()
     out = {"dispatch": hs_dispatch_check(), "checks": []}
     f32, bf16 = torch.float32, torch.bfloat16
-    for i, shape in enumerate([(1, *s) for s in HS_SHAPES]
-                              + [HS_F32_EDGE, HS_F32_CHECK]):
-        out["checks"].append(hs_wide_check("head_select fp32", shape, f32,
-                                           300 + i, "fp32_tiled"))
+    f32_shapes = ([(1, *s) for s in HS_SHAPES]
+                  + [HS_F32_EDGE, HS_F32_CHECK] + HS_F32_TIMED)
+    for body in F32_BODIES:
+        for i, shape in enumerate(f32_shapes):
+            out["checks"].append(hs_wide_check(f"head_select {body}", shape,
+                                               f32, 300 + i, body,
+                                               forced=True))
     for i, shape in enumerate(HS_PADDED.values()):
         out["checks"].append(hs_wide_check("head_select padded", shape,
                                            bf16, 310 + i, "tensor_core"))
-    out["non_finite"] = [hs_lm_non_finite_check(HS_F32_NON_FINITE, f32),
-                         hs_lm_non_finite_check(HS_PADDED_NON_FINITE, bf16)]
+    out["non_finite"] = [hs_lm_non_finite_check(HS_F32_NON_FINITE, f32,
+                                                body=body)
+                         for body in F32_BODIES]
+    out["non_finite"].append(hs_lm_non_finite_check(HS_PADDED_NON_FINITE,
+                                                    bf16))
+    out["non_finite_tc32"] = hs_tc32_non_finite_check()
     out["threshold"] = [hs_wide_timing((1, *s), f32, calls=10, reps=5,
                                        fma=True)
                         for s in HS_SHAPES + [HS_F32_EDGE[1:]]]
+    out["threshold"] += [hs_wide_timing(s, f32, calls=10, reps=5)
+                         for s in HS_TC32_SWEEP]
     out["fp32"] = [hs_wide_timing(s, f32)
                    for s in [HS_F32_CHECK] + HS_F32_TIMED]
     out["padded"] = {name: hs_wide_timing(s, bf16, calls=5, reps=5)
@@ -1407,29 +1563,44 @@ def head_select_wide_phase(rec) -> list:
     out["phase_s"] = time.perf_counter() - t0
     rec["head_select_wide"] = out
     log(f"head_select wide phase: {out['phase_s']:.1f} s")
-    f32_checks = [c for c in out["checks"] if c["body"] == "fp32_tiled"]
-    pad_checks = [c for c in out["checks"] if c["body"] == "tensor_core"]
     base = {"route": "cuda", "source": "src/repro_torch/csrc/head_select.cu",
             "replaces": "src/repro/kernels/head_select/kernel.py:62",
             "launches": None}
-    # the fp32 body's entry at the fp32 llama round's step 2c; the padded
-    # path's at hymba's
+    # each fp32 body's entry at the fp32 llama round's step 2c, forced
+    # (its time, and its bound: the fp32 pipes' or three TF32 products');
+    # the padded path's at hymba's
     main_f32 = next(t for t in out["fp32"]
                     if t["shape"] == list(HS_F32_TIMED[1]))
+    entries = []
+    for body, name, key, bound in (
+            ("fp32_tiled", "head_select_fp32_tiled", "simt_ms",
+             "bound_fp32"),
+            ("fp32_tensor_core", "head_select_fp32_tensor_core", "tc_ms",
+             "bound_tf32")):
+        checks = [c for c in out["checks"] if c["body"] == body]
+        entries.append(dict(
+            base, name=name, body=body,
+            max_abs_err=max(c["max_abs_err"] for c in checks),
+            ms=main_f32[key], plain_ms=main_f32["plain_ms"],
+            bound_ms=main_f32[bound + "_ms"],
+            bound_by=main_f32[bound + "_by"],
+            library_ms=main_f32["library_ms"], shape=main_f32["shape"],
+            shapes=[{k: t[k] for k in ("shape", key, key + "_again",
+                                       bound + "_ms", "library_ms",
+                                       "plain_ms")}
+                    for t in out["fp32"] + out["threshold"]]))
+    entries[1]["witness"] = [dict(c["witness"], shape=c["shape"])
+                             for c in out["checks"] if "witness" in c]
     hymba = out["padded"]["hymba"]
-    pick = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    return [dict(base, name="head_select_fp32_tiled", body="fp32_tiled",
-                 max_abs_err=max(c["max_abs_err"] for c in f32_checks),
-                 **{key: main_f32[key] for key in pick},
-                 shape=main_f32["shape"], shapes=out["fp32"],
-                 threshold=out["threshold"]),
-            dict(base, name="head_select_tensor_core_padded",
-                 body="tensor_core",
-                 max_abs_err=max(c["max_abs_err"] for c in pad_checks),
-                 **{key: hymba[key] for key in pick},
-                 shape=hymba["shape"], copy_ms=hymba["copy_ms"],
-                 copy_share=hymba["copy_share"],
-                 whisper=out["padded"]["whisper"])]
+    pad_checks = [c for c in out["checks"] if c["body"] == "tensor_core"]
+    entries.append(dict(
+        base, name="head_select_tensor_core_padded", body="tensor_core",
+        max_abs_err=max(c["max_abs_err"] for c in pad_checks),
+        **{key: hymba[key] for key in ("ms", "plain_ms", "bound_ms",
+                                       "bound_by", "library_ms")},
+        shape=hymba["shape"], copy_ms=hymba["copy_ms"],
+        copy_share=hymba["copy_share"], whisper=out["padded"]["whisper"]))
+    return entries
 
 
 def head_select_lm_split() -> dict:
@@ -3828,6 +3999,9 @@ def lm_k1_by_name(key: str, path_check: dict, profile: dict) -> dict:
         want[K1_LM_MERGE] = 1
     if body == "tensor_core":
         want[K1_PAD_KERNEL] = int(d % 8 != 0) + int(v % 8 != 0)
+    if body == "fp32_tensor_core":
+        want[K1_SPLIT_KERNEL] = 1
+        want[K1_PAD_KERNEL] = int(v % 4 != 0)
     got = ({name: profile["kernels"][name][0] for name in K1_NAMES}
            if profile.get("device_busy_s") is not None else None)
     out = {"body": body, "want": want, "got": got}
@@ -3838,19 +4012,27 @@ def lm_k1_by_name(key: str, path_check: dict, profile: dict) -> dict:
     return out
 
 
-def smoke_lm_facade_phase(rec):
+def smoke_lm_facade_phase(rec) -> dict:
     """The smoke LM FACADE rounds (fp32) of ``SMOKE_LM_ARCHS`` (GQA, RWKV,
     MLA and MoE) on the card and on the CPU from the same draws: selection
     losses and parameters within SMOKE_LM_TOL, cluster ids and bytes
-    equal."""
+    equal. Returns K1's launches on the card by the body its operands
+    take ({body: launches})."""
     t0 = time.perf_counter()
+    k1 = {}
     for arch in SMOKE_LM_ARCHS:
         cfg = get_config(arch, smoke=True)
         runs = {}
         for device in ("cuda", "cpu"):
             run = LMFacade(cfg, device=device, **SMOKE_LM)
-            runs[device] = (run, [run.round()
-                                  for _ in range(SMOKE_LM_ROUNDS)])
+            with counted() as counts:
+                runs[device] = (run, [run.round()
+                                      for _ in range(SMOKE_LM_ROUNDS)])
+            if device == "cuda":
+                # step 2c's operands: one stream of T tokens a (node, head)
+                body = hs_ops.body_for(1, 1, 1, cfg.d_model,
+                                       cfg.vocab_size, torch.float32)
+                k1[body] = k1.get(body, 0) + counts["head_losses"]
         (gpu, gi), (cpu, ci) = runs["cuda"], runs["cpu"]
         loss_diff = max(float((a["selection_losses"].cpu()
                                - b["selection_losses"]).abs().max())
@@ -3876,7 +4058,9 @@ def smoke_lm_facade_phase(rec):
                                  f"disagree {out}")
         rec.setdefault("smoke_lm_facade", {})[arch] = out
     rec["smoke_lm_facade_s"] = time.perf_counter() - t0
-    log(f"smoke LM FACADE: {rec['smoke_lm_facade_s']:.1f} s")
+    rec["smoke_lm_facade_k1"] = k1
+    log(f"smoke LM FACADE: {rec['smoke_lm_facade_s']:.1f} s, K1 {k1}")
+    return k1
 
 
 def check(name, got, want, tol, rtol=None, **info):
@@ -5351,7 +5535,7 @@ def main() -> int:
         check=True).stdout.split()[0])
     t0 = time.perf_counter()
     hs = kernel_phase(rec)
-    hs_f32, hs_padded = head_select_wide_phase(rec)
+    hs_f32, hs_tc32, hs_padded = head_select_wide_phase(rec)
     fa = flash_attention_phase(rec)
     rw, rw_bwd = wkv_phase(rec, sm_clock_hz)
     ds = paper_lenet_data(rec)
@@ -5375,12 +5559,18 @@ def main() -> int:
     rwkv_launches = lm_facade_phase(rec, "rwkv6-1.6b")
     hs["lm"]["rwkv"]["launches"] = rwkv_launches["head_losses"]
     # K1's wider paths as a user runs them: hymba's FACADE (the tensor
-    # cores through the padded copy), and a llama round in fp32 (the fp32
-    # tiled body)
+    # cores through the padded copy), and in fp32 a llama round and the
+    # smoke LM rounds, each counted on the fp32 body its operands take
     hs_padded["launches"] = lm_facade_phase(rec, "hymba-1.5b")["head_losses"]
-    hs_f32["launches"] = lm_facade_phase(rec, "llama3.2-1b fp32")[
-        "head_losses"]
-    smoke_lm_facade_phase(rec)
+    f32_paths = {body: {} for body in F32_BODIES}
+    f32_round = lm_facade_phase(rec, "llama3.2-1b fp32")["head_losses"]
+    f32_paths[rec["lm_facade"]["llama3.2-1b fp32"]["k1_by_name"]["body"]][
+        "llama3.2-1b fp32 round"] = f32_round
+    for body, n in smoke_lm_facade_phase(rec).items():
+        f32_paths[body]["smoke LM rounds"] = n
+    for entry in (hs_f32, hs_tc32):
+        entry["launches_by_path"] = f32_paths[entry["body"]]
+        entry["launches"] = sum(f32_paths[entry["body"]].values())
     # K3's and its backward's launches on their third path: the launcher's
     # lm mode on RWKV
     lm_mode_rwkv = lm_mode_phase(rec)["rwkv6-1.6b"]["launches"]
@@ -5441,7 +5631,7 @@ def main() -> int:
                     "us_per_replayed_round": prof["k1_us_per_round"]}
     # each of K1's bodies on the line: the FMA body (the FACADE path), the
     # tensor cores at llama's LM round, with a ragged V at hymba's, and the
-    # fp32 tiled body at the fp32 llama round's
+    # two fp32 bodies at the fp32 llama round's
     lm = rec["head_select_lm"]
     hs_tc = {"name": "head_select_tensor_core", "body": "tensor_core",
              **{key: hs[key] for key in ("route", "source", "replaces")},
@@ -5450,7 +5640,7 @@ def main() -> int:
                                          "bound_ms", "bound_by",
                                          "library_ms", "shape")}}
     hs["body"] = "fma"
-    entries = [hs, hs_tc, hs_padded, hs_f32, fa, rw, rw_bwd]
+    entries = [hs, hs_tc, hs_padded, hs_f32, hs_tc32, fa, rw, rw_bwd]
     rec["kernels"] = entries
     rec["total_s"] = time.perf_counter() - t0
     log(f"total_s {rec['total_s']:.1f}")

@@ -9,7 +9,7 @@
 //      the kernel's sums the same way).
 // Inputs fp32 or bf16; every product and sum is accumulated in fp32.
 //
-// Three bodies behind one entry, hs_head_losses, picked by body_for (below;
+// Four bodies behind one entry, hs_head_losses, picked by body_for (below;
 // hs_body returns its answer, and ops.py::body_for mirrors it):
 // - tensor cores (bf16 with D and V multiples of 8, or with V of at least
 //   one 256-column vocab tile, at any T > 0): wgmma fed by TMA under warp
@@ -18,12 +18,20 @@
 //   padded buffer in that workspace (rows of a multiple of 8 values, one
 //   more launch each); otherwise a feature or head pointer off 16-byte
 //   alignment is refused;
-// - fp32 tiled (fp32 with V of at least kF32MinV columns, any T > 0): a
-//   register-blocked SIMT product on tiles of 128 tokens x 128 columns fed
-//   by a cp.async ring, the same fold, workspace and merge kernel;
+// - fp32 on the tensor cores (fp32 with V of at least kF32MinV columns
+//   and D of at least kF32TcMinD, any T > 0): the products split 3xTF32
+//   (fp32's accuracy from three TF32 products) on wgmma, the head slab as
+//   A from registers, the features split first into two TF32 planes of the
+//   workspace and fed as B by TMA under warp specialisation, the same fold
+//   of triples and merge kernel; a ragged V is copied first into rows of a
+//   multiple of 4 values;
+// - fp32 tiled (the other fp32 inputs with V of at least kF32MinV
+//   columns, any T > 0): a register-blocked SIMT product on tiles of 128
+//   tokens x 128 columns fed by a cp.async ring, the same fold, workspace
+//   and merge kernel;
 // - FMA (every other input: the CNN paths' step 2c, fp32, D 513 or 65, V
 //   10 or 41) in one launch.
-// Every sum runs in a fixed order with no atomics in all three, so two
+// Every sum runs in a fixed order with no atomics in all four, so two
 // bit-identical heads give bit-identical losses and an argmin then picks
 // the lower index; a +inf logit gives a +inf loss, not NaN.
 //
@@ -62,8 +70,9 @@
 // T = 1024, D = 2048, V = 128,256 they are 2.15 TFLOP, 2.18 ms at the
 // 989 TFLOP/s of the bf16 tensor cores, against 0.63 ms to read the 2.1 GB
 // of bf16 heads once; in fp32 the same products take 32.1 ms at the 67
-// TFLOP/s of the fp32 pipes (the 4.2 GB of heads 1.25 ms). The two tiled
-// bodies are described at their kernels below.
+// TFLOP/s of the fp32 pipes (the 4.2 GB of heads 1.25 ms), and three TF32
+// products of them 13.0 ms at the 495 TFLOP/s of the TF32 tensor cores.
+// The three tiled bodies are described at their kernels below.
 #include <cuda.h>  // CUtensorMap and its enums (no libcuda linked)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -426,9 +435,10 @@ __device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t da,
 
 // Keeps the compiler from moving reads or writes of the accumulator across
 // the wgmma fence or wait that precedes this
-__device__ __forceinline__ void acc_fence(float (&d)[128]) {
+template <int N>
+__device__ __forceinline__ void acc_fence(float (&d)[N]) {
 #pragma unroll
-  for (int i = 0; i < 128; ++i) asm volatile("" : "+f"(d[i])::"memory");
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -752,10 +762,15 @@ constexpr int kF32AWords = kF32BK * kF32BT;  // features [16][128 tokens]
 constexpr int kF32BWords = kF32BK * kF32BV;  // head [16][128 columns]
 constexpr int kF32StageWords = kF32AWords + kF32BWords;
 constexpr int kF32SmemBytes = 4 * kF32Stages * kF32StageWords;
-// the least V for which fp32 takes this body: below it, and at the CNN
-// paths' V 10 and 41, the FMA body (PERF.md: the two bodies' times at
+// the least V for which fp32 takes a tiled body: below it, and at the CNN
+// paths' V 10 and 41, the FMA body (PERF.md: the bodies' times at
 // HS_SHAPES and at V 128)
 constexpr int kF32MinV = 128;
+// the least D for which fp32 takes the tensor cores (3xTF32) rather than
+// this body: on an H100 the tensor cores' body is the slower at D 64 and
+// 128 and the faster from D 192 up, at the smoke LM step 2c and at the LM
+// shapes (PERF.md, PR 35: chip_smoke.py's HS_TC32_SWEEP and HS_F32_TIMED)
+constexpr int kF32TcMinD = 192;
 
 __device__ __forceinline__ void cp_async16(float* dst, const float* src,
                                            bool valid) {
@@ -992,21 +1007,427 @@ head_losses_f32_kernel(const float* __restrict__ ft,
   }
 }
 
-// dst [rows][pitch] = src [rows][cols] (bf16, pitch a multiple of 8 and at
-// least cols; the pad zeroed): one thread writes 8 values, 16 bytes
-__global__ void head_losses_pad_kernel(const uint16_t* __restrict__ src,
-                                       uint16_t* __restrict__ dst,
-                                       long long rows, int cols, int pitch) {
-  const long long chunks = pitch / 8;
+// ---- fp32 at LM shapes on the tensor cores: 3xTF32 ----
+//
+// Bound. The TF32 tensor cores run 495 TFLOP/s dense, the fp32 pipes 67.
+// One TF32 product keeps 10 mantissa bits of each operand (logits off by
+// about 1e-3 at an LM's shapes), so the function stays fp32's only through
+// the 3xTF32 split: x = big + small with big = tf32(x), small =
+// tf32(x - big), and x y ~ small_x big_y + big_x small_y + big_x big_y
+// (the small x small term and small's own rounding are below fp32's
+// rounding of the sum). Three TF32 products of 2 n K T D V FLOP each: at
+// n * K = 2, T = 2048 (or n * K = 4, T = 1024), D = 2048, V = 128,256 that
+// is 6.45 TFLOP, 13.0 ms at 495 TFLOP/s, against 32.1 ms for the fp32
+// pipes' one product and 1.25 ms to read the heads once.
+//
+// Constraint. wgmma reads a tf32 operand from shared memory only K-major
+// (the transpose immediates exist for 16-bit types alone), and the heads
+// are [D, V] with V contiguous, MN-major. So the logit tile is computed
+// transposed, [vocab x tokens] = heads^T feats^T: A, the head slab, comes
+// from registers (wgmma takes a tf32 A there at m64nNk8), B, the features,
+// from shared memory, K-major as they lie ([T][D], D contiguous).
+//
+// Design. A first launch (head_losses_tf32_split_kernel) splits the
+// features into two planes of TF32 words, big and small, [2][n][T][D4]
+// with D4 = D rounded up to 4 and zeros past D, in the workspace (16 MB a
+// plane and node at T 2048, D 2048). Where V is not a multiple of 4 the
+// heads are copied into rows of V4 values (head_losses_pad_kernel), so a
+// head row is whole 16-byte chunks as TMA needs; a head pointer off
+// 16-byte alignment with V a multiple of 4 is refused. The tile kernel
+// has the tensor-core body's grid, V-split and warp specialisation: a
+// block takes one (row, 128-token tile, range of 128-column vocab tiles);
+// a producer warpgroup (registers cut by setmaxnreg) keeps kTcStages = 4
+// stages of 48 KB in flight by TMA, each one D chunk of 32: the two
+// feature planes [128 tokens][32] (16 KB each) and the head slab
+// [32][128 columns] as four boxes of 32 columns, all with the 128-byte
+// swizzle. Two consumer warpgroups each own 64 of the tile's columns (the
+// wgmma's M) and all 128 tokens (its N): for each D chunk a thread loads
+// its A fragments of four 8-deep k-steps from the head slab, splits each
+// value into big and small in registers (cvt.rna.tf32.f32, tf32_split:
+// a non-finite value goes whole into small, so that a +inf weight gives
+// +inf logits and not inf 0 = NaN), and issues per k-step three wgmma
+// m64n128k8 into one fp32 accumulator of 64 registers, small_head
+// big_feat, then big_head small_feat, then big_head big_feat; then it
+// waits for them (wgmma.wait_group 0: A's registers are read
+// asynchronously), hands the stage back and adds the stage's sums into a
+// second accumulator of 64 registers by fp32 adds. The tensor cores add
+// into their accumulator with truncation: a single accumulator over D
+// 1600 or 2048 (600 or 768 steps) failed chip_smoke.py's float64 witness
+// gate on the card (PERF.md, PR 35); restarted each stage (12 steps over
+// 32 rows of D) and summed to nearest outside, the logits keep fp32's
+// accuracy (the numpy model of both in tests/test_torch_head_select_tc32.py).
+// The fragment rows are a fixed permutation of the
+// warp's 16 columns chosen so that a fragment load's 32 lanes, four d rows
+// of eight columns, hit 32 distinct banks under the swizzle.
+//
+// Fold. A token's 64 logits of a consumer lie in one column of its
+// accumulator, over the 8 lanes of a quad column in each of its 4 warps.
+// After a vocab tile's last chunk, in three named-barrier steps: each
+// warp's max by shuffles (xor 4, 8, 16) to shared memory; thread i of the
+// warpgroup takes token i's new running max over the 4 warps' and its old;
+// each thread sums exp2 of its 2 logits a token after the log2(e)
+// pre-scale (a term at a +inf max counts 1), the warp by the same
+// shuffles, and thread i adds the 4 warps' sums in warp order and updates
+// token i's (max, sum-exp) pair as the other tiled bodies do, and the gold
+// logit where the label lies in the consumer's columns (picked, summed
+// with zeros). Columns past V are -inf; a consumer whose columns are all
+// past V keeps (-inf, 0). Each (split, consumer, row, token) triple goes
+// to the workspace, and head_losses_lm_merge merges them in that index
+// order.
+//
+// Order. Every sum is in a fixed order: the three products a k-step and
+// the k-steps of a stage in the order of d into the tensor cores'
+// accumulator, the stages in the order of d into the second, the fold in
+// warp
+// order and butterflies, the vocab tiles in order inside a split, the
+// merge in split order and its fixed tree. No atomics.
+
+constexpr int kTcBT = 128;                // tokens per tile: the wgmma's N
+constexpr int kTcConsumers = 2;           // warpgroups running wgmma
+constexpr int kTcBV = 64 * kTcConsumers;  // vocab columns per tile
+constexpr int kTcBK = 32;                 // D per stage: 128-byte rows
+constexpr int kTcStages = 4;
+constexpr int kTcThreads = 128 * (kTcConsumers + 1);
+// registers a producer and a consumer thread keep after setmaxnreg (the
+// 65,536 of an SM over the block's 384 threads)
+constexpr int kTcProducerRegs = 40;
+constexpr int kTcConsumerRegs = 232;
+constexpr uint32_t kTcPlaneBytes = 4u * kTcBT * kTcBK;  // 16 KB a plane
+constexpr uint32_t kTcBoxBytes = 4u * kTcBK * 32;       // 4 KB a head box
+constexpr uint32_t kTcStage = 2 * kTcPlaneBytes + 4u * kTcBK * kTcBV;
+// a consumer's fold scratch: the warps' maxes, sums and gold logits [4][BT],
+// the new maxes [BT] and the labels [BT]
+constexpr int kTcFoldWords = 14 * kTcBT;
+constexpr int kTcSmemBytes = kTcStages * kTcStage + 16 * kTcStages +
+                             4 * kTcFoldWords * kTcConsumers + 1024;
+
+// x rounded to TF32 (round to nearest, ties away), its low 13 bits zero
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t y;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(y) : "f"(x));
+  return y & 0xffffe000u;
+}
+
+// x = big + small to about 22 bits, both TF32 words, big truncated where
+// rounding would pass FLT_MAX. A non-finite x goes whole into small (NaN as
+// a NaN whose top 10 mantissa bits are not all 0) and big is 0: of the
+// three products, small_x big_y carries x y where y is finite, and
+// big_x small_y and big_x big_y are 0 (with x in big they would be
+// x small_y = inf 0 = NaN wherever y is exact in TF32, as a feature of 1
+// is); the same rule for y makes the products of a finite x and a
+// non-finite y x y too. Only inf times inf gives NaN, not inf.
+__device__ __forceinline__ void tf32_split(float x, uint32_t& big,
+                                           uint32_t& small) {
+  if (!isfinite(x)) {
+    big = 0u;
+    small = tf32_rna(x);
+    return;
+  }
+  uint32_t b = tf32_rna(x);
+  if (!isfinite(__uint_as_float(b))) b = __float_as_uint(x) & 0xffffe000u;
+  big = b;
+  small = tf32_rna(x - __uint_as_float(b));
+}
+
+// planes [2][rows][d4] = (big, small) of x [rows][d], zero past d
+__global__ void __launch_bounds__(256)
+head_losses_tf32_split_kernel(const float* __restrict__ x,
+                              uint32_t* __restrict__ planes, long long rows,
+                              int d, int d4) {
+  const long long total = rows * d4;
+  for (long long i = blockIdx.x * 256LL + threadIdx.x; i < total;
+       i += static_cast<long long>(gridDim.x) * 256) {
+    const long long row = i / d4;
+    const int c = static_cast<int>(i % d4);
+    uint32_t big = 0, small = 0;
+    if (c < d) tf32_split(x[row * d + c], big, small);
+    planes[i] = big;
+    planes[total + i] = small;
+  }
+}
+
+// d[64] (+)= A[64 x 8] B[8 x 128] in tf32, fp32 accumulator; A from
+// registers, B K-major in shared memory; scale_d == 0 starts from zero
+#define HS_D4(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
+#define HS_D16(i) HS_D4(i), HS_D4(i + 4), HS_D4(i + 8), HS_D4(i + 12)
+__device__ __forceinline__ void wgmma_tf32_m64n128k8(float (&d)[64],
+                                                     const uint32_t (&a)[4],
+                                                     uint64_t db,
+                                                     int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %68, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9,"
+      " %10, %11, %12, %13, %14, %15, %16, %17, %18, %19,"
+      " %20, %21, %22, %23, %24, %25, %26, %27, %28, %29,"
+      " %30, %31, %32, %33, %34, %35, %36, %37, %38, %39,"
+      " %40, %41, %42, %43, %44, %45, %46, %47, %48, %49,"
+      " %50, %51, %52, %53, %54, %55, %56, %57, %58, %59,"
+      " %60, %61, %62, %63},"
+      " {%64, %65, %66, %67}, %69, p, 1, 1;\n}\n"
+      : HS_D16(0), HS_D16(16), HS_D16(32), HS_D16(48)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(scale_d), "l"(db));
+}
+#undef HS_D16
+#undef HS_D4
+
+__device__ __forceinline__ float ld_shared(uint32_t addr) {
+  float x;
+  asm volatile("ld.shared.f32 %0, [%1];\n" : "=f"(x) : "r"(addr) : "memory");
+  return x;
+}
+
+// the 128 threads of consumer warpgroup `wg` meet (barrier 0 is the
+// block's)
+__device__ __forceinline__ void consumer_sync(int wg) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
+}
+
+// exp(z - m) for a logit z against the running max m (ml = m log2(e)): a
+// term at a +inf max counts 1 (not exp(inf - inf) = NaN), under a -inf max
+// (columns past V, or NaN alone) a -inf term counts 0, and a NaN stays NaN
+__device__ __forceinline__ float tc_term(float z, float m, float ml) {
+  if (m == -INFINITY) return z == m ? 0.f : z;
+  if (m == INFINITY && z == m) return 1.f;
+  return ex2(fmaf(z, kLog2e, -ml));
+}
+
+// pf: the feature planes as (D, T, 2 n), box (32, 128, 1), the small plane
+// of node i at i + n; hmap: the heads as (V, D, row), box (32, 32, 1). ws:
+// three planes [splits][consumers][rows][t] of (max, sum-exp, gold).
+__global__ void __launch_bounds__(kTcThreads, 1)
+head_losses_f32tc_kernel(const __grid_constant__ CUtensorMap pf,
+                         const __grid_constant__ CUtensorMap hmap,
+                         const int32_t* __restrict__ labels,
+                         float* __restrict__ ws, int n, int k, int t, int d,
+                         int v, int rows, int vt_per_split) {
+  extern __shared__ unsigned char tc_smem[];
+  const uint32_t ring = (smem_addr(tc_smem) + 1023u) & ~1023u;
+  const uint32_t full = ring + kTcStages * kTcStage;  // kTcStages mbarriers
+  const uint32_t empty = full + 8 * kTcStages;        // and kTcStages more
+  float* scratch = reinterpret_cast<float*>(
+      tc_smem + (ring - smem_addr(tc_smem)) + kTcStages * kTcStage +
+      16 * kTcStages);
+  const int t_tiles = (t + kTcBT - 1) / kTcBT;
+  const int tt = blockIdx.x % t_tiles;          // token tiles of one row and
+  const int r = (blockIdx.x / t_tiles) % rows;  // split are neighbours
+  const int split = blockIdx.x / (t_tiles * rows);
+  const int node = r / k;
+  const int t0 = tt * kTcBT;
+  const int v_tiles = (v + kTcBV - 1) / kTcBV;
+  const int vt0 = split * vt_per_split;
+  const int vt1 = min(v_tiles, vt0 + vt_per_split);
+  const int d_steps = (d + kTcBK - 1) / kTcBK;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kTcStages; ++s) {
+      mbar_init(full + 8 * s, 1);                  // the producer's
+      mbar_init(empty + 8 * s, 4 * kTcConsumers);  // one a consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == kTcConsumers) {
+    // ---- producer ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
+        kTcProducerRegs));
+    if (threadIdx.x % 128 == 0) {
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int vt = vt0; vt < vt1; ++vt)
+        for (int j = 0; j < d_steps; ++j) {
+          mbar_wait(empty + 8 * stage, phase ^ 1);  // the first round passes
+          const uint32_t a = ring + stage * kTcStage;
+          const uint32_t bar = full + 8 * stage;
+          mbar_expect_tx(bar, kTcStage);
+          tma_load(a, &pf, bar, j * kTcBK, t0, node);
+          tma_load(a + kTcPlaneBytes, &pf, bar, j * kTcBK, t0, n + node);
+#pragma unroll
+          for (int c = 0; c < kTcBV / 32; ++c)
+            tma_load(a + 2 * kTcPlaneBytes + c * kTcBoxBytes, &hmap, bar,
+                     vt * kTcBV + 32 * c, j * kTcBK, r);
+          if (++stage == kTcStages) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+    }
+    return;
+  }
+
+  // ---- consumers: warpgroup wg takes columns 64 wg .. + 64 of a tile ----
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
+      kTcConsumerRegs));
+  const int tid = threadIdx.x % 128;
+  const int warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4;  // row of the fragment within an 8-row group
+  const int q = lane % 4;  // its k (A) or column pair (accumulator)
+  float* wmax = scratch + wg * kTcFoldWords;  // [4][BT]
+  float* wsum = wmax + 4 * kTcBT;             // [4][BT]
+  float* wgold = wsum + 4 * kTcBT;            // [4][BT]
+  float* mnew = wgold + 4 * kTcBT;            // [BT]
+  int* lab = reinterpret_cast<int*>(mnew + kTcBT);  // [BT]
+  // token tid's triple and label (thread tid keeps them)
+  const int my_tok = t0 + tid;
+  const int y_own =
+      my_tok < t ? labels[static_cast<size_t>(node) * t + my_tok] : -1;
+  lab[tid] = y_own;
+  float m_run = -INFINITY, s_run = 0.f, g_run = 0.f;
+  // Accumulator row 16 warp + g + 8 h (the A fragment's row too) is the
+  // consumer's column 32 (warp / 2) + col[h]: a permutation of the 16 rows
+  // that puts a fragment load's 32 lanes (rows q and q + 4 of a k-step,
+  // eight columns) on distinct banks of the swizzled box.
+  int col[2];
+  uint32_t off[4];  // a0..a3's byte offsets in the box at k-step 0
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int chunk = 2 * (warp % 2) + h + 4 * (g / 4);
+    col[h] = 32 * (warp / 2) + 4 * chunk + g % 4;
+#pragma unroll
+    for (int hi = 0; hi < 2; ++hi) {  // a0, a1: row q; a2, a3: row q + 4
+      const int row = q + 4 * hi;
+      off[2 * hi + h] =
+          row * 128 + ((chunk ^ row) << 4) + 4 * (g % 4);
+    }
+  }
+  const uint32_t box = (2 * wg + warp / 2) * kTcBoxBytes;
+
+  // acc: the tensor cores' sum over one stage's 32 rows of D; sum: the
+  // vocab tile's logits, the stages' sums added in order by fp32 adds
+  float acc[64], sum[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = sum[i] = 0.f;
+  int stage = 0;
+  uint32_t phase = 0;
+  for (int vt = vt0; vt < vt1; ++vt) {
+    for (int j = 0; j < d_steps; ++j) {
+      mbar_wait(full + 8 * stage, phase);
+      const uint32_t a = ring + stage * kTcStage;
+      const uint32_t hb = a + 2 * kTcPlaneBytes + box;
+      uint32_t big[kTcBK / 8][4], small[kTcBK / 8][4];
+#pragma unroll
+      for (int kk = 0; kk < kTcBK / 8; ++kk)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          tf32_split(ld_shared(hb + 1024 * kk + off[i]), big[kk][i],
+                     small[kk][i]);
+      acc_fence(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kTcBK / 8; ++kk) {
+        // B: +32 bytes a k-step inside the swizzled 128-byte rows, 8-row
+        // groups 1024 bytes apart; the small plane kTcPlaneBytes on
+        const uint64_t fb = gmma_desc(a + 32 * kk, 16, 1024);
+        const uint64_t fs = gmma_desc(a + kTcPlaneBytes + 32 * kk, 16, 1024);
+        wgmma_tf32_m64n128k8(acc, small[kk], fb, kk > 0);
+        wgmma_tf32_m64n128k8(acc, big[kk], fs, 1);
+        wgmma_tf32_m64n128k8(acc, big[kk], fb, 1);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();  // A's registers are free, the stage consumed
+      acc_fence(acc);
+      if (lane == 0) mbar_arrive(empty + 8 * stage);
+      if (++stage == kTcStages) {
+        stage = 0;
+        phase ^= 1;
+      }
+#pragma unroll
+      for (int i = 0; i < 64; ++i) sum[i] = j > 0 ? sum[i] + acc[i] : acc[i];
+    }
+
+    // the vocab tile is complete: fold its logits into the triples
+    const int c0 = vt * kTcBV + 64 * wg;  // the consumer's first column
+    if (c0 + 64 > v) {
+#pragma unroll
+      for (int i = 0; i < 64; ++i)
+        if (c0 + col[(i / 2) % 2] >= v) sum[i] = -INFINITY;
+    }
+    // sum i holds row 16 warp + g + 8 ((i / 2) % 2), token
+    // 8 (i / 4) + 2 q + i % 2
+#pragma unroll
+    for (int jn = 0; jn < 16; ++jn)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float mx = fmaxf(sum[4 * jn + e], sum[4 * jn + 2 + e]);
+#pragma unroll
+        for (int o = 4; o < 32; o <<= 1)
+          mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, o));
+        if (g == 0) wmax[warp * kTcBT + 8 * jn + 2 * q + e] = mx;
+      }
+    consumer_sync(wg);
+    const float m_new =
+        fmaxf(m_run, fmaxf(fmaxf(wmax[tid], wmax[kTcBT + tid]),
+                           fmaxf(wmax[2 * kTcBT + tid],
+                                 wmax[3 * kTcBT + tid])));
+    mnew[tid] = m_new;
+    consumer_sync(wg);
+#pragma unroll
+    for (int jn = 0; jn < 16; ++jn)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int tok = 8 * jn + 2 * q + e;
+        const float m = mnew[tok];
+        const float ml = m * kLog2e;
+        const float z0 = sum[4 * jn + e], z1 = sum[4 * jn + 2 + e];
+        float se = tc_term(z0, m, ml) + tc_term(z1, m, ml);
+        const int c = lab[tok] - c0;  // the label's column among the 64
+        float gv = c == col[0] ? z0 : (c == col[1] ? z1 : 0.f);
+#pragma unroll
+        for (int o = 4; o < 32; o <<= 1) {
+          se += __shfl_xor_sync(kFull, se, o);
+          gv += __shfl_xor_sync(kFull, gv, o);
+        }
+        if (g == 0) {
+          wsum[warp * kTcBT + tok] = se;
+          wgold[warp * kTcBT + tok] = gv;
+        }
+      }
+    consumer_sync(wg);
+    const float se = ((wsum[tid] + wsum[kTcBT + tid]) +
+                      wsum[2 * kTcBT + tid]) + wsum[3 * kTcBT + tid];
+    // the running sum's factor is 1 where the max stays (an infinite one
+    // too)
+    const float alpha =
+        m_run == m_new ? 1.f : ex2((m_run - m_new) * kLog2e);
+    s_run = fmaf(s_run, alpha, se);
+    m_run = m_new;
+    if (y_own >= c0 && y_own < c0 + 64)
+      g_run = ((wgold[tid] + wgold[kTcBT + tid]) + wgold[2 * kTcBT + tid]) +
+              wgold[3 * kTcBT + tid];
+  }
+
+  if (my_tok < t) {
+    const size_t plane =
+        static_cast<size_t>(gridDim.x / t_tiles) * kTcConsumers * t;
+    const size_t idx =
+        ((static_cast<size_t>(split) * kTcConsumers + wg) * rows + r) * t +
+        my_tok;
+    ws[idx] = m_run;
+    ws[plane + idx] = s_run;
+    ws[2 * plane + idx] = g_run;
+  }
+}
+
+// dst [rows][pitch] = src [rows][cols] (E of 2 or 4 bytes, pitch a multiple
+// of 16 bytes and at least cols; the pad zeroed): one thread writes 16
+// bytes
+template <typename E>
+__global__ void head_losses_pad_kernel(const E* __restrict__ src,
+                                       E* __restrict__ dst, long long rows,
+                                       int cols, int pitch) {
+  constexpr int kPer = 16 / sizeof(E);
+  const long long chunks = pitch / kPer;
   for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) +
                      threadIdx.x;
        i < rows * chunks; i += static_cast<long long>(gridDim.x) * blockDim.x) {
     const long long row = i / chunks;
-    const int c0 = static_cast<int>(i % chunks) * 8;
-    const uint16_t* s = src + row * cols;
-    alignas(16) uint16_t out[8];
+    const int c0 = static_cast<int>(i % chunks) * kPer;
+    const E* s = src + row * cols;
+    alignas(16) E out[kPer];
 #pragma unroll
-    for (int e = 0; e < 8; ++e) out[e] = c0 + e < cols ? s[c0 + e] : 0;
+    for (int e = 0; e < kPer; ++e) out[e] = c0 + e < cols ? s[c0 + e] : 0;
     *reinterpret_cast<uint4*>(dst + row * pitch + c0) =
         *reinterpret_cast<const uint4*>(out);
   }
@@ -1014,19 +1435,21 @@ __global__ void head_losses_pad_kernel(const uint16_t* __restrict__ src,
 
 // ---- dispatch and launch ----
 
-enum Body { kFma = 0, kF32Tiled = 1, kTensorCore = 2 };
+enum Body { kFma = 0, kF32Tiled = 1, kTensorCore = 2, kF32TensorCore = 3 };
 
 // The dispatch rule (ops.py::body_for mirrors it). bf16 goes to the tensor
 // cores where its rows are whole 16-byte chunks (D and V multiples of 8,
 // no copy) or V is at least one of their 256-column vocab tiles (a ragged
-// D or V then padded); fp32 goes to the tiled body from one of its
-// 128-column vocab tiles up. Everything else, and T, D or V of 0 (an empty
-// tile grid), takes the FMA body.
+// D or V then padded); fp32 goes to the tiled bodies from one of their
+// 128-column vocab tiles up: to the tensor cores (3xTF32) from
+// kF32TcMinD rows of D up, else to the SIMT body. Everything else, and T,
+// D or V of 0 (an empty tile grid), takes the FMA body.
 int body_for(int t, int d, int v, int dtype) {
   if (t <= 0 || d <= 0 || v <= 0) return kFma;
   if (dtype == 1 && ((d % 8 == 0 && v % 8 == 0) || v >= kLmBV))
     return kTensorCore;
-  if (dtype == 0 && v >= kF32MinV) return kF32Tiled;
+  if (dtype == 0 && v >= kF32MinV)
+    return d >= kF32TcMinD ? kF32TensorCore : kF32Tiled;
   return kFma;
 }
 
@@ -1034,7 +1457,7 @@ int body_for(int t, int d, int v, int dtype) {
 bool body_takes(int body, int t, int d, int v, int dtype) {
   if (body == kFma) return dtype == 0 || dtype == 1;
   if (t <= 0 || d <= 0 || v <= 0) return false;
-  return (body == kF32Tiled && dtype == 0) ||
+  return ((body == kF32Tiled || body == kF32TensorCore) && dtype == 0) ||
          (body == kTensorCore && dtype == 1);
 }
 
@@ -1055,18 +1478,32 @@ int blocks_per_sm(K kernel, int threads, int smem, int* cache,
   return *cache;
 }
 
-// Blocks resident per SM of the tensor-core kernel, or of the fp32 kernel
-// with `vec4` copies (the 16-byte one sets the split count of both: they
-// take the same shared memory and register cap)
+// Blocks resident per SM of the tensor-core kernels, or of the fp32 SIMT
+// kernel with `vec4` copies (the 16-byte one sets the split count of both:
+// they take the same shared memory and register cap)
 int body_blocks_per_sm(int body, bool vec4, cudaError_t* err) {
-  static int lm = 0, f32_1 = 0, f32_4 = 0;
+  static int lm = 0, tc = 0, f32_1 = 0, f32_4 = 0;
   if (body == kTensorCore)
     return blocks_per_sm(head_losses_lm_kernel, kLmThreads, kLmSmemBytes, &lm,
                          err);
+  if (body == kF32TensorCore)
+    return blocks_per_sm(head_losses_f32tc_kernel, kTcThreads, kTcSmemBytes,
+                         &tc, err);
   return vec4 ? blocks_per_sm(head_losses_f32_kernel<4>, kF32Threads,
                               kF32SmemBytes, &f32_4, err)
               : blocks_per_sm(head_losses_f32_kernel<1>, kF32Threads,
                               kF32SmemBytes, &f32_1, err);
+}
+
+// Tokens and vocab columns of a tiled body's tile
+int tile_tokens(int body) {
+  return body == kTensorCore ? kLmBT : body == kF32TensorCore ? kTcBT
+                                                              : kF32BT;
+}
+
+int tile_columns(int body) {
+  return body == kTensorCore ? kLmBV : body == kF32TensorCore ? kTcBV
+                                                              : kF32BV;
 }
 
 // Vocab tiles per V-split: as many splits as fill one wave of the card
@@ -1078,9 +1515,8 @@ int vt_per_split(int body, int rows, int t, int v, cudaError_t* err) {
   if (*err == cudaSuccess)
     *err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (*err != cudaSuccess) return 0;
-  const int bt = body == kTensorCore ? kLmBT : kF32BT;
-  const int bv = body == kTensorCore ? kLmBV : kF32BV;
-  const int v_tiles = (v + bv - 1) / bv;
+  const int bt = tile_tokens(body);
+  const int v_tiles = (v + tile_columns(body) - 1) / tile_columns(body);
   const long long base = static_cast<long long>(rows) * ((t + bt - 1) / bt);
   const long long fill = static_cast<long long>(per_sm) * sms / base;
   const int splits = static_cast<int>(
@@ -1089,7 +1525,7 @@ int vt_per_split(int body, int rows, int t, int v, cudaError_t* err) {
 }
 
 int splits_of(int body, int v, int vt_per_split) {
-  const int bv = body == kTensorCore ? kLmBV : kF32BV;
+  const int bv = tile_columns(body);
   return ((v + bv - 1) / bv + vt_per_split - 1) / vt_per_split;
 }
 
@@ -1105,9 +1541,11 @@ bool f32_vec4(const void* heads, int v) {
   return v % 4 == 0 && reinterpret_cast<uintptr_t>(heads) % 16 == 0;
 }
 
-// The workspace of a tiled body: the three planes of triples, then the
-// features transposed (the fp32 body) or padded (the tensor-core body with
-// a ragged D) and the heads padded (a ragged V), each on a 256-byte
+// The workspace of a tiled body: the three planes of triples (the fp32
+// tensor-core body's a consumer a split), then the features transposed
+// (the fp32 SIMT body), split into two TF32 planes (the fp32 tensor-core
+// body) or padded (the bf16 tensor-core body with a ragged D), and the
+// heads padded (a ragged V on the tensor cores), each on a 256-byte
 // boundary.
 struct Workspace {
   int per, splits;
@@ -1121,25 +1559,36 @@ Workspace workspace_of(int body, int n, int k, int t, int d, int v,
   w.per = vt_per_split(body, rows, t, v, err);
   if (*err != cudaSuccess) return w;
   w.splits = splits_of(body, v, w.per);
-  w.triples = round256(3LL * sizeof(float) * w.splits * rows * t);
+  const int entries = w.splits * (body == kF32TensorCore ? kTcConsumers : 1);
+  w.triples = round256(3LL * sizeof(float) * entries * rows * t);
   if (body == kF32Tiled) w.feats = round256(4LL * n * d * round4(t));
   if (body == kTensorCore) {
     if (d % 8) w.feats = round256(2LL * n * t * round8(d));
     if (v % 8) w.heads = round256(2LL * rows * d * round8(v));
   }
+  if (body == kF32TensorCore) {
+    w.feats = round256(8LL * n * t * round4(d));
+    if (v % 4) w.heads = round256(4LL * rows * d * round4(v));
+  }
   return w;
 }
 
+// A grid-stride launch's blocks of 256 threads for `work` items
+unsigned stride_grid(long long work) {
+  const long long blocks = (work + 255) / 256;
+  return static_cast<unsigned>(
+      blocks < 132 * 16 ? (blocks > 0 ? blocks : 1) : 132 * 16);
+}
+
+// dst [rows][pitch] = src [rows][cols] of E (bf16 as uint16_t, fp32 as
+// uint32_t), the pad zeroed
+template <typename E>
 cudaError_t pad_rows(const void* src, void* dst, long long rows, int cols,
                      int pitch, cudaStream_t s) {
-  const long long work = rows * (pitch / 8);
-  const long long blocks = (work + 255) / 256;
-  const unsigned grid =
-      static_cast<unsigned>(blocks < 132 * 16 ? (blocks > 0 ? blocks : 1)
-                                              : 132 * 16);
-  head_losses_pad_kernel<<<grid, 256, 0, s>>>(
-      static_cast<const uint16_t*>(src), static_cast<uint16_t*>(dst), rows,
-      cols, pitch);
+  head_losses_pad_kernel<E><<<stride_grid(rows * (pitch * sizeof(E) / 16)),
+                              256, 0, s>>>(static_cast<const E*>(src),
+                                           static_cast<E*>(dst), rows, cols,
+                                           pitch);
   return cudaGetLastError();
 }
 
@@ -1174,21 +1623,26 @@ EncodeTiled encode_tiled(cudaError_t* err) {
   return fn;
 }
 
-// A bf16 tensor [outer][mid][inner] whose rows are `pitch` >= inner values
-// apart, as a 3-D map of extent (inner, mid, outer) with boxes of (64,
-// box_mid, 1), the 128-byte swizzle and zero fill out of bounds
+// A tensor [outer][mid][inner] of bf16 (`fp32` false) or 4-byte words whose
+// rows are `pitch` >= inner values apart, as a 3-D map of extent (inner,
+// mid, outer) with boxes of (128 bytes, box_mid, 1), the 128-byte swizzle
+// and zero fill out of bounds
 cudaError_t make_map(EncodeTiled fn, CUtensorMap* map, const void* base,
-                     int inner, int pitch, int mid, int outer, int box_mid) {
+                     bool fp32, int inner, int pitch, int mid, int outer,
+                     int box_mid) {
+  const cuuint64_t es = fp32 ? 4 : 2;
   const cuuint64_t dims[3] = {static_cast<cuuint64_t>(inner),
                               static_cast<cuuint64_t>(mid),
                               static_cast<cuuint64_t>(outer)};
-  const cuuint64_t strides[2] = {2ull * pitch, 2ull * pitch * mid};
-  const cuuint32_t box[3] = {static_cast<cuuint32_t>(kLmBox),
+  const cuuint64_t strides[2] = {es * pitch, es * pitch * mid};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(128 / es),
                              static_cast<cuuint32_t>(box_mid), 1};
   const cuuint32_t unit[3] = {1, 1, 1};
   const CUresult res = fn(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims,
-      strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      map,
+      fp32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+      3, const_cast<void*>(base), dims, strides, box, unit,
+      CU_TENSOR_MAP_INTERLEAVE_NONE,
       CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
@@ -1214,22 +1668,25 @@ int launch_lm(const void* feats, const void* heads, const int32_t* labels,
   const void* hsrc = heads;
   if (pad_f) {
     fsrc = base + w.triples;
-    err = pad_rows(feats, base + w.triples, static_cast<long long>(n) * t, d,
-                   round8(d), s);
+    err = pad_rows<uint16_t>(feats, base + w.triples,
+                             static_cast<long long>(n) * t, d, round8(d), s);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   if (pad_h) {
     hsrc = base + w.triples + w.feats;
-    err = pad_rows(heads, base + w.triples + w.feats,
-                   static_cast<long long>(rows) * d, v, round8(v), s);
+    err = pad_rows<uint16_t>(heads, base + w.triples + w.feats,
+                             static_cast<long long>(rows) * d, v, round8(v),
+                             s);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   const EncodeTiled fn = encode_tiled(&err);
   if (err != cudaSuccess) return static_cast<int>(err);
   CUtensorMap fmap, hmap;
-  err = make_map(fn, &fmap, fsrc, d, pad_f ? round8(d) : d, t, n, kLmBT);
+  err = make_map(fn, &fmap, fsrc, false, d, pad_f ? round8(d) : d, t, n,
+                 kLmBT);
   if (err == cudaSuccess)
-    err = make_map(fn, &hmap, hsrc, v, pad_h ? round8(v) : v, d, rows, kLmBD);
+    err = make_map(fn, &hmap, hsrc, false, v, pad_h ? round8(v) : v, d, rows,
+                   kLmBD);
   if (err != cudaSuccess) return static_cast<int>(err);
   head_losses_lm_kernel<<<static_cast<unsigned>(blocks), kLmThreads,
                           kLmSmemBytes, s>>>(fmap, hmap, labels, ws, k, t, d,
@@ -1282,10 +1739,61 @@ int launch_f32(const void* feats, const void* heads, const int32_t* labels,
   return static_cast<int>(cudaGetLastError());
 }
 
+int launch_f32tc(const void* feats, const void* heads, const int32_t* labels,
+                 float* out, float* ws, int n, int k, int t, int d, int v,
+                 cudaStream_t s) {
+  const bool pad_h = v % 4 != 0;
+  if (!pad_h && reinterpret_cast<uintptr_t>(heads) % 16)
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  if (ws == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  const int rows = n * k;
+  cudaError_t err;
+  const Workspace w = workspace_of(kF32TensorCore, n, k, t, d, v, &err);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long blocks =
+      static_cast<long long>(w.splits) * rows * ((t + kTcBT - 1) / kTcBT);
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  char* base = reinterpret_cast<char*>(ws);
+  const long long feat_rows = static_cast<long long>(n) * t;
+  head_losses_tf32_split_kernel<<<stride_grid(feat_rows * round4(d)), 256, 0,
+                                  s>>>(static_cast<const float*>(feats),
+                                       reinterpret_cast<uint32_t*>(
+                                           base + w.triples),
+                                       feat_rows, d, round4(d));
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const void* hsrc = heads;
+  if (pad_h) {
+    hsrc = base + w.triples + w.feats;
+    err = pad_rows<uint32_t>(heads, base + w.triples + w.feats,
+                             static_cast<long long>(rows) * d, v, round4(v),
+                             s);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const EncodeTiled fn = encode_tiled(&err);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  CUtensorMap pf, hmap;
+  err = make_map(fn, &pf, base + w.triples, true, d, round4(d), t, 2 * n,
+                 kTcBT);
+  if (err == cudaSuccess)
+    err = make_map(fn, &hmap, hsrc, true, v, pad_h ? round4(v) : v, d, rows,
+                   kTcBK);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  head_losses_f32tc_kernel<<<static_cast<unsigned>(blocks), kTcThreads,
+                             kTcSmemBytes, s>>>(pf, hmap, labels, ws, n, k, t,
+                                                d, v, rows, w.per);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  head_losses_lm_merge<<<rows, kMergeThreads, 0, s>>>(
+      ws, labels, out, k, t, rows, w.splits * kTcConsumers);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
-// The body hs_head_losses runs for this input: 0 = FMA, 1 = fp32 tiled,
-// 2 = tensor cores (ops.py::body_for gives the same answer).
+// The body hs_head_losses runs for this input: 0 = FMA, 1 = fp32 tiled
+// (SIMT), 2 = tensor cores (bf16), 3 = fp32 on the tensor cores (3xTF32)
+// (ops.py::body_for gives the same answer).
 extern "C" int hs_body(int n, int k, int t, int d, int v, int dtype) {
   (void)n;
   (void)k;
@@ -1313,9 +1821,10 @@ extern "C" long long hs_workspace_bytes(int n, int k, int t, int d, int v,
 
 // dtype: 0 = fp32, 1 = bf16. Runs `body` (which must take the input, else
 // cudaErrorInvalidValue): the tiled bodies take `workspace`
-// (hs_workspace_bytes_for of it) and launch twice, or three or four times
-// where the tensor-core body pads D or V; the FMA body ignores it and
-// launches once. Launches on `stream`, does not synchronise, and returns
+// (hs_workspace_bytes_for of it) and launch twice (the bf16 tensor-core
+// body, or three or four times where it pads D or V) or three times (the
+// fp32 bodies: a first pass over the features, and the fp32 tensor-core
+// body four where it pads V); the FMA body ignores it and launches once. Launches on `stream`, does not synchronise, and returns
 // cudaGetLastError() (0 when the launches were accepted).
 extern "C" int hs_head_losses_for(int body, const void* feats,
                                   const void* heads, const void* labels,
@@ -1332,6 +1841,8 @@ extern "C" int hs_head_losses_for(int body, const void* feats,
     return launch_lm(feats, heads, lab, o, ws, n, k, t, d, v, s);
   if (body == kF32Tiled)
     return launch_f32(feats, heads, lab, o, ws, n, k, t, d, v, s);
+  if (body == kF32TensorCore)
+    return launch_f32tc(feats, heads, lab, o, ws, n, k, t, d, v, s);
   if (dtype == 0) return launch<float>(feats, heads, lab, o, n, k, t, d, v, s);
   return launch<__nv_bfloat16>(feats, heads, lab, o, n, k, t, d, v, s);
 }
@@ -1352,8 +1863,8 @@ extern "C" int hs_pad_rows(const void* src, void* dst, long long rows,
   if (pitch % 8 || pitch < cols ||
       reinterpret_cast<uintptr_t>(dst) % 16)
     return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(
-      pad_rows(src, dst, rows, cols, pitch, static_cast<cudaStream_t>(stream)));
+  return static_cast<int>(pad_rows<uint16_t>(
+      src, dst, rows, cols, pitch, static_cast<cudaStream_t>(stream)));
 }
 
 extern "C" const char* hs_error_string(int code) {

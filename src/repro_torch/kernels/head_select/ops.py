@@ -5,7 +5,7 @@ heads, the mean cross-entropy over the node's tokens — FACADE's step 2c,
 the function of the TPU kernel ``repro/kernels/head_select``. On CUDA
 tensors it launches the kernel (built at first use) and raises on what the
 kernel does not take; on CPU tensors it runs the plain version
-``head_losses_ref``. The CUDA source has three bodies, and
+``head_losses_ref``. The CUDA source has four bodies, and
 :func:`body_for` picks one from the shape and dtype (``hs_body`` in the
 source gives the same answer):
 
@@ -14,12 +14,27 @@ source gives the same answer):
   padded buffer of the workspace), any T > 0. ``wgmma`` fed by TMA, a tile
   kernel and a merge kernel; bound at an LM's shapes by its products at
   989 TFLOP/s (2.18 ms at n·K 4, T 1024, D 2048, V 128,256);
-- ``"fp32_tiled"``: fp32 with V of at least one 128-column vocab tile, any
-  T > 0. A register-blocked SIMT product (128 tokens × 128 columns a block,
-  8 × 8 fp32 FMA chains a thread, no TF32) fed by a ``cp.async`` ring, the
-  same fold and merge; bound by its products at the fp32 pipes' 67 TFLOP/s
-  (32.1 ms at n·K 2, T 2048, D 2048, V 128,256), against the heads' 0.63
-  ms of reads, and it never writes the [T, V] logits;
+- ``"fp32_tensor_core"``: fp32 with V of at least one 128-column vocab
+  tile and D of at least ``F32_TC_MIN_D``, any T > 0. The products on the
+  TF32 tensor cores split 3xTF32 (each value x as big = tf32(x) plus small
+  = tf32(x - big), three products a step: small·big, big·small, big·big,
+  into the tensor cores' fp32 sum, restarted every 32 rows of D and added
+  to nearest into a second), so the function stays fp32's: a first launch
+  splits the features into two TF32 planes in the workspace, a ragged V is
+  copied into rows of V rounded up to 4 (a head pointer off 16-byte
+  alignment is refused otherwise), then a warp-specialised ``wgmma``
+  kernel computes the logit tile transposed (the head slab as A from
+  registers, split there; the feature planes as B by TMA; 128 tokens × 128
+  columns a block), the tensor-core body's fold and merge; bound by its
+  three products at 495 TFLOP/s (13.0 ms at n·K 2, T 2048, D 2048, V
+  128,256);
+- ``"fp32_tiled"``: the other fp32 inputs with V of at least one
+  128-column vocab tile, any T > 0. A register-blocked SIMT product (128
+  tokens × 128 columns a block, 8 × 8 fp32 FMA chains a thread, no TF32)
+  fed by a ``cp.async`` ring, the same fold and merge; bound by its
+  products at the fp32 pipes' 67 TFLOP/s (32.1 ms at n·K 2, T 2048, D
+  2048, V 128,256), against the heads' 0.63 ms of reads; neither fp32 body
+  writes the [T, V] logits;
 - ``"fma"``: everything else (the CNN paths' step 2c: fp32, D 513 or 65,
   V 10 or 41), one launch.
 
@@ -27,9 +42,10 @@ The tiled bodies take a workspace this wrapper allocates in one piece.
 ``head_losses.launches`` counts calls that launched the kernel (one per
 call, whichever body ran); a profile tells the bodies apart by their
 kernels' names (``head_losses_kernel``, ``head_losses_f32_kernel``,
-``head_losses_lm_kernel``, with ``head_losses_lm_merge`` after either
-tiled body and ``head_losses_pad_kernel`` before the tensor cores' ragged
-calls).
+``head_losses_lm_kernel``, ``head_losses_f32tc_kernel``, with
+``head_losses_lm_merge`` after every tiled body,
+``head_losses_tf32_split_kernel`` before the fp32 tensor-core body's and
+``head_losses_pad_kernel`` before the tensor cores' ragged calls).
 
 On DTensors each rank scores its own nodes (``local_map``): the node dim
 may stay sharded, while a node's tokens, features, heads and vocabulary
@@ -51,10 +67,12 @@ from .ref import head_losses_ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # the bodies in the order of the source's codes
-BODIES = ("fma", "fp32_tiled", "tensor_core")
-# csrc/head_select.cu: kLmBV (the tensor cores' vocab tile) and kF32MinV
+BODIES = ("fma", "fp32_tiled", "tensor_core", "fp32_tensor_core")
+# csrc/head_select.cu: kLmBV (the tensor cores' vocab tile), kF32MinV and
+# kF32TcMinD
 TC_MIN_RAGGED_V = 256
 F32_MIN_V = 128
+F32_TC_MIN_D = 192
 
 
 def body_for(n: int, k: int, t: int, d: int, v: int, dtype) -> str:
@@ -67,7 +85,7 @@ def body_for(n: int, k: int, t: int, d: int, v: int, dtype) -> str:
                                     or v >= TC_MIN_RAGGED_V):
         return "tensor_core"
     if dtype == torch.float32 and v >= F32_MIN_V:
-        return "fp32_tiled"
+        return "fp32_tensor_core" if d >= F32_TC_MIN_D else "fp32_tiled"
     return "fma"
 
 
@@ -76,8 +94,8 @@ def _takes(body: str, t: int, d: int, v: int, dtype) -> bool:
         return True
     if min(t, d, v) <= 0:
         return False
-    return {"fp32_tiled": torch.float32,
-            "tensor_core": torch.bfloat16}[body] == dtype
+    return {"fp32_tiled": torch.float32, "tensor_core": torch.bfloat16,
+            "fp32_tensor_core": torch.float32}[body] == dtype
 
 
 @functools.cache

@@ -4,19 +4,22 @@ Needs an NVIDIA card and ``nvcc``; elsewhere every test skips with the
 reason. This file imports no JAX, so it also runs where only PyTorch is
 installed. Tolerance: 2e-5 absolute and relative — kernel and plain
 version read the same values and both accumulate in fp32, so they differ
-only in summation order. Argmin must agree exactly. The kernel has three
+only in summation order. Argmin must agree exactly. The kernel has four
 bodies (``ops.body_for``): bf16 with D and V multiples of 8, or with V of
 at least 256 (a ragged D or V copied into padded rows first), takes the
-tensor-core body; fp32 with V of at least 128 the fp32 tiled body; every
-other input the FMA body. So in bf16 the tensor-core body runs the first
+tensor-core body; fp32 with V of at least 128 the fp32 tensor-core body
+(3xTF32) from D 192 up and the fp32 tiled body below; every other input
+the FMA body. So in bf16 the tensor-core body runs the first
 three SHAPES, EDGE_SHAPES' (2, 2, 8, 32, 16), (3, 1, 3, 33, 1024) (D
 padded) and (2, 3, 1, 64, 24) (one 128 × 256 tile, mostly masked), every
 LM_SHAPES case and every PADDED_SHAPES case; the FMA body runs bf16 at the
 other SHAPES and EDGE_SHAPES (D 1, 31, 65, 70 or 513 with V under 256, or
 V 1, 10, 17, 41 or 45) and in the bf16 identical-heads case. fp32 runs the
 tiled body at the first three SHAPES, EDGE_SHAPES' (3, 1, 3, 33, 1024) and
-every F32_SHAPES case, and the FMA body at the CNN shapes (V 10 and 41)
-and the other EDGE_SHAPES.
+every F32_SHAPES case but the last, which takes the fp32 tensor-core body
+(D 2048), and the FMA body at the CNN shapes (V 10 and 41) and the other
+EDGE_SHAPES. The fp32 tensor-core body is also forced at every
+TC32_SHAPES case, against a float64 witness too.
 """
 from __future__ import annotations
 
@@ -25,7 +28,8 @@ import pytest
 import torch
 
 from repro_torch.kernels.head_select import head_losses, head_losses_ref
-from torch_caps import cuda_device, requires_cuda  # noqa: F401
+from torch_caps import (chip_smoke_constant, cuda_device,  # noqa: F401
+                        requires_cuda)
 
 # (n, K, T, D, V): the reference kernel tests' HS_SHAPES with one node, the
 # main path's shape (32 nodes, 2 heads, B = 8, LeNet's 512 + bias, 10), and
@@ -185,15 +189,19 @@ def test_kernel_refuses_what_it_does_not_take(cuda_device):
     (torch.float32, (1, 5, 128, 128, 1024), "fma"),
     (torch.float32, (2, 2, 130, 33, 300), "fma"),
     (torch.float32, (4, 2, 8, 513, 10), "fp32_tiled"),
+    (torch.float32, (2, 1, 512, 2048, 128256), "fp32_tiled"),
+    (torch.float32, (4, 2, 8, 513, 10), "fp32_tensor_core"),
     (torch.bfloat16, (2, 2, 130, 36, 300), "fma"),
     (torch.bfloat16, (4, 2, 8, 513, 10), "tensor_core"),
 ], ids=["fp32-hs2-fma", "fp32-ragged-fma", "fp32-cnn-tiled",
-        "bf16-ragged-fma", "bf16-cnn-tc"])
+        "fp32-lm-tiled", "fp32-cnn-tc32", "bf16-ragged-fma", "bf16-cnn-tc"])
 def test_a_forced_body_matches_plain_version(cuda_device, dtype, shape,
                                              body):
     """Each body on inputs the rule gives another (the timings' forced
     calls): the same function within the tolerance."""
-    feats, heads, labels = _case(*shape, dtype, cuda_device, seed=3)
+    feats, heads, labels = _case(*shape, dtype, cuda_device, seed=3,
+                                 draw_on=cuda_device if shape[-1] > 1000
+                                 else None)
     got = head_losses(feats, heads, labels, body=body)
     torch.cuda.synchronize()
     want = head_losses_ref(feats, heads, labels)
@@ -231,3 +239,117 @@ def test_wider_paths_take_inputs_off_16_byte_alignment(cuda_device, dtype,
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
                                rtol=TOL, atol=TOL)
     assert torch.equal(got.argmin(1), want.argmin(1))
+
+
+# the fp32 tensor-core body (3xTF32) forced, at every fp32 shape above
+# whichever body the rule gives it: T around its 128-token tiles (1, 127,
+# 129, 130, 200), D around its 8-deep k-steps, the feature planes' 4-value
+# rows and its 32-row stages (5, 16, 17, 33, 64, 70, 2048), V around its
+# 128-column tiles and 64-column consumers (128, 129, 255, 300, 383 and
+# 1000: the heads copied into rows of V rounded up to 4 where V is not a
+# multiple of 4), the reference tests' shapes and a four-card FACADE
+# rank's step 2c. The last node's labels are all excluded.
+TC32_SHAPES = SHAPES[:3] + F32_SHAPES + [(3, 2, 40, 70, 300),
+                                         (4, 2, 256, 2048, 4096)]
+# its gate against a float64 witness (chip_smoke.HS_TC32_FACTOR and
+# HS_TC32_FLOOR): the distance within the factor times the plain fp32
+# version's, or the floor
+TC32_FACTOR = chip_smoke_constant("HS_TC32_FACTOR")
+TC32_FLOOR = chip_smoke_constant("HS_TC32_FLOOR")
+
+
+def _witness(feats, heads, labels):
+    """The plain version's steps in float64 on the same inputs."""
+    n, k = heads.shape[:2]
+    t = feats.shape[1]
+    logits = torch.einsum("ntd,nkdv->nktv", feats.double(), heads.double())
+    lse = torch.logsumexp(logits, dim=-1)
+    labs = labels.long().clamp(min=0)[:, None, :, None].expand(n, k, t, 1)
+    gold = torch.gather(logits, -1, labs).squeeze(-1)
+    valid = (labels >= 0)[:, None, :]
+    nll = torch.where(valid, lse - gold, torch.zeros_like(lse))
+    return nll.sum(-1) / valid.sum(-1).clamp(min=1)
+
+
+@requires_cuda
+@pytest.mark.parametrize("shape", TC32_SHAPES, ids=str)
+def test_fp32_tensor_core_body_matches_plain_version(cuda_device, shape):
+    """Against the plain version (``TOL``, equal argmins, 0.0 where every
+    label is excluded) and the float64 witness; two calls give the same
+    bits and bit-identical heads bit-identical losses."""
+    feats, heads, labels = _case(*shape, torch.float32, cuda_device,
+                                 draw_on=cuda_device)
+    labels[-1] = -1
+    before = head_losses.launches
+    got = head_losses(feats, heads, labels, body="fp32_tensor_core")
+    torch.cuda.synchronize()
+    assert head_losses.launches == before + 1
+    want = head_losses_ref(feats, heads, labels)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               rtol=TOL, atol=TOL)
+    assert torch.equal(got.argmin(1), want.argmin(1))
+    assert torch.equal(got[-1], torch.zeros_like(got[-1]))
+    witness = _witness(feats, heads, labels)
+
+    def dist(x):
+        return float(((x.double() - witness).abs()
+                      / witness.abs().clamp(min=1)).max())
+    assert dist(got) <= max(TC32_FACTOR * dist(want), TC32_FLOOR)
+    assert torch.equal(got, head_losses(feats, heads, labels,
+                                        body="fp32_tensor_core"))
+    same = head_losses(feats, heads[:, :1].repeat(1, 2, 1, 1).contiguous(),
+                       labels, body="fp32_tensor_core")
+    assert torch.equal(same[:, 0], same[:, 1])
+
+
+@requires_cuda
+@pytest.mark.parametrize("v", [4096, 4099])
+def test_fp32_tensor_core_body_on_non_finite_inputs(cuda_device, v):
+    """NaN features, NaN heads, a +inf weight on a feature of 1 (exact in
+    TF32: a +inf logit, a +inf loss, not inf 0 = NaN) and a head of +inf
+    weights (NaN logits): NaN and +inf at the plain version's places, the
+    finite losses within ``TOL``, the argmins equal; V 4099 through the
+    copy into rows of V rounded up to 4."""
+    feats, heads, labels = _case(4, 2, 256, 2048, v, torch.float32,
+                                 cuda_device, seed=6, draw_on=cuda_device)
+    labels[0, 3] = 5
+    feats[0, 3] = float("nan")
+    heads[1, 1] = float("nan")
+    feats[2, :, 0] = 1.0
+    free = sorted(set(range(v)) - set(labels[2].tolist()))[0]
+    heads[2, 0, 0, free] = float("inf")
+    heads[3, 1] = float("inf")
+    got = head_losses(feats, heads, labels, body="fp32_tensor_core")
+    want = head_losses_ref(feats, heads, labels)
+    assert torch.equal(got.isnan(), want.isnan())
+    assert torch.equal(got.isposinf(), want.isposinf())
+    assert bool(got[2, 0].isposinf())
+    fin = torch.isfinite(want)
+    np.testing.assert_allclose(got[fin].cpu().numpy(),
+                               want[fin].cpu().numpy(), rtol=TOL, atol=TOL)
+    assert torch.equal(got.argmin(1), want.argmin(1))
+
+
+@requires_cuda
+def test_fp32_tensor_core_body_alignment(cuda_device):
+    """Heads off 16-byte alignment: refused where V is a multiple of 4
+    (TMA reads them in place), taken through the copy into padded rows
+    where it is not; features at any address (split into the workspace)."""
+    for v, refused in ((300, True), (301, False)):
+        feats, heads, labels = _case(2, 2, 130, 64, v, torch.float32,
+                                     cuda_device, seed=4)
+        shifted = []
+        for x in (feats, heads):
+            y = torch.empty(x.numel() + 1, dtype=x.dtype,
+                            device=cuda_device)[1:].view(x.shape)
+            y.copy_(x)
+            shifted.append(y)
+        if refused:
+            with pytest.raises(RuntimeError, match="misaligned"):
+                head_losses(shifted[0], shifted[1], labels,
+                            body="fp32_tensor_core")
+            continue
+        got = head_losses(*shifted, labels, body="fp32_tensor_core")
+        want = head_losses_ref(feats, heads, labels)
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                                   rtol=TOL, atol=TOL)

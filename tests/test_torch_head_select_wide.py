@@ -327,7 +327,9 @@ def _path_shapes():
     ResNet8's one stream per (node, head) (n·K 64, D 64 + bias, V 41); the
     reference tests' ``HS_SHAPES`` in both dtypes; every arch's LM
     FACADE step 2c (n·K 4, T = B·S 1024) at full width in its bf16 and in
-    fp32, and its smoke config (fp32, V 512)."""
+    fp32 (D 384 to 7,168: the fp32 tensor cores), and its smoke config
+    (fp32, V 512; D 256 the fp32 tensor cores, whisper-tiny's D 128 the
+    SIMT body)."""
     out = [("lenet", (32, 2, 8, 513, 10), torch.float32, "fma"),
            ("lenet bf16", (32, 2, 8, 513, 10), torch.bfloat16, "fma"),
            ("node rank", (8, 2, 8, 513, 10), torch.float32, "fma"),
@@ -340,10 +342,11 @@ def _path_shapes():
         out += [(arch, (4, 1, 1024, cfg.d_model, cfg.vocab_size),
                  torch.bfloat16, "tensor_core"),
                 (arch, (4, 1, 1024, cfg.d_model, cfg.vocab_size),
-                 torch.float32, "fp32_tiled"),
+                 torch.float32, "fp32_tensor_core"),
                 (arch + " smoke", (4, 1, 64, smoke.d_model,
                                    smoke.vocab_size), torch.float32,
-                 "fp32_tiled")]
+                 {128: "fp32_tiled", 256: "fp32_tensor_core"}[
+                     smoke.d_model])]
     return out
 
 
@@ -359,6 +362,11 @@ def test_dispatch_rule_on_every_path_shape(label, shape, dtype, want):
     ((2, 2, 8, 32, 16), torch.bfloat16, "tensor_core"),
     ((1, 1, 8, 16, 127), torch.float32, "fma"),
     ((1, 1, 8, 16, 128), torch.float32, "fp32_tiled"),
+    ((1, 1, 8, 191, 128), torch.float32, "fp32_tiled"),
+    ((1, 1, 8, 192, 128), torch.float32, "fp32_tensor_core"),
+    ((1, 1, 8, 192, 127), torch.float32, "fma"),
+    ((1, 1, 1, 2048, 32001), torch.float32, "fp32_tensor_core"),
+    ((1, 1, 8, 192, 128), torch.bfloat16, "tensor_core"),
     ((1, 1, 8, 36, 255), torch.bfloat16, "fma"),
     ((1, 1, 8, 36, 256), torch.bfloat16, "tensor_core"),
     ((1, 1, 0, 64, 256), torch.bfloat16, "fma"),

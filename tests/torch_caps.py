@@ -18,10 +18,15 @@
   (``policy_draw``/``policy_draw_at``: the reference's keys); its ``state()``/
   ``set_state`` let a checkpointed run resume it. It imports JAX only
   when built.
+* :func:`chip_smoke_constant` reads a number that ``chip_smoke.py``
+  defines (a tolerance the card's gates share with the tests) from the
+  script's text.
 """
 from __future__ import annotations
 
 import dataclasses
+import pathlib
+import re
 
 import numpy as np
 import pytest
@@ -32,6 +37,16 @@ from repro_torch.models.base import CNNConfig
 from repro_torch.tree import tree_map
 
 requires_cuda = pytest.mark.cuda
+CHIP_SMOKE = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+
+
+def chip_smoke_constant(name: str) -> float:
+    """``chip_smoke.<name>``, a number or a power of 2, read from the
+    script's text (importing the script takes seconds)."""
+    text = re.search(rf"^{name} = (.+)$", CHIP_SMOKE.read_text(),
+                     re.M).group(1)
+    power = re.fullmatch(r"2\.0 \*\* (-?\d+)", text)
+    return 2.0 ** int(power.group(1)) if power else float(text)
 
 
 @pytest.fixture

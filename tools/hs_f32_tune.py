@@ -1,23 +1,27 @@
 #!/usr/bin/env python3
-"""Time the head-select kernel's fp32 tiled body against builds of it with
-other tile constants, on one card.
+"""Time the head-select kernel's two fp32 bodies, the SIMT tiled one and the
+tensor cores' (3xTF32), against builds of them with other tile constants,
+on one card.
 
     python3 tools/hs_f32_tune.py [--shape N K T D V] [--out FILE]
 
-Builds ``csrc/head_select.cu`` once for each (D chunk, blocks an SM,
-vocab tile) of :data:`VARIANTS`, put in place of the source's ``kF32BK``,
-``kF32Blocks`` and ``kF32BV`` (the first is the source as it stands; a
-thread holds 8 tokens and ``kF32BV / 16`` columns), with the port's
-``nvcc`` flags; holds each against the plain version (``chip_smoke``'s
-``HS_TOL``, equal argmins) and times each with CUDA graphs at ``--shape``
-(default: a four-card FACADE rank's step 2c at the reference's B 8 of S
-256, n·K 2, T 2048, D 2048, V 128,256, fp32), in the order of
-:data:`VARIANTS` and back, ``--rounds`` times. Beside them: the fp32
-``torch.matmul`` alone and the library call (``matmul`` and
-``cross_entropy``), the bound, and the SM clock and power draw that
-``nvidia-smi`` reads while the source's build runs for ``--sustain``
-seconds (``hs_lm_ablate.sustained``). Prints the card's name and power
-limit, then one JSON object (also written to ``--out``).
+Builds ``csrc/head_select.cu`` once for each (body, constants) of
+:data:`VARIANTS`, the constants put in place of the source's (the first
+variant of each body is the source as it stands: for the tensor cores
+``kTcStages``, the stages of the TMA ring; for
+the SIMT body ``kF32BK``, ``kF32Blocks`` and ``kF32BV``, the D chunk,
+blocks an SM and vocab tile), with the port's ``nvcc`` flags; holds each
+against the plain version (``chip_smoke``'s ``HS_TOL``, equal argmins)
+and times each with CUDA graphs at ``--shape`` (default: a four-card
+FACADE rank's step 2c at the reference's B 8 of S 256, n·K 2, T 2048, D
+2048, V 128,256, fp32), in the order of :data:`VARIANTS` and back,
+``--rounds`` times. Beside them: the fp32 ``torch.matmul`` alone and the
+library call (``matmul`` and ``cross_entropy``), both bounds (the fp32
+pipes' and three TF32 products', ``chip_smoke.hs_bound``), and the SM
+clock and power draw that ``nvidia-smi`` reads while each body's source
+build runs for ``--sustain`` seconds (``hs_lm_ablate.sustained``).
+Prints the card's name and power limit, then one JSON object (also
+written to ``--out``).
 """
 from __future__ import annotations
 
@@ -40,30 +44,36 @@ from hs_lm_ablate import sustained  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.head_select.ops import BODIES  # noqa: E402
 
-# (kF32BK, kF32Blocks, kF32BV): the source's own first
-VARIANTS = ((16, 2, 128), (32, 2, 128), (16, 1, 256), (8, 1, 256),
-            (32, 1, 256))
-F32_TILED = BODIES.index("fp32_tiled")
+# (body, constants in place of the source's): each body's source first
+VARIANTS = (("fp32_tensor_core", ()),
+            ("fp32_tensor_core", (("kTcStages", 3),)),
+            ("fp32_tiled", ()),
+            ("fp32_tiled", (("kF32BK", 32), ("kF32Blocks", 2),
+                            ("kF32BV", 128))))
 
 
-def variant_source(bk: int, blocks: int, bv: int) -> str:
+def variant_source(consts) -> str:
     src = (build.CSRC / "head_select.cu").read_text()
-    for name, value in (("kF32BK", bk), ("kF32Blocks", blocks),
-                        ("kF32BV", bv)):
+    for name, value in consts:
         line = next(ln for ln in src.splitlines()
                     if ln.startswith(f"constexpr int {name} = "))
         src = src.replace(line, f"constexpr int {name} = {value};")
     return src
 
 
+def label(var) -> str:
+    body, consts = var
+    return "_".join([body] + [f"{name}{value}" for name, value in consts])
+
+
 def build_variants(out_dir: pathlib.Path) -> dict:
-    """All variants compiled together; {(bk, blocks, bv): (library,
-    ptxas lines of the fp32 kernel)}."""
+    """All variants compiled together; {variant: (library, ptxas lines of
+    its body's tile kernel)}."""
     out_dir.mkdir(parents=True, exist_ok=True)
     procs = {}
     for var in VARIANTS:
-        src = out_dir / ("hs_f32_bk{}_b{}_bv{}.cu".format(*var))
-        src.write_text(variant_source(*var))
+        src = out_dir / f"hs_{label(var)}.cu"
+        src.write_text(variant_source(var[1]))
         lib = src.with_suffix(".so")
         procs[var] = (lib, subprocess.Popen(
             [build.nvcc(), *build.NVCC_FLAGS, "-o", str(lib), str(src)],
@@ -79,24 +89,21 @@ def build_variants(out_dir: pathlib.Path) -> dict:
             + [ctypes.c_void_p])
         lib.hs_workspace_bytes_for.argtypes = [ctypes.c_int] * 7
         lib.hs_workspace_bytes_for.restype = ctypes.c_longlong
+        kernel = cs.K1_BODY_KERNEL[var[0]]
         lines, keep = log.splitlines(), []
         for i, line in enumerate(lines):
-            if "Compiling entry function" in line and "f32_kernel" in line:
+            if "Compiling entry function" in line and kernel in line:
                 keep += [ln.strip() for ln in lines[i + 1:i + 4]]
         libs[var] = (lib, keep)
     return libs
 
 
-def label(var) -> str:
-    return "bk{}_b{}_bv{}".format(*var)
-
-
-def call(lib, feats, heads, labels, out, ws):
+def call(lib, body, feats, heads, labels, out, ws):
     n, k, d, v = heads.shape
     rc = lib.hs_head_losses_for(
-        F32_TILED, feats.data_ptr(), heads.data_ptr(), labels.data_ptr(),
-        out.data_ptr(), ws.data_ptr(), n, k, feats.shape[1], d, v, 0,
-        torch.cuda.current_stream().cuda_stream)
+        BODIES.index(body), feats.data_ptr(), heads.data_ptr(),
+        labels.data_ptr(), out.data_ptr(), ws.data_ptr(), n, k,
+        feats.shape[1], d, v, 0, torch.cuda.current_stream().cuda_stream)
     if rc:
         raise RuntimeError(f"hs_head_losses_for returned {rc}")
     return out
@@ -125,36 +132,40 @@ def main() -> int:
     want = cs.head_losses_ref(feats, heads, labels)
     out = torch.empty_like(want)
     n, k, t, d, v = shape
-    bound = cs.hs_bound(feats, heads, labels)
     rec = {"nvidia_smi": smi, "device": torch.cuda.get_device_name(0),
-           "shape": list(shape), "bound_ms": bound[0], "bound_by": bound[1],
-           "variants": {}}
+           "shape": list(shape), "variants": {}}
+    for tc32 in (False, True):
+        key = "bound_tf32" if tc32 else "bound_fp32"
+        rec[key + "_ms"], rec[key + "_by"] = cs.hs_bound(
+            feats, heads, labels, tc32=tc32)[:2]
     ws = {}
     for var, (lib, ptxas) in libs.items():
-        ws[var] = torch.empty(lib.hs_workspace_bytes_for(
-            F32_TILED, n, k, t, d, v, 0) // 4, device="cuda")
-        got = call(lib, feats, heads, labels, out, ws[var])
+        ws[var] = torch.empty(max(lib.hs_workspace_bytes_for(
+            BODIES.index(var[0]), n, k, t, d, v, 0), 4) // 4, device="cuda")
+        got = call(lib, var[0], feats, heads, labels, out, ws[var])
         torch.cuda.synchronize()
-        check = cs.hs_check(f"hs_f32_tune {var}", got, want)
+        check = cs.hs_check(f"hs_f32_tune {label(var)}", got, want)
         rec["variants"][label(var)] = {
             "max_rel_err": check["max_rel_err"], "ptxas": ptxas, "ms": []}
     order = (list(VARIANTS) + list(reversed(VARIANTS))) * args.rounds
     for var in order:
         lib = libs[var][0]
-        ms = cs.graph_ms(lambda: call(lib, feats, heads, labels, out,
-                                      ws[var]), calls=2, reps=3)
+        ms = cs.graph_ms(lambda: call(lib, var[0], feats, heads, labels,
+                                      out, ws[var]), calls=2, reps=3)
         rec["variants"][label(var)]["ms"].append(ms)
-        print(var, ms, flush=True)
+        print(label(var), ms, flush=True)
     for entry in rec["variants"].values():
         entry["median_ms"] = statistics.median(entry["ms"])
     rec["matmul_ms"] = cs.graph_ms(
         lambda: torch.matmul(feats[:, None], heads), calls=2, reps=3)
     rec["library_ms"] = cs.graph_ms(
         lambda: cs.hs_library(feats, heads, labels), calls=2, reps=3)
-    lib = libs[VARIANTS[0]][0]
-    rec["sustained_source"] = sustained(
-        lambda: call(lib, feats, heads, labels, out, ws[VARIANTS[0]]),
-        args.sustain)
+    for var in VARIANTS:
+        if not var[1]:                          # each body's source
+            lib = libs[var][0]
+            rec[f"sustained_{var[0]}"] = sustained(
+                lambda: call(lib, var[0], feats, heads, labels, out,
+                             ws[var]), args.sustain)
     rec["sustained_matmul"] = sustained(
         lambda: torch.matmul(feats[:, None], heads), args.sustain)
     if args.out:

@@ -29,7 +29,11 @@ calls), in the order library, kernel, kernel, library, beside the bound
 worked out from the shapes (``chip_smoke.hs_bound``, ``fa_bound``) and
 the plain version's time, at the shapes of :data:`LIBRARY_SHAPES`; K1
 there also on its FMA body where the dispatch rule gives another one
-(``head_losses(body="fma")``) and that body still finishes.
+(``head_losses(body="fma")``) and that body still finishes, and in fp32 on
+both fp32 bodies forced, the SIMT one and the tensor cores' (3xTF32), in
+turns (tensor cores, SIMT, SIMT, tensor cores), beside the fp32
+``matmul`` alone and both bounds (the fp32 pipes' and three TF32
+products').
 """
 from __future__ import annotations
 
@@ -56,8 +60,9 @@ from repro_torch.kernels import build  # noqa: E402
 # 4 ranks: n 8, K 2, T 8, D 513, V 10; the FMA body), at a rank's step 2c
 # in tools/lm_mesh_run.py's four-card FACADE step (one node's k 2 heads as
 # n*K 2 rows of K' 1, T = 2 sequences of 256 tokens, D 2048, V 128,256,
-# fp32) and at the one-card fp32 llama FACADE round's (n·K 4 as 1 node of
-# K 4, T 1024; the fp32 tiled body), and at hymba-1.5b's LM FACADE step 2c
+# fp32; and at the reference's B 8 of S 256 a node, T 2048) and at the
+# one-card fp32 llama FACADE round's (n·K 4 as 1 node of K 4, T 1024),
+# and at hymba-1.5b's LM FACADE step 2c
 # (n·K 4, T 1024, D 1600, V 32,001, bf16; the tensor cores through the
 # padded copy); K2 at the prefill_32k length on one KV group (B 1, S
 # 32,768, Hq 4, Hkv 1, D 64, bf16, causal). The FMA body, where the rule
@@ -73,6 +78,8 @@ LIBRARY_SHAPES = (
      torch.float32, "once"),
     ("head_select_f32_round", "head_select", (1, 4, 1024, 2048, 128256),
      torch.float32, None),
+    ("head_select_facade_pod_rank_b8", "head_select",
+     (2, 1, 2048, 2048, 128256), torch.float32, None),
     ("head_select_hymba", "head_select", (4, 1, 1024, 1600, 32001),
      torch.bfloat16, "once"),
     ("flash_attention_steps", "flash_attention", (1, 4, 1, 32768, 64),
@@ -140,23 +147,36 @@ def library_inputs(kernel, shape, dtype):
     plain version, the FMA body's call, the bound and what bounds it);
     K1's inputs drawn on the card (``chip_smoke.hs_lm_case``), its library
     call an fp32 ``matmul`` and ``cross_entropy`` in fp32 and per (node,
-    head) in bf16."""
+    head) in bf16; and for K1 in fp32 a dict of each fp32 body's forced
+    call, the ``matmul`` alone and both bounds (else empty)."""
     if kernel == "head_select":
         feats, heads, labels = cs.hs_lm_case(*shape, seed=97, dtype=dtype)
-        bound_ms, bound_by, _, _ = cs.hs_bound(feats, heads, labels)
+        body = cs.hs_ops.body_for(*shape, dtype)
+        bound_ms, bound_by, _, _ = cs.hs_bound(
+            feats, heads, labels, tc32=body == "fp32_tensor_core")
         library = (cs.hs_library if dtype == torch.float32
                    else cs.hs_lm_library)
+        fp32 = {}
+        if dtype == torch.float32:
+            fp32 = {b: (lambda b=b: cs.head_losses(feats, heads, labels,
+                                                   body=b))
+                    for b in cs.F32_BODIES}
+            fp32["matmul"] = lambda: torch.matmul(feats[:, None], heads)
+            for tc32 in (False, True):
+                key = "bound_tf32" if tc32 else "bound_fp32"
+                fp32[key + "_ms"] = cs.hs_bound(feats, heads, labels,
+                                                tc32=tc32)[0]
         return ((lambda: cs.head_losses(feats, heads, labels)),
                 (lambda: library(feats, heads, labels)),
                 (lambda: cs.head_losses_ref(feats, heads, labels)),
                 (lambda: cs.head_losses(feats, heads, labels, body="fma")),
-                bound_ms, bound_by)
+                bound_ms, bound_by, fp32)
     q, k, v = cs.fa_inputs(*shape, dtype, seed=97)
     bound_ms, bound_by, _, _ = cs.fa_bound(q, k, v)
     return ((lambda: cs.flash_attention(q, k, v, causal=True)),
             (lambda: cs.fa_library(q, k, v)),
             (lambda: cs.fa_plain(q.float(), k.float(), v.float())),
-            None, bound_ms, bound_by)
+            None, bound_ms, bound_by, {})
 
 
 def library_main(out_path) -> dict:
@@ -167,8 +187,8 @@ def library_main(out_path) -> dict:
     rec = {"order": ("library", "kernel", "kernel", "library"),
            "fma_order": ("fma", "kernel", "kernel", "fma")}
     for label, kernel, shape, dtype, fma_timing in LIBRARY_SHAPES:
-        call, library, plain, fma, bound_ms, bound_by = library_inputs(
-            kernel, shape, dtype)
+        call, library, plain, fma, bound_ms, bound_by, fp32 = \
+            library_inputs(kernel, shape, dtype)
         got, want = call(), plain()
         torch.cuda.synchronize()
         tol = ((cs.HS_TOL,) if kernel == "head_select" else
@@ -193,10 +213,22 @@ def library_main(out_path) -> dict:
                            for which in rec["fma_order"]]
         elif fma_timing == "once":
             t["fma_ms"] = cs.event_ms(fma)
+        if fp32:
+            order = ("fp32_tensor_core", "fp32_tiled", "fp32_tiled",
+                     "fp32_tensor_core")
+            t["fp32_bodies"] = {"order": order, **{b: [] for b in order}}
+            for b in order:
+                t["fp32_bodies"][b].append(cs.graph_ms(
+                    fp32[b], calls=1 if big else 20, reps=3 if big else 7))
+            t["matmul_ms"] = cs.graph_ms(fp32["matmul"],
+                                         calls=1 if big else 20,
+                                         reps=3 if big else 7)
+            t.update({key: fp32[key] for key in ("bound_fp32_ms",
+                                                  "bound_tf32_ms")})
         t["plain_ms"] = cs.event_ms(plain)
         rec[label] = t
         print(label, json.dumps(t), flush=True)
-        del call, library, plain, fma
+        del call, library, plain, fma, fp32
         torch.cuda.empty_cache()
     return rec
 
